@@ -1,0 +1,202 @@
+"""Serving CLI of the port: continuous batching over the paged KV cache,
+with paged attention in hand-written CUDA kernels on the card.
+
+Generates a synthetic mixed-length request load and serves it through
+:class:`repro_torch.serve.ServeEngine` on weights initialised from ``--seed``.
+Runs on CUDA unless ``--device cpu`` is given; with no GPU it raises.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --requests 8 --max-batch 4 --prompt-lens 24,80,200 --gen-lens 16,32
+
+    # small config on the CPU (plain PyTorch attention):
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+Without ``--full`` the architecture is cut by ``ModelConfig.reduced()`` to a
+two-layer fp32 smoke model; with it the published config is served in its
+own dtype.  The last stdout line is the run_end summary JSON, with the same
+keys as the JAX package's ``repro.launch.serve``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.models import model as M
+from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+
+def synth_requests(
+    n: int, vocab: int, prompt_lens: list[int], gen_lens: list[int],
+    temps: list[float], seed: int,
+) -> list[Request]:
+    """Synthetic load: prompts and generation budgets cycled from the given
+    buckets, prompt tokens drawn from ``seed`` (the JAX CLI's load)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        pl = prompt_lens[i % len(prompt_lens)]
+        gl = gen_lens[i % len(gen_lens)]
+        prompt = rng.integers(0, vocab, size=(pl,)).tolist()
+        reqs.append(
+            Request(rid=i, prompt=[int(t) for t in prompt], max_new=gl,
+                    temperature=temps[i % len(temps)])
+        )
+    return reqs
+
+
+def serve_run(
+    params, cfg, scfg: ServeConfig, requests: list[Request],
+    *, verify: bool = False, log=None, stream_every: int = 0,
+) -> dict:
+    """Run one serving load; returns the run_end summary dict.  ``verify``
+    re-decodes every request solo and counts token mismatches."""
+    engine = ServeEngine(params, cfg, scfg)
+    token_cb = None
+    if log and stream_every:
+        def token_cb(rid, index, token, t):
+            log({"event": "token", "rid": rid, "index": index,
+                 "token": token, "t": round(t, 6)})
+    t0 = time.perf_counter()
+    finished = engine.run(
+        [dataclasses.replace(r) for r in requests],
+        token_cb=token_cb, drain_every=stream_every,
+    )
+    wall = time.perf_counter() - t0
+    gen_tokens = sum(len(f.tokens) for f in finished)
+    ttfts = sorted(f.ttft_s for f in finished)
+    summary = {
+        "event": "run_end",
+        "policy": scfg.policy,
+        "prefill_chunk": scfg.prefill_chunk,
+        "requests": len(finished),
+        "gen_tokens": gen_tokens,
+        "wall_s": round(wall, 4),
+        "tokens_per_s": round(gen_tokens / max(wall, 1e-9), 2),
+        "decode_steps": engine.decode_steps,
+        "ttft_p50_s": round(float(np.percentile(ttfts, 50)), 4),
+        "ttft_p99_s": round(float(np.percentile(ttfts, 99)), 4),
+    }
+    if engine.decode_step_times:
+        st = np.asarray(engine.decode_step_times)
+        summary["step_p50_s"] = round(float(np.percentile(st, 50)), 5)
+        summary["step_p99_s"] = round(float(np.percentile(st, 99)), 5)
+    if log:
+        for f in sorted(finished, key=lambda f: f.rid):
+            log({"event": "finish", "rid": f.rid, "prompt_len": len(f.prompt),
+                 "gen_len": len(f.tokens), "ttft_s": round(f.ttft_s, 4),
+                 "tokens": f.tokens})
+    if verify:
+        batched = {f.rid: f.tokens for f in finished}
+        mismatches = 0
+        for r in requests:
+            [f] = ServeEngine(params, cfg, scfg).run([dataclasses.replace(r)])
+            mismatches += f.tokens != batched[r.rid]
+        summary["verify_requests"] = len(requests)
+        summary["verify_mismatches"] = mismatches
+        summary["parity"] = mismatches == 0
+    return summary
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device to serve on; a CUDA device must exist (no quiet CPU run)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: no CUDA device is available; pass --device cpu "
+            "to serve with the plain PyTorch attention on the CPU"
+        )
+    return device
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--full", action="store_true",
+                    help="serve the published config (default: its reduced() smoke variant)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda; cpu runs the plain versions)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="decode slots (concurrent requests)")
+    ap.add_argument("--pages", type=int, default=128)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prompt-lens", default="4,12,24",
+                    help="comma-separated prompt-length buckets, cycled")
+    ap.add_argument("--gen-lens", default="8,16,32",
+                    help="comma-separated generation budgets, cycled")
+    ap.add_argument("--temps", default="0.0",
+                    help="comma-separated sampling temperatures, cycled (0=greedy)")
+    ap.add_argument("--policy", default="continuous", choices=["continuous", "static"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--verify", action="store_true",
+                    help="re-decode each request solo and assert exact match")
+    ap.add_argument("--sync-each-step", action="store_true",
+                    help="block per decode step for per-token latency stats")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="chunked-prefill width")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="max prefill tokens per tick (0 = unlimited)")
+    ap.add_argument("--stream-every", type=int, default=0,
+                    help="drain streamed `token` JSONL events every N ticks "
+                         "(0 = tokens only surface at request finish)")
+    ap.add_argument("--log-jsonl", default=None,
+                    help="append one JSON telemetry event per line to this file")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> dict:
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = registry.get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced(dtype="float32", remat=False)
+    params = M.init_params(torch.Generator(device=device).manual_seed(args.seed), cfg)
+
+    jsonl = open(args.log_jsonl, "a") if args.log_jsonl else None
+    try:
+        def log(ev: dict) -> None:
+            if jsonl:
+                jsonl.write(json.dumps(ev) + "\n")
+                jsonl.flush()
+
+        prompt_lens = [int(x) for x in args.prompt_lens.split(",")]
+        gen_lens = [int(x) for x in args.gen_lens.split(",")]
+        temps = [float(x) for x in args.temps.split(",")]
+        scfg = ServeConfig(
+            max_slots=args.max_batch, num_pages=args.pages, page_size=args.page_size,
+            max_new_cap=max(gen_lens), policy=args.policy,
+            sync_each_step=args.sync_each_step,
+            prefill_chunk=args.prefill_chunk, prefill_budget=args.prefill_budget,
+        )
+        requests = synth_requests(
+            args.requests, cfg.vocab_size, prompt_lens, gen_lens, temps, args.seed
+        )
+        log({"event": "run_start", "arch": cfg.name, "policy": args.policy,
+             "requests": args.requests, "max_batch": args.max_batch,
+             "pages": args.pages, "page_size": args.page_size,
+             "prefill_chunk": args.prefill_chunk, "device": str(device)})
+        summary = serve_run(
+            params, cfg, scfg, requests, verify=args.verify, log=log,
+            stream_every=args.stream_every,
+        )
+        summary["arch"] = cfg.name
+        summary["device"] = (
+            torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+        )
+        log(summary)
+    finally:
+        if jsonl:
+            jsonl.close()
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

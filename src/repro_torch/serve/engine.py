@@ -1,0 +1,411 @@
+"""Continuous-batching inference engine over the paged KV cache.
+
+The port of ``repro/serve/engine.py``.  Scheduler state machine:
+
+    QUEUED ──admit──► PREFILL ──chunks──► DECODING ──evict──► FINISHED
+                 ▲    (interleaved         │
+                 │     with decode)        │
+                 └──────── pages freed ◄───┘
+
+Each :meth:`ServeEngine.step`:
+  1. EVICT — slots whose request hit its token budget are read out (the one
+     host sync a request costs) and their pages go back to the allocator.
+  2. ADMIT — while a slot and enough pages are free, the next queued request
+     claims the slot and reserves pages for prompt + max_new under a lease,
+     so a running request never runs out of pages mid-decode.
+     ``policy="static"`` admits only into an all-idle engine (the baseline).
+  3. PREFILL — admitted prompts advance ``prefill_chunk`` tokens per call
+     (ragged last chunk masked by position), at most ``prefill_budget``
+     tokens per tick, so long prompts interleave with decode.
+  4. DECODE — one batched step advances every active slot; sampled tokens
+     land in a device-side output buffer.
+
+The engine state lives on the device and is updated in place.  Sampling is
+Gumbel-max with noise keyed by (request id, token index), never by engine
+step, so a request decoded in a churning batch gives the tokens of a solo
+run, greedy or sampled.  The noise comes from a PyTorch generator on the
+logits' device (Philox on CUDA); its bits differ from JAX's by design.
+
+Single-shot prefill (``prefill_chunk=0``) needs flash attention and comes
+with that slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.attention import PagedView
+from repro_torch.models.config import ModelConfig
+from repro_torch.serve.paged import BlockAllocator
+
+__all__ = ["Request", "FinishedRequest", "ServeConfig", "EngineState", "ServeEngine"]
+
+_SAMPLE_ROOT = 17  # root of every sampling stream
+
+
+def _gumbel(rid: int, index: int, vocab: int, device: torch.device) -> torch.Tensor:
+    """Gumbel noise of token ``index`` of request ``rid``."""
+    seed = ((_SAMPLE_ROOT << 40) ^ (rid << 20) ^ index) & ((1 << 63) - 1)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand(vocab, generator=gen, device=device, dtype=torch.float32)
+    u = u.clamp_(torch.finfo(torch.float32).tiny, 1.0 - 2**-24)
+    return -torch.log(-torch.log(u))
+
+
+def _sample(logits: torch.Tensor, draws: list[tuple[float, int, int] | None]) -> torch.Tensor:
+    """Temperature-t categorical as argmax(logits + t·gumbel), t = 0 greedy.
+    ``draws[r]`` is (temperature, rid, token index) of row r, or None for a
+    row whose token is discarded.  Returns (R,) int32."""
+    noisy = [i for i, d in enumerate(draws) if d is not None and d[0] > 0]
+    if noisy:
+        logits = logits.clone()
+        for i in noisy:
+            t, rid, index = draws[i]
+            logits[i] += t * _gumbel(rid, index, logits.shape[-1], logits.device)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new: int
+    temperature: float = 0.0
+    submit_t: float = 0.0
+
+
+@dataclasses.dataclass
+class FinishedRequest:
+    rid: int
+    prompt: list[int]
+    tokens: list[int]
+    submit_t: float
+    admit_t: float       # prefill completed = first token exists
+    finish_t: float
+    stats: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def ttft_s(self) -> float:
+        return self.admit_t - self.submit_t
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_slots: int = 4          # R: concurrent requests in the decode batch
+    num_pages: int = 128        # KV page pool size (per layer), excl. trash
+    page_size: int = 16         # tokens per page
+    max_new_cap: int = 128      # on-device output buffer width
+    policy: str = "continuous"  # "continuous" | "static" (baseline)
+    sync_each_step: bool = False  # block per decode step (per-token timing)
+    prefill_chunk: int = 32     # chunked-prefill width
+    prefill_budget: int = 0     # max prefill tokens per tick; 0 = unlimited
+
+    def validate(self) -> None:
+        if self.policy not in ("continuous", "static"):
+            raise ValueError(f"unknown policy {self.policy!r}")
+        if self.max_slots < 1:
+            raise ValueError("need at least one slot")
+        if self.prefill_chunk < 0 or self.prefill_budget < 0:
+            raise ValueError("prefill_chunk/prefill_budget must be >= 0")
+        if self.prefill_chunk == 0:
+            raise NotImplementedError(
+                "single-shot prefill (prefill_chunk=0) needs flash attention, "
+                "which the port does not have yet (ROADMAP Queue 1)"
+            )
+
+
+@dataclasses.dataclass
+class EngineState:
+    """Everything the decode step touches, on the device, updated in place."""
+
+    caches: Any                 # paged attention pools
+    block_tables: torch.Tensor  # (R, MB) int32
+    tokens: torch.Tensor        # (R,) int32 — token being fed this step
+    positions: torch.Tensor     # (R,) int32 — its position
+    active: torch.Tensor        # (R,) bool
+    out_buf: torch.Tensor       # (R, CAP) int32 — generated tokens
+    out_len: torch.Tensor       # (R,) int32
+
+
+class ServeEngine:
+    """Request-driven serving engine for one decoder-only model, on the
+    device its parameters live on."""
+
+    def __init__(self, params: Any, cfg: ModelConfig, scfg: ServeConfig):
+        scfg.validate()
+        self.params = params
+        self.cfg = cfg
+        self.scfg = scfg
+        self.device = params["embed"]["table"].device
+        self.alloc = BlockAllocator(scfg.num_pages, scfg.page_size)
+        r, mb = scfg.max_slots, scfg.num_pages
+        self._mb = mb
+        dev = self.device
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.state = EngineState(
+            caches=M.init_paged_cache_tree(cfg, r, scfg.num_pages, scfg.page_size, dev),
+            block_tables=torch.full((r, mb), self.alloc.trash_page, dtype=torch.int32, device=dev),
+            tokens=zeros(r),
+            positions=zeros(r),
+            active=zeros(r, dtype=torch.bool),
+            out_buf=zeros(r, scfg.max_new_cap),
+            out_len=zeros(r),
+        )
+        self.queue: list[Request] = []
+        # host mirror of per-slot occupancy: request, lease/blocks, phase
+        # ("prefill" | "decode"), prefill cursor, admit_t, steps, per-token
+        # dispatch times, streamed-token watermark
+        self._slots: list[dict | None] = [None] * r
+        self._token_cb = None
+        self.decode_steps = 0
+        self.decode_step_times: list[float] = []
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- scheduler ----------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        if req.max_new > self.scfg.max_new_cap:
+            raise ValueError(
+                f"request {req.rid}: max_new {req.max_new} exceeds engine cap "
+                f"{self.scfg.max_new_cap}"
+            )
+        need = self.alloc.blocks_for(len(req.prompt) + req.max_new)
+        if need > self.alloc.num_pages or need > self._mb:
+            raise ValueError(
+                f"request {req.rid} needs {need} pages; pool holds "
+                f"{self.alloc.num_pages}"
+            )
+        if not req.submit_t:
+            req.submit_t = time.perf_counter()
+        self.queue.append(req)
+
+    def _free_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self._slots) if s is None]
+
+    def _emit_tokens(self, slot: int, occ: dict, out_buf, upto: int) -> None:
+        """Stream tokens [emitted, upto) of a slot to the token callback,
+        stamped with their decode dispatch times (host times; exact when
+        sync_each_step, otherwise early by the device queue depth)."""
+        if self._token_cb is None:
+            return
+        req: Request = occ["req"]
+        upto = min(upto, req.max_new)
+        for i in range(occ["emitted"], upto):
+            t = occ["t_toks"][i] if i < len(occ["t_toks"]) else time.perf_counter()
+            self._token_cb(req.rid, i, int(out_buf[slot, i]), t)
+        occ["emitted"] = max(occ["emitted"], upto)
+
+    def drain(self) -> None:
+        """Flush generated-but-unstreamed tokens to the token callback with
+        one device read for the whole batch."""
+        if self._token_cb is None:
+            return
+        pending = [
+            (slot, occ) for slot, occ in enumerate(self._slots)
+            if occ is not None and occ["phase"] == "decode"
+            and occ["emitted"] < min(occ["steps"], occ["req"].max_new)
+        ]
+        if not pending:
+            return
+        out_buf = self.state.out_buf.cpu().numpy()
+        for slot, occ in pending:
+            self._emit_tokens(slot, occ, out_buf, min(occ["steps"], occ["req"].max_new))
+
+    def _evict_finished(self) -> list[FinishedRequest]:
+        done: list[FinishedRequest] = []
+        out_buf = None
+        st = self.state
+        for slot, occ in enumerate(self._slots):
+            if (
+                occ is None or occ["phase"] != "decode"
+                or occ["steps"] < occ["req"].max_new
+            ):
+                continue
+            if out_buf is None:  # one device read serves every eviction this step
+                out_buf = st.out_buf.cpu().numpy()
+            req: Request = occ["req"]
+            toks = out_buf[slot, : req.max_new].tolist()
+            self._emit_tokens(slot, occ, out_buf, req.max_new)
+            done.append(
+                FinishedRequest(
+                    rid=req.rid, prompt=req.prompt, tokens=toks,
+                    submit_t=req.submit_t, admit_t=occ["admit_t"],
+                    finish_t=time.perf_counter(),
+                )
+            )
+            self.alloc.free(occ["blocks"])
+            self._slots[slot] = None
+            st.active[slot] = False
+            st.positions[slot] = 0
+            st.tokens[slot] = 0
+            st.out_len[slot] = 0
+        return done
+
+    def _admit(self) -> None:
+        if self.scfg.policy == "static" and any(s is not None for s in self._slots):
+            return  # static baseline: wait for the whole batch to drain
+        free = self._free_slots()
+        while self.queue and free:
+            req = self.queue[0]
+            need = self.alloc.blocks_for(len(req.prompt) + req.max_new)
+            if not self.alloc.can_alloc(need):
+                break  # head-of-line blocks until pages free up (no preempt)
+            self.queue.pop(0)
+            slot = free.pop(0)
+            # pages leave the free list under a lease (committed when the
+            # last chunk lands); the slot parks in "prefill" phase
+            lease = self.alloc.reserve(need)
+            row = np.full((self._mb,), self.alloc.trash_page, np.int32)
+            row[: len(lease.blocks)] = lease.blocks
+            row_dev = torch.from_numpy(row).to(self.device)
+            self.state.block_tables[slot] = row_dev
+            self._slots[slot] = {
+                "req": req, "lease": lease, "row": row_dev,
+                "phase": "prefill", "cursor": 0,
+                "admit_t": 0.0, "steps": 0, "t_toks": [], "emitted": 0,
+            }
+
+    def _prefill_chunk_step(self, slot: int) -> None:
+        """Advance one prefill-phase slot by one fixed-width chunk; on the
+        last chunk, commit the lease and move the slot into the decode
+        batch."""
+        occ = self._slots[slot]
+        req: Request = occ["req"]
+        c = self.scfg.prefill_chunk
+        cur = occ["cursor"]
+        n = min(c, len(req.prompt) - cur)
+        dev = self.device
+        toks = torch.tensor([req.prompt[cur: cur + n] + [0] * (c - n)], dtype=torch.int32)
+        view = PagedView(
+            occ["row"][None],
+            torch.tensor([cur], dtype=torch.int32).to(dev),
+            torch.ones((1,), dtype=torch.bool, device=dev),
+        )
+        logits, _ = M.paged_prefill_chunk(
+            self.params, self.cfg, toks.to(dev), self.state.caches, view,
+            lengths=torch.tensor([n], dtype=torch.int32).to(dev),
+        )
+        occ["cursor"] = cur + n
+        if occ["cursor"] < len(req.prompt):
+            return
+        tok0 = _sample(logits[:, 0], [(req.temperature, req.rid, 0)])[0]
+        occ["blocks"] = self.alloc.commit(occ.pop("lease"))
+        st = self.state
+        st.tokens[slot] = tok0
+        st.positions[slot] = len(req.prompt)
+        st.active[slot] = True
+        st.out_buf[slot, 0] = tok0
+        st.out_len[slot] = 1
+        now = time.perf_counter()
+        occ.update({"phase": "decode", "admit_t": now, "steps": 1})
+        occ["t_toks"].append(now)
+
+    def _advance_prefills(self) -> None:
+        """Spend up to ``prefill_budget`` prompt tokens (0 = all pending) on
+        chunk steps, round-robin over prefill-phase slots."""
+        budget = self.scfg.prefill_budget or (1 << 30)
+        while budget > 0:
+            pending = [
+                s for s, occ in enumerate(self._slots)
+                if occ is not None and occ["phase"] == "prefill"
+            ]
+            if not pending:
+                return
+            for slot in pending:
+                if budget <= 0:
+                    return
+                self._prefill_chunk_step(slot)
+                budget -= self.scfg.prefill_chunk
+
+    def _decode(self) -> None:
+        """One batched decode step over every slot, in place."""
+        st = self.state
+        view = PagedView(st.block_tables, st.positions, st.active)
+        logits, _ = M.paged_decode_step(
+            self.params, self.cfg, st.tokens[:, None], st.caches, view
+        )
+        draws = [
+            (occ["req"].temperature, occ["req"].rid, occ["steps"])
+            if occ is not None and occ["phase"] == "decode" else None
+            for occ in self._slots
+        ]
+        nxt = _sample(logits[:, 0], draws)
+        row = torch.arange(st.out_buf.shape[0], device=self.device)
+        idx = st.out_len.long().clamp(0, st.out_buf.shape[1] - 1)
+        st.out_buf[row, idx] = torch.where(st.active, nxt, st.out_buf[row, idx])
+        st.tokens.copy_(torch.where(st.active, nxt, st.tokens))
+        act = st.active.to(torch.int32)
+        st.positions += act
+        st.out_len += act
+
+    def step(self) -> list[FinishedRequest]:
+        """One scheduler tick: evict → admit → prefill chunks → batched decode."""
+        done = self._evict_finished()
+        self._admit()
+        self._advance_prefills()
+        if any(
+            s is not None and s["phase"] == "decode"
+            and s["steps"] < s["req"].max_new
+            for s in self._slots
+        ):
+            t0 = time.perf_counter()
+            self._decode()
+            if self.scfg.sync_each_step:
+                self._sync()
+            now = time.perf_counter()
+            if self.scfg.sync_each_step:
+                self.decode_step_times.append(now - t0)
+            self.decode_steps += 1
+            for occ in self._slots:
+                if occ is not None and occ["phase"] == "decode":
+                    if occ["steps"] < occ["req"].max_new:
+                        occ["t_toks"].append(now)
+                    occ["steps"] += 1
+        return done
+
+    @property
+    def idle(self) -> bool:
+        return not self.queue and all(s is None for s in self._slots)
+
+    def run(
+        self,
+        requests: list[Request],
+        token_cb=None,
+        drain_every: int = 0,
+    ) -> list[FinishedRequest]:
+        """Serve a batch of requests to completion (submit-all load).
+
+        ``token_cb(rid, index, token, dispatch_t)`` streams tokens as they
+        reach the host: on each eviction wave and, if ``drain_every`` > 0,
+        every that-many ticks via :meth:`drain`."""
+        self._token_cb = token_cb
+        for r in requests:
+            self.submit(r)
+        finished: list[FinishedRequest] = []
+        guard = 0
+        limit = (
+            10_000
+            + sum(r.max_new for r in requests) * 4
+            + sum(len(r.prompt) for r in requests)
+        )
+        while not self.idle:
+            finished.extend(self.step())
+            guard += 1
+            if drain_every and guard % drain_every == 0:
+                self.drain()
+            if guard > limit:  # pragma: no cover
+                raise RuntimeError("serve loop failed to converge")
+        finished.extend(self._evict_finished())
+        return finished

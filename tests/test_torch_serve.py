@@ -1,0 +1,289 @@
+"""The port's serving slice against the JAX package's, on the CPU.
+
+Weights come from the JAX initialiser and are converted with
+``repro_torch.models.convert``, so both packages compute the same function.
+Model-level logits agree within 1e-3 in fp32 (matmuls sum in another
+order); greedy engine tokens agree exactly.  Sampled tokens are compared
+only within the port: its Gumbel noise comes from torch's generators, whose
+bits differ from JAX's by design.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jax_registry
+from repro.models import model as JM
+from repro.models.attention import PagedView as JaxView
+from repro.models.common import values_of
+from repro.parallel.sharding import ShardCtx
+from repro.serve import Request as JaxRequest
+from repro.serve import ServeConfig as JaxServeConfig
+from repro.serve import ServeEngine as JaxEngine
+from repro_torch.configs import registry
+from repro_torch.models import convert
+from repro_torch.models import model as M
+from repro_torch.models.attention import PagedView
+from repro_torch.serve import BlockAllocator, Request, ServeConfig, ServeEngine
+
+CTX = ShardCtx.local()
+ARCHS = ["qwen3-0.6b", "paper-small-125m"]
+LOGIT_ATOL = 1e-3
+
+
+def _configs(arch):
+    jcfg = jax_registry.get_config(arch).reduced(dtype="float32", remat=False)
+    cfg = registry.get_config(arch).reduced(dtype="float32", remat=False)
+    return jcfg, cfg
+
+
+def _jax_numpy_params(jcfg, seed=0):
+    return jax.tree.map(np.asarray, values_of(JM.init_params(jax.random.PRNGKey(seed), jcfg)))
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_shapes(v) for v in tree]
+    return None if tree is None else tuple(tree.shape)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# (a) parameters
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_convert_round_trips_jax_params(arch):
+    jcfg, cfg = _configs(arch)
+    tree = _jax_numpy_params(jcfg)
+    params = convert.params_from_jax_numpy(tree, cfg, "cpu", torch.float32)
+    assert _shapes(params) == _shapes(tree)
+    for got, want in zip(_leaves(params), _leaves(tree), strict=True):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+    bad = dict(tree, embed={"table": np.zeros((3, 3), np.float32)})
+    with pytest.raises(ValueError, match="shape"):
+        convert.params_from_jax_numpy(bad, cfg)
+
+
+def test_convert_keeps_bf16_bits():
+    jcfg, cfg = _configs("qwen3-0.6b")
+    jcfg, cfg = (dataclasses.replace(c, dtype="bfloat16") for c in (jcfg, cfg))
+    tree = _jax_numpy_params(jcfg)
+    params = convert.params_from_jax_numpy(tree, cfg)
+    w = params["stack"]["scan"][0]["attn"]["w_q"]
+    assert w.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        w.float().numpy(), tree["stack"]["scan"][0]["attn"]["w_q"].astype(np.float32))
+    assert params["final_norm"]["scale"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["paper-medium-1.3b"])
+def test_init_params_matches_jax_structure(arch):
+    jcfg, cfg = _configs(arch)
+    jax_shapes = _shapes(jax.eval_shape(lambda: values_of(JM.init_params(jax.random.PRNGKey(0), jcfg))))
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    assert _shapes(params) == jax_shapes
+    assert convert.expected_shapes(cfg) == jax_shapes
+    # same standard deviations as the JAX initialiser (truncated at 2σ)
+    w = params["stack"]["scan"][0]["attn"]["w_q"]
+    assert abs(w.std().item() * np.sqrt(cfg.d_model) - 0.88) < 0.05
+    assert w.abs().max().item() <= 2.0 / np.sqrt(cfg.d_model) + 1e-6
+
+
+def test_other_archs_name_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        registry.get_config("mamba2-370m")
+
+
+def test_paged_cache_tree_rejects_encdec():
+    _, cfg = _configs("qwen3-0.6b")
+    cfg = dataclasses.replace(cfg, arch_type="encdec", is_encoder_decoder=True,
+                              num_encoder_layers=1, encoder_seq=8)
+    with pytest.raises(ValueError, match="paged"):
+        M.init_paged_cache_tree(cfg, 1, 4, 4)
+
+
+# ---------------------------------------------------------------------------
+# (b) model-level logits: one ragged prefill chunk, then decode steps
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_logits_match_jax(arch):
+    jcfg, cfg = _configs(arch)
+    tree = _jax_numpy_params(jcfg, seed=1)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    params = convert.params_from_jax_numpy(tree, cfg)
+
+    num_pages, page_size, chunk = 12, 4, 8
+    rng = np.random.default_rng(0)
+    tables = np.full((3, num_pages), num_pages, np.int32)      # trash-filled
+    tables[0, :4] = [5, 0, 9, 2]
+    tables[1, :4] = [1, 7, 3, 11]
+    tables[1, 4:6] = [5, 0]                                     # stale ids
+    active = np.array([True, True, False])
+    lengths = np.array([7, 5, 0], np.int32)                     # slot 0: 7 of 8
+    tokens = rng.integers(0, cfg.vocab_size, size=(3, chunk)).astype(np.int32)
+    steps = rng.integers(0, cfg.vocab_size, size=(6, 3, 1)).astype(np.int32)
+
+    jcaches = JM.init_paged_cache_tree(jcfg, 3, num_pages, page_size)
+    caches = M.init_paged_cache_tree(cfg, 3, num_pages, page_size)
+
+    def views(pos):
+        return (JaxView(jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(active)),
+                PagedView(torch.from_numpy(tables), torch.from_numpy(pos), torch.from_numpy(active)))
+
+    jv, tv = views(np.zeros(3, np.int32))
+    want, jcaches = JM.paged_prefill_chunk(
+        jparams, jcfg, jnp.asarray(tokens), jcaches, jv, CTX, lengths=jnp.asarray(lengths))
+    got, caches = M.paged_prefill_chunk(
+        params, cfg, torch.from_numpy(tokens), caches, tv, lengths=torch.from_numpy(lengths))
+    assert got.shape == (3, 1, cfg.vocab_size) and got.dtype == torch.float32
+    errs = [np.abs(got.numpy()[active] - np.asarray(want)[active]).max()]
+
+    pos = lengths.copy()
+    for toks in steps:
+        jv, tv = views(pos)
+        want, jcaches = JM.paged_decode_step(jparams, jcfg, jnp.asarray(toks), jcaches, jv, CTX)
+        got, caches = M.paged_decode_step(params, cfg, torch.from_numpy(toks), caches, tv)
+        errs.append(np.abs(got.numpy()[active] - np.asarray(want)[active]).max())
+        pos = pos + active
+    assert max(errs) <= LOGIT_ATOL, errs
+
+
+# ---------------------------------------------------------------------------
+# (c) engine tokens: the port's engine against the JAX engine
+# ---------------------------------------------------------------------------
+
+
+MIX = [(3, 6, 0.0), (11, 4, 0.0), (5, 8, 0.0), (9, 5, 0.0)]
+
+
+def _requests(vocab, mix, cls=Request, seed=0):
+    rng = np.random.default_rng(seed)
+    return [cls(rid=i, prompt=[int(t) for t in rng.integers(0, vocab, size=(pl,))],
+                max_new=gl, temperature=t)
+            for i, (pl, gl, t) in enumerate(mix)]
+
+
+def test_engine_greedy_tokens_match_jax():
+    jcfg, cfg = _configs("qwen3-0.6b")
+    tree = _jax_numpy_params(jcfg, seed=2)
+    kw = dict(max_slots=2, num_pages=24, page_size=4, max_new_cap=8, prefill_chunk=4)
+    jax_done = JaxEngine(jax.tree.map(jnp.asarray, tree), jcfg, JaxServeConfig(**kw)).run(
+        _requests(cfg.vocab_size, MIX, JaxRequest))
+    engine = ServeEngine(convert.params_from_jax_numpy(tree, cfg), cfg, ServeConfig(**kw))
+    done = engine.run(_requests(cfg.vocab_size, MIX))
+    assert sorted(f.rid for f in done) == [0, 1, 2, 3]
+    want = {f.rid: f.tokens for f in jax_done}
+    for f in done:
+        assert len(f.tokens) == MIX[f.rid][1]
+        assert f.tokens == want[f.rid], f"rid {f.rid}"
+    engine.alloc.check_leaks()
+
+
+# ---------------------------------------------------------------------------
+# (d) inside the port: batched == solo, greedy and sampled
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("temps,budget", [((0.0,), 0), ((0.7,), 0), ((0.0, 0.7), 4)],
+                         ids=["greedy", "sampled", "mixed-budget"])
+def test_batched_equals_solo(temps, budget):
+    _, cfg = _configs("qwen3-0.6b")
+    params = M.init_params(torch.Generator().manual_seed(3), cfg)
+    scfg = ServeConfig(max_slots=2, num_pages=24, page_size=4, max_new_cap=8,
+                       prefill_chunk=4, prefill_budget=budget)
+    mix = [(pl, gl, temps[i % len(temps)]) for i, (pl, gl, _) in enumerate(MIX)]
+    requests = _requests(cfg.vocab_size, mix, seed=1)
+    streamed: dict[int, list[int]] = {}
+
+    def token_cb(rid, index, token, t):
+        assert index == len(streamed.setdefault(rid, []))
+        streamed[rid].append(token)
+
+    batched = {f.rid: f.tokens for f in ServeEngine(params, cfg, scfg).run(
+        [dataclasses.replace(r) for r in requests], token_cb=token_cb, drain_every=2)}
+    assert streamed == batched
+    for r in requests:
+        [solo] = ServeEngine(params, cfg, scfg).run([dataclasses.replace(r)])
+        assert solo.tokens == batched[r.rid], f"rid {r.rid}"
+    if 0.7 in temps:  # sampling really draws: a hot request leaves the greedy path
+        greedy = ServeEngine(params, cfg, scfg).run(
+            [dataclasses.replace(r, temperature=0.0) for r in requests])
+        assert any(f.tokens != batched[f.rid] for f in greedy)
+
+
+def test_continuous_needs_fewer_decode_steps_than_static():
+    _, cfg = _configs("qwen3-0.6b")
+    params = M.init_params(torch.Generator().manual_seed(4), cfg)
+    requests = _requests(cfg.vocab_size, [(3, 8, 0.0), (5, 2, 0.0), (4, 2, 0.0), (6, 8, 0.0)])
+    steps = {}
+    for policy in ("continuous", "static"):
+        scfg = ServeConfig(max_slots=2, num_pages=24, page_size=4, max_new_cap=8, policy=policy)
+        engine = ServeEngine(params, cfg, scfg)
+        assert len(engine.run([dataclasses.replace(r) for r in requests])) == 4
+        steps[policy] = engine.decode_steps
+    assert steps["continuous"] < steps["static"], steps
+
+
+def test_single_shot_prefill_waits_for_flash_attention():
+    with pytest.raises(NotImplementedError, match="flash"):
+        ServeConfig(prefill_chunk=0).validate()
+
+
+# ---------------------------------------------------------------------------
+# (e) block allocator
+# ---------------------------------------------------------------------------
+
+
+def test_block_allocator():
+    al = BlockAllocator(num_pages=8, page_size=4)
+    assert al.trash_page == 8
+    assert al.blocks_for(1) == 1 and al.blocks_for(4) == 1 and al.blocks_for(5) == 2
+    a = al.alloc(3)
+    b = al.alloc(5)
+    assert len(set(a) | set(b)) == 8 and al.free_count == 0
+    assert not al.can_alloc(1)
+    with pytest.raises(MemoryError):
+        al.alloc(1)
+    al.free(b)
+    assert al.free_count == 5
+    with pytest.raises(ValueError, match="double free"):
+        al.free([b[0]])
+    with pytest.raises(ValueError, match="invalid"):
+        al.free([al.trash_page])
+    al.free(a)
+    assert al.free_count == 8
+
+
+def test_lease_reserve_commit_rollback():
+    al = BlockAllocator(num_pages=6, page_size=4)
+    lease = al.reserve(2)
+    al.check_leaks()
+    kept = al.commit(lease)
+    al.check_leaks(owned=2)
+    with pytest.raises(ValueError, match="commit of committed"):
+        al.commit(lease)
+    other = al.reserve(3)
+    al.rollback(other)
+    al.check_leaks(owned=2)
+    al.free(kept)
+    al.check_leaks()
