@@ -1,11 +1,13 @@
 """Build the CUDA sources under ``repro_torch/csrc`` at first use.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface, loaded with :mod:`ctypes`.  Libraries go into ``build/``
-at the root of the checkout, named by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.  Nothing
-is built while a module is imported: the CPU tests import every module on a
-machine with no CUDA toolkit.
+a plain C interface, loaded with :mod:`ctypes`.  :func:`build_all` starts one
+``nvcc`` per source whose library is missing, all at once, and waits for
+them; :func:`load` builds one source that way if needed and loads it.
+Libraries go into ``build/`` at the root of the checkout, named by a hash of
+the source and the flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is.  Nothing is built while a module is imported: the CPU
+tests import every module on a machine with no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -53,22 +55,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def sources() -> list[str]:
+    """Names of every CUDA source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all(names: list[str] | None = None) -> None:
+    """Build the libraries of ``names`` (default: every source) that do not
+    exist yet, one ``nvcc`` process per source, all started together."""
+    todo = [n for n in (sources() if names is None else names) if not library_path(n).exists()]
+    if not todo:
+        return
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, proc, time.perf_counter()))
+    failures = []
+    for name, out, tmp, proc, t0 in running:
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{report}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        BUILD_LOG[name] = (time.perf_counter() - t0, report)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` unless its library exists, then load it."""
-    out = library_path(name)
-    if not out.exists():
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name}.cu (exit {res.returncode}):\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-        BUILD_LOG[name] = (time.perf_counter() - t0, res.stdout + res.stderr)
-    return ctypes.CDLL(str(out))
+    build_all([name])
+    return ctypes.CDLL(str(library_path(name)))

@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Mapping
 
+from repro_torch.kernels import flash_attention as flash_attention_mod
+from repro_torch.kernels import noloco_update as noloco_update_mod
 from repro_torch.kernels import paged_attention as paged_attention_mod
 from repro_torch.kernels import ref
 
@@ -48,6 +50,30 @@ _REGISTRY: dict[str, KernelOp] = {
             route="cuda",
             source="src/repro_torch/csrc/paged_attention.cu",
             replaces="src/repro/kernels/paged_attention.py:226",
+        ),
+        KernelOp(
+            name="flash_attention",
+            kernel=flash_attention_mod.flash_attention_fwd,
+            plain=ref.torch_flash_attention_fwd,
+            route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:96",
+        ),
+        KernelOp(
+            name="flash_attention_bwd",
+            kernel=flash_attention_mod.flash_attention_bwd,
+            plain=ref.torch_flash_attention_bwd,
+            route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/ops.py:74",
+        ),
+        KernelOp(
+            name="noloco_update",
+            kernel=noloco_update_mod.noloco_update,
+            plain=ref.torch_noloco_update,
+            route="cuda",
+            source="src/repro_torch/csrc/noloco_update.cu",
+            replaces="src/repro/kernels/noloco_update.py:47",
         ),
     )
 }

@@ -1,11 +1,16 @@
-"""Attention over the paged serving cache: GQA with qk-norm and RoPE.
+"""Attention: GQA with qk-norm and RoPE, for training and for the paged
+serving cache.
 
-The port of the paged branch of ``repro/models/attention.py::apply_attention``
-and the cache types it uses.  Chunked prefill and decode scatter the new
-tokens' K/V into the page pools (masked tokens to the trash page) and then
-run the paged-attention ops, which launch the CUDA kernels on the card.  The
-training, dense-cache and cross-attention branches come with the slices that
-need them.
+The port of ``repro/models/attention.py::apply_attention``, its no-cache
+(training) branch and its paged branch, and the cache types the latter uses.
+Training runs every replica of the stacked simulation in one forward: the
+parameters carry a leading replica axis R and x is (R, B, S, d); R is folded
+into the batch before the flash-attention op, so one kernel launch serves
+every replica.  Chunked prefill and decode scatter the new tokens' K/V into
+the page pools (masked tokens to the trash page) and then run the
+paged-attention ops.  On the card both launch the CUDA kernels.  The
+dense-cache and cross-attention branches come with the slices that need
+them.
 """
 
 from __future__ import annotations
@@ -90,10 +95,33 @@ class PagedView:
 # ---------------------------------------------------------------------------
 
 
+def _training_attention(p: dict, cfg, x: torch.Tensor, mode: str, positions) -> torch.Tensor:
+    """Attention of the stacked training forward: p's leaves (R, ...), x
+    (R, B, S, d), canonical positions."""
+    r, b, s, _ = x.shape
+    q = torch.einsum("rbsd,rdhk->rbshk", x, p["w_q"])
+    k = torch.einsum("rbsd,rdhk->rbshk", x, p["w_k"])
+    v = torch.einsum("rbsd,rdhk->rbshk", x, p["w_v"])
+    if cfg.qk_norm:  # RMSNorm over head_dim, as the JAX package's _rms
+        q = apply_norm({"scale": p["q_norm"]}, q)
+        k = apply_norm({"scale": p["k_norm"]}, k)
+    if cfg.use_rope and mode != "full":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    window = (cfg.sliding_window or 0) if mode == "local" else 0
+    out = kernel_ops.flash_attention(
+        q.reshape(r * b, s, *q.shape[3:]).contiguous(),
+        k.reshape(r * b, s, *k.shape[3:]).contiguous(),
+        v.reshape(r * b, s, *v.shape[3:]).contiguous(),
+        mode=mode, window=window,
+    )
+    return torch.einsum("rbshk,rhkd->rbsd", out.reshape(q.shape), p["w_o"])
+
+
 def apply_attention(
     p: dict,
     cfg,
-    x: torch.Tensor,                          # (R, S, d)
+    x: torch.Tensor,                          # (R, S, d); training: (R, B, S, d)
     *,
     mode: str = "causal",                     # causal | local
     positions: torch.Tensor | None = None,    # (R, S) absolute positions of x
@@ -102,16 +130,22 @@ def apply_attention(
     decode: bool = False,                     # paged phase selector
     chunk_lengths: torch.Tensor | None = None,  # (R,) valid tokens per chunk row
 ) -> tuple[torch.Tensor, PagedAttnCache]:
-    """Attention block over the paged cache: chunked prefill (``decode`` False,
+    """Attention block.  With no cache: the training forward over canonical
+    positions, p's leaves and x stacked over replicas (R, B, S, d); returns
+    (y, None).  Over the paged cache: chunked prefill (``decode`` False,
     ``chunk_lengths`` given) or one decode token per slot (``decode`` True).
 
     The page pools are written in place (``index_put_``) where the JAX
     package donated the buffers and returned new ones; the cache returned is
     the one passed in."""
+    if cache is None and paged is None:
+        if positions is None:
+            positions = torch.arange(x.shape[2], device=x.device)
+        return _training_attention(p, cfg, x, mode, positions), None
     if not isinstance(cache, PagedAttnCache) or paged is None:
         raise NotImplementedError(
-            "the port's attention serves the paged cache only; training and "
-            "dense-cache attention come with the flash slice (ROADMAP Queue 1 item 3)"
+            "the port's attention runs training and the paged cache; dense-cache "
+            "attention comes with the rest of serving (ROADMAP Queue 1 item 12)"
         )
     if not decode and chunk_lengths is None:
         raise NotImplementedError(

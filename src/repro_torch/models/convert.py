@@ -1,4 +1,4 @@
-"""Load the JAX package's weights into the port.
+"""Load the JAX package's weights and training state into the port.
 
 ``params_from_jax_numpy`` takes the JAX model's value tree with numpy
 leaves, as ``jax.tree.map(np.asarray, values_of(params))`` gives it, and
@@ -7,6 +7,11 @@ leaf a tensor on ``device``.  Norm scales and biases (fp32 in both packages)
 stay fp32; every other weight takes ``dtype``.  The structure and every
 shape are checked against what the port's own ``init_params`` makes for
 ``cfg``.
+
+``train_state_from_jax_numpy`` does the same for the stacked trainer's
+whole state (θ, AdamW μ/ν/count, φ, δ and the two step counters), given as
+the JAX ``GossipProgram.state_pytree`` tree with numpy leaves, so both
+packages can continue training from one point.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from repro_torch.models.common import torch_dtype
 
 PyTree = Any
 
-_FP32_LEAVES = {"scale", "bias", "q_norm", "k_norm"}
+FP32_LEAVES = {"scale", "bias", "q_norm", "k_norm"}
 
 
 def _to_tensor(arr, device, dtype) -> torch.Tensor:
@@ -80,8 +85,14 @@ def params_from_jax_numpy(
     tree: PyTree, cfg, device="cpu", dtype: torch.dtype | None = None
 ) -> PyTree:
     """The port's parameters from the JAX value tree (numpy leaves)."""
-    dtype = dtype or torch_dtype(cfg.dtype)
+    return _load(tree, cfg, device, dtype or torch_dtype(cfg.dtype))
 
+
+def _load(tree: PyTree, cfg, device, dtype: torch.dtype, lead: tuple[int, ...] = (),
+          fp32: bool = False) -> PyTree:
+    """``tree`` checked against the shapes of ``cfg``'s parameters with
+    ``lead`` prepended, as tensors on ``device``: fp32 where ``fp32`` or for
+    norm leaves, ``dtype`` otherwise."""
     def walk(src, shape, path):
         if isinstance(shape, dict):
             if not isinstance(src, dict) or set(src) != set(shape):
@@ -99,9 +110,40 @@ def params_from_jax_numpy(
                 raise ValueError(f"{path}: expected None")
             return None
         arr = np.asarray(src)
-        if tuple(arr.shape) != tuple(shape):
-            raise ValueError(f"{path}: shape {arr.shape} != expected {shape}")
+        if tuple(arr.shape) != lead + tuple(shape):
+            raise ValueError(f"{path}: shape {arr.shape} != expected {lead + tuple(shape)}")
         leaf = path.rsplit("/", 1)[-1]
-        return _to_tensor(arr, device, torch.float32 if leaf in _FP32_LEAVES else dtype)
+        return _to_tensor(arr, device, torch.float32 if fp32 or leaf in FP32_LEAVES else dtype)
 
     return walk(tree, expected_shapes(cfg), "")
+
+
+def train_state_from_jax_numpy(tree: dict, cfg, device="cpu", dtype: torch.dtype | None = None):
+    """The port's :class:`~repro_torch.core.noloco.TrainState` from the JAX
+    stacked trainer's state, as ``jax.tree.map(np.asarray,
+    program.state_pytree(state))`` gives it: ``{"theta", "opt": {"mu",
+    "nu", "count"}, "outer": {"phi", "delta", "step"}, "inner_step"}``, every
+    parameter-shaped leaf with a leading replica axis.  θ, φ and δ take
+    ``dtype`` (default ``cfg.dtype``; norm leaves fp32), μ and ν stay fp32."""
+    from repro_torch.core.noloco import TrainState
+    from repro_torch.core.outer import OuterState
+    from repro_torch.optim import AdamWState
+
+    dtype = dtype or torch_dtype(cfg.dtype)
+    count = np.asarray(tree["opt"]["count"])
+    lead = (count.shape[0],)
+    params = lambda t, fp32=False: _load(t, cfg, device, dtype, lead, fp32)
+    return TrainState(
+        theta=params(tree["theta"]),
+        opt=AdamWState(
+            mu=params(tree["opt"]["mu"], fp32=True),
+            nu=params(tree["opt"]["nu"], fp32=True),
+            count=torch.from_numpy(count.astype(np.int32)).to(device),
+        ),
+        outer=OuterState(
+            phi=params(tree["outer"]["phi"]),
+            delta=params(tree["outer"]["delta"]),
+            step=int(tree["outer"]["step"]),
+        ),
+        inner_step=int(tree["inner_step"]),
+    )

@@ -1,10 +1,17 @@
-"""Top-level model API of the port: init and the paged serving steps.
+"""Top-level model API of the port: init, the training loss and the paged
+serving steps.
 
 The port of ``repro/models/model.py`` for decoder-only token models:
-``init_params``, ``init_paged_cache_tree``, ``paged_prefill_chunk`` and
+``init_params``, ``embed_input``, ``loss_fn`` (with the chunked LM loss),
+``init_paged_cache_tree``, ``paged_prefill_chunk`` and
 ``paged_decode_step``.  Parameters are a plain dict tree with the JAX value
 tree's structure and layouts (``{"embed", "stack": {"scan", "rem"},
 "final_norm"}``), so :mod:`repro_torch.models.convert` can load JAX weights.
+
+The training loss runs on replica-stacked parameters (every leaf with a
+leading replica axis R) and batches (R, B, S): :func:`stacked_loss` returns
+the (R,) per-replica losses in one forward, where the JAX package vmaps
+``loss_fn`` over R.  :func:`loss_fn` is the one-replica view of it.
 """
 
 from __future__ import annotations
@@ -24,11 +31,14 @@ from repro_torch.models.layers import (
     init_norm,
     logits_sharded,
     sinusoidal_positions,
+    token_nll,
 )
+from repro_torch.tree import tree_map
 
 PyTree = Any
 
 _SINUSOID_LEN = 2**15
+LOSS_CHUNK = 2048  # seq chunk for the memory-bounded LM loss
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
@@ -81,6 +91,65 @@ def _embed(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, positions: to
         table = sinusoidal_positions(_SINUSOID_LEN, cfg.d_model, x.device).to(x.dtype)
         x = x + table[positions.long().clamp(0, _SINUSOID_LEN - 1)]
     return x
+
+
+def _check_token_model(cfg: ModelConfig) -> None:
+    if cfg.is_encoder_decoder or cfg.frontend == "vision":
+        raise NotImplementedError(
+            "encoder-decoder and vision models are not ported yet (ROADMAP Queue 1 item 8)"
+        )
+
+
+def embed_input(params: PyTree, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Token embedding (scaled, plus sinusoidal positions where the config
+    has no RoPE) of ``batch["tokens"]`` (R, B, S) under stacked params."""
+    _check_token_model(cfg)
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[-1], device=tokens.device)
+    return _embed(params, cfg, tokens, positions)
+
+
+def _lm_loss(params: PyTree, cfg: ModelConfig, x: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor | None) -> torch.Tensor:
+    """Per-replica mean token NLL (R,) of x (R, B, S, d), chunked over the
+    sequence in LOSS_CHUNK pieces when S is a multiple of it, so (R, B, S, V)
+    logits are never materialized for long sequences."""
+    r, _, s, _ = x.shape
+    step = LOSS_CHUNK if s > LOSS_CHUNK and s % LOSS_CHUNK == 0 else s
+    nll = torch.zeros(r, dtype=torch.float32, device=x.device)
+    cnt = torch.zeros(r, dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, step):
+        tok = token_nll(logits_sharded(params["embed"], cfg, x[:, :, c0:c0 + step]),
+                        labels[:, :, c0:c0 + step])
+        if mask is None:
+            nll = nll + tok.sum(dim=(1, 2))
+            cnt = cnt + float(tok[0].numel())
+        else:
+            w = mask[:, :, c0:c0 + step].float()
+            nll = nll + (tok * w).sum(dim=(1, 2))
+            cnt = cnt + w.sum(dim=(1, 2))
+    return nll / torch.clamp_min(cnt, 1.0)
+
+
+def stacked_loss(params: PyTree, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token LM loss of every replica, (R,) fp32: params with a leading
+    replica axis, ``batch["tokens"]``/``["labels"]`` (R, B, S), optional
+    ``["loss_mask"]``.  Backpropagating the sum gives each replica's slice of
+    the gradient its own loss's gradient."""
+    x = embed_input(params, cfg, batch)
+    positions = torch.arange(x.shape[2], device=x.device)
+    x, _ = tfm.apply_stack(params["stack"], cfg, x, positions=positions)
+    x = apply_norm(params["final_norm"], x)
+    return _lm_loss(params, cfg, x, batch["labels"], batch.get("loss_mask"))
+
+
+def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
+    """The JAX package's ``loss_fn`` for ONE replica: unstacked params,
+    batch (B, S).  Returns (loss, {"lm_loss", "aux_loss"}); dense models
+    have no auxiliary loss."""
+    one = {k: v[None] for k, v in batch.items()}
+    loss = stacked_loss(tree_map(lambda t: t[None], params), cfg, one)[0]
+    return loss, {"lm_loss": loss, "aux_loss": torch.zeros((), device=loss.device)}
 
 
 def paged_prefill_chunk(

@@ -4,7 +4,11 @@ The port of ``repro/models/transformer.py`` for attention blocks
 (``global``/``local``) with a dense MLP.  The parameter tree keeps the JAX
 package's layout, ``{"scan": [stacked per period position], "rem": [...]}``
 with a leading layer axis on every scanned leaf; where JAX scanned over that
-axis, the port loops over it in Python.
+axis, the port loops over it in Python.  The training forward (no caches)
+takes replica-stacked parameters, so its scanned leaves are (R, L, ...) and
+the layer axis is 1; with ``cfg.remat`` each period of layers runs under
+``torch.utils.checkpoint``, the counterpart of JAX's ``jax.checkpoint`` of
+the scan body: its activations are recomputed in the backward pass.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import PagedAttnCache
@@ -93,15 +98,16 @@ def stack_trees(trees: list[PyTree]) -> PyTree:
     return torch.stack(trees)
 
 
-def _unstack(tree: PyTree, n: int) -> list[PyTree]:
-    """Per-layer views of a stacked tree (``unbind`` once per leaf)."""
+def _unstack(tree: PyTree, n: int, axis: int = 0) -> list[PyTree]:
+    """Per-layer views of a tree stacked over layers on ``axis`` (``unbind``
+    once per leaf)."""
     if isinstance(tree, dict):
-        cols = {k: _unstack(v, n) for k, v in tree.items()}
+        cols = {k: _unstack(v, n, axis) for k, v in tree.items()}
         return [{k: cols[k][i] for k in tree} for i in range(n)]
     if isinstance(tree, PagedAttnCache):
-        ks, vs = tree.k_pages.unbind(0), tree.v_pages.unbind(0)
+        ks, vs = tree.k_pages.unbind(axis), tree.v_pages.unbind(axis)
         return [PagedAttnCache(ks[i], vs[i]) for i in range(n)]
-    return list(tree.unbind(0))
+    return list(tree.unbind(axis))
 
 
 def layer_plan(cfg) -> tuple[tuple[str, ...], int, int]:
@@ -134,28 +140,39 @@ def apply_stack(
     chunk_lengths: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """Run all layers in the JAX package's order: every full period, then
-    the remainder.  ``caches`` mirrors the params structure with entries
-    ``(PagedAttnCache, None)``; the pools are written in place and the same
-    tree is returned."""
+    the remainder.  With ``caches`` None this is the training forward over
+    replica-stacked parameters; otherwise ``caches`` mirrors the params
+    structure with entries ``(PagedAttnCache, None)``, the pools are written
+    in place and the same tree is returned."""
     period, n_full, rem = layer_plan(cfg)
+    training = caches is None
+    layer_axis = 1 if training else 0
 
     def cache_of(entry):
         return entry[0] if entry is not None else None
 
     kw = dict(positions=positions, decode=decode, paged=paged, chunk_lengths=chunk_lengths)
     if n_full:
-        layer_params = [_unstack(params["scan"][pos], n_full) for pos in range(len(period))]
+        layer_params = [
+            _unstack(params["scan"][pos], n_full, layer_axis) for pos in range(len(period))
+        ]
         layer_caches = [
-            _unstack(cache_of(caches["scan"][pos]), n_full) if caches is not None
-            else [None] * n_full
+            [None] * n_full if training else _unstack(cache_of(caches["scan"][pos]), n_full)
             for pos in range(len(period))
         ]
         for i in range(n_full):
-            for pos, kind in enumerate(period):
-                x, _ = apply_block(
-                    layer_params[pos][i], cfg, x, kind, cache=layer_caches[pos][i], **kw
-                )
+            def period_body(x, i=i):
+                for pos, kind in enumerate(period):
+                    x, _ = apply_block(
+                        layer_params[pos][i], cfg, x, kind, cache=layer_caches[pos][i], **kw
+                    )
+                return x
+
+            if training and cfg.remat:
+                x = checkpoint(period_body, x, use_reentrant=False)
+            else:
+                x = period_body(x)
     for j in range(rem):
-        c = cache_of(caches["rem"][j]) if caches is not None else None
+        c = None if training else cache_of(caches["rem"][j])
         x, _ = apply_block(params["rem"][j], cfg, x, period[j % len(period)], cache=c, **kw)
     return x, caches

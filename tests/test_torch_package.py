@@ -18,8 +18,10 @@ import sys
 import pytest
 import torch
 
-from repro_torch.kernels import build, ops, paged_attention, ref
-from repro_torch.launch import serve
+import types
+
+from repro_torch.kernels import build, flash_attention, noloco_update, ops, paged_attention, ref
+from repro_torch.launch import serve, train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -60,6 +62,13 @@ def test_importing_every_module_loads_no_jax():
                          text=True, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert len(modules) >= 20
+
+
+def test_train_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    assert train.build_parser().parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced"])
 
 
 def test_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -120,6 +129,94 @@ def test_non_cpu_tensors_never_reach_the_plain_version(monkeypatch, chunk):
     with pytest.raises(ValueError, match="CUDA tensor"):   # any other device raises
         op(*_args(chunk, lambda t: t.to("meta")))
     assert kernel.launches == before
+
+
+def _flash_args(wrap):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 5, 4, 8, generator=g)
+    k, v = (torch.randn(2, 5, 2, 8, generator=g) for _ in range(2))
+    return [wrap(t) for t in (q, k, v)]
+
+
+def _plain_called(*a, **k):
+    raise AssertionError("plain version called for a non-CPU tensor")
+
+
+def _launched():
+    raise _Launched
+
+
+def test_flash_forward_never_reaches_the_plain_version(monkeypatch):
+    monkeypatch.setattr(ref, "torch_flash_attention", _plain_called)
+    monkeypatch.setattr(ref, "torch_flash_attention_fwd", _plain_called)
+    monkeypatch.setattr(flash_attention, "library", _launched)
+    before = flash_attention.flash_attention_fwd.launches
+    with pytest.raises(_Launched):   # a CUDA tensor goes to the kernel
+        ops.flash_attention(*_flash_args(lambda t: t.as_subclass(_FakeCuda)))
+    with pytest.raises(ValueError, match="CUDA tensor"):   # any other device raises
+        ops.flash_attention(*_flash_args(lambda t: t.to("meta")))
+    assert flash_attention.flash_attention_fwd.launches == before
+
+
+def test_flash_backward_never_reaches_the_plain_version(monkeypatch):
+    """The autograd function's backward launches the backward kernel."""
+    monkeypatch.setattr(ref, "torch_flash_attention_bwd", _plain_called)
+    monkeypatch.setattr(flash_attention, "library", _launched)
+    q, k, v = _flash_args(lambda t: t.as_subclass(_FakeCuda))
+    lse = torch.zeros(2, 4, 5).as_subclass(_FakeCuda)
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v, q, lse), mode="causal", window=0)
+    before = flash_attention.flash_attention_bwd.launches
+    with pytest.raises(_Launched):
+        flash_attention.FlashAttention.backward(ctx, q)
+    meta = [t.as_subclass(torch.Tensor).to("meta") for t in (q, k, v, q, lse)]
+    ctx.saved_tensors = meta
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention.FlashAttention.backward(ctx, meta[0])
+    assert flash_attention.flash_attention_bwd.launches == before
+
+
+def test_outer_update_never_reaches_the_plain_version(monkeypatch):
+    monkeypatch.setattr(ref, "torch_noloco_update", _plain_called)
+    monkeypatch.setattr(noloco_update, "library", _launched)
+    coef = dict(alpha=0.5, beta=0.7, gamma=0.9)
+
+    def trees(wrap):
+        return [{"w": wrap(torch.randn(3, 4)), "b": [wrap(torch.randn(3))]} for _ in range(4)]
+
+    before = noloco_update.noloco_update.launches
+    with pytest.raises(_Launched):
+        ops.noloco_update_pytree(*trees(lambda t: t.as_subclass(_FakeCuda)), **coef)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.noloco_update_pytree(*trees(lambda t: t.to("meta")), **coef)
+    assert noloco_update.noloco_update.launches == before
+
+
+def test_build_starts_every_nvcc_before_waiting(monkeypatch, tmp_path):
+    """One nvcc per source, all started before the first is waited on."""
+    events = []
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            self.out = cmd[cmd.index("-o") + 1]
+            events.append(("start", pathlib.Path(cmd[-1]).stem))
+
+        def communicate(self):
+            events.append(("wait", None))
+            pathlib.Path(self.out).write_bytes(b"")
+            return "ptxas info", None
+
+    monkeypatch.setattr(build.shutil, "which", lambda name: "/bin/nvcc")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build.subprocess, "Popen", FakeProc)
+    build.build_all()
+    names = build.sources()
+    assert set(names) >= {"flash_attention", "noloco_update", "paged_attention"}
+    assert events[:len(names)] == [("start", n) for n in names]
+    assert all(build.library_path(n).exists() for n in names)
+    build.build_all()   # everything built: nothing starts
+    assert len(events) == 2 * len(names)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
