@@ -41,7 +41,28 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 7. train ``paper-small-125m.reduced()`` in fp32 (NoLoCo, 4 replicas, 2
    outer rounds) on the card and on the CPU from the same initial state:
    identical partner tables, per-step losses within 1e-4 relative, final
-   weight std within 1e-3 relative.
+   weight std within 1e-3 relative;
+8. (with phase 3) hold the int8 quantize and dequantize kernels against
+   their plain versions bit for bit: fp32 and bf16 payloads, ragged tails,
+   constant chunks, chunk magnitudes from 1e-30 to 1e4, CHUNK 1024, 3000
+   and 7, and the full-width payload (4 replicas × 366,477,312 bf16 values);
+   time both there with L2 flushed, beside the plain versions and the bound;
+9. train paper-small-125m at full width as in phase 6 with the int8 wire
+   (``codec="int8"``): launch counts as the design implies (one quantize
+   and one dequantize per float buffer of the payload per sync, all four
+   replicas in one launch), ``comm_bytes`` equal to the byte model's, the
+   losses and inner-step p50, and the outer step timed alone with the int8
+   and the plain wire in turns on the same state;
+10. phase 7 with the int8 wire: identical partner tables, losses within
+    1e-4 relative (the weight std is reported: the int8 wire amplifies the
+    last-bit differences of card and CPU);
+11. checkpoint and resume on the card, reduced model in fp32 with the int8
+    wire: 6 steps saving every 3, resumed to 12, against 12 uninterrupted
+    steps: identical losses and bit-identical final θ, φ and δ; the save
+    and the restore of that state timed;
+12. promote replica 1's φ from that checkpoint and serve 4 greedy requests
+    through ``repro_torch.launch.serve --ckpt`` on the card (paged kernels,
+    launch counts > 0) and on the CPU: identical tokens.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +74,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -63,11 +85,13 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.comm import bytes_model  # noqa: E402
+from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
+from repro_torch.comm import CommConfig, bytes_model, payload  # noqa: E402
 from repro_torch.configs import paper_llama, qwen3_0_6b  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
 from repro_torch.kernels import build, dispatch  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve import serve_run, synth_requests  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.attention import PagedView  # noqa: E402
@@ -92,6 +116,10 @@ GRAD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2e-2}
 LOSS_RTOL, WSTD_RTOL = 1e-4, 1e-3
 PAGED = ("paged_attention", "paged_chunk_attention")
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "noloco_update")
+INT8 = ("int8_quantize", "int8_dequantize")
+# One replica's (Δ, φ) payload of paper-small-125m at full width: its bf16
+# buffer (the fp32 one holds the 76,800 norm values).
+PAYLOAD_BF16 = 366_477_312
 # The paper model's training shapes: 4 replicas × batch 4 folded into B.
 PAPER = dict(b=16, s=1024, h=16, kv=16, d=48)
 
@@ -517,15 +545,21 @@ TRAIN = dict(method="noloco", replicas=4, per_replica_batch=4, seq_len=1024, ste
              inner_steps=5, eval_every=0, inner_lr=3e-3, seed=0)
 
 
-def expected_launches(cfg, run: dict, outer_syncs: int) -> dict[str, int]:
+def expected_launches(cfg, run: dict, outer_syncs: int, codec: str = "none") -> dict[str, int]:
     """Launches the config implies: per inner step one attention forward per
     layer (twice under remat: the backward pass runs the layer again) and
-    one backward per layer; per outer sync one update per parameter leaf."""
-    leaves = len(tree_leaves(bytes_model.abstract_params(cfg)))
+    one backward per layer; per outer sync one update per parameter leaf
+    and, on the int8 wire, one quantize and one dequantize per float buffer
+    of the fused (Δ, φ) payload (bf16 and fp32 here), every replica in the
+    same launch."""
+    tree = bytes_model.abstract_params(cfg)
+    buffers = len(payload.make_spec((tree, tree)).buffers) if codec == "int8" else 0
     return {
         "flash_attention": run["steps"] * cfg.num_layers * (2 if cfg.remat else 1),
         "flash_attention_bwd": run["steps"] * cfg.num_layers,
-        "noloco_update": outer_syncs * leaves,
+        "noloco_update": outer_syncs * len(tree_leaves(tree)),
+        "int8_quantize": outer_syncs * buffers,
+        "int8_dequantize": outer_syncs * buffers,
     }
 
 
@@ -544,7 +578,7 @@ def train_phase(dev):
     launches = dispatch.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = expected_launches(cfg, TRAIN, res["outer_syncs"])
-    log("train launches: " + json.dumps({k: launches[k] for k in TRAIN_KERNELS})
+    log("train launches: " + json.dumps({k: launches[k] for k in want})
         + " expected " + json.dumps(want))
     losses = res["losses"]
     log("train losses: " + json.dumps(losses))
@@ -628,10 +662,14 @@ def profile_steps(cfg, state, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_parity_phase(dev):
+def train_parity_phase(dev, codec: str = "none"):
+    """Phase 7, and phase 10 with ``codec="int8"``: there the weight std is
+    reported, not held to WSTD_RTOL (a last-bit difference of card and CPU
+    can move a chunk's min or max, and so all of its codes)."""
     cfg = paper_llama.SMALL.reduced(dtype="float32", remat=False)
     run = dict(method="noloco", replicas=4, per_replica_batch=2, seq_len=64, steps=10,
-               inner_steps=5, eval_every=0, inner_lr=3e-3, seed=0)
+               inner_steps=5, eval_every=0, inner_lr=3e-3, seed=0, codec=codec)
+    kernels = TRAIN_KERNELS + (INT8 if codec == "int8" else ())
     t0 = time.perf_counter()
     dispatch.reset_launches()
     card = train_cli.run_training(cfg, device="cuda", **run)
@@ -645,15 +683,262 @@ def train_parity_phase(dev):
     out = {"loss_max_rel_diff": rel, "weight_std_rel_diff": wstd_rel,
            "partner_tables_identical": same_pairs,
            "partners": [p.tolist() for p in card["partners"]],
-           "launches": {k: launches[k] for k in TRAIN_KERNELS},
+           "launches": {k: launches[k] for k in kernels},
            "seconds": time.perf_counter() - t0}
-    log("train fp32 card vs cpu: " + json.dumps(out))
+    log(f"train fp32 card vs cpu{'' if codec == 'none' else ' ' + codec}: " + json.dumps(out))
     if not same_pairs:
         raise AssertionError("card and CPU runs paired replicas differently")
     if min(out["launches"].values()) <= 0:
         raise AssertionError(f"fp32 card training skipped a kernel: {launches}")
-    if not (rel <= LOSS_RTOL and wstd_rel <= WSTD_RTOL):
+    if not (rel <= LOSS_RTOL and (codec != "none" or wstd_rel <= WSTD_RTOL)):
         raise AssertionError(f"card and CPU training differ: losses {rel:.3e}, wstd {wstd_rel:.3e}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the int8 codec kernels against their plain versions, and timed
+# ---------------------------------------------------------------------------
+
+
+def int8_payload(gen, rows, n, chunk, dtype):
+    """(rows, n) values whose chunks have magnitudes from 1e-30 to 1e4 and
+    offsets of their own size; the first chunk of each row is constant."""
+    dev = gen.device
+    nb = -(-n // chunk)
+    mag = torch.pow(10.0, torch.empty((rows, nb, 1), device=dev).uniform_(-30, 4, generator=gen))
+    off = torch.randn((rows, nb, 1), generator=gen, device=dev)
+    x = (torch.randn((rows, nb, chunk), generator=gen, device=dev) + off) * mag
+    x = x.reshape(rows, -1)[:, :n].contiguous()
+    x[:, :min(chunk, n)] = 3.25
+    return x.to(dtype)
+
+
+def check_int8_kernels(dev) -> dict[str, float]:
+    """Both kernels bit-identical to their plain versions (q, scale, lo and
+    the dequantized values in fp32 and bf16), the dequantize reading the
+    codes through the wire's row stride as the codec gives them."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    reg = dispatch.registry()
+    errors = {name: 0.0 for name in INT8}
+    cases = [(rows, n, chunk, dtype) for dtype in (torch.float32, torch.bfloat16)
+             for rows, n, chunk in ((4, 8 * 1024 + 17, 1024), (1, 64 * 1024, 1024),
+                                    (3, 1000, 7), (2, 9001, 3000))]
+    cases.append((4, PAYLOAD_BF16, 1024, torch.bfloat16))
+    for rows, n, chunk, dtype in cases:
+        full = n == PAYLOAD_BF16
+        x = (torch.randn((rows, n), generator=gen, device=dev, dtype=dtype) * 0.02 if full
+             else int8_payload(gen, rows, n, chunk, dtype))
+        got = reg["int8_quantize"].kernel(x, chunk)
+        torch.cuda.synchronize()
+        want = reg["int8_quantize"].plain(x, chunk)
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        if not all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"int8_quantize differs from its plain version: rows {rows} "
+                                 f"n {n} chunk {chunk} {dtype}: max_abs_err {err}")
+        errors["int8_quantize"] = max(errors["int8_quantize"], err)
+        q, scale, lo = got
+        del want
+        nc = q.shape[1]
+        wire = torch.cat([q.reshape(rows, -1), torch.zeros((rows, 8 * nc), dtype=torch.uint8,
+                                                            device=dev)], dim=1)
+        strided = wire[:, :nc * chunk].reshape(rows, nc, chunk)
+        derr = 0.0
+        for out_dtype in ((torch.bfloat16,) if full else (torch.float32, torch.bfloat16)):
+            d_got = reg["int8_dequantize"].kernel(strided, scale, lo, n, out_dtype)
+            torch.cuda.synchronize()
+            d_want = reg["int8_dequantize"].plain(q, scale, lo, n, out_dtype)
+            derr = max(derr, (d_got.float() - d_want.float()).abs().max().item())
+            if not (d_got.dtype == out_dtype and torch.equal(d_got, d_want)):
+                raise AssertionError(f"int8_dequantize differs from its plain version: rows {rows} "
+                                     f"n {n} chunk {chunk} -> {out_dtype}: max_abs_err {derr}")
+            del d_got, d_want
+        errors["int8_dequantize"] = max(errors["int8_dequantize"], derr)
+        log(f"check int8 {str(dtype)[6:]} rows {rows} n {n} chunk {chunk}: quantize "
+            f"max_abs_err {err}, dequantize max_abs_err {derr} (bit-identical) ok")
+        del x, got, q, scale, lo, wire, strided
+        torch.cuda.empty_cache()
+    return errors
+
+
+def time_int8_kernels(dev) -> dict[str, dict]:
+    """Kernel and plain times at the full-width payload, the bf16 buffer of
+    4 replicas × 366,477,312 values in chunks of 1024.  Bounds count the
+    bytes the kernels move: quantize reads each bf16 value once and writes
+    its code plus 8 bytes per chunk; dequantize reads each code and the 8
+    bytes per chunk and writes the bf16 value.  No single PyTorch call
+    computes either function (library: none)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    reg = dispatch.registry()
+    rows, n, chunk = 4, PAYLOAD_BF16, 1024
+    x = torch.randn((rows, n), generator=gen, device=dev, dtype=torch.bfloat16) * 0.02
+    q, scale, lo = reg["int8_quantize"].kernel(x, chunk)
+    nc = q.shape[1]
+    elems = rows * nc * chunk
+    work = {
+        # (bytes moved, fp32 operations): sub, div, rint, 2 clamps, min, max per value
+        "int8_quantize": (rows * n * 2 + elems + 8 * rows * nc, 7 * elems,
+                          (x, chunk)),
+        # one fused multiply-add per value
+        "int8_dequantize": (rows * n + 8 * rows * nc + rows * n * 2, 2 * rows * n,
+                            (q, scale, lo, n, torch.bfloat16)),
+    }
+    out = {}
+    for name, (nbytes, flops, args) in work.items():
+        op = reg[name]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+        ms, mhz = cuda_ms(lambda: op.kernel(*args), reps=20)
+        out[name] = {"ms": ms, "plain_ms": cuda_ms(lambda: op.plain(*args), reps=3)[0],
+                     "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "sm_clock_mhz": mhz,
+                     "shape": {"x": [rows, n], "chunk": chunk, "dtype": "bfloat16"}}
+        log(f"time {name}: " + json.dumps(out[name]))
+    del x, q, scale, lo, work
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: full-width training over the int8 wire
+# ---------------------------------------------------------------------------
+
+
+def time_outer(cfg, state, dev, reps: int = 3) -> dict[str, list[float]]:
+    """The outer step alone (synchronised before and after) on one state,
+    with the plain and the int8 wire in turns."""
+    times: dict[str, list[float]] = {"none": [], "int8": []}
+    for _ in range(reps):
+        for codec in times:
+            tcfg = train_cli.method_config("noloco", inner_lr=3e-3, total_steps=10, warmup=1,
+                                           inner_steps=5, comm=CommConfig(codec=codec))
+            program = adapters.GossipProgram(cfg, tcfg, replicas=TRAIN["replicas"], device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            program.trainer.outer_step(state)   # pairing from the outer step counter
+            torch.cuda.synchronize()
+            times[codec].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def int8_train_phase(dev, none_summary: dict):
+    cfg = paper_llama.SMALL
+    log("train int8: " + json.dumps({**TRAIN, "codec": "int8"}))
+    jsonl = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_train_int8.jsonl")
+    os.makedirs(os.path.dirname(jsonl), exist_ok=True)
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    res = train_cli.run_training(cfg, device="cuda", codec="int8", log_jsonl=jsonl, **TRAIN)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expected_launches(cfg, TRAIN, res["outer_syncs"], codec="int8")
+    log("train int8 launches: " + json.dumps({k: launches[k] for k in want})
+        + " expected " + json.dumps(want))
+    cost = bytes_model.outer_step_cost(bytes_model.abstract_params(cfg), CommConfig(codec="int8"),
+                                       world=TRAIN["replicas"])
+    losses = res["losses"]
+    log("train int8 losses: " + json.dumps(losses))
+    if res["outer_syncs"] != 2 or any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"launch counts {launches} differ from the design's {want}")
+    if res["comm_bytes"] != res["outer_syncs"] * cost.payload_bytes:
+        raise AssertionError(f"comm bytes {res['comm_bytes']} != the byte model's "
+                             f"{res['outer_syncs']} × {cost.payload_bytes}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"int8 training did not go down: {losses}")
+    steps = [e for e in map(json.loads, open(jsonl)) if e["event"] == "step"]
+    inner = sorted(e["dt_s"] * 1e3 for e in steps[1:] if e["step"] % TRAIN["inner_steps"])
+    outer = time_outer(cfg, res["state"], dev)
+    summary = {
+        "inner_step_p50_ms": statistics.median(inner), "inner_step_samples": len(inner),
+        "outer_step_ms_int8": statistics.median(outer["int8"]),
+        "outer_step_ms_none": statistics.median(outer["none"]),
+        "outer_step_samples_ms": outer,
+        "outer_step_ms_none_phase6": none_summary["outer_step_ms"],
+        "comm_bytes": res["comm_bytes"], "comm_bytes_none_phase6": none_summary["comm_bytes"],
+        "payload_bytes_per_sync": cost.payload_bytes, "peak_memory_gb": peak_gb,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_last_none_phase6": none_summary["loss_last"],
+        "final_weight_std": res["final_weight_std"], "wall_s": res["wall_s"],
+    }
+    log("train int8 summary: " + json.dumps(summary))
+    del res
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 11–12: checkpoint/resume and promotion on the card
+# ---------------------------------------------------------------------------
+
+CKPT_RUN = dict(method="noloco", replicas=4, per_replica_batch=2, seq_len=64, inner_steps=4,
+                eval_every=0, inner_lr=3e-3, seed=0, total_steps=12, codec="int8")
+
+
+def ckpt_phase(dev) -> dict:
+    """6 steps saving every 3 (mid inner phase: syncs fall at 4, 8, 12),
+    resumed to 12, against 12 uninterrupted steps, all on the card."""
+    cfg = paper_llama.SMALL.reduced(dtype="float32", remat=False)
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    full = train_cli.run_training(cfg, device="cuda", steps=12, **CKPT_RUN)
+    train_cli.run_training(cfg, device="cuda", steps=6, ckpt_dir=d, ckpt_every=3, **CKPT_RUN)
+    cont = train_cli.run_training(cfg, device="cuda", steps=12, ckpt_dir=d, resume=True, **CKPT_RUN)
+    torch.cuda.synchronize()
+    trees = ("theta", "phi", "delta")
+    pick = lambda st: (st.theta, st.outer.phi, st.outer.delta)
+    same = {name: all(torch.equal(a, b) for a, b in zip(tree_leaves(x), tree_leaves(y)))
+            for name, x, y in zip(trees, pick(cont["state"]), pick(full["state"]))}
+    # the save and the restore of this state (4 replicas of θ, μ, ν, φ, δ)
+    program = adapters.GossipProgram(cfg, train_cli.method_config(
+        "noloco", inner_lr=3e-3, total_steps=12, inner_steps=4), replicas=4, device=dev)
+    tdir = os.path.join(d, "timing")
+    save_s, restore_s = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt_lib.save(tdir, i, {"program": program.state_pytree(cont["state"])})
+        save_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        program.load_state_pytree(cont["state"], ckpt_lib.restore(tdir, i)["program"])
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+    nbytes = os.path.getsize(os.path.join(path, "arrays.msgpack"))
+    out = {"start_step": cont["start_step"], "losses_identical": cont["losses"] == full["losses"][6:],
+           "bit_identical": same, "losses": cont["losses"], "checkpoints": sorted(os.listdir(d)),
+           "state_bytes": nbytes, "save_s": statistics.median(save_s),
+           "restore_s": statistics.median(restore_s), "save_samples_s": save_s,
+           "restore_samples_s": restore_s, "dir": d}
+    log("ckpt resume on card: " + json.dumps(out))
+    if cont["start_step"] != 6 or not out["losses_identical"] or not all(same.values()):
+        raise AssertionError("the resumed run differs from the uninterrupted one on the card")
+    return out
+
+
+def promote_serve_phase(dev, ckpt_dir: str) -> dict:
+    """``repro_torch.launch.serve --ckpt`` on the card and on the CPU."""
+    args = ["--arch", "paper-small-125m", "--ckpt", ckpt_dir, "--replica", "1", "--weights",
+            "phi", "--requests", "4", "--max-batch", "4", "--prompt-lens", "24,80",
+            "--gen-lens", "16,12"]
+    logs = {d: os.path.join(ckpt_dir, f"serve_{d}.jsonl") for d in ("cuda", "cpu")}
+    dispatch.reset_launches()
+    card = serve_cli.main([*args, "--device", "cuda", "--log-jsonl", logs["cuda"]])
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    cpu = serve_cli.main([*args, "--device", "cpu", "--log-jsonl", logs["cpu"]])
+    tokens = {d: {e["rid"]: e["tokens"] for e in map(json.loads, open(p)) if e["event"] == "finish"}
+              for d, p in logs.items()}
+    out = {"promoted": card["promoted"], "tokens_identical": tokens["cuda"] == tokens["cpu"],
+           "tokens": tokens["cuda"], "launches": {k: launches[k] for k in PAGED},
+           "tokens_per_s": card["tokens_per_s"], "cpu_promoted": cpu["promoted"]}
+    log("promote -> serve card vs cpu: " + json.dumps(out))
+    if min(out["launches"].values()) <= 0:
+        raise AssertionError(f"promoted serving skipped a paged kernel: {launches}")
+    if len(tokens["cuda"]) != 4 or not out["tokens_identical"]:
+        raise AssertionError("promoted serving: card and CPU tokens differ")
     return out
 
 
@@ -688,13 +973,18 @@ def main() -> None:
         log(f"build {name}.cu: {secs:.1f} s\n{report.strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
-    errors = {**check_kernels(dev), **check_train_kernels(dev)}
-    timings = {**time_kernels(dev), **time_train_kernels(dev)}
+    errors = {**check_kernels(dev), **check_train_kernels(dev), **check_int8_kernels(dev)}
+    timings = {**time_kernels(dev), **time_train_kernels(dev), **time_int8_kernels(dev)}
     summary, launches = serve_phase(dev)
     slice_err = slice_phase(dev)
     train_summary, train_launches = train_phase(dev)
     parity = train_parity_phase(dev)
+    int8_summary, int8_launches = int8_train_phase(dev, train_summary)
+    int8_parity = train_parity_phase(dev, codec="int8")
+    resume = ckpt_phase(dev)
+    promoted = promote_serve_phase(dev, resume["dir"])
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
+    launches.update({k: int8_launches[k] for k in INT8})
 
     kernels = []
     for name, op in dispatch.registry().items():
@@ -710,6 +1000,13 @@ def main() -> None:
         "slice_max_logit_diff": slice_err, "train": train_summary,
         "train_card_vs_cpu": {k: parity[k] for k in (
             "loss_max_rel_diff", "weight_std_rel_diff", "partner_tables_identical")},
+        "train_int8": int8_summary,
+        "train_int8_card_vs_cpu": {k: int8_parity[k] for k in (
+            "loss_max_rel_diff", "weight_std_rel_diff", "partner_tables_identical")},
+        "ckpt_resume": {k: resume[k] for k in (
+            "start_step", "losses_identical", "bit_identical", "state_bytes", "save_s",
+            "restore_s")},
+        "promote_serve": {k: promoted[k] for k in ("promoted", "tokens_identical")},
         "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,9 +4,11 @@ The port of :class:`StackedGather` and :func:`exchange_gossip` from
 ``repro/comm/exchange.py``.  Replicas sit on a leading axis of every leaf;
 a replica's partner values come from an index gather with the partner table
 of :mod:`repro_torch.core.pairing`, and the DiLoCo mean is a mean over that
-axis (masked to the active replicas when a mask is given).  The codec is
-the identity (``none``), the only one ported so far; the multi-GPU
-communicators come with the multi-GPU runtime.
+axis (masked to the active replicas when a mask is given).  A lossy codec
+is applied to the gathered values as an encode→decode round trip
+(:func:`wire_roundtrip`), each replica's payload packed and coded on its
+own, so the simulation sees the values a compressed wire would deliver.
+The multi-GPU communicators come with the multi-GPU runtime.
 """
 
 from __future__ import annotations
@@ -15,12 +17,26 @@ from typing import Any
 
 import torch
 
+from repro_torch.comm import payload as payload_lib
 from repro_torch.comm.compress import CommConfig, get_codec
 from repro_torch.tree import tree_map
 
 PyTree = Any
 
-__all__ = ["Communicator", "StackedGather", "exchange_gossip"]
+__all__ = ["Communicator", "StackedGather", "wire_roundtrip", "exchange_gossip"]
+
+
+def wire_roundtrip(tree: PyTree, cfg: CommConfig, *, lead: int = 0) -> PyTree:
+    """pack → encode → decode → unpack: the values the partner would
+    receive.  The first ``lead`` axes of every leaf are batch axes (the
+    replica axis), each index coded on its own as the JAX package's
+    ``vmap`` over replicas does; one kernel launch per buffer serves them
+    all.  Identity for ``codec="none"``."""
+    codec = get_codec(cfg)
+    buffers, spec = payload_lib.pack(tree, fuse=cfg.fuse, lead=lead)
+    out = [codec.decode(codec.encode(buf), bs.dtype, bs.size)
+           for buf, bs in zip(buffers, spec.buffers)]
+    return payload_lib.unpack(out, spec)
 
 
 class Communicator:
@@ -50,12 +66,14 @@ class StackedGather(Communicator):
         self.active = active
         self.cfg = cfg or CommConfig()
         self.cfg.validate()
-        get_codec(self.cfg)  # raises for codecs not ported yet
 
     def exchange(self, tree: PyTree) -> PyTree:
         if self.partner is None:
             raise ValueError("StackedGather.exchange needs a partner table")
-        return tree_map(lambda x: x.index_select(0, self.partner.to(x.device)), tree)
+        gathered = tree_map(lambda x: x.index_select(0, self.partner.to(x.device)), tree)
+        if self.cfg.codec == "none":
+            return gathered
+        return wire_roundtrip(gathered, self.cfg, lead=1)
 
     def allreduce_mean(self, tree: PyTree) -> PyTree:
         if self.active is None:

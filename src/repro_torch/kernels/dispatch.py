@@ -15,6 +15,7 @@ from typing import Any, Callable, Mapping
 from repro_torch.kernels import flash_attention as flash_attention_mod
 from repro_torch.kernels import noloco_update as noloco_update_mod
 from repro_torch.kernels import paged_attention as paged_attention_mod
+from repro_torch.kernels import quantize as quantize_mod
 from repro_torch.kernels import ref
 
 __all__ = ["KernelOp", "registry", "reset_launches", "launch_counts"]
@@ -74,6 +75,22 @@ _REGISTRY: dict[str, KernelOp] = {
             route="cuda",
             source="src/repro_torch/csrc/noloco_update.cu",
             replaces="src/repro/kernels/noloco_update.py:47",
+        ),
+        KernelOp(
+            name="int8_quantize",
+            kernel=quantize_mod.int8_quantize,
+            plain=ref.torch_int8_quantize,
+            route="cuda",
+            source="src/repro_torch/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:53",
+        ),
+        KernelOp(
+            name="int8_dequantize",
+            kernel=quantize_mod.int8_dequantize,
+            plain=ref.torch_int8_dequantize,
+            route="cuda",
+            source="src/repro_torch/csrc/quantize.cu",
+            replaces="src/repro/kernels/quantize.py:78",
         ),
     )
 }

@@ -4,13 +4,15 @@ the tensors.
 Tensors on the CPU go to the plain PyTorch version (:mod:`repro_torch.
 kernels.ref`); tensors on a CUDA device launch the hand-written kernel
 (:mod:`repro_torch.kernels.paged_attention`, :mod:`~repro_torch.kernels.
-flash_attention`, :mod:`~repro_torch.kernels.noloco_update`), which raises
+flash_attention`, :mod:`~repro_torch.kernels.noloco_update`,
+:mod:`~repro_torch.kernels.quantize`), which raises
 on anything it does not take.  There is no fallback from the card to the
 plain version: a failed build or launch is an error, never a quiet switch to
 other code.
 
 Counterparts of ``flash_attention``, ``noloco_update_pytree``,
-``paged_attention`` and ``paged_chunk_attention`` in the JAX package's
+``paged_attention``, ``paged_chunk_attention``, ``int8_quantize`` and
+``int8_dequantize`` in the JAX package's
 ``repro/kernels/ops.py``.  Unlike there, ragged head counts (H % KV != 0)
 run on the kernels too: query head h reads kv head (h·KV)//H.
 """
@@ -22,10 +24,14 @@ import torch
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import noloco_update as noloco
 from repro_torch.kernels import paged_attention as kernels
+from repro_torch.kernels import quantize
 from repro_torch.kernels import ref
 from repro_torch.tree import tree_map
 
-__all__ = ["flash_attention", "noloco_update_pytree", "paged_attention", "paged_chunk_attention"]
+__all__ = [
+    "flash_attention", "noloco_update_pytree", "paged_attention", "paged_chunk_attention",
+    "int8_quantize", "int8_dequantize",
+]
 
 
 def flash_attention(
@@ -118,3 +124,21 @@ def paged_chunk_attention(
     return kernels.paged_chunk_attention(
         q, k_pages, v_pages, block_tables, positions, mode=mode, window=window
     )
+
+
+def int8_quantize(x: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-chunk affine uint8 quantization of each row of ``x`` (R, N) fp32
+    or bf16, every row edge-padded to whole chunks of its own; returns
+    (q (R, NC, chunk) uint8, scale (R, NC), lo (R, NC))."""
+    if x.device.type == "cpu":
+        return ref.torch_int8_quantize(x, chunk)
+    return quantize.int8_quantize(x.contiguous(), chunk)
+
+
+def int8_dequantize(q: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor, n: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`int8_quantize`: the first ``n`` values of each row,
+    q·scale + lo rounded once, in ``dtype``; returns (R, n)."""
+    if q.device.type == "cpu":
+        return ref.torch_int8_dequantize(q, scale, lo, n, dtype)
+    return quantize.int8_dequantize(q, scale.contiguous(), lo.contiguous(), n, dtype)

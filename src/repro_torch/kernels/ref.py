@@ -5,7 +5,9 @@ arithmetic of the JAX package's ``repro/kernels/ref.py`` twins: for the
 attention kernels a -1e30 mask (not -inf) and a softmax normalised by
 ``max(l, 1e-30)``, the paged ones over a dense gather of each slot's K/V
 through its block table; the flash backward recomputes the softmax from the
-saved log-sum-exp.  :mod:`repro_torch.kernels.ops`
+saved log-sum-exp; the int8 codec pair with the arithmetic XLA gives the
+jitted reference (a product with f32(1/255) for the scale, one rounding for
+the dequantize).  :mod:`repro_torch.kernels.ops`
 runs them for tensors on the CPU; the tests and ``chip_smoke.py`` hold the
 kernels against them.
 """
@@ -220,3 +222,92 @@ def torch_noloco_update(
     p = phi.float()
     new_delta = alpha * delta_mom.float() + beta * mean_delta.float() - gamma * (p - mean_phi.float())
     return (p + new_delta).to(phi.dtype), new_delta.to(delta_mom.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 per-chunk affine codec
+# ---------------------------------------------------------------------------
+
+# f32(1/255).  Under ``jit`` XLA turns the reference's ``(max − lo) / 255.0``
+# into a product with this reciprocal, and that is what the training path
+# runs; a true division differs in some scales.
+INV255 = float.fromhex("0x1.010102p-8")
+_BLOCK_ELEMS = 1 << 24   # elements per pass of the plain versions, to bound their temporaries
+
+
+def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(rows, CHUNK) fp32 → (q uint8, safe scale fp32, lo fp32), one chunk per row."""
+    lo = x.amin(dim=1)
+    scale = (x.amax(dim=1) - lo) * torch.tensor(INV255, dtype=torch.float32, device=x.device)
+    safe = torch.where(scale > 0.0, scale, torch.ones_like(scale))
+    q = torch.round((x - lo[:, None]) / safe[:, None]).clamp(0.0, 255.0)   # round half to even
+    return q.to(torch.uint8), safe, lo
+
+
+def torch_int8_quantize(x: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-chunk affine uint8 quantization of each row of ``x`` — the plain
+    version of :func:`repro_torch.kernels.quantize.int8_quantize`.
+
+    ``x`` (R, N) fp32 or bf16: each row is read as fp32, padded to
+    NC = ⌈N / chunk⌉ chunks by repeating its last value, and every chunk maps
+    to uint8 with lo = min, scale = (max − lo)·f32(1/255) (1 where that is
+    not > 0), q = clip(round_half_even((x − lo) / scale), 0, 255).  Returns
+    (q (R, NC, chunk) uint8, scale (R, NC) fp32, lo (R, NC) fp32): with
+    N = NC·chunk and R = 1 this is the JAX package's ``(NC, CHUNK)``
+    contract, bit for bit its jitted ``ref.jnp_int8_quantize``."""
+    rows, n = x.shape
+    nc = -(-n // chunk)
+    q = torch.empty((rows, nc, chunk), dtype=torch.uint8, device=x.device)
+    scale = torch.empty((rows, nc), dtype=torch.float32, device=x.device)
+    lo = torch.empty((rows, nc), dtype=torch.float32, device=x.device)
+    step = max(1, _BLOCK_ELEMS // chunk)
+    for r in range(rows):
+        for c0 in range(0, nc, step):
+            c1 = min(nc, c0 + step)
+            seg = x[r, c0 * chunk:min(c1 * chunk, n)].float()
+            pad = (c1 - c0) * chunk - seg.numel()
+            if pad:
+                seg = torch.cat([seg, seg[-1:].expand(pad)])
+            q[r, c0:c1], scale[r, c0:c1], lo[r, c0:c1] = _quantize_rows(seg.view(c1 - c0, chunk))
+    return q, scale, lo
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c in fp32 with ONE rounding, as XLA's fused multiply-add and
+    CUDA's ``__fmaf_rn`` give it; ``a`` holds integers of at most 8 bits.
+
+    a·b is exact in fp64 (8 + 24 significant bits).  The fp64 sum s is made
+    round-to-odd (when it is inexact and its last bit is even, move it one
+    ulp towards the exact value, whose residual ``err`` the TwoSum gives),
+    and rounding a round-to-odd fp64 value to fp32 is the correct rounding
+    of the exact sum (53 ≥ 24 + 2 bits).  A plain fp64 sum rounded to fp32
+    would round twice; an fp32 ``a * b + c`` rounds twice too, and
+    ``torch.addcmul`` is a single rounding on some builds only."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, math.inf), torch.full_like(s, -math.inf))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def torch_int8_dequantize(q: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor, n: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`torch_int8_quantize` — the plain version of
+    :func:`repro_torch.kernels.quantize.int8_dequantize`: q·scale + lo with
+    one rounding (the jitted reference's fused multiply-add), the first
+    ``n`` values of each row, cast to ``dtype`` (round to nearest even).
+    q (R, NC, chunk) uint8; scale, lo (R, NC) fp32 → (R, n)."""
+    rows, nc, chunk = q.shape
+    out = torch.empty((rows, n), dtype=dtype, device=q.device)
+    step = max(1, _BLOCK_ELEMS // chunk)
+    for r in range(rows):
+        for c0 in range(0, nc, step):
+            c1 = min(nc, c0 + step)
+            vals = _fma_f32(q[r, c0:c1].float(), scale[r, c0:c1, None], lo[r, c0:c1, None])
+            end = min(c1 * chunk, n)
+            out[r, c0 * chunk:end] = vals.reshape(-1)[:end - c0 * chunk].to(dtype)
+    return out

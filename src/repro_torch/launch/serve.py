@@ -2,19 +2,27 @@
 with paged attention in hand-written CUDA kernels on the card.
 
 Generates a synthetic mixed-length request load and serves it through
-:class:`repro_torch.serve.ServeEngine` on weights initialised from ``--seed``.
+:class:`repro_torch.serve.ServeEngine` on weights initialised from
+``--seed``, or on one replica promoted from a training checkpoint of either
+package (``--ckpt``, ``--step``, ``--replica``, ``--weights theta|phi``).
 Runs on CUDA unless ``--device cpu`` is given; with no GPU it raises.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --requests 8 --max-batch 4 --prompt-lens 24,80,200 --gen-lens 16,32
+
+    # replica 1's outer weights φ from the latest checkpoint under D:
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch paper-small-125m --ckpt D --replica 1 --weights phi
 
     # small config on the CPU (plain PyTorch attention):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 Without ``--full`` the architecture is cut by ``ModelConfig.reduced()`` to a
 two-layer fp32 smoke model; with it the published config is served in its
-own dtype.  The last stdout line is the run_end summary JSON, with the same
-keys as the JAX package's ``repro.launch.serve``.
+own dtype; a promoted checkpoint must have that config's shapes.  The last
+stdout line is the run_end summary JSON, with the same keys as the JAX
+package's ``repro.launch.serve`` (``promoted``: the resolved step, replica,
+source and world of a promoted checkpoint).
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.models import model as M
-from repro_torch.serve import Request, ServeConfig, ServeEngine
+from repro_torch.serve import Request, ServeConfig, ServeEngine, promote
 
 
 def synth_requests(
@@ -135,6 +143,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma-separated sampling temperatures, cycled (0=greedy)")
     ap.add_argument("--policy", default="continuous", choices=["continuous", "static"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="promote a training checkpoint from this directory")
+    ap.add_argument("--step", type=int, default=None,
+                    help="checkpoint step (default: latest)")
+    ap.add_argument("--replica", type=int, default=0,
+                    help="which NoLoCo replica to promote")
+    ap.add_argument("--weights", default="theta", choices=["theta", "phi"],
+                    help="promote the inner weights (theta) or outer anchor (phi)")
     ap.add_argument("--verify", action="store_true",
                     help="re-decode each request solo and assert exact match")
     ap.add_argument("--sync-each-step", action="store_true",
@@ -157,7 +173,12 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = registry.get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced(dtype="float32", remat=False)
-    params = M.init_params(torch.Generator(device=device).manual_seed(args.seed), cfg)
+    promo_info = None
+    if args.ckpt:
+        params, promo_info = promote(args.ckpt, cfg, step=args.step, replica=args.replica,
+                                     source=args.weights, device=device)
+    else:
+        params = M.init_params(torch.Generator(device=device).manual_seed(args.seed), cfg)
 
     jsonl = open(args.log_jsonl, "a") if args.log_jsonl else None
     try:
@@ -181,12 +202,15 @@ def main(argv: list[str] | None = None) -> dict:
         log({"event": "run_start", "arch": cfg.name, "policy": args.policy,
              "requests": args.requests, "max_batch": args.max_batch,
              "pages": args.pages, "page_size": args.page_size,
-             "prefill_chunk": args.prefill_chunk, "device": str(device)})
+             "prefill_chunk": args.prefill_chunk, "device": str(device),
+             "promoted": promo_info})
         summary = serve_run(
             params, cfg, scfg, requests, verify=args.verify, log=log,
             stream_every=args.stream_every,
         )
         summary["arch"] = cfg.name
+        if promo_info:
+            summary["promoted"] = promo_info
         summary["device"] = (
             torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         )

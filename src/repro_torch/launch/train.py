@@ -3,6 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-small-125m \
         --method noloco --replicas 4 --batch 4 --seq 1024 --steps 100
 
+    # int8 wire, checkpoints every 5 steps, then resume to step 20:
+    PYTHONPATH=src python -m repro_torch.launch.train --codec int8 \
+        --seq 1024 --inner-steps 5 --steps 10 --ckpt-dir D --ckpt-every 5
+    PYTHONPATH=src python -m repro_torch.launch.train --codec int8 \
+        --seq 1024 --inner-steps 5 --steps 20 --ckpt-dir D --resume
+
     # reduced config on the CPU (plain PyTorch attention and outer update):
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \
         --steps 20 --inner-steps 10 --seq 32 --batch 2 --eval-every 0
@@ -10,13 +16,15 @@
 Replicas are a stacked leading axis on one device.  The full NoLoCo machinery
 runs as in the paper: inner AdamW, the gossip outer step with random
 pairings, weight-std tracking.  ``--method`` selects noloco / diloco / fsdp
-(gradient mean every step) / none (independent runs).  On the card the
-attention forward and backward and the NoLoCo outer update run the
+(gradient mean every step) / none (independent runs); ``--codec`` the
+gossip wire (none, fp16, bf16, int8).  On the card the attention forward
+and backward, the NoLoCo outer update and the int8 codec run the
 hand-written CUDA kernels; ``--device`` defaults to ``cuda`` and raises
 without a GPU.  ``--reduced`` trains the smoke variant of the arch (two
 layers, fp32, no remat); without it the published config trains in its own
-dtype.  The last stdout line is the JSON summary of the JAX package's CLI
-plus ``device``.
+dtype.  Checkpoints (``--ckpt-dir``, ``--ckpt-every``, ``--resume``) are in
+the JAX package's format: either package resumes the other's.  The last
+stdout line is the JSON summary of the JAX package's CLI plus ``device``.
 """
 
 from __future__ import annotations
@@ -107,13 +115,12 @@ def run_training(
     ``partners``, the partner table of every NoLoCo outer step.
 
     ``total_steps`` fixes the LR-schedule horizon independently of
-    ``steps`` (default: equal).  ``device`` is ``cuda`` unless the caller
-    asks for the CPU; without a GPU the default raises.  Checkpointing
-    (``ckpt_dir``, ``ckpt_every``, ``resume``) is not ported yet and raises."""
-    if ckpt_dir or ckpt_every or resume:
-        raise NotImplementedError(
-            "checkpoint and resume are not ported yet (ROADMAP Queue 1 item 7)"
-        )
+    ``steps`` (default: equal); runs that will be interrupted and resumed
+    must pin it.  ``resume`` restores the latest checkpoint under
+    ``ckpt_dir`` (θ/φ/δ/AdamW/step counters; the loader is fast-forwarded),
+    ``ckpt_every`` saves every N steps (0: only at the end).  ``device`` is
+    ``cuda`` unless the caller asks for the CPU; without a GPU the default
+    raises."""
     dev = resolve_device(device)
     horizon = total_steps or steps
     tcfg = method_config(
@@ -127,7 +134,8 @@ def run_training(
         program,
         LoaderConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                      per_replica_batch=per_replica_batch, replicas=replicas, seed=seed),
-        LoopConfig(steps=steps, eval_every=eval_every, log_jsonl=log_jsonl, log=log,
+        LoopConfig(steps=steps, eval_every=eval_every, seed=seed, ckpt_dir=ckpt_dir,
+                   ckpt_every=ckpt_every, resume=resume, log_jsonl=log_jsonl, log=log,
                    run_name=f"{cfg.name}-{method}"),
         n_eval=eval_batches,
     )
@@ -149,7 +157,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--inner-steps", type=int, default=None)
     ap.add_argument("--codec", default="none", choices=["none", "fp16", "bf16", "int8"],
-                    help="gossip wire codec (only none is ported yet)")
+                    help="gossip wire codec")
     ap.add_argument("--no-fuse", action="store_true",
                     help="per-leaf exchange instead of one fused buffer per dtype")
     ap.add_argument("--stream-count", type=int, default=1,
@@ -159,9 +167,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--ckpt-dir", default=None, help="checkpointing (not ported yet)")
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (the JAX package's format)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save every N steps (0: only a final save)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint under --ckpt-dir")
     ap.add_argument("--log-jsonl", default=None,
                     help="append one JSON telemetry event per line to this file")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],

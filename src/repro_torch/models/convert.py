@@ -11,7 +11,11 @@ shape are checked against what the port's own ``init_params`` makes for
 ``train_state_from_jax_numpy`` does the same for the stacked trainer's
 whole state (θ, AdamW μ/ν/count, φ, δ and the two step counters), given as
 the JAX ``GossipProgram.state_pytree`` tree with numpy leaves, so both
-packages can continue training from one point.
+packages can continue training from one point; ``train_state_to_numpy`` is
+its inverse, the tree a checkpoint holds.  Host leaves are numpy arrays,
+except bfloat16 ones, which numpy holds only through ``ml_dtypes`` (a JAX
+dependency the port does without): those are CPU tensors.  Both loaders
+take either.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import torch_dtype
+from repro_torch.tree import tree_map
 
 PyTree = Any
 
@@ -30,6 +35,8 @@ FP32_LEAVES = {"scale", "bias", "q_norm", "k_norm"}
 
 
 def _to_tensor(arr, device, dtype) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().to(device=device, dtype=dtype, copy=True)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
@@ -109,11 +116,10 @@ def _load(tree: PyTree, cfg, device, dtype: torch.dtype, lead: tuple[int, ...] =
             if src is not None:
                 raise ValueError(f"{path}: expected None")
             return None
-        arr = np.asarray(src)
-        if tuple(arr.shape) != lead + tuple(shape):
-            raise ValueError(f"{path}: shape {arr.shape} != expected {lead + tuple(shape)}")
+        if tuple(src.shape) != lead + tuple(shape):
+            raise ValueError(f"{path}: shape {tuple(src.shape)} != expected {lead + tuple(shape)}")
         leaf = path.rsplit("/", 1)[-1]
-        return _to_tensor(arr, device, torch.float32 if fp32 or leaf in FP32_LEAVES else dtype)
+        return _to_tensor(src, device, torch.float32 if fp32 or leaf in FP32_LEAVES else dtype)
 
     return walk(tree, expected_shapes(cfg), "")
 
@@ -130,7 +136,7 @@ def train_state_from_jax_numpy(tree: dict, cfg, device="cpu", dtype: torch.dtype
     from repro_torch.optim import AdamWState
 
     dtype = dtype or torch_dtype(cfg.dtype)
-    count = np.asarray(tree["opt"]["count"])
+    count = _host(tree["opt"]["count"])
     lead = (count.shape[0],)
     params = lambda t, fp32=False: _load(t, cfg, device, dtype, lead, fp32)
     return TrainState(
@@ -147,3 +153,37 @@ def train_state_from_jax_numpy(tree: dict, cfg, device="cpu", dtype: torch.dtype
         ),
         inner_step=int(tree["inner_step"]),
     )
+
+
+def _host(leaf) -> np.ndarray:
+    """A numpy array of an integer or bool leaf given as numpy or torch."""
+    return leaf.cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+
+
+def to_host(t: torch.Tensor):
+    """A tensor as a host array: numpy, or a CPU tensor for bfloat16."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def train_state_to_numpy(state) -> dict:
+    """The JAX ``GossipProgram.state_pytree`` tree of a port
+    :class:`~repro_torch.core.noloco.TrainState`, with host leaves (see the
+    module docstring): ``{"theta", "opt": {"mu", "nu", "count"}, "outer":
+    {"phi", "delta", "step"}, "inner_step", "membership": {"mask", "epoch",
+    "partition"}}``, parameter dicts in sorted key order, the step counters
+    int32 scalars as JAX writes them, and the full membership of
+    ``repro/core/elastic.py``'s ``state_dict`` (every replica active, epoch
+    0, no partition)."""
+    params = lambda t: tree_map(to_host, t)
+    world = int(state.opt.count.shape[0])
+    return {
+        "theta": params(state.theta),
+        "opt": {"mu": params(state.opt.mu), "nu": params(state.opt.nu),
+                "count": state.opt.count.detach().cpu().to(torch.int32).numpy()},
+        "outer": {"phi": params(state.outer.phi), "delta": params(state.outer.delta),
+                  "step": np.int32(state.outer.step)},
+        "inner_step": np.int32(state.inner_step),
+        "membership": {"mask": np.ones((world,), dtype=bool), "epoch": np.int64(0),
+                       "partition": np.full((world,), -1, dtype=np.int64)},
+    }

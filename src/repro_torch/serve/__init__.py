@@ -1,7 +1,9 @@
-"""Serving: continuous batching over a paged KV cache."""
+"""Serving: continuous batching over a paged KV cache, and promotion of a
+training checkpoint's replica to the served model."""
 
 from repro_torch.serve.engine import FinishedRequest, Request, ServeConfig, ServeEngine
 from repro_torch.serve.paged import BlockAllocator, Lease
+from repro_torch.serve.promote import promote, resolve_replica
 
 __all__ = [
     "BlockAllocator",
@@ -10,4 +12,6 @@ __all__ = [
     "Request",
     "ServeConfig",
     "ServeEngine",
+    "promote",
+    "resolve_replica",
 ]

@@ -7,7 +7,10 @@ the port's initialisation from ``seed`` drawn on the CPU generator and then
 moved to the device, so a card run and a CPU run of the same config start
 from the same point.  Membership is always full: the elastic context,
 streaming, the φ-prefetch overlap and asynchronous rounds come with ROADMAP
-Queue 1 item 10 and raise until then.
+Queue 1 item 10 and raise until then.  The checkpoint view of the state is
+the JAX ``GossipProgram.state_pytree`` layout (:func:`repro_torch.models.
+convert.train_state_to_numpy`), so a JAX checkpoint resumes here and this
+program's restore in JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from repro_torch.comm import bytes_model
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import pairing as pairing_lib
 from repro_torch.core.noloco import GossipTrainer, TrainerConfig, TrainState
+from repro_torch.models import convert
 from repro_torch.models import model as model_api
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_map
@@ -96,6 +100,30 @@ class GossipProgram:
         if self.replicas < 2:
             return 0.0
         return float(metrics_lib.replica_weight_std(state.theta))
+
+    def state_pytree(self, state: TrainState) -> dict:
+        return convert.train_state_to_numpy(state)
+
+    def load_state_pytree(self, state: TrainState, tree: dict) -> TrainState:
+        """The state of a checkpoint in the JAX layout.  Only full
+        membership is ported: a saved membership with a dropped replica or
+        a partition, or in-flight streaming state, raises."""
+        mem = tree.get("membership")
+        if mem is not None:
+            mask = np.asarray(mem["mask"], dtype=bool)
+            if mask.shape != (self.replicas,):
+                raise ValueError(f"checkpoint holds {mask.shape[0]} replicas, this run {self.replicas}")
+            if not mask.all() or (np.asarray(mem["partition"]) >= 0).any():
+                raise NotImplementedError(
+                    "the checkpoint's membership has dropped replicas or a partition; elastic "
+                    "membership is not ported yet (ROADMAP Queue 1 item 10)"
+                )
+        if "stream" in tree:
+            raise NotImplementedError(
+                "the checkpoint holds streaming outer-step state; streaming is not ported "
+                "yet (ROADMAP Queue 1 item 10)"
+            )
+        return convert.train_state_from_jax_numpy(tree, self.cfg, device=self.device)
 
     def comm_cost(self):
         method = self.tcfg.outer.method

@@ -3,10 +3,13 @@
 Owns the runtime-agnostic half of training: the step loop with its eval
 cadence, wall-clock and tokens/s accounting, comm-bytes accounting from
 :mod:`repro_torch.comm.bytes_model` (per outer sync: payload and blocking
-bytes), and the JSONL telemetry stream with the JAX package's schema
-(``run_start`` / ``step`` / ``outer`` / ``eval`` / ``run_end``, one JSON
-object per line) and the same run summary.  Checkpoint and resume come with
-the checkpoint reader (ROADMAP Queue 1 item 7).
+bytes), the JSONL telemetry stream with the JAX package's schema
+(``run_start`` / ``step`` / ``outer`` / ``eval`` / ``ckpt`` / ``run_end``,
+one JSON object per line) and the same run summary, and periodic
+checkpoints with full resume: the program's state (``TrainProgram.
+state_pytree``) and the loop's step cursor, in the JAX package's layout, the
+data loader fast-forwarded with ``make_loader(start_step)``.  A resumed run
+continues the uninterrupted trajectory exactly.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Any, Callable, Iterator
 
 import numpy as np
 
+from repro_torch import checkpoint as ckpt_lib
 from repro_torch.train.program import TrainProgram
 
 __all__ = ["LoopConfig", "TrainLoop", "make_loop"]
@@ -29,6 +33,11 @@ class LoopConfig:
 
     steps: int
     eval_every: int = 0         # 0: never evaluate mid-run
+    seed: int = 0               # names the run's PRNG keys in the checkpoint
+    ckpt_dir: str | None = None
+    ckpt_every: int = 0         # 0: only the final save (when ckpt_dir set)
+    ckpt_keep: int = 3          # retained checkpoints
+    resume: bool = False        # restore from the latest checkpoint under ckpt_dir
     log_jsonl: str | None = None  # telemetry stream path (appended)
     log: bool = False           # human-readable progress prints
     run_name: str = "train"     # tag in telemetry events
@@ -55,6 +64,37 @@ class TrainLoop:
         self._jsonl.write(json.dumps({"event": event, "run": self.cfg.run_name, **fields}) + "\n")
         self._jsonl.flush()
 
+    def _keys(self) -> dict:
+        """The loop's PRNG keys as the JAX package's legacy
+        ``jax.random.PRNGKey`` holds them (uint32 ``[0, seed]``).  The
+        port's steps draw nothing from them; they ride in the checkpoint so
+        that the JAX package's ``restore`` finds them."""
+        return {"train_key": np.array([0, self.cfg.seed + 1], dtype=np.uint32),
+                "eval_key": np.array([0, self.cfg.seed + 777], dtype=np.uint32)}
+
+    def _save(self, step: int, state, keys: dict) -> str:
+        t0 = time.time()
+        tree = {"program": self.program.state_pytree(state),
+                "loop": {"step": np.int64(step), **keys}}
+        path = ckpt_lib.save(self.cfg.ckpt_dir, step, tree, keep=self.cfg.ckpt_keep)
+        self._emit("ckpt", step=step, path=path, seconds=round(time.time() - t0, 6))
+        return path
+
+    def _try_resume(self, state):
+        """(state, start_step, keys): restored from the latest checkpoint
+        when ``resume`` is set and one exists."""
+        cfg = self.cfg
+        keys = self._keys()
+        if not (cfg.resume and cfg.ckpt_dir):
+            return state, 0, keys
+        step = ckpt_lib.latest_step(cfg.ckpt_dir)
+        if step is None:
+            return state, 0, keys
+        tree = ckpt_lib.restore(cfg.ckpt_dir, step)
+        state = self.program.load_state_pytree(state, tree["program"])
+        keys = {k: np.asarray(tree["loop"][k]) for k in keys}
+        return state, int(tree["loop"]["step"]), keys
+
     def run(self) -> dict[str, Any]:
         cfg = self.cfg
         if cfg.log_jsonl:
@@ -69,14 +109,15 @@ class TrainLoop:
     def _run(self) -> dict[str, Any]:
         cfg = self.cfg
         # the example batch comes from a throwaway iterator, so training
-        # consumes the stream from step 0 on
+        # consumes the stream from start_step on
         state = self.program.init_state(next(self.make_loader(0)))
-        loader = self.make_loader(0)
+        state, start_step, keys = self._try_resume(state)
+        loader = self.make_loader(start_step)
         cost = self.program.comm_cost()
         epoch = getattr(self.program, "membership_epoch", None)
         self._emit(
             "run_start", program=type(self.program).__name__, replicas=self.program.replicas,
-            steps=cfg.steps, start_step=0, resumed=False,
+            steps=cfg.steps, start_step=start_step, resumed=start_step > 0,
             comm=cost.as_dict() if cost else None,
         )
         losses: list[float] = []
@@ -84,7 +125,7 @@ class TrainLoop:
         weight_stds: list[tuple[int, float]] = []
         outer_syncs = comm_bytes = blocking_bytes = total_tokens = 0
         t0 = time.time()
-        for t in range(cfg.steps):
+        for t in range(start_step, cfg.steps):
             batch = next(loader)
             step_t0 = time.time()
             state, metrics = self.program.inner_step(state, batch)
@@ -114,10 +155,15 @@ class TrainLoop:
                 if cfg.log:
                     print(f"step {t+1}: train={loss:.4f} eval={ev:.4f} "
                           f"wstd={wstd:.6f} ({time.time()-t0:.0f}s)", flush=True)
+            if cfg.ckpt_dir and cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
+                self._save(t + 1, state, keys)
         wall = time.time() - t0
+        already_saved = cfg.ckpt_every and cfg.steps % cfg.ckpt_every == 0
+        if cfg.ckpt_dir and cfg.steps > start_step and not already_saved:
+            self._save(cfg.steps, state, keys)
         summary = {
-            "steps_run": cfg.steps,
-            "start_step": 0,
+            "steps_run": cfg.steps - start_step,
+            "start_step": start_step,
             "wall_s": wall,
             "tokens_per_s": total_tokens / max(wall, 1e-9),
             "outer_syncs": outer_syncs,

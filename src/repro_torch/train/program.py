@@ -7,8 +7,9 @@ owns the step loop, eval cadence, throughput and comm-bytes accounting and
 the JSONL telemetry.  Batches arrive stacked: numpy ``{tokens, labels}`` of
 shape ``(replicas, per_replica_batch, seq)`` from :func:`repro_torch.data.
 shard_iterator`.  The JAX package's loss draws nothing from its PRNG keys,
-so the port's steps take none.  Checkpointing comes with the checkpoint
-reader (ROADMAP Queue 1 item 7).
+so the port's steps take none.  ``state_pytree`` / ``load_state_pytree``
+give the checkpoint view of the state in the JAX package's layout, so a
+checkpoint of either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -46,6 +47,15 @@ class TrainProgram(Protocol):
 
     def weight_std(self, state: Any) -> float:
         """Cross-replica weight std (paper Fig. 3B / Fig. 4A diagnostic)."""
+        ...
+
+    def state_pytree(self, state: Any) -> Any:
+        """The state as a tree of host arrays for a checkpoint."""
+        ...
+
+    def load_state_pytree(self, state: Any, tree: Any) -> Any:
+        """The state restored from a checkpoint tree; ``state`` is a freshly
+        initialised state of the same run."""
         ...
 
     def comm_cost(self) -> CommCost | None:

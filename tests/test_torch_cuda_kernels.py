@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: paged
-attention (decode and chunk), flash attention (forward and backward) and the
-fused NoLoCo outer update.  Every test here needs a CUDA device and ``nvcc`` and skips
+attention (decode and chunk), flash attention (forward and backward), the
+fused NoLoCo outer update and the int8 codec pair.  Every test here needs a CUDA device and ``nvcc`` and skips
 elsewhere; on a machine with the card run them with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -10,14 +10,16 @@ PyTorch is installed.  Tolerances: fp32 atol 1e-4 (the kernel and the plain
 version sum in different orders); bf16 atol 2e-2, from rounding the output
 to bf16 (values are O(1), one bf16 ulp there is 2**-7); bf16 gradients of
 flash attention also get rtol 2e-2, since dK/dV sum over every query row and
-grow with it while bf16 rounding is relative.  The outer update is exact:
-both versions round the same fp32 operations once to the dtype.
+grow with it while bf16 rounding is relative.  The outer update and the
+int8 pair are exact: both versions round the same fp32 operations once.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import dispatch, flash_attention, noloco_update, ops, paged_attention, ref
+from repro_torch.kernels import (
+    dispatch, flash_attention, noloco_update, ops, paged_attention, quantize, ref,
+)
 
 CASES = [(4, 4, "causal", 0), (4, 2, "causal", 0), (4, 1, "local", 5), (6, 4, "causal", 0),
          (16, 8, "causal", 0), (16, 8, "local", 7)]
@@ -191,9 +193,91 @@ def test_registry_kernels_launch(cuda):
     q, k, v, do = _flash_inputs(2, 2, 40, 4, 2, 48, torch.bfloat16, cuda)
     o, lse = ref.torch_flash_attention_fwd(q, k, v)
     inputs["flash_attention_bwd"] = lambda: [q, k, v, o, lse, do]
+    x = torch.randn(2, 3000, device=cuda, dtype=torch.bfloat16)
+    inputs["int8_quantize"] = lambda: [x, 1024]
+    inputs["int8_dequantize"] = lambda: [*ref.torch_int8_quantize(x, 1024), 3000, torch.bfloat16]
     coef = dict(alpha=0.5, beta=0.7, gamma=0.9)
     dispatch.reset_launches()
     for name, op in dispatch.registry().items():
         op.kernel(*inputs[name](), **(coef if name == "noloco_update" else {}))
     torch.cuda.synchronize()
     assert dispatch.launch_counts() == {name: 1 for name in dispatch.registry()}
+
+
+def _payload(rows, n, chunk, dtype, device, seed=0):
+    """Rows whose chunks have magnitudes from 1e-30 to 1e4 and offsets of
+    their own size, the first chunk constant (scale 1)."""
+    rng = np.random.default_rng(seed)
+    mag = 10.0 ** rng.uniform(-30, 4, size=(rows, n // chunk + 1)).repeat(chunk, axis=1)[:, :n]
+    x = (rng.normal(size=(rows, n)) + rng.normal(size=(rows, n // chunk + 1)).repeat(
+        chunk, axis=1)[:, :n]) * mag
+    x[:, :min(chunk, n)] = 3.25
+    return torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,n,chunk", [(1, 8 * 1024, 1024), (4, 5 * 1024 + 17, 1024),
+                                          (3, 1000, 7), (2, 9001, 3000), (1, 5, 1024)])
+def test_int8_pair_matches_plain_bit_for_bit(cuda, dtype, rows, n, chunk):
+    """Whole and ragged rows (the tail chunk edge-padded), constant chunks,
+    chunks held in registers (<= 1024), read twice (3000) and a small odd
+    chunk; the dequantize reads the codes through the wire's row stride."""
+    x = _payload(rows, n, chunk, dtype, cuda, seed=n)
+    q, scale, lo = quantize.int8_quantize(x, chunk)
+    torch.cuda.synchronize()
+    want = ref.torch_int8_quantize(x, chunk)
+    for got, w in zip((q, scale, lo), want):
+        assert got.dtype == w.dtype and got.shape == w.shape
+        assert torch.equal(got, w)
+    nc = q.shape[1]
+    wire = torch.zeros((rows, nc * chunk + 13), dtype=torch.uint8, device=cuda)
+    wire[:, :nc * chunk] = q.reshape(rows, -1)
+    strided = wire[:, :nc * chunk].reshape(rows, nc, chunk)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = quantize.int8_dequantize(strided, scale, lo, n, out_dtype)
+        torch.cuda.synchronize()
+        w = ref.torch_int8_dequantize(q, scale, lo, n, out_dtype)
+        assert got.dtype == out_dtype and got.shape == (rows, n)
+        assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+def test_int8_nan_poisons_its_chunk_like_the_plain_version(cuda):
+    x = _payload(2, 4096, 1024, torch.float32, cuda, seed=3)
+    x[1, 2000] = float("nan")
+    q, scale, lo = quantize.int8_quantize(x, 1024)
+    want = ref.torch_int8_quantize(x, 1024)
+    for got, w in ((scale, want[1]), (lo, want[2])):
+        torch.testing.assert_close(got, w, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(lo[1, 1]) and torch.equal(q[0], want[0][0])
+    out = quantize.int8_dequantize(q, scale, lo, 4096, torch.float32)
+    torch.testing.assert_close(out, ref.torch_int8_dequantize(*want, 4096, torch.float32),
+                               rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(out[1, 1024:2048]).all() and not torch.isnan(out[1, :1024]).any()
+
+
+@pytest.mark.cuda
+def test_int8_ops_launch_the_kernels(cuda):
+    x = _payload(2, 3000, 1024, torch.float32, cuda)
+    before = (quantize.int8_quantize.launches, quantize.int8_dequantize.launches)
+    q, scale, lo = ops.int8_quantize(x, 1024)
+    out = ops.int8_dequantize(q, scale, lo, 3000, torch.float32)
+    torch.cuda.synchronize()
+    assert (quantize.int8_quantize.launches, quantize.int8_dequantize.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert (out - x).abs().max().item() <= 0.51 * scale.max().item()   # half a code
+
+
+@pytest.mark.cuda
+def test_int8_kernels_reject_bad_arguments(cuda):
+    x = torch.randn(2, 100, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        quantize.int8_quantize(x.half(), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize.int8_quantize(x.t(), 16)
+    q, scale, lo = quantize.int8_quantize(x, 16)
+    with pytest.raises(ValueError, match="does not fill"):
+        quantize.int8_dequantize(q, scale, lo, 50, torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        quantize.int8_dequantize(q.cpu(), scale, lo, 100, torch.float32)

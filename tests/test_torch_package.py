@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port.
 
-* Nothing under ``src/repro_torch`` nor ``chip_smoke.py`` imports JAX or
-  the JAX package: checked by parsing every source and by importing every
+* Nothing under ``src/repro_torch`` nor ``chip_smoke.py`` imports JAX, the
+  JAX package, ``msgpack`` or ``ml_dtypes`` (neither is known to be on the
+  card's machine): checked by parsing every source and by importing every
   module in a fresh interpreter.
 * Entry points run on CUDA unless asked for the CPU, and raise when there
   is no GPU rather than dropping to the CPU.
@@ -25,7 +26,7 @@ from repro_torch.launch import serve, train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "repro", "msgpack", "ml_dtypes"}
 
 
 def _sources():

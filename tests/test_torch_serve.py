@@ -287,3 +287,102 @@ def test_lease_reserve_commit_rollback():
     al.check_leaks(owned=2)
     al.free(kept)
     al.check_leaks()
+
+
+# ---------------------------------------------------------------------------
+# (e) train → serve promotion
+# ---------------------------------------------------------------------------
+
+
+def _gossip_checkpoint(path, jcfg, mask=(True, True, True, True), step=7):
+    """A JAX-written gossip checkpoint of the reduced model: 4 replicas whose
+    θ and φ differ, the given membership mask."""
+    from repro.checkpoint import ckpt as jckpt
+
+    rng = np.random.default_rng(5)
+    one = _jax_numpy_params(jcfg)
+    noise = lambda x, s: (x[None] + s * rng.normal(size=(4,) + x.shape)).astype(x.dtype)
+    tree = {"program": {
+        "theta": jax.tree.map(lambda x: noise(x, 0.02), one),
+        "outer": {"phi": jax.tree.map(lambda x: noise(x, 0.02), one),
+                  "delta": jax.tree.map(lambda x: noise(0 * x, 0.01), one), "step": np.int32(3)},
+        "inner_step": np.int32(step),
+        "membership": {"mask": np.array(mask), "epoch": np.int64(0 if all(mask) else 1),
+                       "partition": np.full(4, -1, np.int64)},
+    }, "loop": {"step": np.int64(step)}}
+    jckpt.save(str(path), step, tree)
+
+
+@pytest.mark.parametrize("replica,source", [(2, "theta"), (1, "phi"), (9, "phi")],
+                         ids=["theta", "frozen-phi", "out-of-range"])
+def test_promote_matches_jax(tmp_path, replica, source):
+    """Same weights, info and warnings as the JAX package's promote; replica
+    1 is frozen in the saved membership and falls back to replica 0."""
+    import warnings
+
+    from repro.serve.promote import promote as jax_promote
+    from repro_torch.serve import promote
+
+    jcfg, cfg = _configs("paper-small-125m")
+    _gossip_checkpoint(tmp_path, jcfg, mask=(True, False, True, True))
+    with warnings.catch_warnings(record=True) as jw:
+        warnings.simplefilter("always")
+        want, want_info = jax_promote(str(tmp_path), replica=replica, source=source)
+    with warnings.catch_warnings(record=True) as pw:
+        warnings.simplefilter("always")
+        got, info = promote(str(tmp_path), cfg, replica=replica, source=source)
+    assert info == want_info and info["replica"] == (2 if replica == 2 else 0)
+    assert [str(w.message) for w in pw] == [str(w.message) for w in jw]
+    assert len(pw) == (replica != 2)
+    for g, w in zip(_leaves(got), _leaves(want), strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_promote_rejects_what_cannot_be_served(tmp_path):
+    from repro.checkpoint import ckpt as jckpt
+    from repro_torch.serve import promote, resolve_replica
+
+    _, cfg = _configs("paper-small-125m")
+    jckpt.save(str(tmp_path / "pipe"), 1, {"program": {"params": [np.zeros(2)]}})
+    with pytest.raises(ValueError, match="pipeline"):
+        promote(str(tmp_path / "pipe"), cfg)
+    jckpt.save(str(tmp_path / "odd"), 1, {"program": {"weights": np.zeros(2)}})
+    with pytest.raises(ValueError, match="unrecognized checkpoint layout"):
+        promote(str(tmp_path / "odd"), cfg)
+    with pytest.raises(FileNotFoundError):
+        promote(str(tmp_path / "none"), cfg)
+    with pytest.raises(ValueError, match="source"):
+        promote(str(tmp_path / "odd"), cfg, source="delta")
+    assert resolve_replica(None, 3, 4) == 3
+
+
+def test_serve_cli_promoted_tokens_match_jax_cli(tmp_path, monkeypatch, capsys):
+    """``--ckpt D --replica 1 --weights phi`` on the reduced model: the port's
+    CLI on the CPU gives the JAX serve CLI's greedy tokens; a checkpoint
+    that does not fit the config names both."""
+    import json
+    import sys
+
+    from repro.launch import serve as jax_serve_cli
+    from repro_torch.launch import serve as serve_cli
+
+    jcfg, _ = _configs("paper-small-125m")
+    _gossip_checkpoint(tmp_path / "ck", jcfg)
+    args = ["--arch", "paper-small-125m", "--ckpt", str(tmp_path / "ck"), "--replica", "1",
+            "--weights", "phi", "--requests", "3", "--prompt-lens", "5,11", "--gen-lens", "4,6",
+            "--pages", "32", "--page-size", "4", "--prefill-chunk", "4"]
+    logs = {name: tmp_path / f"{name}.jsonl" for name in ("jax", "port")}
+    monkeypatch.setattr(sys, "argv", ["serve", *args, "--log-jsonl", str(logs["jax"])])
+    jax_serve_cli.main()
+    jax_summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    summary = serve_cli.main([*args, "--device", "cpu", "--log-jsonl", str(logs["port"])])
+    assert summary["promoted"] == jax_summary["promoted"] == {
+        "step": 7, "replica": 1, "source": "phi", "world": 4}
+
+    def tokens(path):
+        return {e["rid"]: e["tokens"] for e in map(json.loads, open(path)) if e["event"] == "finish"}
+
+    assert tokens(logs["port"]) == tokens(logs["jax"]) and len(tokens(logs["port"])) == 3
+    with pytest.raises(ValueError, match=r"does not fit paper-small-125m with 12 layers of "
+                                         r"d_model 768.*shape \(512, 256\) != expected \(128000, 768\)"):
+        serve_cli.main([*args, "--device", "cpu", "--full"])
