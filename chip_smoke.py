@@ -62,7 +62,26 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     and the restore of that state timed;
 12. promote replica 1's φ from that checkpoint and serve 4 greedy requests
     through ``repro_torch.launch.serve --ckpt`` on the card (paged kernels,
-    launch counts > 0) and on the CPU: identical tokens.
+    launch counts > 0) and on the CPU: identical tokens;
+13. (with phase 3) hold the recurrent families' kernels against their plain
+    versions: the SSD chunk kernel at the serve shape (Q 32, H 32, P 64,
+    N 128), at Q 16, 64 and 128 and on ragged chunks with dt = 0 pad rows;
+    the RG-LRU scan at (1, 32, 4096) and at widths and lengths that are no
+    multiple of 32; both decode steps at the serve shapes and ragged ones,
+    their states bit for bit; and the paged kernels at recurrentgemma-9b's
+    local layers (H 16, KV 1, D 256, window 2048) over contexts longer than
+    the window.  Then time the four kernels at the serve shapes and the two
+    scans also at the training slice's shapes, and the paged kernels at
+    recurrentgemma-9b's shape;
+14. serve mamba2-370m and then recurrentgemma-9b at published width in bf16
+    with the phase-4 mix, each model freed before the next: tokens/s, TTFT
+    and decode-step p50/p99, peak memory, every request's budget, batched
+    == solo, and launch counts equal to the design (per prefill chunk and
+    per decode step: one scan or decode step per recurrent layer, one paged
+    kernel per attention layer);
+15. both families' ``reduced()`` configs in fp32 on the card and on the CPU
+    from the same weights, prompts of 80 and 200 tokens (the reduced window
+    is 64): identical tokens, logits within 2e-3.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -87,9 +106,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
 from repro_torch.comm import CommConfig, bytes_model, payload  # noqa: E402
-from repro_torch.configs import paper_llama, qwen3_0_6b  # noqa: E402
+from repro_torch.configs import mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
-from repro_torch.kernels import build, dispatch  # noqa: E402
+from repro_torch.kernels import build, dispatch, ops  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve import serve_run, synth_requests  # noqa: E402
@@ -122,6 +141,11 @@ INT8 = ("int8_quantize", "int8_dequantize")
 PAYLOAD_BF16 = 366_477_312
 # The paper model's training shapes: 4 replicas × batch 4 folded into B.
 PAPER = dict(b=16, s=1024, h=16, kv=16, d=48)
+
+RECURRENT = ("ssd_chunk", "rglru_scan", "rglru_decode", "ssd_decode")
+# SSD chunk kernel against its plain version: fp32 sums of up to Q·N
+# products in another order.
+SSD_ATOL = SSD_RTOL = 1e-4
 
 H, KV, D, BS, R, C, WINDOW = 16, 8, 128, 16, 4, 32, 64
 NUM_PAGES = 128
@@ -416,16 +440,25 @@ def time_kernels(dev) -> dict[str, dict]:
 # ---------------------------------------------------------------------------
 
 
-def serve_phase(dev):
-    cfg = qwen3_0_6b.CONFIG
+SERVE_MIX = dict(n=8, prompt_lens=[24, 80, 200], gen_lens=[16, 32])
+
+
+def serve_phase(dev, cfg=qwen3_0_6b.CONFIG, expected=None):
+    """Serve ``cfg`` at published width on weights from seed 0 with the
+    phase-4 mix.  ``expected(chunk_calls, decode_steps)`` gives the launch
+    count of every kernel the model runs; without it the paged kernels must
+    have launched."""
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
     log(f"serve: {cfg.name} {cfg.num_layers}L d{cfg.d_model} {cfg.dtype} "
-        f"initialised in {time.perf_counter() - t0:.1f} s")
+        f"initialised in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of weights")
     scfg = ServeConfig(max_slots=4, num_pages=NUM_PAGES, page_size=BS, max_new_cap=32,
                        prefill_chunk=32, sync_each_step=True)
-    requests = synth_requests(8, cfg.vocab_size, [24, 80, 200], [16, 32], [0.0], seed=0)
+    requests = synth_requests(SERVE_MIX["n"], cfg.vocab_size, SERVE_MIX["prompt_lens"],
+                              SERVE_MIX["gen_lens"], [0.0], seed=0)
     # warm-up (CUDA context, cuBLAS handles, the kernel library), not counted
     ServeEngine(params, cfg, scfg).run([dataclasses.replace(requests[0], max_new=2)])
     torch.cuda.synchronize()
@@ -438,21 +471,31 @@ def serve_phase(dev):
     )
     torch.cuda.synchronize()
     launches = dispatch.launch_counts()
-    log("serve run_end: " + json.dumps(summary))
-    log("serve launches: " + json.dumps(launches))
+    summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"serve {cfg.name} run_end: " + json.dumps(summary))
+    log(f"serve {cfg.name} launches: " + json.dumps(launches))
     for r in requests:
         if len(finished.get(r.rid, [])) != r.max_new:
             raise AssertionError(f"request {r.rid}: {len(finished.get(r.rid, []))} of {r.max_new} tokens")
-    for name in PAGED:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the serve path")
+    if expected is None:
+        for name in PAGED:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the serve path")
+    else:
+        chunk_calls = sum(-(-len(r.prompt) // scfg.prefill_chunk) for r in requests)
+        want = expected(chunk_calls, summary["decode_steps"])
+        log(f"serve {cfg.name} launches expected ({chunk_calls} chunk calls, "
+            f"{summary['decode_steps']} decode steps): " + json.dumps(want))
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"{cfg.name}: launch counts {launches} differ from the design's {want}")
     for r in (requests[1], requests[5]):
         [solo] = ServeEngine(params, cfg, scfg).run([dataclasses.replace(r)])
         if solo.tokens != finished[r.rid]:
-            raise AssertionError(f"request {r.rid}: batched tokens differ from solo")
-    log("serve: batched == solo for requests 1 and 5")
+            raise AssertionError(f"{cfg.name} request {r.rid}: batched tokens differ from solo")
+    log(f"serve {cfg.name}: batched == solo for requests 1 and 5")
     short = dataclasses.replace(requests[0], max_new=8)   # 1 prefill chunk, 7 decode steps
-    log("profile: " + json.dumps(profile_request(params, cfg, scfg, short)))
+    summary["profile"] = profile_request(params, cfg, scfg, short)
+    log(f"profile {cfg.name}: " + json.dumps(summary["profile"]))
     del params
     torch.cuda.empty_cache()
     return summary, launches
@@ -475,12 +518,16 @@ def profile_request(params, cfg, scfg, request) -> dict:
     busy_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3
     attn_ms = sum(e.time_range.elapsed_us() for e in on_card
                   if "paged_attention_kernel" in e.name) / 1e3
+    recurrent_ms = sum(e.time_range.elapsed_us() for e in on_card
+                       if any(k in e.name for k in ("ssd_chunk_kernel", "rglru_scan_kernel",
+                                                     "rglru_decode_kernel", "ssd_decode_kernel"))) / 1e3
     return {
         "rid": request.rid, "prompt": len(request.prompt), "max_new": request.max_new,
         "decode_steps": engine.decode_steps, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if on_card else "not measured",
         "device_idle_share": 1 - busy_ms / wall_ms if on_card else "not measured",
-        "paged_attention_ms": attn_ms, "device_ops": len(on_card),
+        "paged_attention_ms": attn_ms, "recurrent_kernels_ms": recurrent_ms,
+        "device_ops": len(on_card),
     }
 
 
@@ -942,6 +989,283 @@ def promote_serve_phase(dev, ckpt_dir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 13–15: the recurrent families
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunk_inputs(gen, b, nc, q, h, p, n, pad=0):
+    """x, dt (softplus, exactly 0 on the last ``pad`` rows of the last chunk),
+    a in [−16, −1], B, C, fp32: the distributions of mamba2's layers."""
+    dev = gen.device
+    x = torch.randn((b, nc, q, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, nc, q, h), generator=gen, device=dev) - 2.0)
+    if pad:
+        dt[:, -1, q - pad:] = 0.0
+    a = -torch.exp(torch.rand((h,), generator=gen, device=dev) * math.log(16.0))
+    bm = torch.randn((b, nc, q, n), generator=gen, device=dev)
+    cm = torch.randn((b, nc, q, n), generator=gen, device=dev)
+    return [x, dt, a, bm, cm]
+
+
+def rglru_inputs(gen, *shape):
+    dev = gen.device
+    a = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)) * 0.5 + 0.45
+    return [a, torch.randn(shape, generator=gen, device=dev)]
+
+
+def ssd_decode_inputs(gen, r, hp, n):
+    dev = gen.device
+    state = torch.randn((r, hp, n), generator=gen, device=dev)
+    decay = torch.exp(-torch.rand((r, hp), generator=gen, device=dev))
+    dtx = torch.randn((r, hp), generator=gen, device=dev)
+    b, c = (torch.randn((r, n), generator=gen, device=dev) for _ in range(2))
+    return [state, decay, dtx, b, c]
+
+
+def long_context_inputs(gen, *, chunk, dtype, positions, h=16, kv=1, d=256):
+    """recurrentgemma-9b's local layers: MQA, 16 heads of 256, each slot's
+    pages in a random order and contexts past the 2,048-token window."""
+    dev = gen.device
+    c = C if chunk else 1
+    need = [(p + c - 1) // BS + 1 for p in positions]
+    pages = sum(need) + 3
+    perm = torch.randperm(pages, generator=gen, device=dev).to(torch.int32)
+    tables = torch.full((len(positions), max(need) + 2), pages, dtype=torch.int32, device=dev)
+    start = 0
+    for i, n_i in enumerate(need):
+        tables[i, :n_i] = perm[start:start + n_i]
+        start += n_i
+    qshape = (len(positions), c, h, d) if chunk else (len(positions), h, d)
+    q = torch.randn(qshape, generator=gen, device=dev).to(dtype)
+    kp = torch.randn((pages + 1, BS, kv, d), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((pages + 1, BS, kv, d), generator=gen, device=dev).to(dtype)
+    return [q, kp, vp, tables, torch.tensor(positions, dtype=torch.int32, device=dev)]
+
+
+def check_recurrent_kernels(dev) -> dict[str, float]:
+    """The four recurrent kernels against their plain versions (the decode
+    states and the RG-LRU scan bit for bit), each slot's decode row equal to
+    its solo run, and the paged kernels at recurrentgemma-9b's shape."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    reg = dispatch.registry()
+    errors = {name: 0.0 for name in (*RECURRENT, *PAGED)}
+    # SSD chunk: the serve shape, Q 16 (reduced), 64 and 128 (training), ragged
+    for case, pad in (((1, 1, 32, 32, 64, 128), 0), ((1, 1, 32, 32, 64, 128), 7),
+                      ((2, 3, 16, 8, 64, 32), 5), ((2, 2, 64, 4, 64, 128), 0),
+                      ((2, 2, 128, 4, 64, 128), 37), ((1, 3, 50, 3, 33, 17), 11)):
+        args = ssd_chunk_inputs(gen, *case, pad=pad)
+        got = reg["ssd_chunk"].kernel(*args)
+        torch.cuda.synchronize()
+        want = reg["ssd_chunk"].plain(*args)
+        res = [_close(g, w, SSD_ATOL, SSD_RTOL, n) for g, w, n in zip(got, want, ("y", "states"))]
+        err = max(e for e, _ in res)
+        errors["ssd_chunk"] = max(errors["ssd_chunk"], err)
+        if pad:   # pad rows add exact zeros, whatever their x, B and C
+            noisy = [t.clone() for t in args]
+            for i in (0, 3, 4):
+                noisy[i][:, -1, case[2] - pad:] = 1e3 * torch.randn_like(noisy[i][:, -1, case[2] - pad:])
+            y2, st2 = reg["ssd_chunk"].kernel(*noisy)
+            q_ok = case[2] - pad
+            if not (torch.equal(st2, got[1]) and torch.equal(y2[:, -1, :q_ok], got[0][:, -1, :q_ok])):
+                raise AssertionError(f"ssd_chunk {case}: dt = 0 pad rows changed the result")
+        log(f"check ssd_chunk B,NC,Q,H,P,N={case} pad {pad}: max_abs_err {err:.3e} "
+            f"(atol {SSD_ATOL:g}, rtol {SSD_RTOL:g}) {'ok' if all(o for _, o in res) else 'FAIL'}")
+        if not all(o for _, o in res):
+            raise AssertionError("ssd_chunk disagrees with its plain version")
+    for shape in ((1, 32, 4096), (2, 37, 130), (3, 5, 33), (16, 300, 1000)):
+        args = rglru_inputs(gen, *shape)
+        got = reg["rglru_scan"].kernel(*args)
+        torch.cuda.synchronize()
+        want = reg["rglru_scan"].plain(*args)
+        err = (got - want).abs().max().item()
+        errors["rglru_scan"] = max(errors["rglru_scan"], err)
+        log(f"check rglru_scan {shape}: max_abs_err {err:.3e} (bit-identical: {torch.equal(got, want)})")
+        if not torch.equal(got, want):
+            raise AssertionError("rglru_scan differs from its sequential plain version")
+    for r, w in ((4, 4096), (3, 130), (1, 7), (5, 257)):
+        h, a, b = (torch.randn((r, w), generator=gen, device=dev) for _ in range(3))
+        got = reg["rglru_decode"].kernel(h, a, b)
+        solo = reg["rglru_decode"].kernel(h[-1:].contiguous(), a[-1:].contiguous(), b[-1:].contiguous())
+        torch.cuda.synchronize()
+        want = reg["rglru_decode"].plain(h, a, b)
+        err = (got - want).abs().max().item()
+        errors["rglru_decode"] = max(errors["rglru_decode"], err)
+        log(f"check rglru_decode ({r}, {w}): max_abs_err {err:.3e} (bit-identical)")
+        if not (torch.equal(got, want) and torch.equal(solo[0], got[-1])):
+            raise AssertionError("rglru_decode differs from its plain version or its solo row")
+    for r, hp, n in ((4, 2048, 128), (3, 70, 16), (1, 5, 33), (2, 64, 300)):
+        args = ssd_decode_inputs(gen, r, hp, n)
+        st, y = reg["ssd_decode"].kernel(*args)
+        solo = reg["ssd_decode"].kernel(*(t[-1:].contiguous() for t in args))
+        torch.cuda.synchronize()
+        wst, wy = reg["ssd_decode"].plain(*args)
+        # y: an N-term sum in another order, within 1e-5 of Σ|state′·c|
+        tol = 1e-5 * torch.einsum("rkn,rn->rk", wst.abs(), args[4].abs())
+        err = max((st - wst).abs().max().item(), (y - wy).abs().max().item())
+        errors["ssd_decode"] = max(errors["ssd_decode"], err)
+        ok = (torch.equal(st, wst) and bool(((y - wy).abs() <= tol).all())
+              and torch.equal(solo[0][0], st[-1]) and torch.equal(solo[1][0], y[-1]))
+        log(f"check ssd_decode ({r}, {hp}, {n}): state bit-identical, y max_abs_err "
+            f"{(y - wy).abs().max().item():.3e} (within 1e-5·Σ|state′·c|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("ssd_decode disagrees with its plain version or its solo row")
+    for name in PAGED:
+        op = reg[name]
+        chunk = name == "paged_chunk_attention"
+        for dtype in (torch.bfloat16, torch.float32):
+            for mode, window in (("local", 2048), ("causal", 0)):
+                args = long_context_inputs(gen, chunk=chunk, dtype=dtype, positions=[3000, 2100, 700])
+                got = op.kernel(*args, mode=mode, window=window)
+                torch.cuda.synchronize()
+                want = op.plain(*args, mode=mode, window=window)
+                err, ok = _close(got, want, ATOL[dtype], 0, name)
+                errors[name] = max(errors[name], err)
+                log(f"check {name} {str(dtype)[6:]} {mode} H16/KV1 D256 window {window} "
+                    f"positions [3000, 2100, 700]: max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} disagrees with its plain version at D 256")
+    return errors
+
+
+def ssd_chunk_work(b, nc, q, h, p, n):
+    """(bytes, fp32 operations) of the SSD chunk function: x, dt, a, B, C
+    read once, y and the states written once; C Bᵀ once per chunk (ngroups
+    1) and, per head, the causal y product and the state product, two
+    operations per multiply-add."""
+    elems = 2 * b * nc * q * h * p + b * nc * q * h + h + 2 * b * nc * q * n + b * nc * h * n * p
+    pairs = q * (q + 1) // 2
+    ops_ = 2 * b * nc * (pairs * n + h * (pairs * p + q * n * p))
+    return 4 * elems, ops_
+
+
+def _timing(op, args, nbytes, flops, shape, reps=100, plain_reps=20, library=None):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    ms, mhz = cuda_ms(lambda: op.kernel(*args), reps=reps)
+    return {"ms": ms, "plain_ms": cuda_ms(lambda: op.plain(*args), reps=plain_reps)[0],
+            "library_ms": None if library is None else cuda_ms(library, reps=reps)[0],
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "sm_clock_mhz": mhz, "shape": shape}
+
+
+def time_recurrent_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
+    """Kernel, plain and library times of the four kernels at the serve
+    shapes (mamba2-370m: one chunk of 32, 32 heads of 64, N 128, 4 decode
+    slots; recurrentgemma-9b: width 4096), and of the two scans at the
+    training slice's shapes; then the paged kernels at recurrentgemma-9b's
+    local layers.  Returns (serve-shape times, the other times)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    reg = dispatch.registry()
+    out, extra = {}, {}
+    for key, case, reps, plain_reps in (("ssd_chunk", (1, 1, 32, 32, 64, 128), 100, 20),
+                                        ("ssd_chunk_train", (16, 8, 128, 32, 64, 128), 20, 3)):
+        args = ssd_chunk_inputs(gen, *case)
+        nbytes, flops = ssd_chunk_work(*case)
+        t = _timing(reg["ssd_chunk"], args, nbytes, flops,
+                    {"B,NC,Q,H,P,N": list(case), "dtype": "float32"}, reps, plain_reps)
+        (out if key == "ssd_chunk" else extra)[key] = t
+        log(f"time {key}: " + json.dumps(t))
+        del args
+    for key, shape, reps, plain_reps in (("rglru_scan", (1, 32, 4096), 100, 20),
+                                         ("rglru_scan_train", (16, 1024, 4096), 20, 3)):
+        args = rglru_inputs(gen, *shape)
+        n = math.prod(shape)
+        t = _timing(reg["rglru_scan"], args, 12 * n, 2 * n,
+                    {"B,S,W": list(shape), "dtype": "float32"}, reps, plain_reps)
+        (out if key == "rglru_scan" else extra)[key] = t
+        log(f"time {key}: " + json.dumps(t))
+        del args
+    h, a, b = (torch.randn((4, 4096), generator=gen, device=dev) for _ in range(3))
+    out["rglru_decode"] = _timing(reg["rglru_decode"], (h, a, b), 16 * h.numel(), 2 * h.numel(),
+                                  {"R,W": [4, 4096], "dtype": "float32"},
+                                  library=lambda: torch.addcmul(b, a, h))
+    log("time rglru_decode: " + json.dumps(out["rglru_decode"]))
+    args = ssd_decode_inputs(gen, 4, 2048, 128)
+    r, hp, n = args[0].shape
+    out["ssd_decode"] = _timing(reg["ssd_decode"], args, 4 * (2 * r * hp * n + 3 * r * hp + 2 * r * n),
+                                5 * r * hp * n, {"R,HP,N": [r, hp, n], "dtype": "float32"})
+    log("time ssd_decode: " + json.dumps(out["ssd_decode"]))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name in PAGED:
+        op = reg[name]
+        chunk = name == "paged_chunk_attention"
+        pos = [168] if chunk else DECODE_POS
+        args = long_context_inputs(gen, chunk=chunk, dtype=torch.bfloat16, positions=pos)
+        q, kp, _, tables, positions = args
+        c = q.shape[1] if chunk else 1
+        t = int(positions.max()) + c
+        blocks = -(-t // BS)
+        k = kp[tables[:, :blocks].long()].reshape(len(pos), blocks * BS, 1, 256)[:, :t]
+        kd = k.expand(-1, -1, 16, -1).transpose(1, 2).contiguous()
+        qd = (q if chunk else q[:, None]).transpose(1, 2).contiguous()
+        q_pos = positions[:, None].long() + torch.arange(c, device=dev)[None]
+        kpos = torch.arange(t, device=dev)[None, None]
+        mask = ((kpos <= q_pos[:, :, None]) & (kpos > q_pos[:, :, None] - 2048))[:, None]
+        bound_ms, bound_by = bound(q, kp, positions, chunk, kv=1, d=256)
+        ms, mhz = cuda_ms(lambda: op.kernel(*args, mode="local", window=2048))
+        extra[f"{name}_recurrentgemma"] = {
+            "ms": ms, "plain_ms": cuda_ms(lambda: op.plain(*args, mode="local", window=2048))[0],
+            "library_ms": cuda_ms(lambda: sdpa(qd, kd, kd, attn_mask=mask))[0],
+            "bound_ms": bound_ms, "bound_by": bound_by, "sm_clock_mhz": mhz,
+            "shape": {"q": list(q.shape), "pages": list(kp.shape), "positions": pos,
+                      "window": 2048, "dtype": "bfloat16"}}
+        log(f"time {name} at recurrentgemma-9b's shape: " + json.dumps(extra[f"{name}_recurrentgemma"]))
+    torch.cuda.empty_cache()
+    return out, extra
+
+
+def mamba2_launches(cfg):
+    n = cfg.num_layers
+    return lambda chunks, steps: {"ssd_chunk": chunks * n, "ssd_decode": steps * n,
+                                  "rglru_scan": 0, "rglru_decode": 0,
+                                  "paged_attention": 0, "paged_chunk_attention": 0}
+
+
+def recurrentgemma_launches(cfg):
+    kinds = cfg.layer_types
+    n_lru, n_attn = kinds.count("rglru"), kinds.count("local")
+    return lambda chunks, steps: {"rglru_scan": chunks * n_lru, "rglru_decode": steps * n_lru,
+                                  "paged_chunk_attention": chunks * n_attn,
+                                  "paged_attention": steps * n_attn,
+                                  "ssd_chunk": 0, "ssd_decode": 0}
+
+
+def recurrent_parity_phase(dev) -> dict:
+    """Both families' reduced() configs in fp32: a prompt of 80 and one of
+    200 tokens (past the window of 64), 8 greedy decode steps each, on the
+    card and on the CPU from the same weights."""
+    out = {}
+    for base, kernels in ((mamba2_370m.CONFIG, ("ssd_chunk", "ssd_decode")),
+                          (recurrentgemma_9b.CONFIG, ("rglru_scan", "rglru_decode") + PAGED)):
+        cfg = base.reduced(dtype="float32", remat=False)
+        cpu_params = M.init_params(torch.Generator().manual_seed(0), cfg)
+        gpu_params = _tree_to(cpu_params, dev)
+        rng = np.random.default_rng(4)
+        rows = []
+        for length in (80, 200):
+            prompt = rng.integers(0, cfg.vocab_size, size=length).tolist()
+            dispatch.reset_launches()
+            gpu_tokens, gpu_logits = greedy(gpu_params, cfg, prompt, 8, dev)
+            launches = dispatch.launch_counts()
+            cpu_tokens, cpu_logits = greedy(cpu_params, cfg, prompt, 8, torch.device("cpu"))
+            err = (gpu_logits - cpu_logits).abs().max().item()
+            rows.append({"prompt": length, "tokens_identical": gpu_tokens == cpu_tokens,
+                         "max_logit_diff": err,
+                         "launches": {k: launches[k] for k in kernels}})
+            log(f"recurrent fp32 card vs cpu {cfg.name} reduced, prompt {length}: card {gpu_tokens}, "
+                f"cpu {cpu_tokens}, max logit diff {err:.3e} (atol {LOGIT_ATOL:g}), "
+                f"launches {rows[-1]['launches']}")
+            if min(rows[-1]["launches"].values()) <= 0:
+                raise AssertionError(f"fp32 card run of {cfg.name} skipped a kernel: {launches}")
+            if gpu_tokens != cpu_tokens:
+                raise AssertionError(f"{cfg.name}: card and CPU greedy tokens differ")
+            if not (torch.isfinite(gpu_logits).all() and err <= LOGIT_ATOL):
+                raise AssertionError(f"{cfg.name}: card and CPU logits differ beyond tolerance")
+        out[base.name] = rows
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -974,7 +1298,11 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     errors = {**check_kernels(dev), **check_train_kernels(dev), **check_int8_kernels(dev)}
-    timings = {**time_kernels(dev), **time_train_kernels(dev), **time_int8_kernels(dev)}
+    for name, err in check_recurrent_kernels(dev).items():
+        errors[name] = max(errors.get(name, 0.0), err)
+    rec_timings, rec_extra = time_recurrent_kernels(dev)
+    timings = {**time_kernels(dev), **time_train_kernels(dev), **time_int8_kernels(dev),
+               **rec_timings}
     summary, launches = serve_phase(dev)
     slice_err = slice_phase(dev)
     train_summary, train_launches = train_phase(dev)
@@ -983,8 +1311,15 @@ def main() -> None:
     int8_parity = train_parity_phase(dev, codec="int8")
     resume = ckpt_phase(dev)
     promoted = promote_serve_phase(dev, resume["dir"])
+    family = {}
+    for cfg, expected in ((mamba2_370m.CONFIG, mamba2_launches(mamba2_370m.CONFIG)),
+                          (recurrentgemma_9b.CONFIG, recurrentgemma_launches(recurrentgemma_9b.CONFIG))):
+        family[cfg.name] = serve_phase(dev, cfg, expected)
+    rec_parity = recurrent_parity_phase(dev)
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: int8_launches[k] for k in INT8})
+    launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
+    launches.update({k: family["recurrentgemma-9b"][1][k] for k in ("rglru_scan", "rglru_decode")})
 
     kernels = []
     for name, op in dispatch.registry().items():
@@ -1007,6 +1342,13 @@ def main() -> None:
             "start_step", "losses_identical", "bit_identical", "state_bytes", "save_s",
             "restore_s")},
         "promote_serve": {k: promoted[k] for k in ("promoted", "tokens_identical")},
+        "serve_recurrent": {name: {k: fam[0].get(k) for k in (
+            "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "step_p50_s", "step_p99_s",
+            "decode_steps", "wall_s", "peak_memory_gb")} for name, fam in family.items()},
+        "recurrent_card_vs_cpu": rec_parity,
+        "recurrent_timings_other_shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
+                                                                 "bound_ms", "bound_by")}
+                                           for k, v in rec_extra.items()},
         "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,14 +1,15 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-It holds the dense families the port serves so far, qwen3-0.6b and the
-paper's Llama-style models.  The other architectures of the JAX package's
+It holds the families the port serves so far: qwen3-0.6b, the paper's
+Llama-style models, and the recurrent mamba2-370m (SSD) and
+recurrentgemma-9b (RG-LRU with local attention).  The other architectures of the JAX package's
 registry need model code the port does not have yet and raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import paper_llama, qwen3_0_6b
+from repro_torch.configs import mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ARCHS", "get_config"]
@@ -18,18 +19,18 @@ ARCHS: dict[str, ModelConfig] = {
     "paper-small-125m": paper_llama.SMALL,
     "paper-medium-1.3b": paper_llama.MEDIUM,
     "paper-large-6.8b": paper_llama.LARGE,
+    "mamba2-370m": mamba2_370m.CONFIG,
+    "recurrentgemma-9b": recurrentgemma_9b.CONFIG,
 }
 
 _LATER = {
     "whisper-base": "encoder-decoder",
     "granite-moe-1b-a400m": "MoE",
-    "recurrentgemma-9b": "RG-LRU",
     "gemma-2b": "dense with local attention and soft-capped logits",
     "qwen3-moe-235b-a22b": "MoE",
     "stablelm-1.6b": "dense",
     "minitron-8b": "dense",
     "internvl2-76b": "vision-frontend",
-    "mamba2-370m": "SSD",
 }
 
 

@@ -12,11 +12,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Mapping
 
+from repro_torch.kernels import decode_update as decode_update_mod
 from repro_torch.kernels import flash_attention as flash_attention_mod
 from repro_torch.kernels import noloco_update as noloco_update_mod
 from repro_torch.kernels import paged_attention as paged_attention_mod
 from repro_torch.kernels import quantize as quantize_mod
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as rglru_scan_mod
+from repro_torch.kernels import ssd_scan as ssd_scan_mod
 
 __all__ = ["KernelOp", "registry", "reset_launches", "launch_counts"]
 
@@ -91,6 +94,38 @@ _REGISTRY: dict[str, KernelOp] = {
             route="cuda",
             source="src/repro_torch/csrc/quantize.cu",
             replaces="src/repro/kernels/quantize.py:78",
+        ),
+        KernelOp(
+            name="ssd_chunk",
+            kernel=ssd_scan_mod.ssd_chunk,
+            plain=ref.torch_ssd_chunk_intra,
+            route="cuda",
+            source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:52",
+        ),
+        KernelOp(
+            name="rglru_scan",
+            kernel=rglru_scan_mod.rglru_scan,
+            plain=ref.torch_rglru_scan,
+            route="cuda",
+            source="src/repro_torch/csrc/rglru_scan.cu",
+            replaces="src/repro/kernels/rglru_scan.py:66",
+        ),
+        KernelOp(
+            name="rglru_decode",
+            kernel=decode_update_mod.rglru_decode,
+            plain=ref.torch_rglru_decode,
+            route="cuda",
+            source="src/repro_torch/csrc/decode_update.cu",
+            replaces="src/repro/kernels/decode_update.py:44",
+        ),
+        KernelOp(
+            name="ssd_decode",
+            kernel=decode_update_mod.ssd_decode,
+            plain=ref.torch_ssd_decode,
+            route="cuda",
+            source="src/repro_torch/csrc/decode_update.cu",
+            replaces="src/repro/kernels/decode_update.py:86",
         ),
     )
 }

@@ -5,32 +5,40 @@ Tensors on the CPU go to the plain PyTorch version (:mod:`repro_torch.
 kernels.ref`); tensors on a CUDA device launch the hand-written kernel
 (:mod:`repro_torch.kernels.paged_attention`, :mod:`~repro_torch.kernels.
 flash_attention`, :mod:`~repro_torch.kernels.noloco_update`,
-:mod:`~repro_torch.kernels.quantize`), which raises
+:mod:`~repro_torch.kernels.quantize`, :mod:`~repro_torch.kernels.ssd_scan`,
+:mod:`~repro_torch.kernels.rglru_scan`,
+:mod:`~repro_torch.kernels.decode_update`), which raises
 on anything it does not take.  There is no fallback from the card to the
 plain version: a failed build or launch is an error, never a quiet switch to
 other code.
 
 Counterparts of ``flash_attention``, ``noloco_update_pytree``,
-``paged_attention``, ``paged_chunk_attention``, ``int8_quantize`` and
-``int8_dequantize`` in the JAX package's
+``paged_attention``, ``paged_chunk_attention``, ``int8_quantize``,
+``int8_dequantize``, ``ssd_chunk``, ``rglru_scan``, ``rglru_decode`` and
+``ssd_decode`` in the JAX package's
 ``repro/kernels/ops.py``.  Unlike there, ragged head counts (H % KV != 0)
 run on the kernels too: query head h reads kv head (h·KV)//H.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.kernels import decode_update
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import noloco_update as noloco
 from repro_torch.kernels import paged_attention as kernels
 from repro_torch.kernels import quantize
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as rglru_kernel
+from repro_torch.kernels import ssd_scan
 from repro_torch.tree import tree_map
 
 __all__ = [
     "flash_attention", "noloco_update_pytree", "paged_attention", "paged_chunk_attention",
-    "int8_quantize", "int8_dequantize",
+    "int8_quantize", "int8_dequantize", "ssd_chunk", "rglru_scan", "rglru_decode", "ssd_decode",
 ]
 
 
@@ -142,3 +150,134 @@ def int8_dequantize(q: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor, n: i
     if q.device.type == "cpu":
         return ref.torch_int8_dequantize(q, scale, lo, n, dtype)
     return quantize.int8_dequantize(q, scale.contiguous(), lo.contiguous(), n, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent families: the SSD chunk scan, the RG-LRU scan, the decode steps
+# ---------------------------------------------------------------------------
+
+_NO_BACKWARD = (
+    "the backward of the {} kernel is not written yet: training the recurrent "
+    "families on the card comes with ROADMAP Queue 1's next slice"
+)
+
+
+class _SSDChunkIntra(torch.autograd.Function):
+    """The SSD intra-chunk kernel on the card.  Its backward raises: the
+    JAX package differentiates the jnp twin, and the port's hand-written
+    backward kernel is still to come."""
+
+    @staticmethod
+    def forward(ctx, xc, dtc, a, bc, cc):
+        return ssd_scan.ssd_chunk(xc, dtc, a, bc, cc)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(_NO_BACKWARD.format("ssd_chunk"))
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The RG-LRU scan kernel on the card; its backward raises, as
+    :class:`_SSDChunkIntra`'s does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        return rglru_kernel.rglru_scan(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(_NO_BACKWARD.format("rglru_scan"))
+
+
+def _ssd_chunk_intra(xc, dtc, a, bc, cc):
+    if xc.device.type == "cpu":
+        return ref.torch_ssd_chunk_intra(xc, dtc, a, bc, cc)
+    return _SSDChunkIntra.apply(*(t.float().contiguous() for t in (xc, dtc, a, bc, cc)))
+
+
+def ssd_chunk(
+    x: torch.Tensor,      # (B, S, H, P)
+    dt: torch.Tensor,     # (B, S, H)
+    a: torch.Tensor,      # (H,)
+    b_mat: torch.Tensor,  # (B, S, N)
+    c_mat: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int,
+    initial_state: torch.Tensor | None = None,   # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD, the structure of the JAX package's ``ops.ssd_chunk``:
+    the sequence padded to chunks of q = min(chunk, S) (pad rows have dt 0,
+    which leaves the state unchanged), the intra-chunk form by the kernel
+    (card) or its plain version (CPU), then the inter-chunk state
+    recurrence and the off-diagonal output in plain PyTorch.  Returns
+    (y (B, S, H, P) in x's dtype, final state (B, H, P, N) fp32)."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    q = min(chunk, s)
+    nc = math.ceil(s / q)
+    pad = nc * q - s
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        b_mat = torch.nn.functional.pad(b_mat, (0, 0, 0, pad))
+        c_mat = torch.nn.functional.pad(c_mat, (0, 0, 0, pad))
+    xc = x.reshape(bsz, nc, q, h, p)
+    dtc = dt.reshape(bsz, nc, q, h)
+    bc = b_mat.reshape(bsz, nc, q, n)
+    cc = c_mat.reshape(bsz, nc, q, n)
+    y_diag, states = _ssd_chunk_intra(xc, dtc, a, bc, cc)
+
+    da = dtc.float() * a.float()[None, None, None, :]
+    chunk_decay = torch.exp(da.sum(dim=2))                 # (B, NC, H)
+    cums = torch.cumsum(da, dim=2)
+    # caches carry (B, H, P, N); the kernel's state layout is (B, H, N, P)
+    prev = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+            if initial_state is None else initial_state.float().transpose(2, 3))
+    entering = []
+    for c in range(nc):
+        entering.append(prev)   # the state entering chunk c
+        prev = prev * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(entering, dim=1)              # (B, NC, H, N, P)
+    y_off = torch.einsum("bcin,bchnp,bcih->bcihp", cc.float(), prev_states, torch.exp(cums))
+    y = (y_diag.float() + y_off).reshape(bsz, nc * q, h, p)[:, :s]
+    return y.to(x.dtype), prev.transpose(2, 3)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan h_t = a_t·h_{t−1} + b_t over axis 1 (zero h_0) of
+    a, b (B, S, W); fp32 (B, S, W)."""
+    if a.device.type == "cpu":
+        return ref.torch_rglru_scan(a, b)
+    return _RGLRUScan.apply(a.float().contiguous(), b.float().contiguous())
+
+
+def rglru_decode(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One RG-LRU decode step h′ = a·h + b across request slots (R, W),
+    fp32.  Inference only: no gradient on the card."""
+    if h.device.type == "cpu":
+        return ref.torch_rglru_decode(h, a, b)
+    return decode_update.rglru_decode(*(t.float().contiguous() for t in (h, a, b)))
+
+
+def ssd_decode(
+    state: torch.Tensor,  # (R, H, P, N) fp32 recurrent state
+    dt1: torch.Tensor,    # (R, H) step sizes of this token
+    a: torch.Tensor,      # (H,) negative decay rates
+    b1: torch.Tensor,     # (R, N)
+    c1: torch.Tensor,     # (R, N)
+    x1: torch.Tensor,     # (R, H, P) the conv'd, silu'd input of this token
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One SSD decode step at model layout, the folding of the JAX package's
+    ``ops.ssd_decode``: the per-head decay exp(dt·a) repeated over P and
+    dt·x flattened to (R, H·P), the state viewed as (R, H·P, N).  Returns
+    (state′ (R, H, P, N), y (R, H, P)), fp32.  Inference only."""
+    r, h, p, n = state.shape
+    decay = torch.exp(dt1.float() * a.float()[None, :]).repeat_interleave(p, dim=1)
+    dtx = (dt1.float()[..., None] * x1.float()).reshape(r, h * p)
+    flat = state.reshape(r, h * p, n)
+    if state.device.type == "cpu":
+        st, y = ref.torch_ssd_decode(flat, decay, dtx, b1, c1)
+    else:
+        st, y = decode_update.ssd_decode(
+            *(t.float().contiguous() for t in (flat, decay, dtx, b1, c1)))
+    return st.reshape(r, h, p, n), y.reshape(r, h, p)

@@ -311,3 +311,116 @@ def torch_int8_dequantize(q: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor
             end = min(c1 * chunk, n)
             out[r, c0 * chunk:end] = vals.reshape(-1)[:end - c0 * chunk].to(dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# SSD (Mamba-2) intra-chunk form and its token-by-token oracle
+# ---------------------------------------------------------------------------
+
+
+def torch_ssd_chunk_intra(
+    x: torch.Tensor,      # (B, NC, Q, H, P)
+    dt: torch.Tensor,     # (B, NC, Q, H)
+    a: torch.Tensor,      # (H,)
+    b_mat: torch.Tensor,  # (B, NC, Q, N)
+    c_mat: torch.Tensor,  # (B, NC, Q, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk quadratic form and per-chunk end states — the plain
+    version of :func:`repro_torch.kernels.ssd_scan.ssd_chunk`, the
+    arithmetic of the JAX package's ``ref.jnp_ssd_chunk_intra``:
+    cums = cumsum(dt·a) (inclusive), L[i, j] = exp(cums_i − cums_j)·[i ≥ j],
+    y = (C Bᵀ ∘ L)(dt ∘ x), state = Σ_j exp(cums_Q − cums_j)·B_j ⊗ (dt_j·x_j).
+    Returns (y_diag (B, NC, Q, H, P) in x's dtype, states (B, NC, H, N, P)
+    fp32)."""
+    q = x.shape[2]
+    xf, dtf, bf, cf = x.float(), dt.float(), b_mat.float(), c_mat.float()
+    da = dtf * a.float()[None, None, None, :]                    # (B, NC, Q, H)
+    cums = torch.cumsum(da, dim=2)
+    diff = cums[:, :, :, None, :] - cums[:, :, None, :, :]      # (B, NC, Qi, Qj, H)
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    l_kern = torch.where(tri[None, None, :, :, None], torch.exp(diff), torch.zeros_like(diff))
+    xdt = xf * dtf[..., None]                                   # dt_j · x_j
+    scores = torch.einsum("bcin,bcjn->bcij", cf, bf)
+    y_diag = torch.einsum("bcij,bcijh,bcjhp->bcihp", scores, l_kern, xdt)
+    decay_states = torch.exp(cums[:, :, -1:, :] - cums)          # (B, NC, Q, H)
+    states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bf, decay_states, xdt)
+    return y_diag.to(x.dtype), states
+
+
+def torch_reference_ssd(
+    x: torch.Tensor,      # (B, S, H, P)
+    dt: torch.Tensor,     # (B, S, H)
+    a: torch.Tensor,      # (H,) negative rates
+    b_mat: torch.Tensor,  # (B, S, N)
+    c_mat: torch.Tensor,  # (B, S, N)
+    initial_state: torch.Tensor | None = None,   # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token SSM recurrence, the gold semantics of SSD (the JAX
+    package's ``ref.reference_ssd``; tests only):
+    h_t = exp(dt_t·a)·h_{t−1} + dt_t·(x_t ⊗ B_t), y_t = h_t·C_t.
+    Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N) fp32)."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    af = a.float()
+    ys = []
+    for t in range(s):
+        dtt, xt = dt[:, t].float(), x[:, t].float()
+        bt, ct = b_mat[:, t].float(), c_mat[:, t].float()
+        decay = torch.exp(dtt * af[None, :])
+        upd = torch.einsum("bh,bn,bhp->bhpn", dtt, bt, xt)
+        state = state * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", ct, state))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU linear recurrence
+# ---------------------------------------------------------------------------
+
+
+def torch_rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan h_t = a_t·h_{t−1} + b_t over axis 1 with h_0 = 0 —
+    the plain version of :func:`repro_torch.kernels.rglru_scan.rglru_scan`.
+    a, b (B, S, W); returns fp32 (B, S, W).  Sequential in fp32, one product
+    and one sum per step, each rounded once: the kernel's order, so the two
+    agree bit for bit; the JAX twin (an associative scan) differs from both
+    by rounding order only."""
+    af, bf = a.float(), b.float()
+    h = torch.zeros_like(bf[:, 0])
+    out = []
+    for t in range(af.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out.append(h)
+    if not out:
+        return bf.clone()
+    return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Single-token decode state updates (serving)
+# ---------------------------------------------------------------------------
+
+
+def torch_rglru_decode(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One RG-LRU decode step h′ = a·h + b over (R, W) slot states in fp32 —
+    the plain version of :func:`repro_torch.kernels.decode_update.
+    rglru_decode` (the JAX package's ``ref.jnp_rglru_decode``)."""
+    return a.float() * h.float() + b.float()
+
+
+def torch_ssd_decode(
+    state: torch.Tensor,  # (R, H·P, N) fp32 slot states, heads folded into rows
+    decay: torch.Tensor,  # (R, H·P) exp(dt·a) repeated over P
+    dtx: torch.Tensor,    # (R, H·P) dt_h · x_{h,p}
+    b: torch.Tensor,      # (R, N)
+    c: torch.Tensor,      # (R, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One SSD decode step over prepared per-slot operands — the plain
+    version of :func:`repro_torch.kernels.decode_update.ssd_decode` (the
+    JAX package's ``ref.jnp_ssd_decode``): state′ = decay ⊙ state + dtx ⊗ b,
+    y = state′ · c.  Returns (state′ (R, H·P, N) fp32, y (R, H·P) fp32)."""
+    st = state.float() * decay.float()[..., None] + dtx.float()[..., None] * b.float()[:, None, :]
+    y = torch.einsum("rkn,rn->rk", st, c.float())
+    return st, y

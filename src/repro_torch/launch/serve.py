@@ -1,5 +1,6 @@
 """Serving CLI of the port: continuous batching over the paged KV cache,
-with paged attention in hand-written CUDA kernels on the card.
+with paged attention and the recurrent scans and decode steps in
+hand-written CUDA kernels on the card.
 
 Generates a synthetic mixed-length request load and serves it through
 :class:`repro_torch.serve.ServeEngine` on weights initialised from
@@ -14,8 +15,12 @@ Runs on CUDA unless ``--device cpu`` is given; with no GPU it raises.
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --arch paper-small-125m --ckpt D --replica 1 --weights phi
 
-    # small config on the CPU (plain PyTorch attention):
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    # the recurrent families: Mamba-2 SSD, RG-LRU with local attention
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --arch mamba2-370m
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --arch recurrentgemma-9b
+
+    # small config on the CPU (the plain versions of the kernels):
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu [--arch mamba2-370m]
 
 Without ``--full`` the architecture is cut by ``ModelConfig.reduced()`` to a
 two-layer fp32 smoke model; with it the published config is served in its
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serve import Request, ServeConfig, ServeEngine, promote
 
@@ -110,17 +116,6 @@ def serve_run(
         summary["verify_mismatches"] = mismatches
         summary["parity"] = mismatches == 0
     return summary
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device to serve on; a CUDA device must exist (no quiet CPU run)."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: no CUDA device is available; pass --device cpu "
-            "to serve with the plain PyTorch attention on the CPU"
-        )
-    return device
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -39,6 +39,7 @@ from repro_torch.comm import CommConfig
 from repro_torch.configs import registry
 from repro_torch.core import OuterConfig, TrainerConfig
 from repro_torch.data import LoaderConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, warmup_cosine
 from repro_torch.train import GossipProgram, LoopConfig, make_loop
@@ -71,17 +72,6 @@ def method_config(
         raise ValueError(f"unknown method {method!r}")
     return TrainerConfig(outer=outer, inner=inner, comm=comm or CommConfig(),
                          sync_grads=method == "fsdp")
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device to train on; a CUDA device must exist (no quiet CPU run)."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {name}: no CUDA device is available; pass --device cpu "
-            "(device='cpu') to train on the CPU with the plain versions"
-        )
-    return device
 
 
 def run_training(

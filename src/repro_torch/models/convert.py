@@ -3,10 +3,11 @@
 ``params_from_jax_numpy`` takes the JAX model's value tree with numpy
 leaves, as ``jax.tree.map(np.asarray, values_of(params))`` gives it, and
 returns the port's parameter tree: the same nested dicts and lists, each
-leaf a tensor on ``device``.  Norm scales and biases (fp32 in both packages)
-stay fp32; every other weight takes ``dtype``.  The structure and every
-shape are checked against what the port's own ``init_params`` makes for
-``cfg``.
+leaf a tensor on ``device``.  Norm scales and biases and the recurrent
+mixers' rates, skips, norm scales and Λ (fp32 in both packages at every
+model dtype) stay fp32; every other weight takes ``dtype``.  The structure
+and every shape are checked against what the port's own ``init_params``
+makes for ``cfg``.
 
 ``train_state_from_jax_numpy`` does the same for the stacked trainer's
 whole state (θ, AdamW μ/ν/count, φ, δ and the two step counters), given as
@@ -27,11 +28,14 @@ import torch
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import torch_dtype
+from repro_torch.models.rglru import CONV_WIDTH, lru_width
+from repro_torch.models.ssd import d_inner, num_heads_ssm
 from repro_torch.tree import tree_map
 
 PyTree = Any
 
-FP32_LEAVES = {"scale", "bias", "q_norm", "k_norm"}
+FP32_LEAVES = {"scale", "bias", "q_norm", "k_norm",
+               "dt_bias", "a_log", "d_skip", "norm_scale", "lam"}
 
 
 def _to_tensor(arr, device, dtype) -> torch.Tensor:
@@ -55,12 +59,25 @@ def expected_shapes(cfg) -> PyTree:
             p["bias"] = (d,)
         return p
 
+    def mixer(kind):
+        if kind == "rglru":
+            w = lru_width(cfg)
+            return {"w_x": (d, w), "w_gate": (d, w), "w_r": (d, w), "w_i": (d, w),
+                    "conv": (CONV_WIDTH, w), "lam": (w,), "w_out": (w, d)}
+        di, n, nh = d_inner(cfg), cfg.ssm_state_dim, num_heads_ssm(cfg)
+        return {"w_z": (d, di), "w_x": (d, di), "w_b": (d, n), "w_c": (d, n),
+                "w_dt": (d, nh), "dt_bias": (nh,), "a_log": (nh,), "d_skip": (nh,),
+                "conv": (cfg.ssm_conv_width, di), "norm_scale": (di,), "w_out": (di, d)}
+
     def block(kind, lead):
         tfm.check_kind(cfg, kind)
-        attn = {"w_q": (d, h, hd), "w_k": (d, kv, hd), "w_v": (d, kv, hd), "w_o": (h, hd, d)}
-        if cfg.qk_norm:
-            attn.update(q_norm=(hd,), k_norm=(hd,))
-        p = {"ln1": norm(), "attn": attn}
+        if kind in ("rglru", "ssd"):
+            p = {"ln1": norm(), "mixer": mixer(kind)}
+        else:
+            attn = {"w_q": (d, h, hd), "w_k": (d, kv, hd), "w_v": (d, kv, hd), "w_o": (h, hd, d)}
+            if cfg.qk_norm:
+                attn.update(q_norm=(hd,), k_norm=(hd,))
+            p = {"ln1": norm(), "attn": attn}
         if cfg.d_ff > 0:
             mlp = {"w_in": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
             if cfg.mlp_variant in ("swiglu", "geglu"):

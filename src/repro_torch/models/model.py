@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import PagedAttnCache, PagedView
+from repro_torch.models.common import torch_dtype
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_norm,
@@ -33,6 +34,8 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
     token_nll,
 )
+from repro_torch.models.rglru import RGLRUCache, lru_width
+from repro_torch.models.ssd import SSDCache
 from repro_torch.tree import tree_map
 
 PyTree = Any
@@ -60,8 +63,10 @@ def init_paged_cache_tree(
     cfg: ModelConfig, num_slots: int, num_pages: int, page_size: int, device="cpu"
 ) -> dict:
     """Serving cache tree: paged K/V pools per attention layer, shared
-    across request slots, plus the trash page.  ``num_slots`` sizes the
-    per-slot recurrent states of the families still to be ported."""
+    across request slots, plus the trash page; per-slot recurrent states for
+    RG-LRU layers (h (R, W) fp32, conv tail (R, 3, W)) and SSD layers (state
+    (R, H, P, N) fp32, conv tail (R, K−1, d_inner)), ``num_slots`` rows
+    each, the tails in the model dtype."""
     if cfg.is_encoder_decoder or cfg.frontend == "vision":
         raise ValueError(
             "paged serving supports decoder-only token models; "
@@ -69,8 +74,14 @@ def init_paged_cache_tree(
         )
     period, n_full, rem = tfm.layer_plan(cfg)
 
+    dt = torch_dtype(cfg.dtype)
+
     def one(kind):
         tfm.check_kind(cfg, kind)
+        if kind == "rglru":
+            return RGLRUCache.init(cfg, num_slots, lru_width(cfg), dt, device)
+        if kind == "ssd":
+            return SSDCache.init(cfg, num_slots, dt, device)
         return PagedAttnCache.init(cfg, num_pages, page_size, device)
 
     caches: dict = {"scan": [], "rem": []}

@@ -1,0 +1,150 @@
+"""Mamba-2 SSD block (state-space duality, arXiv:2405.21060).
+
+The port of ``repro/models/ssd.py``: input and gate projections, a
+depthwise causal conv, the selective state-space recurrence
+
+    h_t = exp(dt_t·a)·h_{t−1} + dt_t·(x_t ⊗ B_t),   y_t = h_t·C_t + D·x_t
+
+and the gated RMSNorm norm(y ⊙ silu(z)) before the output projection.  Over
+a sequence the recurrence runs chunked (:func:`repro_torch.kernels.ops.
+ssd_chunk`: the CUDA intra-chunk kernel on the card, the inter-chunk
+recurrence in plain PyTorch); for one token it is
+:func:`~repro_torch.kernels.ops.ssd_decode` (the CUDA decode kernel).  Three
+branches, as in the JAX package: the forward with no cache, chunk-resumable
+serving prefill (``chunk_lengths``) and the decode step.  A cache is updated
+in place and returned.  Caches hold the state as (B, H, P, N); the chunk
+kernel's states are (B, H, N, P), and ``ops.ssd_chunk`` turns them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.common import torch_dtype, truncated_normal
+from repro_torch.models.rglru import causal_conv, tail_at
+
+
+def d_inner(cfg) -> int:
+    return cfg.ssm_expand * cfg.d_model
+
+
+def num_heads_ssm(cfg) -> int:
+    return d_inner(cfg) // cfg.ssm_head_dim
+
+
+def init_ssd(gen: torch.Generator, cfg) -> dict:
+    """Weights in the model dtype; dt_bias, a_log, d_skip and norm_scale in
+    fp32 at every model dtype, as in the JAX package: softplus(dt_bias)
+    spans [1e-3, 1e-1] and −exp(a_log) [−16, −1]."""
+    d, di, n, h = cfg.d_model, d_inner(cfg), cfg.ssm_state_dim, num_heads_ssm(cfg)
+    dt = torch_dtype(cfg.dtype)
+    dev = gen.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    std = 1.0 / math.sqrt(d)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    step = torch.exp(lo + (hi - lo) * torch.rand((h,), generator=gen, **f32))
+    dt_bias = step + torch.log(-torch.expm1(-step))       # inverse softplus
+    a_init = 1.0 + 15.0 * torch.rand((h,), generator=gen, **f32)
+    conv = torch.zeros((cfg.ssm_conv_width, di), dtype=dt, device=dev)
+    conv[-1] = 1.0
+    return {
+        "w_z": truncated_normal(gen, (d, di), std, dt),
+        "w_x": truncated_normal(gen, (d, di), std, dt),
+        "w_b": truncated_normal(gen, (d, n), std, dt),
+        "w_c": truncated_normal(gen, (d, n), std, dt),
+        "w_dt": truncated_normal(gen, (d, h), std, dt),
+        "dt_bias": dt_bias,
+        "a_log": torch.log(a_init),
+        "d_skip": torch.ones((h,), **f32),
+        "conv": conv,
+        "norm_scale": torch.ones((di,), **f32),
+        "w_out": truncated_normal(gen, (di, d), 1.0 / math.sqrt(di), dt),
+    }
+
+
+@dataclasses.dataclass
+class SSDCache:
+    """Decode state of one layer: the conv tail (B, K−1, d_inner) in the
+    model dtype and the SSM state (B, H, P, N) fp32."""
+
+    conv: torch.Tensor
+    state: torch.Tensor
+
+    @staticmethod
+    def init(cfg, batch: int, dtype: torch.dtype, device="cpu") -> "SSDCache":
+        return SSDCache(
+            conv=torch.zeros((batch, cfg.ssm_conv_width - 1, d_inner(cfg)), dtype=dtype,
+                             device=device),
+            state=torch.zeros((batch, num_heads_ssm(cfg), cfg.ssm_head_dim, cfg.ssm_state_dim),
+                              dtype=torch.float32, device=device),
+        )
+
+
+def apply_ssd(
+    p: dict,
+    cfg,
+    x: torch.Tensor,                               # (B, S, d)
+    *,
+    cache: SSDCache | None = None,
+    chunk_lengths: torch.Tensor | None = None,     # (B,) valid tokens per chunk row
+    chunk_exact: bool = False,
+) -> tuple[torch.Tensor, SSDCache | None]:
+    """The block's output (B, S, d) and its cache (the one given, written in
+    place); branches as :func:`repro_torch.models.rglru.apply_rglru`'s."""
+    if chunk_exact:
+        raise NotImplementedError(
+            "per-token verify states serve speculative decode (ROADMAP Queue 1)")
+    bsz, s, _ = x.shape
+    hd = cfg.ssm_head_dim
+    z = x @ p["w_z"]
+    u_in = x @ p["w_x"]
+    u, new_conv = causal_conv(u_in, p["conv"], cache.conv if cache is not None else None)
+    u = F.silu(u.float())
+    b_mat = (x @ p["w_b"]).float()
+    c_mat = (x @ p["w_c"]).float()
+    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])       # (B, S, H)
+    a = -torch.exp(p["a_log"])
+    heads = u.shape[-1] // hd
+    u_heads = u.reshape(bsz, s, heads, hd)
+
+    if cache is not None and chunk_lengths is not None:
+        # Row c of slot b is real iff c < chunk_lengths[b].  dt is masked to
+        # exactly 0 on the ragged tail, which makes each pad token a no-op on
+        # the recurrence (decay exp(0) = 1, input 0): the carried state is
+        # the state at the last real token.  The conv tail is selected by
+        # position.
+        k1 = p["conv"].shape[0] - 1
+        ext = torch.cat([cache.conv.to(u_in.dtype), u_in], dim=1)
+        lengths = chunk_lengths.long()
+        valid = torch.arange(s, device=x.device)[None, :] < lengths[:, None]
+        dtm = torch.where(valid[..., None], dt, torch.zeros_like(dt))
+        y, final = kernel_ops.ssd_chunk(u_heads, dtm, a, b_mat, c_mat, chunk=cfg.ssm_chunk,
+                                        initial_state=cache.state)
+        cache.conv.copy_(tail_at(ext, lengths, k1))
+        cache.state.copy_(final)
+    elif cache is not None and s == 1:
+        state, y1 = kernel_ops.ssd_decode(cache.state, dt[:, 0], a, b_mat[:, 0], c_mat[:, 0],
+                                          u_heads[:, 0])
+        y = y1[:, None]
+        cache.conv.copy_(new_conv)
+        cache.state.copy_(state)
+    else:
+        y, final = kernel_ops.ssd_chunk(
+            u_heads, dt, a, b_mat, c_mat, chunk=cfg.ssm_chunk,
+            initial_state=cache.state if cache is not None else None)
+        if cache is not None:
+            cache.conv.copy_(new_conv)
+            cache.state.copy_(final)
+
+    y = y + p["d_skip"][None, None, :, None] * u_heads
+    y = y.reshape(bsz, s, heads * hd)
+    # gated RMSNorm (mamba2): norm(y ⊙ silu(z)), over the whole d_inner
+    g = y * F.silu(z.float())
+    ms = torch.mean(torch.square(g), dim=-1, keepdim=True)
+    g = g * torch.rsqrt(ms + 1e-6) * p["norm_scale"]
+    return g.to(x.dtype) @ p["w_out"], cache

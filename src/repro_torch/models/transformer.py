@@ -1,8 +1,9 @@
 """Transformer assembly: layer plan, blocks and the stack of layers.
 
 The port of ``repro/models/transformer.py`` for attention blocks
-(``global``/``local``) with a dense MLP.  The parameter tree keeps the JAX
-package's layout, ``{"scan": [stacked per period position], "rem": [...]}``
+(``global``/``local``) and the recurrent mixers (``rglru``, ``ssd``, under
+the JAX key ``"mixer"``), each with a dense MLP unless ``d_ff`` is 0.  The
+parameter tree keeps the JAX package's layout, ``{"scan": [stacked per period position], "rem": [...]}``
 with a leading layer axis on every scanned leaf; where JAX scanned over that
 axis, the port loops over it in Python.  The training forward (no caches)
 takes replica-stacked parameters, so its scanned leaves are (R, L, ...) and
@@ -13,22 +14,26 @@ the scan body: its activations are recomputed in the backward pass.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.attention import PagedAttnCache
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 PyTree = Any
 
 _ATTENTION = ("global", "local")
+_MIXERS = {"rglru": (rglru_lib.init_rglru, rglru_lib.apply_rglru),
+           "ssd": (ssd_lib.init_ssd, ssd_lib.apply_ssd)}
 
 
 def check_kind(cfg, kind: str) -> None:
-    if kind not in _ATTENTION:
+    if kind not in _ATTENTION and kind not in _MIXERS:
         raise NotImplementedError(
             f"{kind!r} layers are not ported yet (ROADMAP Queue 1 item 8)"
         )
@@ -45,10 +50,11 @@ def check_kind(cfg, kind: str) -> None:
 
 def init_block(gen: torch.Generator, cfg, kind: str) -> dict:
     check_kind(cfg, kind)
-    p: dict = {
-        "ln1": init_norm(cfg, cfg.d_model, gen.device),
-        "attn": attn_lib.init_attention(gen, cfg),
-    }
+    p: dict = {"ln1": init_norm(cfg, cfg.d_model, gen.device)}
+    if kind in _MIXERS:
+        p["mixer"] = _MIXERS[kind][0](gen, cfg)
+    else:
+        p["attn"] = attn_lib.init_attention(gen, cfg)
     if cfg.d_ff > 0:
         p["ln2"] = init_norm(cfg, cfg.d_model, gen.device)
         p["mlp"] = init_mlp(gen, cfg)
@@ -62,19 +68,31 @@ def apply_block(
     kind: str,
     *,
     positions: torch.Tensor | None = None,
-    cache: PagedAttnCache | None = None,
+    cache: Any = None,
     decode: bool = False,
     paged: attn_lib.PagedView | None = None,
     chunk_lengths: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, PagedAttnCache]:
-    """Pre-norm block.  Returns (x, cache)."""
+) -> tuple[torch.Tensor, Any]:
+    """Pre-norm block.  Returns (x, cache).  A recurrent mixer with no cache
+    runs the training forward: p's leaves stacked over replicas and x
+    (R, B, S, d), one replica at a time."""
     check_kind(cfg, kind)
     h = apply_norm(p["ln1"], x)
-    y, cache = attn_lib.apply_attention(
-        p["attn"], cfg, h, mode="local" if kind == "local" else "causal",
-        positions=positions, cache=cache, paged=paged, decode=decode,
-        chunk_lengths=chunk_lengths,
-    )
+    if kind in _MIXERS:
+        apply_mixer = _MIXERS[kind][1]
+        if cache is None and h.dim() == 4:
+            y = torch.stack([
+                apply_mixer({k: v[r] for k, v in p["mixer"].items()}, cfg, h[r])[0]
+                for r in range(h.shape[0])
+            ])
+        else:
+            y, cache = apply_mixer(p["mixer"], cfg, h, cache=cache, chunk_lengths=chunk_lengths)
+    else:
+        y, cache = attn_lib.apply_attention(
+            p["attn"], cfg, h, mode="local" if kind == "local" else "causal",
+            positions=positions, cache=cache, paged=paged, decode=decode,
+            chunk_lengths=chunk_lengths,
+        )
     x = x + y
     if "mlp" in p:
         x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["ln2"], x))
@@ -90,11 +108,9 @@ def stack_trees(trees: list[PyTree]) -> PyTree:
     first = trees[0]
     if isinstance(first, dict):
         return {k: stack_trees([t[k] for t in trees]) for k in first}
-    if isinstance(first, PagedAttnCache):
-        return PagedAttnCache(
-            torch.stack([t.k_pages for t in trees]),
-            torch.stack([t.v_pages for t in trees]),
-        )
+    if dataclasses.is_dataclass(first):   # a layer's cache
+        return type(first)(**{f.name: torch.stack([getattr(t, f.name) for t in trees])
+                              for f in dataclasses.fields(first)})
     return torch.stack(trees)
 
 
@@ -104,9 +120,9 @@ def _unstack(tree: PyTree, n: int, axis: int = 0) -> list[PyTree]:
     if isinstance(tree, dict):
         cols = {k: _unstack(v, n, axis) for k, v in tree.items()}
         return [{k: cols[k][i] for k in tree} for i in range(n)]
-    if isinstance(tree, PagedAttnCache):
-        ks, vs = tree.k_pages.unbind(axis), tree.v_pages.unbind(axis)
-        return [PagedAttnCache(ks[i], vs[i]) for i in range(n)]
+    if dataclasses.is_dataclass(tree):    # views: in-place writes reach the stack
+        cols = {f.name: getattr(tree, f.name).unbind(axis) for f in dataclasses.fields(tree)}
+        return [type(tree)(**{k: v[i] for k, v in cols.items()}) for i in range(n)]
     return list(tree.unbind(axis))
 
 
@@ -142,8 +158,9 @@ def apply_stack(
     """Run all layers in the JAX package's order: every full period, then
     the remainder.  With ``caches`` None this is the training forward over
     replica-stacked parameters; otherwise ``caches`` mirrors the params
-    structure with entries ``(PagedAttnCache, None)``, the pools are written
-    in place and the same tree is returned."""
+    structure with entries ``(PagedAttnCache | RGLRUCache | SSDCache,
+    None)``, the caches are written in place and the same tree is
+    returned."""
     period, n_full, rem = layer_plan(cfg)
     training = caches is None
     layer_axis = 1 if training else 0

@@ -20,7 +20,12 @@ Each :meth:`ServeEngine.step`:
   4. DECODE — one batched step advances every active slot; sampled tokens
      land in a device-side output buffer.
 
-The engine state lives on the device and is updated in place.  Sampling is
+The engine state lives on the device and is updated in place.  Recurrent
+layers (RG-LRU, SSD) keep one state row per slot in the caches, which every
+decode step advances, idle and prefilling rows included.  So a prompt's
+chunks run on batch-1 scratch states of their own, made zero at admission
+and carried from chunk to chunk; only the last chunk writes them into the
+slot's rows, as the JAX engine does.  Sampling is
 Gumbel-max with noise keyed by (request id, token index), never by engine
 step, so a request decoded in a churning batch gives the tokens of a solo
 run, greedy or sampled.  The noise comes from a PyTorch generator on the
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as M
-from repro_torch.models.attention import PagedView
+from repro_torch.models.attention import PagedAttnCache, PagedView
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.paged import BlockAllocator
 
@@ -69,6 +74,15 @@ def _sample(logits: torch.Tensor, draws: list[tuple[float, int, int] | None]) ->
             t, rid, index = draws[i]
             logits[i] += t * _gumbel(rid, index, logits.shape[-1], logits.device)
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _recurrent(entry) -> bool:
+    """Whether a cache-tree entry holds per-slot recurrent states."""
+    return entry is not None and not isinstance(entry[0], PagedAttnCache)
+
+
+def _tensors(cache) -> dict[str, torch.Tensor]:
+    return {f.name: getattr(cache, f.name) for f in dataclasses.fields(cache)}
 
 
 @dataclasses.dataclass
@@ -168,6 +182,45 @@ class ServeEngine:
         self._token_cb = None
         self.decode_steps = 0
         self.decode_step_times: list[float] = []
+
+    # -- recurrent scratch of a prefilling slot -----------------------------
+
+    def _zero_scratch(self) -> dict:
+        """Batch-1 zero copies of the recurrent cache entries (None for page
+        pools): the state a prompt starts from."""
+        def zero(entry, ax):
+            if not _recurrent(entry):
+                return None
+            cache = entry[0]
+            return (type(cache)(**{
+                k: torch.zeros(t.shape[:ax] + (1,) + t.shape[ax + 1:], dtype=t.dtype, device=t.device)
+                for k, t in _tensors(cache).items()}), None)
+
+        caches = self.state.caches
+        return {"scan": [zero(e, 1) for e in caches["scan"]],
+                "rem": [zero(e, 0) for e in caches["rem"]]}
+
+    def _prefill_caches(self, scratch: dict) -> dict:
+        """The caches a prefill chunk runs on: the engine's page pools and
+        the slot's batch-1 recurrent scratch, which the chunk advances in
+        place."""
+        caches = self.state.caches
+        return {part: [s if s is not None else e for e, s in zip(caches[part], scratch[part])]
+                for part in ("scan", "rem")}
+
+    def _commit_scratch(self, scratch: dict, slot: int) -> None:
+        """Write a prompt's final recurrent states into the slot's rows."""
+        caches = self.state.caches
+        for part, stacked in (("scan", True), ("rem", False)):
+            for entry, one in zip(caches[part], scratch[part]):
+                if one is None:
+                    continue
+                full = _tensors(entry[0])
+                for k, t in _tensors(one[0]).items():
+                    if stacked:
+                        full[k][:, slot] = t[:, 0]
+                    else:
+                        full[k][slot] = t[0]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -272,7 +325,7 @@ class ServeEngine:
             row_dev = torch.from_numpy(row).to(self.device)
             self.state.block_tables[slot] = row_dev
             self._slots[slot] = {
-                "req": req, "lease": lease, "row": row_dev,
+                "req": req, "lease": lease, "row": row_dev, "rec": self._zero_scratch(),
                 "phase": "prefill", "cursor": 0,
                 "admit_t": 0.0, "steps": 0, "t_toks": [], "emitted": 0,
             }
@@ -294,12 +347,13 @@ class ServeEngine:
             torch.ones((1,), dtype=torch.bool, device=dev),
         )
         logits, _ = M.paged_prefill_chunk(
-            self.params, self.cfg, toks.to(dev), self.state.caches, view,
+            self.params, self.cfg, toks.to(dev), self._prefill_caches(occ["rec"]), view,
             lengths=torch.tensor([n], dtype=torch.int32).to(dev),
         )
         occ["cursor"] = cur + n
         if occ["cursor"] < len(req.prompt):
             return
+        self._commit_scratch(occ.pop("rec"), slot)
         tok0 = _sample(logits[:, 0], [(req.temperature, req.rid, 0)])[0]
         occ["blocks"] = self.alloc.commit(occ.pop("lease"))
         st = self.state

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
+from repro_torch.device import resolve_device
 from repro_torch.models import convert
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -70,7 +71,7 @@ def promote(
     step: int | None = None,
     replica: int = 0,
     source: str = "theta",
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[Any, dict]:
     """Load a training checkpoint and take one replica's serving weights.
 
@@ -78,7 +79,9 @@ def promote(
     ``device`` (through :func:`repro_torch.models.convert.
     params_from_jax_numpy`; a tree that does not have ``cfg``'s shapes
     raises, naming the leaf's shape and the config's), and the resolved
-    ``{"step", "replica", "source", "world"}``."""
+    ``{"step", "replica", "source", "world"}``.  ``device`` defaults to the
+    card; with no GPU that raises."""
+    device = resolve_device(device)
     if source not in ("theta", "phi"):
         raise ValueError(f"source must be 'theta' or 'phi', got {source!r}")
     if step is None:

@@ -24,6 +24,7 @@ from repro_torch.comm import bytes_model
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import pairing as pairing_lib
 from repro_torch.core.noloco import GossipTrainer, TrainerConfig, TrainState
+from repro_torch.device import resolve_device
 from repro_torch.models import convert
 from repro_torch.models import model as model_api
 from repro_torch.models.config import ModelConfig
@@ -43,7 +44,7 @@ class GossipProgram:
     membership_epoch = 0  # full membership, never changes
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig, *, replicas: int, seed: int = 0,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         tcfg.comm.validate()
         if tcfg.comm.streams > 1 or tcfg.comm.overlap:
             raise NotImplementedError(
@@ -54,7 +55,7 @@ class GossipProgram:
         self.tcfg = tcfg
         self.replicas = replicas
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.membership = pairing_lib.Membership.full(replicas)
         self.partners: list[np.ndarray] = []
         self.trainer = GossipTrainer(

@@ -231,7 +231,8 @@ def test_resume_from_jax_and_jax_from_port(tmp_path, jax_weights):
 def test_state_pytree_is_the_jax_layout(jax_weights):
     cfg = jax_weights
     program = adapters.GossipProgram(cfg, train_cli.method_config("noloco", inner_lr=1e-3,
-                                                                  total_steps=4), replicas=3)
+                                                                  total_steps=4), replicas=3,
+                                     device="cpu")
     tree = program.state_pytree(program.init_state(None))
     assert list(tree) == ["theta", "opt", "outer", "inner_step", "membership"]
     assert tree["outer"]["step"].dtype == np.int32 and tree["inner_step"].dtype == np.int32
@@ -245,7 +246,8 @@ def test_state_pytree_is_the_jax_layout(jax_weights):
 def test_loading_elastic_or_streaming_state_raises(jax_weights, change):
     cfg = jax_weights
     program = adapters.GossipProgram(cfg, train_cli.method_config("noloco", inner_lr=1e-3,
-                                                                  total_steps=4), replicas=3)
+                                                                  total_steps=4), replicas=3,
+                                     device="cpu")
     state = program.init_state(None)
     tree = program.state_pytree(state)
     if change == "dropped":

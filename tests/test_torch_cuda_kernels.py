@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: paged
 attention (decode and chunk), flash attention (forward and backward), the
-fused NoLoCo outer update and the int8 codec pair.  Every test here needs a CUDA device and ``nvcc`` and skips
-elsewhere; on a machine with the card run them with
+fused NoLoCo outer update, the int8 codec pair, the SSD chunk and RG-LRU
+scans and the two recurrent decode steps.  Every test here needs a CUDA
+device and ``nvcc`` and skips elsewhere; on a machine with the card run them
+with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -12,13 +14,19 @@ to bf16 (values are O(1), one bf16 ulp there is 2**-7); bf16 gradients of
 flash attention also get rtol 2e-2, since dK/dV sum over every query row and
 grow with it while bf16 rounding is relative.  The outer update and the
 int8 pair are exact: both versions round the same fp32 operations once.
+So are the RG-LRU scan, the RG-LRU decode step and the SSD decode state
+(the same fp32 products and sums in the same order); the SSD decode output
+sums its N products in another order (within 1e-5 of Σ|state′·c|), and the
+SSD chunk kernel agrees with its plain version within atol and rtol 1e-4
+(fp32 sums of up to Q·N products in another order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (
-    dispatch, flash_attention, noloco_update, ops, paged_attention, quantize, ref,
+    decode_update, dispatch, flash_attention, noloco_update, ops, paged_attention, quantize, ref,
+    rglru_scan, ssd_scan,
 )
 
 CASES = [(4, 4, "causal", 0), (4, 2, "causal", 0), (4, 1, "local", 5), (6, 4, "causal", 0),
@@ -196,6 +204,10 @@ def test_registry_kernels_launch(cuda):
     x = torch.randn(2, 3000, device=cuda, dtype=torch.bfloat16)
     inputs["int8_quantize"] = lambda: [x, 1024]
     inputs["int8_dequantize"] = lambda: [*ref.torch_int8_quantize(x, 1024), 3000, torch.bfloat16]
+    inputs["ssd_chunk"] = lambda: _ssd_chunk_inputs(0, 1, 2, 8, 2, 16, 8, cuda)
+    inputs["rglru_scan"] = lambda: _f32(cuda, 0, (2, 9, 40), (2, 9, 40))
+    inputs["rglru_decode"] = lambda: _f32(cuda, 0, (2, 40), (2, 40), (2, 40))
+    inputs["ssd_decode"] = lambda: _f32(cuda, 0, (2, 12, 8), (2, 12), (2, 12), (2, 8), (2, 8))
     coef = dict(alpha=0.5, beta=0.7, gamma=0.9)
     dispatch.reset_launches()
     for name, op in dispatch.registry().items():
@@ -281,3 +293,152 @@ def test_int8_kernels_reject_bad_arguments(cuda):
         quantize.int8_dequantize(q, scale, lo, 50, torch.float32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         quantize.int8_dequantize(q.cpu(), scale, lo, 100, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: SSD chunk scan, RG-LRU scan, the decode steps
+# ---------------------------------------------------------------------------
+
+
+def _f32(device, seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device) for s in shapes]
+
+
+def _ssd_chunk_inputs(seed, b, nc, q, h, p, n, device, pad=0):
+    """x, dt (softplus · 0.1, exactly 0 on the last ``pad`` rows of the last
+    chunk), a in [−16, −1], B, C: the distributions of the model's."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, nc, q, h, p))
+    dt = np.log1p(np.exp(rng.normal(size=(b, nc, q, h)) - 2.0))
+    if pad:
+        dt[:, -1, q - pad:] = 0.0
+    a = -np.exp(rng.uniform(0.0, np.log(16.0), size=h))
+    bm, cm = rng.normal(size=(2, b, nc, q, n))
+    return [torch.from_numpy(v.astype(np.float32)).to(device) for v in (x, dt, a, bm, cm)]
+
+
+SSD_CASES = [(1, 1, 32, 32, 64, 128), (2, 3, 16, 4, 64, 32), (1, 2, 64, 3, 32, 128),
+             (1, 1, 128, 2, 64, 128), (2, 2, 7, 5, 33, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_ssd_chunk_matches_plain(cuda, case):
+    args = _ssd_chunk_inputs(sum(case), *case, cuda, pad=case[2] // 3)
+    before = ssd_scan.ssd_chunk.launches
+    y, st = ssd_scan.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_chunk.launches == before + 1
+    wy, wst = ref.torch_ssd_chunk_intra(*args)
+    assert y.shape == wy.shape and st.shape == wst.shape and st.dtype == torch.float32
+    torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, wst, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_pad_rows_leave_the_state_exactly_unchanged(cuda):
+    """Rows with dt = 0 add exact zeros, whatever their x, B and C hold."""
+    x, dt, a, bm, cm = _ssd_chunk_inputs(3, 1, 1, 32, 4, 64, 128, cuda, pad=11)
+    y0, st0 = ssd_scan.ssd_chunk(x, dt, a, bm, cm)
+    noisy = [t.clone() for t in (x, bm, cm)]
+    for t in noisy:
+        t[:, :, 21:] = 1e3 * torch.randn_like(t[:, :, 21:])
+    y1, st1 = ssd_scan.ssd_chunk(noisy[0], dt, a, noisy[1], noisy[2])
+    assert torch.equal(st0, st1) and torch.equal(y0[:, :, :21], y1[:, :, :21])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 32, 4096), (2, 37, 130), (3, 5, 33), (2, 300, 1000)])
+def test_rglru_scan_is_the_plain_version_bit_for_bit(cuda, shape):
+    a, b = _f32(cuda, shape[2], shape, shape)
+    a = torch.sigmoid(a) * 0.5 + 0.45
+    h = ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert h.dtype == torch.float32 and h.shape == shape
+    assert torch.equal(h, ref.torch_rglru_scan(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((4, 4096), 0), ((3, 130), 0), ((1, 7), 0),
+                                          ((4, 4096), 1)])
+def test_rglru_decode_is_the_plain_version_bit_for_bit(cuda, shape, offset):
+    """Aligned rows take 16-byte words, an offset buffer one value at a
+    time; each slot's row is the bits it gets alone."""
+    n = shape[0] * shape[1]
+    h, a, b = (t[offset:offset + n].view(shape) for t in _f32(cuda, n, (n + 1,), (n + 1,), (n + 1,)))
+    out = decode_update.rglru_decode(h, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.torch_rglru_decode(h, a, b))
+    solo = decode_update.rglru_decode(h[-1:].contiguous(), a[-1:].contiguous(), b[-1:].contiguous())
+    assert torch.equal(solo[0], out[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 2048, 128), (3, 70, 16), (1, 5, 33), (2, 64, 300)])
+def test_ssd_decode_matches_plain(cuda, shape):
+    r, hp, n = shape
+    state, decay, dtx, b, c = _f32(cuda, hp, shape, (r, hp), (r, hp), (r, n), (r, n))
+    decay = torch.exp(-decay.abs())
+    st, y = decode_update.ssd_decode(state, decay, dtx, b, c)
+    torch.cuda.synchronize()
+    wst, wy = ref.torch_ssd_decode(state, decay, dtx, b, c)
+    assert torch.equal(st, wst)
+    bound = 1e-5 * torch.einsum("rkn,rn->rk", wst.abs(), c.abs())
+    assert bool(((y - wy).abs() <= bound).all())
+    solo = decode_update.ssd_decode(*(t[-1:].contiguous() for t in (state, decay, dtx, b, c)))
+    assert torch.equal(solo[0][0], st[-1]) and torch.equal(solo[1][0], y[-1])
+
+
+@pytest.mark.cuda
+def test_recurrent_kernels_reject_bad_arguments(cuda):
+    a, b = _f32(cuda, 0, (2, 5, 8), (2, 5, 8))
+    with pytest.raises(ValueError, match="float32"):
+        rglru_scan.rglru_scan(a.bfloat16(), b.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan.rglru_scan(a.transpose(1, 2), b.transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        decode_update.rglru_decode(a[:, 0].cpu(), a[:, 0], b[:, 0])
+    x, dt, aa, bm, cm = _ssd_chunk_inputs(0, 1, 1, 8, 2, 16, 8, cuda)
+    with pytest.raises(ValueError, match="must be"):
+        ssd_scan.ssd_chunk(x, dt[..., :1], aa, bm, cm)
+    big = _ssd_chunk_inputs(0, 1, 1, 256, 1, 64, 160, cuda)   # 260 KB of shared memory
+    with pytest.raises(RuntimeError, match="ssd_chunk launch failed"):
+        ssd_scan.ssd_chunk(*big)
+
+
+def _long_context_inputs(seed, chunk, dtype, device, positions=(2500, 3100), h=16, kv=1, d=256,
+                         bs=16):
+    """recurrentgemma-9b's local layers: MQA with 16 heads of 256 over
+    contexts longer than the 2,048-token window, each slot's pages in a
+    random order."""
+    rng = np.random.default_rng(seed)
+    c = 32 if chunk else 1
+    need = [(p + c - 1) // bs + 1 for p in positions]
+    num_pages = sum(need) + 3
+    perm = rng.permutation(num_pages).astype(np.int32)
+    tables = np.full((len(positions), max(need) + 2), num_pages, np.int32)
+    start = 0
+    for i, n_i in enumerate(need):
+        tables[i, :n_i] = perm[start:start + n_i]
+        start += n_i
+    qshape = (len(positions), c, h, d) if chunk else (len(positions), h, d)
+    q, kp, vp = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, dtype)
+                 for s in (qshape, (num_pages + 1, bs, kv, d), (num_pages + 1, bs, kv, d)))
+    return [q, kp, vp, torch.from_numpy(tables).to(device),
+            torch.tensor(positions, dtype=torch.int32, device=device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mode,window", [("local", 2048), ("causal", 0)])
+@pytest.mark.parametrize("chunk", [False, True], ids=["decode", "chunk"])
+def test_paged_kernels_at_recurrentgemma_shape(cuda, chunk, mode, window, dtype):
+    args = _long_context_inputs(7, chunk, dtype, cuda)
+    op = ops.paged_chunk_attention if chunk else ops.paged_attention
+    plain = ref.torch_paged_chunk_attention if chunk else ref.torch_paged_attention
+    got = op(*args, mode=mode, window=window)
+    torch.cuda.synchronize()
+    want = plain(*args, mode=mode, window=window)
+    assert got.dtype == dtype and got.shape == args[0].shape
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)

@@ -21,7 +21,10 @@ import torch
 
 import types
 
-from repro_torch.kernels import build, flash_attention, noloco_update, ops, paged_attention, ref
+from repro_torch.kernels import (
+    build, decode_update, flash_attention, noloco_update, ops, paged_attention, ref, rglru_scan,
+    ssd_scan,
+)
 from repro_torch.launch import serve, train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -77,6 +80,20 @@ def test_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main([])
+
+
+def test_promote_and_gossip_program_default_to_cuda(monkeypatch, tmp_path):
+    from repro_torch.configs import registry
+    from repro_torch.serve import promote
+    from repro_torch.train import adapters
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.get_config("paper-small-125m").reduced(dtype="float32", remat=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        promote(str(tmp_path), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        adapters.GossipProgram(cfg, train.method_config("noloco", inner_lr=1e-3, total_steps=4),
+                               replicas=2)
 
 
 def test_serve_cli_on_cpu(capsys):
@@ -237,3 +254,44 @@ def test_library_path_follows_the_source_hash(monkeypatch, tmp_path):
     src.write_text("// two\n")
     assert build.library_path("k") != first
     assert first.parent == build.BUILD_DIR and first.suffix == ".so"
+
+
+def _recurrent_cases():
+    """(op call, wrapper module, plain-version names) of the four recurrent ops."""
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.rand(shape, generator=g)
+    return {
+        "ssd_chunk": (lambda w: ops.ssd_chunk(*map(w, (r(1, 6, 2, 4), r(1, 6, 2), -r(2), r(1, 6, 3),
+                                                        r(1, 6, 3))), chunk=4),
+                      ssd_scan, ssd_scan.ssd_chunk, ["torch_ssd_chunk_intra"]),
+        "rglru_scan": (lambda w: ops.rglru_scan(w(r(2, 5, 3)), w(r(2, 5, 3))),
+                       rglru_scan, rglru_scan.rglru_scan, ["torch_rglru_scan"]),
+        "rglru_decode": (lambda w: ops.rglru_decode(*map(w, (r(2, 3), r(2, 3), r(2, 3)))),
+                         decode_update, decode_update.rglru_decode, ["torch_rglru_decode"]),
+        "ssd_decode": (lambda w: ops.ssd_decode(*map(w, (r(2, 2, 4, 3), r(2, 2), -r(2), r(2, 3),
+                                                         r(2, 3), r(2, 2, 4)))),
+                       decode_update, decode_update.ssd_decode, ["torch_ssd_decode"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["ssd_chunk", "rglru_scan", "rglru_decode", "ssd_decode"])
+def test_recurrent_ops_never_reach_the_plain_version(monkeypatch, name):
+    call, module, kernel, plains = _recurrent_cases()[name]
+    for plain in plains:
+        monkeypatch.setattr(ref, plain, _plain_called)
+    monkeypatch.setattr(module, "library", _launched)
+    before = kernel.launches
+    with pytest.raises(_Launched):   # a CUDA tensor goes to the kernel
+        call(lambda t: t.as_subclass(_FakeCuda))
+    with pytest.raises(ValueError, match="CUDA tensor"):   # any other device raises
+        call(lambda t: t.to("meta"))
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("name", ["ssd_chunk", "rglru_scan"])
+def test_recurrent_scan_backward_raises_on_the_card(name):
+    """The scans' backward kernels come with the training slice: on a CUDA
+    tensor the autograd function's backward raises, naming it."""
+    fn = ops._SSDChunkIntra if name == "ssd_chunk" else ops._RGLRUScan
+    with pytest.raises(NotImplementedError, match="backward of the " + name):
+        fn.backward(None, torch.zeros(1))

@@ -109,7 +109,7 @@ def test_init_params_matches_jax_structure(arch):
 
 def test_other_archs_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_config("mamba2-370m")
+        registry.get_config("granite-moe-1b-a400m")
 
 
 def test_paged_cache_tree_rejects_encdec():
@@ -330,7 +330,7 @@ def test_promote_matches_jax(tmp_path, replica, source):
         want, want_info = jax_promote(str(tmp_path), replica=replica, source=source)
     with warnings.catch_warnings(record=True) as pw:
         warnings.simplefilter("always")
-        got, info = promote(str(tmp_path), cfg, replica=replica, source=source)
+        got, info = promote(str(tmp_path), cfg, replica=replica, source=source, device="cpu")
     assert info == want_info and info["replica"] == (2 if replica == 2 else 0)
     assert [str(w.message) for w in pw] == [str(w.message) for w in jw]
     assert len(pw) == (replica != 2)
@@ -345,14 +345,14 @@ def test_promote_rejects_what_cannot_be_served(tmp_path):
     _, cfg = _configs("paper-small-125m")
     jckpt.save(str(tmp_path / "pipe"), 1, {"program": {"params": [np.zeros(2)]}})
     with pytest.raises(ValueError, match="pipeline"):
-        promote(str(tmp_path / "pipe"), cfg)
+        promote(str(tmp_path / "pipe"), cfg, device="cpu")
     jckpt.save(str(tmp_path / "odd"), 1, {"program": {"weights": np.zeros(2)}})
     with pytest.raises(ValueError, match="unrecognized checkpoint layout"):
-        promote(str(tmp_path / "odd"), cfg)
+        promote(str(tmp_path / "odd"), cfg, device="cpu")
     with pytest.raises(FileNotFoundError):
-        promote(str(tmp_path / "none"), cfg)
+        promote(str(tmp_path / "none"), cfg, device="cpu")
     with pytest.raises(ValueError, match="source"):
-        promote(str(tmp_path / "odd"), cfg, source="delta")
+        promote(str(tmp_path / "odd"), cfg, source="delta", device="cpu")
     assert resolve_replica(None, 3, 4) == 3
 
 
