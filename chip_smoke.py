@@ -14,11 +14,14 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    causal and local with window 64, bf16 and fp32, plus ragged heads H 6 /
    KV 4); flash attention forward and backward at the paper model's shape
    (B 4, S 1024, H = KV = 16, D 48) and at GQA 16/8 with D 128, ragged 6/4,
-   causal, local (window 64) and full, bf16 and fp32; the NoLoCo outer
+   causal, local (window 64) and full, D 128 and 256 at S 1024, D 36, bf16
+   and fp32, each line naming the kernels that served it (bf16 with
+   D % 8 == 0 the tensor-core ones, the rest the CUDA-core ones); the NoLoCo outer
    update on a leaf the size of the paper model's stacked embedding
    (4 × 128,000 × 768).  Then time kernel, plain version and the library
    yardstick (``scaled_dot_product_attention`` forward and backward, which
-   the port never calls) at the shapes the main paths give them;
+   the port never calls) at the shapes the main paths give them, the flash
+   pair also on the kept CUDA-core kernels in bf16;
 4. serve qwen3-0.6b at its published width in bf16 on weights from seed 0:
    8 requests, 4 slots, prompts 24/80/200, generation 16/32, 128 pages of
    16, chunked prefill 32, greedy.  Launch counts are zeroed just before the
@@ -93,6 +96,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -108,7 +112,7 @@ from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
 from repro_torch.comm import CommConfig, bytes_model, payload  # noqa: E402
 from repro_torch.configs import mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
-from repro_torch.kernels import build, dispatch, ops  # noqa: E402
+from repro_torch.kernels import build, dispatch, flash_attention, ops  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve import serve_run, synth_requests  # noqa: E402
@@ -121,6 +125,8 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and per-type compute.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The special-function units' exp2 rate: 16 per clock per SM, 132 SMs.
+EX2_PER_CLOCK = 16 * 132
 
 # Tolerances of the kernel checks.  fp32: the kernel and the plain version
 # sum in different orders.  bf16: both round an fp32 result to bf16, so they
@@ -296,7 +302,8 @@ def check_train_kernels(dev) -> dict[str, float]:
     errors = {name: 0.0 for name in TRAIN_KERNELS}
     cases = [(4, 1024, 16, 16, 48, "causal", 0), (2, 300, 16, 8, 128, "causal", 0),
              (2, 200, 6, 4, 48, "causal", 0), (2, 333, 16, 16, 48, "local", 64),
-             (2, 257, 16, 8, 64, "full", 0)]
+             (2, 257, 16, 8, 64, "full", 0), (1, 1024, 8, 8, 128, "causal", 0),
+             (1, 1024, 4, 2, 256, "causal", 0), (2, 300, 8, 4, 36, "causal", 0)]
     for dtype in (torch.bfloat16, torch.float32):
         for b, s, h, kv, d, mode, window in cases:
             q, k, v, do = flash_inputs(gen, b, s, h, kv, d, dtype)
@@ -315,7 +322,8 @@ def check_train_kernels(dev) -> dict[str, float]:
                     raise AssertionError(
                         f"{name} disagrees with its plain version: {str(dtype)[6:]} B{b} S{s} "
                         f"H{h}/KV{kv} D{d} {mode}: max_abs_err {err:.3e}")
-            log(f"check flash {str(dtype)[6:]} B{b} S{s} H{h}/KV{kv} D{d} {mode}: "
+            log(f"check flash {str(dtype)[6:]} B{b} S{s} H{h}/KV{kv} D{d} {mode} "
+                f"path {flash_attention.path_for(dtype, d)}: "
                 + ", ".join(f"{n} {e:.3e}" for n, e, _ in results) + " ok")
     op = reg["noloco_update"]
     coef = dict(alpha=0.5, beta=0.7, gamma=0.9186)
@@ -339,27 +347,61 @@ def check_train_kernels(dev) -> dict[str, float]:
     return errors
 
 
-def flash_bound(b, s, h, kv, d, esz, backward):
-    """Least time for causal attention: q, k, v (and o, dO) read once, the
-    outputs written once, against the flops of the visible (row, key) pairs:
-    4·D each forward (QKᵀ and PV), 10·D backward (recomputed QKᵀ, dO·Vᵀ, dV,
-    dK, dQ), at the bf16 tensor-core peak."""
+def flash_bound(b, s, h, kv, d, esz, backward, sm_mhz):
+    """Least time for causal attention, the largest of three: q, k, v (and
+    o, dO) read once and the outputs written once; the flops of the visible
+    (row, key) pairs, 4·D each forward (QKᵀ and PV), 10·D backward
+    (recomputed QKᵀ, dO·Vᵀ, dV, dK, dQ), at the bf16 tensor-core peak; one
+    exp2 per visible pair, forward and backward alike (the function needs
+    one; the tensor-core backward's dQ blocks recompute P and take a second,
+    a cost of that design and not of the function), at the special-function
+    units' rate at the measured SM clock.  Returns (ms, "bytes" or
+    "operations", which of the three)."""
     qo, kv_elems, rows = b * s * h * d, b * s * kv * d, b * h * s
     if backward:   # read q, k, v, o, dO, lse; write dq, dk, dv
         nbytes = (4 * qo + 4 * kv_elems) * esz + 4 * rows
     else:          # read q, k, v; write o, lse
         nbytes = (2 * qo + 2 * kv_elems) * esz + 4 * rows
     pairs = b * h * s * (s + 1) / 2
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = (10 if backward else 4) * d * pairs / PEAK_FLOPS[torch.bfloat16]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "flops": (10 if backward else 4) * d * pairs / PEAK_FLOPS[torch.bfloat16],
+             "exponentials": pairs / (EX2_PER_CLOCK * sm_mhz * 1e6)}
+    what = max(times, key=times.get)
+    return times[what] * 1e3, ("bytes" if what == "bytes" else "operations"), what
+
+
+def flash_cuda_core(q, k, v, o=None, lse=None, do=None):
+    """The kept CUDA-core flash kernels on the paper shape's causal inputs,
+    whatever their type: the library's ``*_cuda_core`` entry points, which
+    the port's wrappers never call (they let the source choose by type and
+    head dim).  Forward with three tensors, backward with six."""
+    lib = flash_attention.library()
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    dtype, stream = (0 if q.dtype == torch.float32 else 1), torch.cuda.current_stream().cuda_stream
+    if o is None:
+        o, lse = torch.empty_like(q), torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        err = lib.flash_attention_fwd_cuda_core(
+            dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, sq, sk, h, kvh, d, 0, 0, 1.0 / math.sqrt(d), stream)
+        outs = (o, lse)
+    else:
+        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        err = lib.flash_attention_bwd_cuda_core(
+            dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), *(t.data_ptr() for t in outs), b, sq, sk, h, kvh, d, 0, 0,
+            1.0 / math.sqrt(d), stream, None)
+    if err:
+        raise RuntimeError(f"CUDA-core flash launch failed: cudaError_t {err}")
+    return outs
 
 
 def time_train_kernels(dev) -> dict[str, dict]:
     """Kernel, plain and library times at the training path's shapes in
     bf16: attention at the paper model's (R·B 16, S 1024, H = KV = 16, D 48,
-    causal), the outer update on the stacked embedding leaf, the largest of
-    the path (4 × 128,000 × 768)."""
+    causal) on the path the main path takes (tensor cores) and on the kept
+    CUDA-core kernels (``cuda_core_ms``), the outer update on the stacked
+    embedding leaf, the largest of the path (4 × 128,000 × 768)."""
     gen = torch.Generator(device=dev).manual_seed(4)
     reg = dispatch.registry()
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -375,11 +417,13 @@ def time_train_kernels(dev) -> dict[str, dict]:
         args = (q, k, v, o, lse, do) if backward else (q, k, v)
         lib = ((lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
                if backward else (lambda: sdpa(qt, kt, vt, is_causal=True)))
-        bound_ms, bound_by = flash_bound(*PAPER.values(), 2, backward)
         ms, mhz = cuda_ms(lambda: op.kernel(*args), reps=30)
-        out[name] = {"ms": ms, "plain_ms": cuda_ms(lambda: op.plain(*args), reps=10)[0],
+        bound_ms, bound_by, bound_what = flash_bound(*PAPER.values(), 2, backward, mhz)
+        out[name] = {"ms": ms, "path": flash_attention.path_for(q.dtype, PAPER["d"]),
+                     "cuda_core_ms": cuda_ms(lambda: flash_cuda_core(*args), reps=10)[0],
+                     "plain_ms": cuda_ms(lambda: op.plain(*args), reps=10)[0],
                      "library_ms": cuda_ms(lib, reps=30)[0], "bound_ms": bound_ms,
-                     "bound_by": bound_by, "sm_clock_mhz": mhz,
+                     "bound_by": bound_by, "bound_by_detail": bound_what, "sm_clock_mhz": mhz,
                      "shape": {"q": list(q.shape), "kv": list(k.shape), "mode": "causal",
                                "dtype": "bfloat16"}}
         log(f"time {name}: " + json.dumps(out[name]))
@@ -694,12 +738,22 @@ def profile_steps(cfg, state, dev) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     flash_ms = sum(t for n, t in by_name.items() if "flash_" in n)
+    # the flash kernels one by one: the forward, the backward's Di pre-pass,
+    # dK/dV and dQ blocks (ms over the step, launches)
+    flash_split: dict[str, list] = {}
+    for e in on_card:
+        kind = re.search(r"flash_\w*?kernel", e.name)
+        if kind:
+            row = flash_split.setdefault(kind.group(0), [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
     return {
         "outer_step_ms": statistics.median(outer_ms), "outer_step_samples_ms": outer_ms,
         "profiled_step_wall_ms": wall_ms,
         "device_busy_ms": busy_ms if on_card else "not measured",
         "device_busy_share": busy_ms / wall_ms if on_card else "not measured",
-        "flash_kernels_ms": flash_ms, "device_ops": len(on_card),
+        "flash_kernels_ms": flash_ms, "flash_kernels_split": flash_split,
+        "device_ops": len(on_card),
         "top_device_ops_ms": [[n[:60], t] for n, t in top],
     }
 

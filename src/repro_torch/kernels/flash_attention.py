@@ -8,13 +8,17 @@ wrapper ``pallas_flash_attention`` (``repro/kernels/flash_attention.py``);
 ``flash_attention_bwd`` stands where the JAX package differentiates the jnp
 twin (``repro/kernels/ops.py``), which has no Pallas kernel.  The source's
 header says what bounds them on the card and how they fold the query heads
-of a kv head into rows.  The wrappers check their arguments, allocate
+of a kv head into rows.  Two sets of kernels serve the calls, chosen by
+type and head dim in the source's host code (:func:`path_for` states the
+rule): bf16 with D % 8 == 0 runs on the tensor cores, fp32 and bf16 with
+D % 8 != 0 on the CUDA cores.  The wrappers check their arguments, allocate
 outputs with ``torch.empty`` and launch on PyTorch's current stream; the
 library is built at the first launch (:mod:`repro_torch.kernels.build`).
 
 Each wrapper counts its launches in a plain integer attribute,
-``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches`` (one
-backward launch computes dQ, dK and dV).  The plain PyTorch versions are in
+``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches``: one
+per call, whatever the call launches inside (the tensor-core backward is a
+Di pre-pass, the dK/dV blocks and the dQ blocks).  The plain PyTorch versions are in
 :mod:`repro_torch.kernels.ref`; :mod:`repro_torch.kernels.ops` picks between
 the two by the device of the tensors.
 """
@@ -34,17 +38,26 @@ MODES = {"causal": 0, "local": 1, "full": 2}
 MAX_HEAD_DIM = 256
 
 
+def path_for(dtype: torch.dtype, d: int) -> str:
+    """Which kernels serve a call on the card: ``"tensor_core"`` for bf16
+    with ``d % 8 == 0``, ``"cuda_core"`` for fp32 and for bf16 with other
+    head dims.  The source's host code makes the same choice; fp32 stays off
+    the tensor cores so that fp32 training keeps fp32 products."""
+    return "tensor_core" if dtype == torch.bfloat16 and d % 8 == 0 else "cuda_core"
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built at the first call."""
+    """The kernels' shared library, built at the first call.  Its
+    ``*_cuda_core`` entry points run the CUDA-core kernels whatever the type;
+    the wrappers never call them (``chip_smoke.py`` times them)."""
     lib = build.load("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_fwd.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
-    lib.flash_attention_fwd.restype = i
-    lib.flash_attention_bwd.argtypes = [
-        i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p,
-    ]
-    lib.flash_attention_bwd.restype = i
+    for suffix in ("", "_cuda_core"):
+        fwd, bwd = getattr(lib, "flash_attention_fwd" + suffix), getattr(lib, "flash_attention_bwd" + suffix)
+        fwd.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+        bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p, p]
+        fwd.restype = bwd.restype = i
     return lib
 
 
@@ -72,6 +85,10 @@ def _check(tensors: dict, q, k, v, mode: str, window: int):
         raise ValueError(f"need 1 <= KV <= H, got KV {kvh}, H {h}")
     if mode not in MODES or (mode == "local" and window < 1):
         raise ValueError(f"mode must be causal, local (window >= 1) or full, got {mode!r}, {window}")
+    if path_for(q.dtype, d) == "tensor_core":   # rows are copied in 16-byte pieces
+        for name, t in tensors.items():
+            if name != "lse" and t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned for the tensor-core kernels")
     return b, sq, sk, h, kvh, d
 
 
@@ -133,12 +150,16 @@ def flash_attention_bwd(
         raise ValueError(f"lse must be float32 {(b, h, sq)}, got {lse.dtype} {tuple(lse.shape)}")
     lib = library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # the tensor-core path's Di = rowsum(dO ∘ O), written by its pre-pass
+    di = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+          if path_for(q.dtype, d) == "tensor_core" else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, sk, h, kvh, d, MODES[mode], int(window), 1.0 / math.sqrt(d), stream,
+            None if di is None else di.data_ptr(),
         )
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

@@ -119,6 +119,14 @@ FLASH_CASES = [  # (B, S, H, KV, D, mode, window)
     (2, 70, 6, 4, 64, "causal", 0), (1, 130, 4, 1, 48, "local", 64),
     (2, 33, 4, 4, 64, "full", 0), (1, 40, 2, 2, 256, "causal", 0),
     (4, 128, 16, 16, 48, "causal", 0),
+    # the tensor-core kernels' edges: D 16/48/128/256 at S 1024, S no multiple
+    # of the row or key tiles (64, 128), a window across key tiles, MQA,
+    # ragged heads; D 36 in bf16 takes the CUDA-core kernels
+    (1, 1024, 4, 4, 16, "causal", 0), (2, 1024, 4, 2, 48, "causal", 0),
+    (1, 1024, 4, 2, 128, "causal", 0), (1, 1024, 2, 1, 256, "causal", 0),
+    (1, 1000, 4, 4, 64, "causal", 0), (1, 300, 4, 2, 64, "local", 100),
+    (2, 200, 8, 1, 128, "causal", 0), (1, 257, 6, 4, 48, "full", 0),
+    (1, 130, 6, 4, 256, "local", 70), (2, 100, 4, 2, 36, "causal", 0),
 ]
 
 
@@ -155,6 +163,49 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
     for got_g, want_g, t in zip(grads, want, (q, k, v)):
         assert got_g.dtype == dtype and got_g.shape == t.shape
         _assert_grad_close(got_g, want_g, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 1024, 4, 2, 48, "causal", 0), (1, 300, 6, 4, 128, "local", 100)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_bf16_is_bit_identical_across_calls(cuda, case):
+    """One writer per output element and a fixed order of sums: the same
+    inputs give the same gradients, bit for bit."""
+    b, s, h, kv, d, mode, window = case
+    q, k, v, do = _flash_inputs(11, b, s, h, kv, d, torch.bfloat16, cuda)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, mode=mode, window=window)
+    first = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, mode=mode, window=window)
+    second = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, mode=mode, window=window)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 48), (torch.bfloat16, 256),
+                                     (torch.bfloat16, 36), (torch.float32, 48)],
+                         ids=["bf16-48", "bf16-256", "bf16-36", "fp32-48"])
+def test_flash_path_for_names_the_kernels_that_ran(cuda, dtype, d):
+    """The profiler's device kernels of one forward and one backward call are
+    the tensor-core kernels exactly when ``path_for`` says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do = _flash_inputs(7, 1, 100, 4, 2, d, dtype, cuda)
+    fwd, bwd = flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd
+    o, lse = fwd(q, k, v)    # builds the library outside the profiled window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o, lse = fwd(q, k, v)
+        bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    flash = {n for n in names if "flash_" in n}
+    assert flash, f"no flash kernel among the profiled device ops {sorted(names)}"
+    on_tc = {n for n in flash if "_tc_kernel" in n or "prepass" in n}
+    if flash_attention.path_for(dtype, d) == "tensor_core":
+        assert on_tc == flash and len(flash) == 4, sorted(flash)   # fwd, pre-pass, dK/dV, dQ
+    else:
+        assert not on_tc and len(flash) == 2, sorted(flash)
 
 
 @pytest.mark.cuda

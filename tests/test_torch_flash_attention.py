@@ -22,7 +22,9 @@ from repro_torch.kernels import ops, ref
 ATOL = 1e-5
 
 # (B, S, H, KV, D, mode, window): GQA, MQA, ragged heads (6/4), S not a
-# multiple of the twin's block, D 48 (the paper model's head_dim) and 64.
+# multiple of the twin's block, D 48 (the paper model's head_dim) and 64;
+# then the edges of the card's tensor-core kernels: D 128 and 256, S no
+# multiple of their 64-row and 64-key tiles, MQA, a window wider than a tile.
 CASES = [
     (2, 37, 4, 2, 48, "causal", 0),
     (1, 40, 4, 1, 64, "causal", 0),
@@ -30,6 +32,10 @@ CASES = [
     (1, 33, 4, 2, 64, "local", 5),
     (2, 21, 4, 4, 48, "full", 0),
     (1, 45, 6, 4, 64, "local", 9),
+    (1, 70, 2, 1, 128, "causal", 0),
+    (1, 65, 2, 2, 256, "full", 0),
+    (1, 100, 4, 1, 48, "causal", 0),
+    (1, 150, 4, 2, 64, "local", 80),
 ]
 IDS = ["-".join(map(str, c)) for c in CASES]
 
