@@ -84,7 +84,27 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     kernel per attention layer);
 15. both families' ``reduced()`` configs in fp32 on the card and on the CPU
     from the same weights, prompts of 80 and 200 tokens (the reduced window
-    is 64): identical tokens, logits within 2e-3.
+    is 64): identical tokens, logits within 2e-3;
+16. (with phase 3) the split paged kernels against their plain versions at
+    qwen3-0.6b's and recurrentgemma-9b's shapes in bf16 and fp32, with the
+    engine's table width, across split boundaries: contexts of 1, one key
+    below, at and above a split boundary, 231, 2047 and 2048 with window
+    2048, and windows whose first key falls inside a split (``check split``
+    lines name each slot's split count); each slot of a 4-slot call against
+    the same slot alone, bit for bit (``check slot alone == batched``).  The
+    ``time paged_*`` lines carry the library's split plan
+    (``keys_per_split``, ``grid_splits``, ``slot_splits``) and
+    ``ms_one_tile`` (one split per slot);
+17. (before phase 4) serve qwen3-0.6b with the phase-4 mix greedy and at
+    temperatures 0.0/0.7 in turns, before any profiler has run (``serve
+    qwen3-0.6b greedy and sampled in turns``: step p50/p99, tokens/s), and
+    time the sampling draw of one decode step alone (4 rows of the
+    151,936-token vocabulary: keys to the card, threefry bits, uniforms,
+    Gumbel noise; ``time sampling draw``); (after phase 4) serve the mix at
+    0.0/0.7 as phase 4 does (requests 1 and 5, held against their solo
+    runs, are sampled): launch counts, batched == solo, and the profiled
+    request at 0.7 beside the greedy one (``serve qwen3-0.6b sampled vs
+    greedy``).
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -112,7 +132,7 @@ from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
 from repro_torch.comm import CommConfig, bytes_model, payload  # noqa: E402
 from repro_torch.configs import mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
-from repro_torch.kernels import build, dispatch, flash_attention, ops  # noqa: E402
+from repro_torch.kernels import build, dispatch, flash_attention, ops, paged_attention  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve import serve_run, synth_requests  # noqa: E402
@@ -444,13 +464,24 @@ def time_train_kernels(dev) -> dict[str, dict]:
     return out
 
 
+def split_counts(args, chunk, mode, window) -> dict:
+    """The split plan of a paged call, from the library: keys per split, the
+    grid's split axis, and the splits each slot runs."""
+    q, _, _, tables, positions = args
+    c = q.shape[1] if chunk else 1
+    mb, bs = tables.shape[1], args[1].shape[1]
+    plans = [paged_attention.split_plan(p, c, mb, bs, mode, window) for p in positions.tolist()]
+    return {"keys_per_split": plans[0][0], "grid_splits": plans[0][1],
+            "slot_splits": [n for _, _, n in plans]}
+
+
 def time_kernels(dev) -> dict[str, dict]:
     """Kernel, plain and library times at the serve phase's shapes in bf16:
     decode over its 4 slots, one prefill chunk of 32 (the engine prefills
     one slot per call) at the last chunk of a 200-token prompt.  The kernel
-    is also timed at one key tile per block (``ms_one_tile``: contexts of 16,
-    or the first chunk) to split its time into a fixed part and a per-tile
-    part."""
+    is also timed at one split per slot (``ms_one_tile``: contexts of 16, or
+    the first chunk) to split its time into a fixed part and a per-split
+    part; the lines carry the split plan (``split_counts``)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
@@ -472,6 +503,7 @@ def time_kernels(dev) -> dict[str, dict]:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "sm_clock_mhz": mhz,
+            **split_counts(args, chunk, "causal", 0),
             "shape": {"q": list(args[0].shape), "pages": list(args[1].shape),
                       "positions": pos, "dtype": "bfloat16"},
         }
@@ -485,13 +517,18 @@ def time_kernels(dev) -> dict[str, dict]:
 
 
 SERVE_MIX = dict(n=8, prompt_lens=[24, 80, 200], gen_lens=[16, 32])
+SERVE_CFG = dict(max_slots=4, num_pages=NUM_PAGES, page_size=BS, max_new_cap=32,
+                 prefill_chunk=32, sync_each_step=True)
 
 
-def serve_phase(dev, cfg=qwen3_0_6b.CONFIG, expected=None):
+def serve_phase(dev, cfg=qwen3_0_6b.CONFIG, expected=None, temps=(0.0,)):
     """Serve ``cfg`` at published width on weights from seed 0 with the
-    phase-4 mix.  ``expected(chunk_calls, decode_steps)`` gives the launch
-    count of every kernel the model runs; without it the paged kernels must
-    have launched."""
+    phase-4 mix, request i at ``temps[i % len(temps)]``.
+    ``expected(chunk_calls, decode_steps)`` gives the launch count of every
+    kernel the model runs; without it the paged kernels must have launched.
+    The profiled request is request 0 cut to 8 tokens at the highest
+    temperature."""
+    label = cfg.name + (" sampled" if max(temps) > 0 else "")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
@@ -499,10 +536,9 @@ def serve_phase(dev, cfg=qwen3_0_6b.CONFIG, expected=None):
     log(f"serve: {cfg.name} {cfg.num_layers}L d{cfg.d_model} {cfg.dtype} "
         f"initialised in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of weights")
-    scfg = ServeConfig(max_slots=4, num_pages=NUM_PAGES, page_size=BS, max_new_cap=32,
-                       prefill_chunk=32, sync_each_step=True)
+    scfg = ServeConfig(**SERVE_CFG)
     requests = synth_requests(SERVE_MIX["n"], cfg.vocab_size, SERVE_MIX["prompt_lens"],
-                              SERVE_MIX["gen_lens"], [0.0], seed=0)
+                              SERVE_MIX["gen_lens"], list(temps), seed=0)
     # warm-up (CUDA context, cuBLAS handles, the kernel library), not counted
     ServeEngine(params, cfg, scfg).run([dataclasses.replace(requests[0], max_new=2)])
     torch.cuda.synchronize()
@@ -516,8 +552,8 @@ def serve_phase(dev, cfg=qwen3_0_6b.CONFIG, expected=None):
     torch.cuda.synchronize()
     launches = dispatch.launch_counts()
     summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"serve {cfg.name} run_end: " + json.dumps(summary))
-    log(f"serve {cfg.name} launches: " + json.dumps(launches))
+    log(f"serve {label} run_end: " + json.dumps(summary))
+    log(f"serve {label} launches: " + json.dumps(launches))
     for r in requests:
         if len(finished.get(r.rid, [])) != r.max_new:
             raise AssertionError(f"request {r.rid}: {len(finished.get(r.rid, []))} of {r.max_new} tokens")
@@ -528,28 +564,89 @@ def serve_phase(dev, cfg=qwen3_0_6b.CONFIG, expected=None):
     else:
         chunk_calls = sum(-(-len(r.prompt) // scfg.prefill_chunk) for r in requests)
         want = expected(chunk_calls, summary["decode_steps"])
-        log(f"serve {cfg.name} launches expected ({chunk_calls} chunk calls, "
+        log(f"serve {label} launches expected ({chunk_calls} chunk calls, "
             f"{summary['decode_steps']} decode steps): " + json.dumps(want))
         if any(launches[k] != n for k, n in want.items()):
             raise AssertionError(f"{cfg.name}: launch counts {launches} differ from the design's {want}")
     for r in (requests[1], requests[5]):
         [solo] = ServeEngine(params, cfg, scfg).run([dataclasses.replace(r)])
         if solo.tokens != finished[r.rid]:
-            raise AssertionError(f"{cfg.name} request {r.rid}: batched tokens differ from solo")
-    log(f"serve {cfg.name}: batched == solo for requests 1 and 5")
-    short = dataclasses.replace(requests[0], max_new=8)   # 1 prefill chunk, 7 decode steps
+            raise AssertionError(f"{label} request {r.rid}: batched tokens differ from solo")
+    log(f"serve {label}: batched == solo for requests 1 and 5 "
+        f"(temperatures {requests[1].temperature}, {requests[5].temperature})")
+    # 1 prefill chunk, 7 decode steps
+    short = dataclasses.replace(requests[0], max_new=8, temperature=max(temps))
     summary["profile"] = profile_request(params, cfg, scfg, short)
-    log(f"profile {cfg.name}: " + json.dumps(summary["profile"]))
+    log(f"profile {label}: " + json.dumps(summary["profile"]))
     del params
     torch.cuda.empty_cache()
     return summary, launches
 
 
+def sampling_phase(dev) -> dict:
+    """What sampling costs at qwen3-0.6b's width, measured before any
+    profiler has run in the process: the phase-4 mix served in turns greedy
+    and at temperatures 0.0/0.7 (greedy, sampled, greedy, sampled) on one
+    set of seed-0 weights, step p50/p99 and tokens/s of each; then the draw
+    of one decode step with 4 sampled rows (``engine._perturb``: keys to the
+    card, threefry bits, uniforms, Gumbel noise, the noisy rows written
+    back) timed alone: device ms with the host hidden (``cuda_ms``) and wall
+    ms per call, 20 calls back to back."""
+    from repro_torch.serve import engine as serve_engine
+
+    cfg = qwen3_0_6b.CONFIG
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    scfg = ServeConfig(**SERVE_CFG)
+    mix = (SERVE_MIX["n"], cfg.vocab_size, SERVE_MIX["prompt_lens"], SERVE_MIX["gen_lens"])
+    ServeEngine(params, cfg, scfg).run([dataclasses.replace(synth_requests(*mix, [0.7], seed=0)[0],
+                                                            max_new=2)])
+    turns = []
+    for temps in ([0.0], [0.0, 0.7], [0.0], [0.0, 0.7]):
+        run = serve_run(params, cfg, scfg, synth_requests(*mix, temps, seed=0))
+        turns.append({"temps": temps, **{k: run[k] for k in (
+            "step_p50_s", "step_p99_s", "tokens_per_s", "ttft_p50_s", "decode_steps")}})
+    log("serve qwen3-0.6b greedy and sampled in turns: " + json.dumps(turns))
+    del params
+    torch.cuda.empty_cache()
+
+    logits = torch.randn(4, cfg.vocab_size, device=dev)
+    draws = [(0.7, rid, 5) for rid in range(4)]
+
+    def draw():
+        return serve_engine._perturb(logits, draws)
+
+    ms, mhz = cuda_ms(draw, reps=50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        draw()
+    torch.cuda.synchronize()
+    out = {"turns": turns, "draw": {"rows": 4, "vocab": cfg.vocab_size, "ms": ms,
+                                    "wall_ms_per_call": (time.perf_counter() - t0) / 20 * 1e3,
+                                    "sm_clock_mhz": mhz}}
+    log("time sampling draw: " + json.dumps(out["draw"]))
+    return out
+
+
+def span_union_ms(events) -> float:
+    """Milliseconds in which at least one of the profiler ``events`` ran on
+    the card: the union of their spans, each overlap counted once."""
+    total, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
 def profile_request(params, cfg, scfg, request) -> dict:
     """Where one request's time goes: serve it alone under torch.profiler and
     split the wall time into device busy time (every kernel and copy on the
-    card; one stream, so they do not overlap) and the rest, in which the
-    card waits for the host.  The profiler's own cost is in the wall time."""
+    card) and the rest, in which the card waits for the host.  Busy times
+    are unions of spans, not sums: the paged merge kernel is a programmatic
+    dependent launch that starts while its split pass runs
+    (``spans_overlap_ms``: the sum of the spans less their union).  The
+    profiler's own cost is in the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     engine = ServeEngine(params, cfg, scfg)
@@ -559,17 +656,17 @@ def profile_request(params, cfg, scfg, request) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3
-    attn_ms = sum(e.time_range.elapsed_us() for e in on_card
-                  if "paged_attention_kernel" in e.name) / 1e3
-    recurrent_ms = sum(e.time_range.elapsed_us() for e in on_card
-                       if any(k in e.name for k in ("ssd_chunk_kernel", "rglru_scan_kernel",
-                                                     "rglru_decode_kernel", "ssd_decode_kernel"))) / 1e3
+    busy_ms = span_union_ms(on_card)
+    attn_ms = span_union_ms(e for e in on_card if "paged_attention_kernel" in e.name)
+    recurrent_ms = span_union_ms(e for e in on_card
+                                 if any(k in e.name for k in ("ssd_chunk_kernel", "rglru_scan_kernel",
+                                                               "rglru_decode_kernel", "ssd_decode_kernel")))
     return {
         "rid": request.rid, "prompt": len(request.prompt), "max_new": request.max_new,
         "decode_steps": engine.decode_steps, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if on_card else "not measured",
         "device_idle_share": 1 - busy_ms / wall_ms if on_card else "not measured",
+        "spans_overlap_ms": sum(e.time_range.elapsed_us() for e in on_card) / 1e3 - busy_ms,
         "paged_attention_ms": attn_ms, "recurrent_kernels_ms": recurrent_ms,
         "device_ops": len(on_card),
     }
@@ -1077,15 +1174,16 @@ def ssd_decode_inputs(gen, r, hp, n):
     return [state, decay, dtx, b, c]
 
 
-def long_context_inputs(gen, *, chunk, dtype, positions, h=16, kv=1, d=256):
+def long_context_inputs(gen, *, chunk, dtype, positions, h=16, kv=1, d=256, mb=None):
     """recurrentgemma-9b's local layers: MQA, 16 heads of 256, each slot's
-    pages in a random order and contexts past the 2,048-token window."""
+    pages in a random order and contexts past the 2,048-token window; tables
+    ``mb`` entries wide (default: two past the longest context)."""
     dev = gen.device
     c = C if chunk else 1
     need = [(p + c - 1) // BS + 1 for p in positions]
     pages = sum(need) + 3
     perm = torch.randperm(pages, generator=gen, device=dev).to(torch.int32)
-    tables = torch.full((len(positions), max(need) + 2), pages, dtype=torch.int32, device=dev)
+    tables = torch.full((len(positions), mb or max(need) + 2), pages, dtype=torch.int32, device=dev)
     start = 0
     for i, n_i in enumerate(need):
         tables[i, :n_i] = perm[start:start + n_i]
@@ -1182,6 +1280,66 @@ def check_recurrent_kernels(dev) -> dict[str, float]:
     return errors
 
 
+# Shapes of the split checks: qwen3-0.6b (H 16, KV 8, D 128) and
+# recurrentgemma-9b's local layers (H 16, KV 1, D 256).
+SPLIT_SHAPES = {"qwen3": (16, 8, 128), "recurrentgemma": (16, 1, 256)}
+
+
+def split_cases():
+    """(mode, window, last query positions): contexts of 1, one key below, at
+    and above a split boundary, 231; 2047 and 2048 keys with window 2048;
+    windows whose first key falls inside a split (2100 with 2048: key 53;
+    230 with 100: key 131)."""
+    ks = paged_attention.split_plan(0, 1, NUM_PAGES, BS, "causal", 0)[0]
+    return [("causal", 0, [0, ks - 2, ks - 1, ks, 230]),
+            ("local", 2048, [2046, 2047, 2100]),
+            ("local", 100, [230, ks + 40])]
+
+
+def check_split_kernels(dev) -> dict[str, float]:
+    """The split kernels against their plain versions at both models' shapes
+    across split boundaries, with the engine's 128-entry tables; then each
+    slot of a 4-slot call against the same slot alone, bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    reg = dispatch.registry()
+    errors = {name: 0.0 for name in PAGED}
+    for name in PAGED:
+        op = reg[name]
+        chunk = name == "paged_chunk_attention"
+        for shape, (h, kv, d) in SPLIT_SHAPES.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                for mode, window, last in split_cases():
+                    pos = [max(0, t - (C - 1)) if chunk else t for t in last]
+                    args = long_context_inputs(gen, chunk=chunk, dtype=dtype, positions=pos,
+                                               h=h, kv=kv, d=d, mb=NUM_PAGES + 4)
+                    got = op.kernel(*args, mode=mode, window=window)
+                    torch.cuda.synchronize()
+                    want = op.plain(*args, mode=mode, window=window)
+                    err, ok = _close(got, want, ATOL[dtype], 0, name)
+                    errors[name] = max(errors[name], err)
+                    log(f"check split {name} {shape} {str(dtype)[6:]} {mode} {window} positions "
+                        f"{pos}: splits {split_counts(args, chunk, mode, window)['slot_splits']}, "
+                        f"max_abs_err {err:.3e} (atol {ATOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{name} disagrees with its plain version across splits")
+        for shape, (h, kv, d) in SPLIT_SHAPES.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                mode, window = ("local", 2048) if kv == 1 else ("causal", 0)
+                args = long_context_inputs(gen, chunk=chunk, dtype=dtype, positions=[230, 70, 2000, 3],
+                                           h=h, kv=kv, d=d, mb=NUM_PAGES + 4)
+                batched = op.kernel(*args, mode=mode, window=window)
+                q, kp, vp, tables, positions = args
+                same = [torch.equal(op.kernel(q[i:i + 1].contiguous(), kp, vp, tables[i:i + 1].contiguous(),
+                                              positions[i:i + 1].contiguous(), mode=mode,
+                                              window=window)[0], batched[i]) for i in range(4)]
+                torch.cuda.synchronize()
+                log(f"check slot alone == batched {name} {shape} {str(dtype)[6:]} R 1 vs R 4: "
+                    f"bit-identical {same}")
+                if not all(same):
+                    raise AssertionError(f"{name}: a slot alone differs from the same slot batched")
+    return errors
+
+
 def ssd_chunk_work(b, nc, q, h, p, n):
     """(bytes, fp32 operations) of the SSD chunk function: x, dt, a, B, C
     read once, y and the states written once; C Bᵀ once per chunk (ngroups
@@ -1245,7 +1403,10 @@ def time_recurrent_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
         op = reg[name]
         chunk = name == "paged_chunk_attention"
         pos = [168] if chunk else DECODE_POS
-        args = long_context_inputs(gen, chunk=chunk, dtype=torch.bfloat16, positions=pos)
+        args = long_context_inputs(gen, chunk=chunk, dtype=torch.bfloat16, positions=pos,
+                                   mb=NUM_PAGES)
+        short = long_context_inputs(gen, chunk=chunk, dtype=torch.bfloat16, mb=NUM_PAGES,
+                                    positions=[0] if chunk else [15] * len(pos))
         q, kp, _, tables, positions = args
         c = q.shape[1] if chunk else 1
         t = int(positions.max()) + c
@@ -1259,9 +1420,11 @@ def time_recurrent_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
         bound_ms, bound_by = bound(q, kp, positions, chunk, kv=1, d=256)
         ms, mhz = cuda_ms(lambda: op.kernel(*args, mode="local", window=2048))
         extra[f"{name}_recurrentgemma"] = {
-            "ms": ms, "plain_ms": cuda_ms(lambda: op.plain(*args, mode="local", window=2048))[0],
+            "ms": ms, "ms_one_tile": cuda_ms(lambda: op.kernel(*short, mode="local", window=2048))[0],
+            "plain_ms": cuda_ms(lambda: op.plain(*args, mode="local", window=2048))[0],
             "library_ms": cuda_ms(lambda: sdpa(qd, kd, kd, attn_mask=mask))[0],
             "bound_ms": bound_ms, "bound_by": bound_by, "sm_clock_mhz": mhz,
+            **split_counts(args, chunk, "local", 2048),
             "shape": {"q": list(q.shape), "pages": list(kp.shape), "positions": pos,
                       "window": 2048, "dtype": "bfloat16"}}
         log(f"time {name} at recurrentgemma-9b's shape: " + json.dumps(extra[f"{name}_recurrentgemma"]))
@@ -1352,12 +1515,19 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     errors = {**check_kernels(dev), **check_train_kernels(dev), **check_int8_kernels(dev)}
-    for name, err in check_recurrent_kernels(dev).items():
+    for name, err in (*check_recurrent_kernels(dev).items(), *check_split_kernels(dev).items()):
         errors[name] = max(errors.get(name, 0.0), err)
     rec_timings, rec_extra = time_recurrent_kernels(dev)
     timings = {**time_kernels(dev), **time_train_kernels(dev), **time_int8_kernels(dev),
                **rec_timings}
+    sampling = sampling_phase(dev)
     summary, launches = serve_phase(dev)
+    sampled = serve_phase(dev, temps=(0.0, 0.7))[0]
+    sampling["after_profile"] = {run: {**{k: r[k] for k in ("step_p50_s", "tokens_per_s")},
+                                       **{"profile_" + k: r["profile"][k] for k in (
+                                           "device_busy_ms", "wall_ms", "device_ops")}}
+                                 for run, r in (("greedy", summary), ("sampled", sampled))}
+    log("serve qwen3-0.6b sampled vs greedy: " + json.dumps(sampling["after_profile"]))
     slice_err = slice_phase(dev)
     train_summary, train_launches = train_phase(dev)
     parity = train_parity_phase(dev)
@@ -1400,6 +1570,7 @@ def main() -> None:
             "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "step_p50_s", "step_p99_s",
             "decode_steps", "wall_s", "peak_memory_gb")} for name, fam in family.items()},
         "recurrent_card_vs_cpu": rec_parity,
+        "sampling": sampling,
         "recurrent_timings_other_shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
                                                                  "bound_ms", "bound_by")}
                                            for k, v in rec_extra.items()},

@@ -11,6 +11,11 @@ draw 32 random bits per element and stable-sort the elements by them.  So
 every replica of a port run, and the JAX package itself, derive the same
 partner tables from (seed, step) with no communication.
 
+The serving engine draws its sampling noise from the same cipher:
+:func:`random_bits_torch` is :func:`random_bits` for a batch of keys, in
+torch integer ops on any device, so a decode step draws every sampled row's
+bits on the card in one fixed sequence of ops.
+
 Only full membership is ported (what the stacked trainer uses when no
 replica has dropped out); partitions, the hypercube schedule and churn come
 with the elastic runtime.
@@ -21,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 __all__ = [
     "threefry2x32",
@@ -28,6 +34,7 @@ __all__ = [
     "fold_in",
     "split",
     "random_bits",
+    "random_bits_torch",
     "pairing_permutation",
     "partner_table",
     "Membership",
@@ -83,6 +90,28 @@ def random_bits(key: np.ndarray, n: int) -> np.ndarray:
     of the cipher of counter i."""
     a, b = threefry2x32(key, np.zeros(n, _U32), np.arange(n, dtype=_U32))
     return a ^ b
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def random_bits_torch(keys: torch.Tensor, n: int, device: torch.device | str) -> torch.Tensor:
+    """:func:`random_bits` of each row of ``keys`` (k, 2), as (k, n) int64
+    holding uint32 values: threefry2x32 over the counters 0..n−1 in torch
+    integer ops on ``device``.  Words are kept in int64 and masked to 32 bits
+    after every add and rotate (torch has no uint32 arithmetic)."""
+    keys = torch.as_tensor(keys, dtype=torch.int64).to(device)
+    k1, k2 = keys[:, :1], keys[:, 1:]
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = k1.expand(-1, n).clone()
+    b = torch.arange(n, dtype=torch.int64, device=device)[None].add(k2).bitwise_and_(_MASK32)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a.add_(b).bitwise_and_(_MASK32)
+            b = ((b << r).bitwise_and_(_MASK32) | (b >> (32 - r))).bitwise_xor_(a)
+        a.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK32)
+        b.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_MASK32)
+    return a.bitwise_xor_(b)
 
 
 def pairing_permutation(step: int, world: int, *, seed: int = 0) -> np.ndarray:

@@ -28,8 +28,12 @@ and carried from chunk to chunk; only the last chunk writes them into the
 slot's rows, as the JAX engine does.  Sampling is
 Gumbel-max with noise keyed by (request id, token index), never by engine
 step, so a request decoded in a churning batch gives the tokens of a solo
-run, greedy or sampled.  The noise comes from a PyTorch generator on the
-logits' device (Philox on CUDA); its bits differ from JAX's by design.
+run, greedy or sampled.  The noise is the JAX engine's: token i of request
+rid draws ``jax.random.gumbel(fold_in(fold_in(PRNGKey(17), rid), i), (V,))``,
+its keys derived on the host (:mod:`repro_torch.core.pairing`) and its
+threefry bits drawn on the logits' device, every sampled row of a step in
+one batch; the uniforms are bit-identical to JAX's and the logs are
+torch's.
 
 Single-shot prefill (``prefill_chunk=0``) needs flash attention and comes
 with that slice.
@@ -44,6 +48,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import pairing
 from repro_torch.models import model as M
 from repro_torch.models.attention import PagedAttnCache, PagedView
 from repro_torch.models.config import ModelConfig
@@ -51,29 +56,52 @@ from repro_torch.serve.paged import BlockAllocator
 
 __all__ = ["Request", "FinishedRequest", "ServeConfig", "EngineState", "ServeEngine"]
 
-_SAMPLE_ROOT = 17  # root of every sampling stream
+_SAMPLE_KEY = pairing.prng_key(17)  # root of every sampling stream
+_TINY = torch.finfo(torch.float32).tiny
 
 
-def _gumbel(rid: int, index: int, vocab: int, device: torch.device) -> torch.Tensor:
-    """Gumbel noise of token ``index`` of request ``rid``."""
-    seed = ((_SAMPLE_ROOT << 40) ^ (rid << 20) ^ index) & ((1 << 63) - 1)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    u = torch.rand(vocab, generator=gen, device=device, dtype=torch.float32)
-    u = u.clamp_(torch.finfo(torch.float32).tiny, 1.0 - 2**-24)
-    return -torch.log(-torch.log(u))
+def _sample_key(rid: int, index: int) -> np.ndarray:
+    """Key of token ``index`` of request ``rid``: fold_in(fold_in(root, rid), index)."""
+    return pairing.fold_in(pairing.fold_in(_SAMPLE_KEY, rid), index)
+
+
+def _uniform(keys: np.ndarray, vocab: int, device: torch.device) -> torch.Tensor:
+    """``jax.random.uniform(key, (vocab,), float32, minval=tiny, maxval=1)``
+    of each row of ``keys`` (n, 2), as (n, vocab): the top 23 bits of each
+    word under the exponent of 1.0, minus 1, moved into [tiny, 1)."""
+    bits = pairing.random_bits_torch(torch.from_numpy(keys.astype(np.int64)), vocab, device)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    one = torch.tensor(1.0, dtype=torch.float32)
+    return torch.clamp_min(f * (one - _TINY) + _TINY, _TINY)
+
+
+def _gumbel(keys: np.ndarray, vocab: int, device: torch.device) -> torch.Tensor:
+    """``jax.random.gumbel(key, (vocab,), float32)`` of each row of ``keys``:
+    −log(−log u)."""
+    return -torch.log(-torch.log(_uniform(keys, vocab, device)))
+
+
+def _perturb(logits: torch.Tensor, draws: list[tuple[float, int, int] | None]) -> torch.Tensor:
+    """``logits + t·gumbel`` for every row r with ``draws[r]`` = (temperature
+    t > 0, rid, token index); other rows as they are.  The noisy rows draw
+    their noise in one (n, V) batch."""
+    noisy = [i for i, d in enumerate(draws) if d is not None and d[0] > 0]
+    if not noisy:
+        return logits
+    keys = np.stack([_sample_key(draws[i][1], draws[i][2]) for i in noisy])
+    g = _gumbel(keys, logits.shape[-1], logits.device)
+    temps = torch.tensor([draws[i][0] for i in noisy], dtype=torch.float32)
+    rows = torch.tensor(noisy, device=logits.device)
+    logits = logits.clone()
+    logits[rows] = logits[rows] + temps.to(logits.device)[:, None] * g
+    return logits
 
 
 def _sample(logits: torch.Tensor, draws: list[tuple[float, int, int] | None]) -> torch.Tensor:
     """Temperature-t categorical as argmax(logits + t·gumbel), t = 0 greedy.
     ``draws[r]`` is (temperature, rid, token index) of row r, or None for a
     row whose token is discarded.  Returns (R,) int32."""
-    noisy = [i for i, d in enumerate(draws) if d is not None and d[0] > 0]
-    if noisy:
-        logits = logits.clone()
-        for i in noisy:
-            t, rid, index = draws[i]
-            logits[i] += t * _gumbel(rid, index, logits.shape[-1], logits.device)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.argmax(_perturb(logits, draws), dim=-1).to(torch.int32)
 
 
 def _recurrent(entry) -> bool:

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: paged
-attention (decode and chunk), flash attention (forward and backward), the
+attention (decode and chunk; also across split boundaries, contexts up to
+2048, a slot alone bit for bit as batched), flash attention (forward and backward), the
 fused NoLoCo outer update, the int8 codec pair, the SSD chunk and RG-LRU
 scans and the two recurrent decode steps.  Every test here needs a CUDA
 device and ``nvcc`` and skips elsewhere; on a machine with the card run them
@@ -13,7 +14,8 @@ version sum in different orders); bf16 atol 2e-2, from rounding the output
 to bf16 (values are O(1), one bf16 ulp there is 2**-7); bf16 gradients of
 flash attention also get rtol 2e-2, since dK/dV sum over every query row and
 grow with it while bf16 rounding is relative.  The outer update and the
-int8 pair are exact: both versions round the same fp32 operations once.
+int8 pair are exact: both versions round the same fp32 operations once,
+and so is the torch threefry on the card against its numpy twin.
 So are the RG-LRU scan, the RG-LRU decode step and the SSD decode state
 (the same fp32 products and sums in the same order); the SSD decode output
 sums its N products in another order (within 1e-5 of Σ|state′·c|), and the
@@ -112,6 +114,115 @@ def test_kernel_rejects_bad_arguments(cuda):
         kernel(q, kp, vp, tables.long(), pos)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kernel(q.half(), kp.half(), vp.half(), tables, pos)
+
+
+# The split kernels at serving sizes: pages of 16, each slot's pages in its
+# own random order, tables wide enough for 2,048-key contexts plus a chunk.
+KS = 64  # kKeysPerSplit in csrc/paged_attention.cu (paged_attention.split_plan reports it)
+LONG_BS, LONG_MB, LONG_C = 16, 132, 32
+
+
+def _long_inputs(seed, positions, h, kv, d, chunk, dtype, device):
+    gen = torch.Generator().manual_seed(seed)
+    r = len(positions)
+    pages = r * LONG_MB
+    tables = torch.randperm(pages, generator=gen)[:pages].reshape(r, LONG_MB).to(torch.int32)
+    qshape = (r, LONG_C, h, d) if chunk else (r, h, d)
+    q = torch.randn(qshape, generator=gen)
+    kp = torch.randn((pages + 1, LONG_BS, kv, d), generator=gen)
+    vp = torch.randn((pages + 1, LONG_BS, kv, d), generator=gen)
+    return ([t.to(device, dtype) for t in (q, kp, vp)]
+            + [tables.to(device), torch.tensor(positions, dtype=torch.int32, device=device)])
+
+
+# contexts of 1, one key below, at and above a split boundary, the serve
+# mix's 231, and 2047 / 2048 keys (a full window of 2048 and one past it)
+LONG_POSITIONS = [0, KS - 2, KS - 1, KS, 230, 2046, 2047]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("h,kv,d", [(16, 8, 128), (16, 1, 256)], ids=["qwen3", "recurrentgemma"])
+@pytest.mark.parametrize("mode,window", [("causal", 0), ("local", 2048), ("local", 100)])
+@pytest.mark.parametrize("chunk", [False, True], ids=["decode", "chunk"])
+def test_split_kernels_match_plain_across_split_boundaries(cuda, chunk, mode, window, h, kv, d, dtype):
+    """Split boundaries, contexts 1 to 2048, windows of 2048 and of 100 whose
+    first key falls inside a split (position 230: key 131, split 2)."""
+    positions = [p - (LONG_C - 1 if chunk and p >= LONG_C else 0) for p in LONG_POSITIONS]
+    args = _long_inputs(h + d + len(positions), positions, h, kv, d, chunk, dtype, cuda)
+    assert paged_attention.split_plan(0, 1, LONG_MB, LONG_BS, mode, window)[0] == KS
+    op = ops.paged_chunk_attention if chunk else ops.paged_attention
+    plain = ref.torch_paged_chunk_attention if chunk else ref.torch_paged_attention
+    got = op(*args, mode=mode, window=window)
+    torch.cuda.synchronize()
+    want = plain(*args, mode=mode, window=window)
+    assert got.dtype == dtype and got.shape == args[0].shape
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 20], ids=["R·KV 16", "R·KV 160"])
+@pytest.mark.parametrize("chunk", [False, True], ids=["decode", "chunk"])
+def test_split_kernels_below_and_above_one_block_per_sm(cuda, chunk, r):
+    """R·KV below and above the card's 132 SMs, with several splits each."""
+    positions = [(97 * i) % 1900 + 40 for i in range(r)]
+    args = _long_inputs(r, positions, 16, 8, 128, chunk, torch.bfloat16, cuda)
+    op = ops.paged_chunk_attention if chunk else ops.paged_attention
+    plain = ref.torch_paged_chunk_attention if chunk else ref.torch_paged_attention
+    got = op(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), plain(*args).float(), atol=TOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("h,kv,d,mode,window", [(16, 8, 128, "causal", 0), (16, 1, 256, "local", 100)],
+                         ids=["qwen3", "recurrentgemma"])
+@pytest.mark.parametrize("chunk", [False, True], ids=["decode", "chunk"])
+def test_slot_alone_is_bit_identical_to_batched(cuda, chunk, h, kv, d, mode, window, dtype):
+    """A slot's splits depend on its own position only: R = 1 and R = 4
+    give the same bits for it."""
+    args = _long_inputs(5, [230, 70, 1500, 3], h, kv, d, chunk, dtype, cuda)
+    op = ops.paged_chunk_attention if chunk else ops.paged_attention
+    batched = op(*args, mode=mode, window=window)
+    q, kp, vp, tables, pos = args
+    for s in range(4):
+        alone = op(q[s:s + 1].contiguous(), kp, vp, tables[s:s + 1].contiguous(),
+                   pos[s:s + 1].contiguous(), mode=mode, window=window)
+        assert torch.equal(alone[0], batched[s]), f"slot {s}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d,offset", [(30, 0), (36, 0), (128, 1)],
+                         ids=["D30", "D36", "D128-q-off-by-one"])
+@pytest.mark.parametrize("chunk", [False, True], ids=["decode", "chunk"])
+def test_split_kernels_copy_rows_that_are_not_16_byte_aligned(cuda, chunk, d, offset, dtype):
+    """Rows whose start is not 16-byte aligned (a head dim no multiple of 16
+    bytes, or q one element into its buffer) are copied without cp.async."""
+    args = _long_inputs(d, [230, 64, 0], 4, 2, d, chunk, dtype, cuda)
+    if offset:
+        buf = torch.empty(args[0].numel() + offset, dtype=dtype, device=cuda)
+        buf[offset:] = args[0].flatten()
+        args[0] = buf[offset:].view(args[0].shape)
+    op = ops.paged_chunk_attention if chunk else ops.paged_attention
+    plain = ref.torch_paged_chunk_attention if chunk else ref.torch_paged_attention
+    got = op(*args, mode="local", window=100)
+    torch.cuda.synchronize()
+    want = plain(*args, mode="local", window=100)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_random_bits_torch_on_the_card_equal_numpy(cuda):
+    from repro_torch.core import pairing
+
+    keys = np.stack([pairing.fold_in(pairing.fold_in(pairing.prng_key(17), rid), i)
+                     for rid in range(3) for i in range(3)])
+    got = pairing.random_bits_torch(torch.from_numpy(keys.astype(np.int64)), 151_936, cuda)
+    assert got.device.type == "cuda"
+    want = np.stack([pairing.random_bits(k, 151_936) for k in keys])
+    np.testing.assert_array_equal(got.cpu().numpy().astype(np.uint32), want)
 
 
 FLASH_CASES = [  # (B, S, H, KV, D, mode, window)

@@ -3,9 +3,9 @@
 Weights come from the JAX initialiser and are converted with
 ``repro_torch.models.convert``, so both packages compute the same function.
 Model-level logits agree within 1e-3 in fp32 (matmuls sum in another
-order); greedy engine tokens agree exactly.  Sampled tokens are compared
-only within the port: its Gumbel noise comes from torch's generators, whose
-bits differ from JAX's by design.
+order); greedy engine tokens agree exactly.  Sampled tokens are held
+against the JAX engine's in ``tests/test_torch_sampling.py``; here, within
+the port, a sampled request gets the same tokens batched as alone.
 """
 import dataclasses
 
