@@ -68,14 +68,18 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     launch counts > 0) and on the CPU: identical tokens;
 13. (with phase 3) hold the recurrent families' kernels against their plain
     versions: the SSD chunk kernel at the serve shape (Q 32, H 32, P 64,
-    N 128), at Q 16, 64 and 128 and on ragged chunks with dt = 0 pad rows;
+    N 128), at Q 1, 16, 64, 100 and 128, on ragged chunks with dt = 0 pad
+    rows and at the training shape (B 16, NC 8, Q 128), where kernel and
+    plain version are also held against an fp64 evaluation, and a (b, c)
+    slice alone against the same slice batched, bit for bit;
     the RG-LRU scan at (1, 32, 4096) and at widths and lengths that are no
     multiple of 32; both decode steps at the serve shapes and ragged ones,
     their states bit for bit; and the paged kernels at recurrentgemma-9b's
     local layers (H 16, KV 1, D 256, window 2048) over contexts longer than
-    the window.  Then time the four kernels at the serve shapes and the two
-    scans also at the training slice's shapes, and the paged kernels at
-    recurrentgemma-9b's shape;
+    the window.  Then time the four kernels at the serve shapes (the SSD
+    decode step beside one PyTorch copy of its state, ``copy_ms``) and the
+    two scans also at the training slice's shapes, and the paged kernels
+    at recurrentgemma-9b's shape;
 14. serve mamba2-370m and then recurrentgemma-9b at published width in bf16
     with the phase-4 mix, each model freed before the next: tokens/s, TTFT
     and decode-step p50/p99, peak memory, every request's budget, batched
@@ -1159,6 +1163,20 @@ def ssd_chunk_inputs(gen, b, nc, q, h, p, n, pad=0):
     return [x, dt, a, bm, cm]
 
 
+def ssd_chunk_f64(x, dt, a, b_mat, c_mat):
+    """The plain version's formula in fp64 on the same fp32 inputs."""
+    q = x.shape[2]
+    xd, dtd, bd, cd = x.double(), dt.double(), b_mat.double(), c_mat.double()
+    cums = torch.cumsum(dtd * a.double(), dim=2)
+    diff = cums[:, :, :, None, :] - cums[:, :, None, :, :]
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    l_kern = torch.where(tri[None, None, :, :, None], torch.exp(diff), torch.zeros_like(diff))
+    xdt = xd * dtd[..., None]
+    y = torch.einsum("bcij,bcijh,bcjhp->bcihp", torch.einsum("bcin,bcjn->bcij", cd, bd), l_kern, xdt)
+    decay = torch.exp(cums[:, :, -1:, :] - cums)
+    return y, torch.einsum("bcjn,bcjh,bcjhp->bchnp", bd, decay, xdt)
+
+
 def rglru_inputs(gen, *shape):
     dev = gen.device
     a = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)) * 0.5 + 0.45
@@ -1203,9 +1221,12 @@ def check_recurrent_kernels(dev) -> dict[str, float]:
     reg = dispatch.registry()
     errors = {name: 0.0 for name in (*RECURRENT, *PAGED)}
     # SSD chunk: the serve shape, Q 16 (reduced), 64 and 128 (training), ragged
+    # chunks, Q 1, a ragged last 64-row tile with H 5, the training shape
     for case, pad in (((1, 1, 32, 32, 64, 128), 0), ((1, 1, 32, 32, 64, 128), 7),
                       ((2, 3, 16, 8, 64, 32), 5), ((2, 2, 64, 4, 64, 128), 0),
-                      ((2, 2, 128, 4, 64, 128), 37), ((1, 3, 50, 3, 33, 17), 11)):
+                      ((2, 2, 128, 4, 64, 128), 37), ((1, 3, 50, 3, 33, 17), 11),
+                      ((2, 2, 1, 3, 64, 128), 0), ((1, 2, 100, 5, 64, 128), 13),
+                      ((16, 8, 128, 32, 64, 128), 0)):
         args = ssd_chunk_inputs(gen, *case, pad=pad)
         got = reg["ssd_chunk"].kernel(*args)
         torch.cuda.synchronize()
@@ -1225,6 +1246,29 @@ def check_recurrent_kernels(dev) -> dict[str, float]:
             f"(atol {SSD_ATOL:g}, rtol {SSD_RTOL:g}) {'ok' if all(o for _, o in res) else 'FAIL'}")
         if not all(o for _, o in res):
             raise AssertionError("ssd_chunk disagrees with its plain version")
+        if case[0] == 16:   # the training shape: both against an fp64 evaluation
+            exact = ssd_chunk_f64(*args)
+            far = {who: max((o.double() - e).abs().max().item() for o, e in zip(outs, exact))
+                   for who, outs in (("kernel", got), ("plain", want))}
+            log(f"check ssd_chunk B,NC,Q,H,P,N={case} against fp64: max_abs_err kernel "
+                f"{far['kernel']:.3e}, plain {far['plain']:.3e}")
+            if not far["kernel"] <= far["plain"]:
+                raise AssertionError("ssd_chunk is farther from fp64 than its plain version")
+            del exact
+        del args, got, want
+    # a (b, c) slice alone (8 heads: 16-column slabs) against the same slice
+    # batched (128 heads: 64-column slabs), bit for bit
+    args = ssd_chunk_inputs(gen, 4, 4, 64, 8, 64, 128, pad=9)
+    y, st = reg["ssd_chunk"].kernel(*args)
+    same = []
+    for b, c in ((0, 0), (3, 3), (1, 2)):
+        ys, sts = reg["ssd_chunk"].kernel(*(t[b:b + 1, c:c + 1].contiguous() if t.dim() > 1 else t
+                                            for t in args))
+        same.append(torch.equal(ys[0, 0], y[b, c]) and torch.equal(sts[0, 0], st[b, c]))
+    torch.cuda.synchronize()
+    log(f"check ssd_chunk (b, c) alone == batched (4, 4, 64, 8, 64, 128): bit-identical {same}")
+    if not all(same):
+        raise AssertionError("ssd_chunk: a (b, c) slice alone differs from the same slice batched")
     for shape in ((1, 32, 4096), (2, 37, 130), (3, 5, 33), (16, 300, 1000)):
         args = rglru_inputs(gen, *shape)
         got = reg["rglru_scan"].kernel(*args)
@@ -1397,6 +1441,10 @@ def time_recurrent_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
     r, hp, n = args[0].shape
     out["ssd_decode"] = _timing(reg["ssd_decode"], args, 4 * (2 * r * hp * n + 3 * r * hp + 2 * r * n),
                                 5 * r * hp * n, {"R,HP,N": [r, hp, n], "dtype": "float32"})
+    # the state's bytes moved by one PyTorch copy: what reading and writing
+    # them costs on this card, beside the bound (not the same function)
+    copy_out = torch.empty_like(args[0])
+    out["ssd_decode"]["copy_ms"] = cuda_ms(lambda: copy_out.copy_(args[0]))[0]
     log("time ssd_decode: " + json.dumps(out["ssd_decode"]))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name in PAGED:

@@ -14,20 +14,30 @@
 // Every product and sum is spelled with the round-to-nearest intrinsics, in
 // the order the plain versions evaluate them, so nvcc cannot contract them
 // into fused multiply-adds: h' and st' are the plain versions' bits.  y sums
-// its N products in another order than the plain version's einsum (a
-// strided partial sum per lane, then a shuffle tree), so it agrees with it
-// to the rounding of an N-term sum.  Each slot's row is computed by its own
-// threads in a fixed order, so nothing of a row depends on R: a request
-// decoded in a batch gets the bits it gets alone.
+// its N products in another order than the plain version's einsum: each
+// lane adds, in order, the products of its words (words lane, lane + 32,
+// ...; a word is 4 values on the 16-byte path, 1 on the scalar one, its
+// values in order), then a shuffle tree over the 32 lanes (xor 16, 8, 4,
+// 2, 1), so it agrees with the einsum to the rounding of an N-term sum.
+// Each slot's row is computed by one warp in a fixed order, so nothing of a
+// row depends on R: a request decoded in a batch gets the bits it gets
+// alone.
 //
 // What bounds them on this card: bytes.  rglru reads 3 and writes 1 value
 // per element for 2 operations; ssd reads and writes the state (8 bytes per
 // element) for 5 operations.  Both are a fraction of an operation per byte,
 // far below the ~20 where the CUDA cores would limit, so the design only
-// moves the bytes once and coalesced: rglru takes 16-byte words per thread
-// where the rows allow it; ssd gives each (slot, channel) row of N state
-// values to one warp, lanes on consecutive values, b and c read once per
-// block into shared memory.
+// moves the bytes once, coalesced and with as many loads in flight as it
+// can: rglru takes 16-byte words per thread where the rows allow it.  ssd at
+// the serving shape (4 slots × 2,048 rows × N 128) moves 8.4 MB, 2.5 µs at
+// the memory's rate; what costs there is how many dependent round trips to
+// cold memory a warp waits for.  So each (slot, channel) row goes to one
+// warp whose lanes read their own words of b and c straight into registers
+// (at N 128 one 16-byte word each) together with the state's: one round
+// trip, no shared memory and no barrier.  Rows that start 16-byte aligned
+// with N % 4 == 0 (the wrapper's `vectorised`) move as one 16-byte load and
+// store per lane; the rest one value at a time.  On the H100 this moves the
+// serving shape's bytes as fast as PyTorch's own copy of the state does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +46,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// ssd_decode: rows a warp carries.  One, 8,192 warps at the serving shape:
+// of 1, 2 and 4 rows per warp, 1 ran fastest on the H100.
+constexpr int kRowsPerWarp = 1;
 
 __device__ __forceinline__ float step(float a, float h, float b) {
   return __fadd_rn(__fmul_rn(a, h), b);
@@ -67,39 +80,76 @@ __global__ void __launch_bounds__(kThreads)
   if (VEC > 1 && blockIdx.x == 0 && tail < n) out[tail] = step(a[tail], h[tail], b[tail]);
 }
 
-// Grid (ceil(HP / kWarps), R): warp w of block (x, r) owns row k = x·kWarps + w
-// of slot r.  Dynamic shared memory: b and c of slot r, 2·N floats.
+// Grid (ceil(HP / (kWarps·kRowsPerWarp)), R): warp w of block (x, r) owns
+// rows k0 .. k0 + kRowsPerWarp − 1 of slot r, k0 = (x·kWarps + w)·kRowsPerWarp,
+// every load of a word (b, c and each row's state) issued before any use.
+// VEC = 4: the rows start 16-byte aligned (N % 4 == 0), each lane takes
+// 16-byte words; VEC = 1: one value at a time.
+template <int VEC>
 __global__ void __launch_bounds__(kThreads)
     ssd_decode_kernel(const float* __restrict__ state, const float* __restrict__ decay,
                       const float* __restrict__ dtx, const float* __restrict__ b,
                       const float* __restrict__ c, float* __restrict__ out_state,
                       float* __restrict__ y, int HP, int N) {
-  extern __shared__ float smem[];
-  float* b_s = smem;
-  float* c_s = smem + N;
   const int r = blockIdx.y;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    b_s[n] = b[(long long)r * N + n];
-    c_s[n] = c[(long long)r * N + n];
-  }
-  __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (k >= HP) return;
-  const long long row = (long long)r * HP + k;
-  const float dk = decay[row];
-  const float xk = dtx[row];
-  const float* st = state + row * N;
-  float* st_out = out_state + row * N;
-  float acc = 0.0f;
-  for (int n = lane; n < N; n += 32) {
-    const float v = __fadd_rn(__fmul_rn(st[n], dk), __fmul_rn(xk, b_s[n]));
-    st_out[n] = v;
-    acc = __fadd_rn(acc, __fmul_rn(v, c_s[n]));
+  const int k0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRowsPerWarp;
+  if (k0 >= HP) return;
+  const int rows = min(kRowsPerWarp, HP - k0);
+  const long long row0 = (long long)r * HP + k0;
+  const float* br = b + (long long)r * N;
+  const float* cr = c + (long long)r * N;
+  float dk[kRowsPerWarp], xk[kRowsPerWarp], acc[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    dk[i] = i < rows ? decay[row0 + i] : 0.0f;
+    xk[i] = i < rows ? dtx[row0 + i] : 0.0f;
+    acc[i] = 0.0f;
+  }
+  for (int w = lane; w < N / VEC; w += 32) {
+    float bv[VEC], cv[VEC], sv[kRowsPerWarp][VEC];
+    if constexpr (VEC == 4) {
+      const float4 b4 = reinterpret_cast<const float4*>(br)[w];
+      const float4 c4 = reinterpret_cast<const float4*>(cr)[w];
+      bv[0] = b4.x, bv[1] = b4.y, bv[2] = b4.z, bv[3] = b4.w;
+      cv[0] = c4.x, cv[1] = c4.y, cv[2] = c4.z, cv[3] = c4.w;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        if (i >= rows) break;
+        const float4 s4 = reinterpret_cast<const float4*>(state + (row0 + i) * N)[w];
+        sv[i][0] = s4.x, sv[i][1] = s4.y, sv[i][2] = s4.z, sv[i][3] = s4.w;
+      }
+    } else {
+      bv[0] = br[w];
+      cv[0] = cr[w];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        if (i >= rows) break;
+        sv[i][0] = state[(row0 + i) * N + w];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      if (i >= rows) break;
+      float o[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        o[e] = __fadd_rn(__fmul_rn(sv[i][e], dk[i]), __fmul_rn(xk[i], bv[e]));
+        acc[i] = __fadd_rn(acc[i], __fmul_rn(o[e], cv[e]));
+      }
+      if constexpr (VEC == 4)
+        reinterpret_cast<float4*>(out_state + (row0 + i) * N)[w] = make_float4(o[0], o[1], o[2], o[3]);
+      else
+        out_state[(row0 + i) * N + w] = o[0];
+    }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
-  if (lane == 0) y[row] = acc;
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc[i] = __fadd_rn(acc[i], __shfl_xor_sync(0xffffffffu, acc[i], off));
+    if (lane == 0 && i < rows) y[row0 + i] = acc[i];
+  }
 }
 
 }  // namespace
@@ -124,20 +174,21 @@ int rglru_decode(const float* h, const float* a, const float* b, float* out, lon
   return (int)cudaGetLastError();
 }
 
+// vectorised: every pointer is 16-byte aligned; the 16-byte path also
+// needs N % 4 == 0.  Returns a cudaError_t (0 on success), or -1 for
+// arguments the kernel does not take.
 int ssd_decode(const float* state, const float* decay, const float* dtx, const float* b,
                const float* c, float* out_state, float* y, int R, int HP, int N,
-               void* stream) {
+               int vectorised, void* stream) {
   if (R < 0 || HP < 0 || N < 1 || R > 65535) return -1;
   if (R == 0 || HP == 0) return 0;
-  const size_t smem = 2 * sizeof(float) * (size_t)N;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((HP + kWarps - 1) / kWarps, R);
-  ssd_decode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      state, decay, dtx, b, c, out_state, y, HP, N);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int rows_per_block = kWarps * kRowsPerWarp;
+  const dim3 grid((HP + rows_per_block - 1) / rows_per_block, R);
+  if (vectorised && N % 4 == 0)
+    ssd_decode_kernel<4><<<grid, kThreads, 0, s>>>(state, decay, dtx, b, c, out_state, y, HP, N);
+  else
+    ssd_decode_kernel<1><<<grid, kThreads, 0, s>>>(state, decay, dtx, b, c, out_state, y, HP, N);
   return (int)cudaGetLastError();
 }
 

@@ -32,7 +32,7 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rglru_decode.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
     lib.rglru_decode.restype = i
-    lib.ssd_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.ssd_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.ssd_decode.restype = i
     return lib
 
@@ -81,11 +81,13 @@ def ssd_decode(
     lib = library()
     out_state = torch.empty_like(state)
     y = torch.empty((r, hp), dtype=torch.float32, device=state.device)
+    rows = [t.data_ptr() for t in (state, b, c, out_state)]   # the N-wide rows
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         err = lib.ssd_decode(
             state.data_ptr(), decay.data_ptr(), dtx.data_ptr(), b.data_ptr(), c.data_ptr(),
-            out_state.data_ptr(), y.data_ptr(), r, hp, n, stream)
+            out_state.data_ptr(), y.data_ptr(), r, hp, n,
+            int(n % 4 == 0 and all(p % 16 == 0 for p in rows)), stream)
     if err != 0:
         raise RuntimeError(f"ssd_decode launch failed: error {err}")
     ssd_decode.launches += 1

@@ -64,7 +64,7 @@ def ssd_chunk(
     if err != 0:
         raise RuntimeError(
             f"ssd_chunk launch failed: error {err} (-1: arguments the kernel does not take, "
-            f"such as Q {q}, N {n}, P {p} beyond a block's shared memory)")
+            f"such as N {n} whose 64-row B and C tiles exceed a block's shared memory)")
     ssd_chunk.launches += 1
     return y, states
 

@@ -480,8 +480,14 @@ def _ssd_chunk_inputs(seed, b, nc, q, h, p, n, device, pad=0):
     return [torch.from_numpy(v.astype(np.float32)).to(device) for v in (x, dt, a, bm, cm)]
 
 
+# (B, NC, Q, H, P, N).  The kernel walks Q in 64-row tiles and splits P into
+# slabs of 64, 32 or 16 columns by the grid's size: Q 1, 50, 100 and 200
+# (ragged last tiles), H 3 and 5, P 33 / N 17 and P 130 (4-byte copies, a
+# ragged slab), and the training shape cut to B 2, NC 2 (64-column slabs).
 SSD_CASES = [(1, 1, 32, 32, 64, 128), (2, 3, 16, 4, 64, 32), (1, 2, 64, 3, 32, 128),
-             (1, 1, 128, 2, 64, 128), (2, 2, 7, 5, 33, 17)]
+             (1, 1, 128, 2, 64, 128), (2, 2, 7, 5, 33, 17), (2, 2, 1, 3, 16, 8),
+             (1, 2, 50, 5, 64, 128), (1, 1, 100, 3, 64, 128), (1, 1, 200, 2, 32, 64),
+             (1, 2, 128, 5, 33, 17), (1, 1, 40, 2, 130, 64), (2, 2, 128, 32, 64, 128)]
 
 
 @pytest.mark.cuda
@@ -496,6 +502,19 @@ def test_ssd_chunk_matches_plain(cuda, case):
     assert y.shape == wy.shape and st.shape == wst.shape and st.dtype == torch.float32
     torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(st, wst, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_slice_alone_is_bit_identical_to_batched(cuda):
+    """A (b, c) slice run alone (8 heads: 16-column slabs) equals the same
+    slice of the batched call (128 heads: 64-column slabs), bit for bit."""
+    x, dt, a, bm, cm = _ssd_chunk_inputs(5, 4, 4, 64, 8, 64, 128, cuda, pad=9)
+    y, st = ssd_scan.ssd_chunk(x, dt, a, bm, cm)
+    for b, c in ((0, 0), (3, 3), (1, 2)):
+        ys, sts = ssd_scan.ssd_chunk(*(t[b:b + 1, c:c + 1].contiguous() for t in (x, dt)), a,
+                                     *(t[b:b + 1, c:c + 1].contiguous() for t in (bm, cm)))
+        torch.cuda.synchronize()
+        assert torch.equal(ys[0, 0], y[b, c]) and torch.equal(sts[0, 0], st[b, c]), (b, c)
 
 
 @pytest.mark.cuda
@@ -537,10 +556,15 @@ def test_rglru_decode_is_the_plain_version_bit_for_bit(cuda, shape, offset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 2048, 128), (3, 70, 16), (1, 5, 33), (2, 64, 300)])
-def test_ssd_decode_matches_plain(cuda, shape):
+@pytest.mark.parametrize("shape,offset", [((4, 2048, 128), 0), ((3, 70, 16), 0), ((1, 5, 33), 0),
+                                          ((2, 64, 300), 0), ((4, 2048, 128), 1), ((3, 70, 16), 1)])
+def test_ssd_decode_matches_plain(cuda, shape, offset):
+    """Aligned rows with N % 4 == 0 take 16-byte words; N 33, N 300 and a
+    state offset by one element into its buffer go one value at a time.
+    Every slot alone (R 1) gets the bits it gets among the R."""
     r, hp, n = shape
-    state, decay, dtx, b, c = _f32(cuda, hp, shape, (r, hp), (r, hp), (r, n), (r, n))
+    buf, decay, dtx, b, c = _f32(cuda, hp, (r * hp * n + 1,), (r, hp), (r, hp), (r, n), (r, n))
+    state = buf[offset:offset + r * hp * n].view(shape)
     decay = torch.exp(-decay.abs())
     st, y = decode_update.ssd_decode(state, decay, dtx, b, c)
     torch.cuda.synchronize()
@@ -548,8 +572,9 @@ def test_ssd_decode_matches_plain(cuda, shape):
     assert torch.equal(st, wst)
     bound = 1e-5 * torch.einsum("rkn,rn->rk", wst.abs(), c.abs())
     assert bool(((y - wy).abs() <= bound).all())
-    solo = decode_update.ssd_decode(*(t[-1:].contiguous() for t in (state, decay, dtx, b, c)))
-    assert torch.equal(solo[0][0], st[-1]) and torch.equal(solo[1][0], y[-1])
+    for i in range(r):
+        solo = decode_update.ssd_decode(*(t[i:i + 1].contiguous() for t in (state, decay, dtx, b, c)))
+        assert torch.equal(solo[0][0], st[i]) and torch.equal(solo[1][0], y[i]), i
 
 
 @pytest.mark.cuda
@@ -564,9 +589,17 @@ def test_recurrent_kernels_reject_bad_arguments(cuda):
     x, dt, aa, bm, cm = _ssd_chunk_inputs(0, 1, 1, 8, 2, 16, 8, cuda)
     with pytest.raises(ValueError, match="must be"):
         ssd_scan.ssd_chunk(x, dt[..., :1], aa, bm, cm)
-    big = _ssd_chunk_inputs(0, 1, 1, 256, 1, 64, 160, cuda)   # 260 KB of shared memory
+    # Q is walked in 64-row tiles, so Q 256 with N 160 runs; N 1024 (two
+    # 64 × 1028 tiles, 526 KB) exceeds a block's shared memory.
+    big = _ssd_chunk_inputs(0, 1, 1, 256, 1, 64, 160, cuda)
+    y, st = ssd_scan.ssd_chunk(*big)
+    torch.cuda.synchronize()
+    wy, wst = ref.torch_ssd_chunk_intra(*big)
+    torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, wst, atol=1e-4, rtol=1e-4)
+    wide = _ssd_chunk_inputs(0, 1, 1, 16, 1, 64, 1024, cuda)
     with pytest.raises(RuntimeError, match="ssd_chunk launch failed"):
-        ssd_scan.ssd_chunk(*big)
+        ssd_scan.ssd_chunk(*wide)
 
 
 def _long_context_inputs(seed, chunk, dtype, device, positions=(2500, 3100), h=16, kv=1, d=256,

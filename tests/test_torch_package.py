@@ -288,6 +288,23 @@ def test_recurrent_ops_never_reach_the_plain_version(monkeypatch, name):
     assert kernel.launches == before
 
 
+@pytest.mark.parametrize("name", ["ssd_chunk", "ssd_decode"])
+def test_ssd_wrappers_reject_cpu_tensors_before_they_build(monkeypatch, name):
+    """The SSD kernels' wrappers, called directly with CPU tensors, raise
+    before they reach the library (whose build needs nvcc)."""
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.rand(shape, generator=g)
+    if name == "ssd_chunk":
+        module, call = ssd_scan, lambda: ssd_scan.ssd_chunk(r(1, 1, 4, 2, 8), r(1, 1, 4, 2), -r(2),
+                                                            r(1, 1, 4, 8), r(1, 1, 4, 8))
+    else:
+        module, call = decode_update, lambda: decode_update.ssd_decode(r(2, 6, 8), r(2, 6), r(2, 6),
+                                                                       r(2, 8), r(2, 8))
+    monkeypatch.setattr(module, "library", _launched)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
+
+
 @pytest.mark.parametrize("name", ["ssd_chunk", "rglru_scan"])
 def test_recurrent_scan_backward_raises_on_the_card(name):
     """The scans' backward kernels come with the training slice: on a CUDA
