@@ -46,10 +46,16 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    identical partner tables, per-step losses within 1e-4 relative, final
    weight std within 1e-3 relative;
 8. (with phase 3) hold the int8 quantize and dequantize kernels against
-   their plain versions bit for bit: fp32 and bf16 payloads, ragged tails,
-   constant chunks, chunk magnitudes from 1e-30 to 1e4, CHUNK 1024, 3000
-   and 7, and the full-width payload (4 replicas × 366,477,312 bf16 values);
-   time both there with L2 flushed, beside the plain versions and the bound;
+   their plain versions bit for bit: fp32 and bf16 payloads, whole aligned
+   chunks (the quantize kernel's 16-byte path), ragged tails, rows that do
+   not start 16-byte aligned, N < CHUNK, constant chunks, chunk magnitudes
+   from 1e-30 to 1e4, chunks of denormal range, quotients within 2 ulp of a
+   half-integer, CHUNK 1024, 256, 2048, 3000 and 7, and the full-width
+   payload (4 replicas × 366,477,312 bf16 values), each line naming the
+   chunks that took the 16-byte path; time both there with L2 flushed,
+   beside the plain versions and the bound (``time int8_quantize`` also
+   carries ``scalar_ms``: the payload one element off alignment, every
+   chunk on the scalar path);
 9. train paper-small-125m at full width as in phase 6 with the int8 wire
    (``codec="int8"``): launch counts as the design implies (one quantize
    and one dequantize per float buffer of the payload per sync, all four
@@ -72,11 +78,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     rows and at the training shape (B 16, NC 8, Q 128), where kernel and
     plain version are also held against an fp64 evaluation, and a (b, c)
     slice alone against the same slice batched, bit for bit;
-    the RG-LRU scan at (1, 32, 4096) and at widths and lengths that are no
-    multiple of 32; both decode steps at the serve shapes and ragged ones,
-    their states bit for bit; and the paged kernels at recurrentgemma-9b's
-    local layers (H 16, KV 1, D 256, window 2048) over contexts longer than
-    the window.  Then time the four kernels at the serve shapes (the SSD
+    the RG-LRU scan at (1, 32, 4096), at S 1, 8, 24, 32 (loaded whole),
+    33 and 1024 (the ring of step groups), W 4095, 4096, 4097 and other
+    widths no multiple of 32, each line naming the library's launch (held
+    against the plain rule: whole up to 32 steps); both decode steps at the
+    serve shapes and ragged ones, their states bit for bit; and the paged kernels at
+    recurrentgemma-9b's local layers (H 16, KV 1, D 256, window 2048) over
+    contexts longer than the window.  Then time the four kernels at the serve shapes (the SSD
     decode step beside one PyTorch copy of its state, ``copy_ms``) and the
     two scans also at the training slice's shapes, and the paged kernels
     at recurrentgemma-9b's shape;
@@ -85,7 +93,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     and decode-step p50/p99, peak memory, every request's budget, batched
     == solo, and launch counts equal to the design (per prefill chunk and
     per decode step: one scan or decode step per recurrent layer, one paged
-    kernel per attention layer);
+    kernel per attention layer); each profiled request also splits the
+    recurrent kernels' card time by kernel (``recurrent_kernels_split``:
+    the union of each kernel's spans and its launches);
 15. both families' ``reduced()`` configs in fp32 on the card and on the CPU
     from the same weights, prompts of 80 and 200 tokens (the reduced window
     is 64): identical tokens, logits within 2e-3;
@@ -109,6 +119,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     runs, are sampled): launch counts, batched == solo, and the profiled
     request at 0.7 beside the greedy one (``serve qwen3-0.6b sampled vs
     greedy``).
+
+18. (after phase 6) phase 6's bf16 run again with the flash op on the kept
+    CUDA-core kernels, profiled to show that only those kernels ran: step
+    1's loss within FLASH_PAIR_STEP1_RTOL of the tensor-core run's, every
+    later step's within FLASH_PAIR_LOSS_RTOL (``train bf16 flash pair``).
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -136,7 +151,9 @@ from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
 from repro_torch.comm import CommConfig, bytes_model, payload  # noqa: E402
 from repro_torch.configs import mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
-from repro_torch.kernels import build, dispatch, flash_attention, ops, paged_attention  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    build, dispatch, flash_attention, ops, paged_attention, quantize, ref, rglru_scan,
+)
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve import serve_run, synth_requests  # noqa: E402
@@ -173,6 +190,8 @@ PAYLOAD_BF16 = 366_477_312
 PAPER = dict(b=16, s=1024, h=16, kv=16, d=48)
 
 RECURRENT = ("ssd_chunk", "rglru_scan", "rglru_decode", "ssd_decode")
+# their CUDA kernels' names, as the profiler reports them
+RECURRENT_KERNELS = tuple(f"{name}_kernel" for name in RECURRENT)
 # SSD chunk kernel against its plain version: fp32 sums of up to Q·N
 # products in another order.
 SSD_ATOL = SSD_RTOL = 1e-4
@@ -662,9 +681,8 @@ def profile_request(params, cfg, scfg, request) -> dict:
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = span_union_ms(on_card)
     attn_ms = span_union_ms(e for e in on_card if "paged_attention_kernel" in e.name)
-    recurrent_ms = span_union_ms(e for e in on_card
-                                 if any(k in e.name for k in ("ssd_chunk_kernel", "rglru_scan_kernel",
-                                                               "rglru_decode_kernel", "ssd_decode_kernel")))
+    recurrent = {k: [e for e in on_card if k in e.name] for k in RECURRENT_KERNELS}
+    recurrent_ms = span_union_ms(e for evs in recurrent.values() for e in evs)
     return {
         "rid": request.rid, "prompt": len(request.prompt), "max_new": request.max_new,
         "decode_steps": engine.decode_steps, "wall_ms": wall_ms,
@@ -672,6 +690,9 @@ def profile_request(params, cfg, scfg, request) -> dict:
         "device_idle_share": 1 - busy_ms / wall_ms if on_card else "not measured",
         "spans_overlap_ms": sum(e.time_range.elapsed_us() for e in on_card) / 1e3 - busy_ms,
         "paged_attention_ms": attn_ms, "recurrent_kernels_ms": recurrent_ms,
+        # each recurrent kernel alone: the union of its spans and its launches
+        "recurrent_kernels_split": {k: {"ms": span_union_ms(evs), "launches": len(evs)}
+                                    for k, evs in recurrent.items() if evs},
         "device_ops": len(on_card),
     }
 
@@ -797,7 +818,7 @@ def train_phase(dev):
         "wall_s": res["wall_s"], "peak_memory_gb": peak_gb,
         "final_weight_std": res["final_weight_std"], "loss_first": losses[0],
         "loss_last": losses[-1], "comm_bytes": res["comm_bytes"],
-        "blocking_bytes": res["blocking_bytes"], **prof,
+        "blocking_bytes": res["blocking_bytes"], "losses": losses, **prof,
     }
     log("train summary: " + json.dumps(summary))
     del res
@@ -860,6 +881,78 @@ def profile_steps(cfg, state, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: the bf16 flash pair on the tensor cores against the CUDA cores
+# ---------------------------------------------------------------------------
+
+# Per-step losses of phase 6's run, tensor-core flash pair against the kept
+# CUDA-core pair, relative.  The tensor-core kernels round P and dS to bf16
+# before their products (each call within 2e-2 + 2e-2·|x| of the plain
+# version, phase 3); the CUDA-core kernels keep them in fp32.  Step 1's loss
+# is the forward's alone on the same weights, a mean over 65,536 tokens in
+# which that rounding averages out: it read 1.7e-6 on the H100, and 1e-4
+# holds a forward fault that moves the loss by more than 0.01%.  From step
+# 2 on the weights differ by AdamW updates (lr 3e-3) on gradients from two
+# backward kernels, and the gap grows with the steps (1.2e-4 at step 2,
+# 2.6e-3 at step 10 on the H100): 1e-2 bounds that drift.
+FLASH_PAIR_STEP1_RTOL = 1e-4
+FLASH_PAIR_LOSS_RTOL = 1e-2
+
+
+def flash_pair_train_phase(tc_losses: list[float]) -> dict:
+    """Phase 6's bf16 run again with the flash op on the kept CUDA-core
+    kernels: the library's entry points are pointed at its
+    ``*_cuda_core`` ones for the run (the wrappers and their launch counts
+    are unchanged), then restored.  The run is profiled, and the flash
+    kernels that ran on the card must be the CUDA-core forward and backward
+    alone, as many of each as the wrappers launched.  Per-step losses
+    against phase 6's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = paper_llama.SMALL
+    lib = flash_attention.library()
+    kept = lib.flash_attention_fwd, lib.flash_attention_bwd
+    lib.flash_attention_fwd = lib.flash_attention_fwd_cuda_core
+    lib.flash_attention_bwd = lib.flash_attention_bwd_cuda_core
+    try:
+        dispatch.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = train_cli.run_training(cfg, device="cuda", **TRAIN)
+            torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+    finally:
+        lib.flash_attention_fwd, lib.flash_attention_bwd = kept
+    ran: dict[str, int] = {}
+    for e in prof.events():
+        kind = re.search(r"flash_\w*?kernel", e.name)
+        if kind and e.device_type == torch.autograd.DeviceType.CUDA:
+            ran[kind.group(0)] = ran.get(kind.group(0), 0) + 1
+    del prof
+    cc_losses = res["losses"]
+    rel = [abs(t - c) / abs(c) for t, c in zip(tc_losses, cc_losses)]
+    flash = {k: launches[k] for k in ("flash_attention", "flash_attention_bwd")}
+    out = {"tensor_core_losses": tc_losses, "cuda_core_losses": cc_losses,
+           "loss_rel_diff": rel, "loss_max_rel_diff": max(rel),
+           "step1_rtol": FLASH_PAIR_STEP1_RTOL, "rtol": FLASH_PAIR_LOSS_RTOL,
+           "cuda_core_wall_s": res["wall_s"], "launches": flash, "kernels_ran": ran}
+    log("train bf16 flash pair, tensor cores vs CUDA cores: " + json.dumps(out))
+    del res
+    torch.cuda.empty_cache()
+    want_ran = {"flash_fwd_kernel": flash["flash_attention"],
+                "flash_bwd_kernel": flash["flash_attention_bwd"]}
+    if ran != want_ran or not all(want_ran.values()):
+        raise AssertionError(f"CUDA-core run: flash kernels on the card {ran}, expected {want_ran}")
+    if len(cc_losses) != len(tc_losses) or not all(math.isfinite(x) for x in cc_losses):
+        raise AssertionError(f"CUDA-core run: losses {cc_losses}")
+    if rel[0] > FLASH_PAIR_STEP1_RTOL:
+        raise AssertionError(f"bf16 flash pair: step 1's losses differ by {rel[0]:.3e} relative "
+                             f"(rtol {FLASH_PAIR_STEP1_RTOL:g})")
+    if max(rel) > FLASH_PAIR_LOSS_RTOL:
+        raise AssertionError(f"bf16 flash pair: tensor-core and CUDA-core losses differ by "
+                             f"{max(rel):.3e} relative (rtol {FLASH_PAIR_LOSS_RTOL:g})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: training on the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -902,12 +995,13 @@ def train_parity_phase(dev, codec: str = "none"):
 # ---------------------------------------------------------------------------
 
 
-def int8_payload(gen, rows, n, chunk, dtype):
-    """(rows, n) values whose chunks have magnitudes from 1e-30 to 1e4 and
-    offsets of their own size; the first chunk of each row is constant."""
+def int8_payload(gen, rows, n, chunk, dtype, exponents=(-30, 4)):
+    """(rows, n) values whose chunks have magnitudes 10**e, e uniform in
+    ``exponents`` (default 1e-30 to 1e4), and offsets of their own size; the
+    first chunk of each row is constant."""
     dev = gen.device
     nb = -(-n // chunk)
-    mag = torch.pow(10.0, torch.empty((rows, nb, 1), device=dev).uniform_(-30, 4, generator=gen))
+    mag = torch.pow(10.0, torch.empty((rows, nb, 1), device=dev).uniform_(*exponents, generator=gen))
     off = torch.randn((rows, nb, 1), generator=gen, device=dev)
     x = (torch.randn((rows, nb, chunk), generator=gen, device=dev) + off) * mag
     x = x.reshape(rows, -1)[:, :n].contiguous()
@@ -915,21 +1009,71 @@ def int8_payload(gen, rows, n, chunk, dtype):
     return x.to(dtype)
 
 
+def int8_near_ties(gen, rows, nb, chunk, dtype):
+    """(rows, nb·chunk) chunks from 0 to hi = 10**e (e uniform in [-25, 20])
+    whose other values put (x − lo)/safe within 2 ulp of a half-integer,
+    where a division that is not correctly rounded would give another code."""
+    dev = gen.device
+    hi = torch.pow(10.0, torch.empty((rows, nb, 1), device=dev).uniform_(-25, 20, generator=gen))
+    safe = hi * torch.tensor(ref.INV255, device=dev)
+    x = (torch.randint(0, 255, (rows, nb, chunk), generator=gen, device=dev) + 0.5) * safe
+    steps = torch.randint(-2, 3, (rows, nb, chunk), generator=gen, device=dev)
+    for _ in range(2):   # move each value |steps| ulp
+        x = torch.where(steps > 0, torch.nextafter(x, torch.full_like(x, math.inf)), x)
+        x = torch.where(steps < 0, torch.nextafter(x, torch.zeros_like(x)), x)
+        steps = steps - steps.sign()
+    x = torch.minimum(x, hi)
+    x[..., 0], x[..., 1] = 0.0, hi[..., 0]
+    return x.reshape(rows, -1).to(dtype)
+
+
+def plain_wide_chunks(x, chunk) -> int:
+    """The chunks of ``x`` (R, N) that ``int8_quantize`` should put on its
+    16-byte kernel: whole chunks (not a row's ragged last one) of rows that
+    start 16-byte aligned, when ``chunk`` is a multiple of 32 16-byte words
+    and at most 1,024 values (the kernel holds a chunk in registers)."""
+    rows, n = x.shape
+    esize = x.element_size()
+    if chunk % (32 * (16 // esize)) or chunk > 1024:
+        return 0
+    return (n // chunk) * sum((x.data_ptr() + r * n * esize) % 16 == 0 for r in range(rows))
+
+
 def check_int8_kernels(dev) -> dict[str, float]:
     """Both kernels bit-identical to their plain versions (q, scale, lo and
     the dequantized values in fp32 and bf16), the dequantize reading the
-    codes through the wire's row stride as the codec gives them."""
+    codes through the wire's row stride as the codec gives them.  Cases:
+    whole aligned chunks (16-byte path), ragged last chunks, rows that do
+    not start 16-byte aligned (odd N in bf16, N % 4 in fp32), N < CHUNK,
+    CHUNK 7, 256/128, 2048 and 3000, chunk magnitudes from 1e-30 to 1e4,
+    chunks of denormal range and across its edge, quotients within 2 ulp of
+    a half-integer, and the full-width payload.  Each line names how many
+    chunks took the 16-byte path (the library's count, held against
+    ``plain_wide_chunks``)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     reg = dispatch.registry()
     errors = {name: 0.0 for name in INT8}
-    cases = [(rows, n, chunk, dtype) for dtype in (torch.float32, torch.bfloat16)
-             for rows, n, chunk in ((4, 8 * 1024 + 17, 1024), (1, 64 * 1024, 1024),
-                                    (3, 1000, 7), (2, 9001, 3000))]
-    cases.append((4, PAYLOAD_BF16, 1024, torch.bfloat16))
-    for rows, n, chunk, dtype in cases:
-        full = n == PAYLOAD_BF16
-        x = (torch.randn((rows, n), generator=gen, device=dev, dtype=dtype) * 0.02 if full
-             else int8_payload(gen, rows, n, chunk, dtype))
+    cases = [(rows, n, chunk, dtype, kind) for dtype in (torch.float32, torch.bfloat16)
+             for rows, n, chunk, kind in (
+                 (4, 8 * 1024 + 17, 1024, "mags"), (1, 64 * 1024, 1024, "mags"),
+                 (3, 1000, 7, "mags"), (2, 9001, 3000, "mags"), (3, 4104, 1024, "mags"),
+                 (5, 1000, 1024, "mags"), (2, 6144, 2048, "mags"), (3, 4100, 256, "mags"),
+                 (3, 64 * 1024, 1024, "denormal"), (3, 64 * 1024, 1024, "denormal edge"),
+                 (3, 64 * 1024, 1024, "near ties"), (3, 16 * 3000, 3000, "near ties"))]
+    cases.append((4, PAYLOAD_BF16, 1024, torch.bfloat16, "full"))
+    for rows, n, chunk, dtype, kind in cases:
+        full = kind == "full"
+        if full:
+            x = torch.randn((rows, n), generator=gen, device=dev, dtype=dtype) * 0.02
+        elif kind == "near ties":
+            x = int8_near_ties(gen, rows, n // chunk, chunk, dtype)
+        else:
+            exponents = {"mags": (-30, 4), "denormal": (-44, -38), "denormal edge": (-39, -30)}[kind]
+            x = int8_payload(gen, rows, n, chunk, dtype, exponents)
+        wide = quantize.library_wide_chunks(x, chunk)
+        if wide != plain_wide_chunks(x, chunk):
+            raise AssertionError(f"int8_quantize: the library puts {wide} chunks on the 16-byte "
+                                 f"path, the plain rule {plain_wide_chunks(x, chunk)}")
         got = reg["int8_quantize"].kernel(x, chunk)
         torch.cuda.synchronize()
         want = reg["int8_quantize"].plain(x, chunk)
@@ -937,7 +1081,8 @@ def check_int8_kernels(dev) -> dict[str, float]:
         if not all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
                    for g, w in zip(got, want)):
             raise AssertionError(f"int8_quantize differs from its plain version: rows {rows} "
-                                 f"n {n} chunk {chunk} {dtype}: max_abs_err {err}")
+                                 f"n {n} chunk {chunk} {dtype} {kind}: max_abs_err {err}, "
+                                 f"{int((got[0] != want[0]).sum())} codes differ")
         errors["int8_quantize"] = max(errors["int8_quantize"], err)
         q, scale, lo = got
         del want
@@ -956,8 +1101,9 @@ def check_int8_kernels(dev) -> dict[str, float]:
                                      f"n {n} chunk {chunk} -> {out_dtype}: max_abs_err {derr}")
             del d_got, d_want
         errors["int8_dequantize"] = max(errors["int8_dequantize"], derr)
-        log(f"check int8 {str(dtype)[6:]} rows {rows} n {n} chunk {chunk}: quantize "
-            f"max_abs_err {err}, dequantize max_abs_err {derr} (bit-identical) ok")
+        log(f"check int8 {str(dtype)[6:]} rows {rows} n {n} chunk {chunk} {kind}: 16-byte path "
+            f"{wide} of {rows * nc} chunks; quantize max_abs_err {err}, dequantize max_abs_err "
+            f"{derr} (bit-identical) ok")
         del x, got, q, scale, lo, wire, strided
         torch.cuda.empty_cache()
     return errors
@@ -969,7 +1115,10 @@ def time_int8_kernels(dev) -> dict[str, dict]:
     bytes the kernels move: quantize reads each bf16 value once and writes
     its code plus 8 bytes per chunk; dequantize reads each code and the 8
     bytes per chunk and writes the bf16 value.  No single PyTorch call
-    computes either function (library: none)."""
+    computes either function (library: none).  ``scalar_ms`` is the quantize
+    kernel on the same payload stored one element into its buffer, so that
+    no row starts 16-byte aligned and every chunk takes the scalar path
+    (``wide_chunks`` of each case say which path ran)."""
     gen = torch.Generator(device=dev).manual_seed(6)
     reg = dispatch.registry()
     rows, n, chunk = 4, PAYLOAD_BF16, 1024
@@ -995,6 +1144,14 @@ def time_int8_kernels(dev) -> dict[str, dict]:
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "bytes": nbytes, "sm_clock_mhz": mhz,
                      "shape": {"x": [rows, n], "chunk": chunk, "dtype": "bfloat16"}}
+        if name == "int8_quantize":
+            buf = torch.empty(rows * n + 1, dtype=x.dtype, device=dev)
+            shifted = buf[1:].view(rows, n)
+            shifted.copy_(x)
+            out[name]["wide_chunks"] = quantize.library_wide_chunks(x, chunk)
+            out[name]["scalar_ms"] = cuda_ms(lambda: op.kernel(shifted, chunk), reps=20)[0]
+            out[name]["scalar_wide_chunks"] = quantize.library_wide_chunks(shifted, chunk)
+            del buf, shifted
         log(f"time {name}: " + json.dumps(out[name]))
     del x, q, scale, lo, work
     torch.cuda.empty_cache()
@@ -1269,14 +1426,23 @@ def check_recurrent_kernels(dev) -> dict[str, float]:
     log(f"check ssd_chunk (b, c) alone == batched (4, 4, 64, 8, 64, 128): bit-identical {same}")
     if not all(same):
         raise AssertionError("ssd_chunk: a (b, c) slice alone differs from the same slice batched")
-    for shape in ((1, 32, 4096), (2, 37, 130), (3, 5, 33), (16, 300, 1000)):
+    # the RG-LRU scan: S 1, 8, 24, 32 (loaded whole), 33 and up (the ring),
+    # W 4095 / 4096 / 4097 and others no multiple of 32, B 1 and more
+    for shape in ((1, 32, 4096), (1, 1, 4096), (1, 8, 4095), (2, 24, 4097), (3, 32, 4097),
+                  (2, 33, 4096), (1, 1024, 4095), (2, 1024, 4097), (2, 37, 130), (3, 5, 33),
+                  (16, 300, 1000)):
         args = rglru_inputs(gen, *shape)
         got = reg["rglru_scan"].kernel(*args)
         torch.cuda.synchronize()
         want = reg["rglru_scan"].plain(*args)
         err = (got - want).abs().max().item()
         errors["rglru_scan"] = max(errors["rglru_scan"], err)
-        log(f"check rglru_scan {shape}: max_abs_err {err:.3e} (bit-identical: {torch.equal(got, want)})")
+        path = rglru_scan.library_path(shape[1])
+        log(f"check rglru_scan {shape} path {path}: max_abs_err {err:.3e} "
+            f"(bit-identical: {torch.equal(got, want)})")
+        if path != ("whole" if shape[1] <= 32 else "ring"):
+            raise AssertionError(f"rglru_scan: S {shape[1]} launches {path}, not the plain rule's "
+                                 f"(whole up to 32 steps, the ring beyond)")
         if not torch.equal(got, want):
             raise AssertionError("rglru_scan differs from its sequential plain version")
     for r, w in ((4, 4096), (3, 130), (1, 7), (5, 257)):
@@ -1429,6 +1595,7 @@ def time_recurrent_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
         n = math.prod(shape)
         t = _timing(reg["rglru_scan"], args, 12 * n, 2 * n,
                     {"B,S,W": list(shape), "dtype": "float32"}, reps, plain_reps)
+        t["path"] = rglru_scan.library_path(shape[1])
         (out if key == "rglru_scan" else extra)[key] = t
         log(f"time {key}: " + json.dumps(t))
         del args
@@ -1578,6 +1745,7 @@ def main() -> None:
     log("serve qwen3-0.6b sampled vs greedy: " + json.dumps(sampling["after_profile"]))
     slice_err = slice_phase(dev)
     train_summary, train_launches = train_phase(dev)
+    flash_pair = flash_pair_train_phase(train_summary["losses"])
     parity = train_parity_phase(dev)
     int8_summary, int8_launches = int8_train_phase(dev, train_summary)
     int8_parity = train_parity_phase(dev, codec="int8")
@@ -1605,6 +1773,7 @@ def main() -> None:
     log(json.dumps({"summary": {k: summary[k] for k in (
         "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "step_p50_s", "decode_steps", "wall_s")},
         "slice_max_logit_diff": slice_err, "train": train_summary,
+        "train_flash_pair": {k: flash_pair[k] for k in ("loss_max_rel_diff", "rtol")},
         "train_card_vs_cpu": {k: parity[k] for k in (
             "loss_max_rel_diff", "weight_std_rel_diff", "partner_tables_identical")},
         "train_int8": int8_summary,

@@ -14,57 +14,117 @@
 // h in a register, so the scan costs one product and one sum per element,
 // against the doubling scan's log2(S) of each.  Neighbouring threads own
 // neighbouring channels, so every step's loads and store are coalesced
-// across the width.  The thread issues the loads of kUnroll steps before it
-// uses any of them, which keeps that many loads in flight while the
-// recurrence itself waits on nothing but the register.  S and W are
-// arbitrary: a thread past W does nothing, the last group of steps is
-// bounds-checked, no input is padded or copied.
+// across the width.  S and W are arbitrary: a thread past W does nothing,
+// the steps past S are predicated off, no input is padded or copied.
 //
 // The product and the sum are spelled with the round-to-nearest intrinsics,
 // in the plain version's order, so nvcc cannot fuse them: the kernel gives
-// the sequential plain version's bits.  The JAX package's twin (an
-// associative scan) differs from both by rounding order only.
+// the sequential plain version's bits on either path.  The JAX package's
+// twin (an associative scan) differs from both by rounding order only.
 //
-// What bounds it on this card: bytes.  Each element costs 8 bytes read and
-// 4 written against 2 operations.  At the serve shape (1, 32, 4096) the
-// launch is a few microseconds of fixed cost; at the training shape
-// (16, 1024, 4096) the grid holds 65,536 threads, about 500 for each SM.
+// What bounds it on this card.  Each element costs 8 bytes read and 4
+// written against 2 operations, so bytes at the training shape
+// (16, 1024, 4096): 805 MB, 0.240 ms at 3.35 TB/s.  At the serve shape
+// (1, 32, 4096), one prefill chunk of recurrentgemma-9b, the 1.5 MB take
+// 0.47 µs at that rate, and the time is latency: the launch, and how many
+// dependent round trips to memory a thread waits for.  The first design
+// (blocks of 128 channels, 8 steps loaded at a time) gave that shape
+// ⌈4096 / 128⌉ = 32 blocks, so 100 of the 132 SMs had nothing, and a
+// 32-step chunk waited for 4 round trips in a row: 0.00896 ms against a
+// floor of about 5.6 µs that any launch costs in chip_smoke.py's timing
+// (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py).
+//
+// Design, a function of S (rglru_scan_steps reports it), blocks of 128
+// channels:
+// - "whole", S <= 32: the thread issues the loads of every step of its
+//   channel before the first step, so a chunk costs one round trip, then
+//   steps through registers and stores each h as it goes.  The serving
+//   engine pads every prefill chunk to its width (prefill_chunk, 32), so
+//   every served launch has S = 32, and then no step is predicated off:
+//   the loads and stores issue back to back with no branch between them.
+//   A shorter S (a caller's own) runs the same kernel with each step
+//   predicated on S.
+// - "ring", longer S (the training shape): two register buffers of kGroup
+//   steps; the next group's loads are in flight while the current group is
+//   stepped, so the memory pipe does not drain between groups.
+// What probe calls on the card showed, at the serve shape: with each step
+// predicated on a runtime S (a branch around each load and store) the
+// kernel beat the first design alone with L2 flushed, but took longer
+// than it inside a step, where a and b come from L2; unpredicated it wins
+// both ways.  Blocks of 32 or 16 channels (spreading the 32 blocks over
+// 128 or 256) did not change the time.  The measured times are in PERF.md.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kUnroll = 8;
+constexpr int kWholeSteps = 32;   // sequences this short are loaded whole
+constexpr int kGroup = 16;        // steps per buffer on the ring path
+constexpr int kChannels = 128;    // per block, one thread each
 
-// Grid (ceil(W / kThreads), B).
-__global__ void __launch_bounds__(kThreads)
-    rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                      float* __restrict__ h, int S, int W) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  if (w >= W) return;
-  const long long base = (long long)blockIdx.y * S * W + w;
-  float state = 0.0f;
-  int t = 0;
-  for (; t + kUnroll <= S; t += kUnroll) {
-    float av[kUnroll], bv[kUnroll];
+// The steps a thread holds for a sequence of S: kWholeSteps (the whole
+// path), or 0 for the ring of two kGroup-step buffers.
+int whole_steps(int S) { return S <= kWholeSteps ? kWholeSteps : 0; }
+
+// a and b of steps 0..n−1 (n <= N) from element i, one step every W.
+template <int N>
+__device__ __forceinline__ void load(const float* __restrict__ a, const float* __restrict__ b,
+                                     long long i, int W, int n, float (&av)[N], float (&bv)[N]) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long i = base + (long long)(t + u) * W;
-      av[u] = a[i];
-      bv[u] = b[i];
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      state = __fadd_rn(__fmul_rn(av[u], state), bv[u]);
-      h[base + (long long)(t + u) * W] = state;
+  for (int u = 0; u < N; ++u) {
+    if (u < n) {
+      av[u] = a[i + (long long)u * W];
+      bv[u] = b[i + (long long)u * W];
     }
   }
-  for (; t < S; ++t) {
-    const long long i = base + (long long)t * W;
-    state = __fadd_rn(__fmul_rn(a[i], state), b[i]);
-    h[i] = state;
+}
+
+// Steps 0..n−1 of the recurrence from `state`, each h stored; returns the
+// last h.
+template <int N>
+__device__ __forceinline__ float step(float state, const float (&av)[N], const float (&bv)[N],
+                                      float* __restrict__ h, long long i, int W, int n) {
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    if (u < n) {
+      state = __fadd_rn(__fmul_rn(av[u], state), bv[u]);
+      h[i + (long long)u * W] = state;
+    }
+  }
+  return state;
+}
+
+// Grid (⌈W / kChannels⌉, B), one thread per channel.  N > 0: the whole
+// sequence (S <= N) in registers; N = 0: the ring.
+template <int N>
+__global__ void __launch_bounds__(kChannels)
+    rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                      float* __restrict__ h, int S, int W) {
+  const int w = blockIdx.x * kChannels + threadIdx.x;
+  if (w >= W) return;
+  const long long base = (long long)blockIdx.y * S * W + w;
+  if constexpr (N > 0) {
+    float av[N], bv[N];
+    if (S == N) {   // the serving chunks: no step predicated off
+      load(a, b, base, W, N, av, bv);
+      step(0.0f, av, bv, h, base, W, N);
+    } else {
+      load(a, b, base, W, S, av, bv);
+      step(0.0f, av, bv, h, base, W, S);
+    }
+  } else {
+    float a0[kGroup], b0[kGroup], a1[kGroup], b1[kGroup];
+    load(a, b, base, W, S < kGroup ? S : kGroup, a0, b0);
+    float state = 0.0f;
+    for (int t = 0; t < S; t += 2 * kGroup) {
+      const int n0 = min(S - t, kGroup);
+      const int n1 = max(0, min(S - t - kGroup, kGroup));
+      const int n2 = max(0, min(S - t - 2 * kGroup, kGroup));
+      load(a, b, base + (long long)(t + kGroup) * W, W, n1, a1, b1);   // in flight meanwhile
+      state = step(state, a0, b0, h, base + (long long)t * W, W, n0);
+      load(a, b, base + (long long)(t + 2 * kGroup) * W, W, n2, a0, b0);
+      state = step(state, a1, b1, h, base + (long long)(t + kGroup) * W, W, n1);
+    }
   }
 }
 
@@ -77,9 +137,17 @@ extern "C" {
 int rglru_scan(const float* a, const float* b, float* h, int B, int S, int W, void* stream) {
   if (B < 0 || S < 0 || W < 0 || B > 65535) return -1;
   if (B == 0 || S == 0 || W == 0) return 0;
-  const dim3 grid((W + kThreads - 1) / kThreads, B);
-  rglru_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, h, S, W);
+  const dim3 grid((W + kChannels - 1) / kChannels, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (whole_steps(S))
+    rglru_scan_kernel<kWholeSteps><<<grid, kChannels, 0, s>>>(a, b, h, S, W);
+  else
+    rglru_scan_kernel<0><<<grid, kChannels, 0, s>>>(a, b, h, S, W);
   return (int)cudaGetLastError();
 }
+
+// The steps rglru_scan's threads hold for a sequence of S: 32 on the whole
+// path, 0 on the ring.
+int rglru_scan_steps(int S) { return whole_steps(S); }
 
 }  // extern "C"

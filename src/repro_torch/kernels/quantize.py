@@ -10,8 +10,11 @@ launch serves every replica of the stacked exchange with the chunks that a
 per-replica call would give.  The wrappers check their arguments, allocate
 the outputs with ``torch.empty`` and launch on PyTorch's current stream;
 the library is built at the first launch (:mod:`repro_torch.kernels.
-build`).  ``int8_quantize.launches`` and ``int8_dequantize.launches`` count
-the launches.  The plain versions are ``ref.torch_int8_quantize`` and
+build`).  The quantize kernel reads whole 16-byte-aligned chunks with
+16-byte loads and every other chunk one value at a time
+(:func:`library_wide_chunks` reads the built library's count).
+``int8_quantize.launches`` and ``int8_dequantize.launches`` count the
+launches.  The plain versions are ``ref.torch_int8_quantize`` and
 ``ref.torch_int8_dequantize``; :mod:`repro_torch.kernels.ops` picks by
 device.
 """
@@ -35,9 +38,19 @@ def library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.int8_quantize.argtypes = [i, p, ll, ll, i, p, p, p, p]
     lib.int8_quantize.restype = i
+    lib.int8_quantize_wide_chunks.argtypes = [i, p, ll, ll, i]
+    lib.int8_quantize_wide_chunks.restype = ll
     lib.int8_dequantize.argtypes = [i, p, ll, p, p, ll, ll, i, p, p]
     lib.int8_dequantize.restype = i
     return lib
+
+
+def library_wide_chunks(x: torch.Tensor, chunk: int) -> int:
+    """How many of the R·⌈N/chunk⌉ chunks of ``int8_quantize`` on ``x``
+    (R, N) the built library puts on its 16-byte kernel; the rest take the
+    scalar kernel, with the same arithmetic."""
+    rows, n = x.shape
+    return library().int8_quantize_wide_chunks(_DTYPES[x.dtype], x.data_ptr(), rows, n, int(chunk))
 
 
 def _check_cuda(name: str, t: torch.Tensor, device: torch.device) -> None:

@@ -6,9 +6,10 @@ TPU kernel ``pallas_rglru_scan`` (``repro/kernels/rglru_scan.py``); its
 header says what bounds it.  The wrapper checks its arguments, allocates
 the output with ``torch.empty`` and launches on PyTorch's current stream;
 the library is built at the first launch (:mod:`repro_torch.kernels.build`).
-``rglru_scan.launches`` counts the launches.  The plain PyTorch version is
-``ref.torch_rglru_scan``; :mod:`repro_torch.kernels.ops` picks between the
-two by device.
+The source picks its launch from the sequence length (:func:`library_path`
+reads the built library's choice).  ``rglru_scan.launches`` counts the
+launches.  The plain PyTorch version is ``ref.torch_rglru_scan``;
+:mod:`repro_torch.kernels.ops` picks between the two by device.
 """
 
 from __future__ import annotations
@@ -28,7 +29,16 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rglru_scan.argtypes = [p, p, p, i, i, i, p]
     lib.rglru_scan.restype = i
+    lib.rglru_scan_steps.argtypes = [i]
+    lib.rglru_scan_steps.restype = i
     return lib
+
+
+def library_path(s: int) -> str:
+    """The launch the built library makes for a sequence of ``s`` steps:
+    "whole" (every step's loads issued before the first step) or "ring"
+    (step groups, the next in flight while the current one is stepped)."""
+    return "whole" if library().rglru_scan_steps(s) else "ring"
 
 
 def check_f32_cuda(**tensors: torch.Tensor) -> None:

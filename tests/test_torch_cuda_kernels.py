@@ -378,11 +378,12 @@ def test_registry_kernels_launch(cuda):
     assert dispatch.launch_counts() == {name: 1 for name in dispatch.registry()}
 
 
-def _payload(rows, n, chunk, dtype, device, seed=0):
-    """Rows whose chunks have magnitudes from 1e-30 to 1e4 and offsets of
-    their own size, the first chunk constant (scale 1)."""
+def _payload(rows, n, chunk, dtype, device, seed=0, exponents=(-30, 4)):
+    """Rows whose chunks have magnitudes 10**e, e uniform in ``exponents``
+    (default 1e-30 to 1e4), and offsets of their own size, the first chunk
+    constant (scale 1)."""
     rng = np.random.default_rng(seed)
-    mag = 10.0 ** rng.uniform(-30, 4, size=(rows, n // chunk + 1)).repeat(chunk, axis=1)[:, :n]
+    mag = 10.0 ** rng.uniform(*exponents, size=(rows, n // chunk + 1)).repeat(chunk, axis=1)[:, :n]
     x = (rng.normal(size=(rows, n)) + rng.normal(size=(rows, n // chunk + 1)).repeat(
         chunk, axis=1)[:, :n]) * mag
     x[:, :min(chunk, n)] = 3.25
@@ -392,11 +393,15 @@ def _payload(rows, n, chunk, dtype, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("rows,n,chunk", [(1, 8 * 1024, 1024), (4, 5 * 1024 + 17, 1024),
-                                          (3, 1000, 7), (2, 9001, 3000), (1, 5, 1024)])
+                                          (3, 1000, 7), (2, 9001, 3000), (1, 5, 1024),
+                                          (4, 8 * 1024, 1024), (3, 8 * 1024 + 3, 1024),
+                                          (2, 1000, 1024), (2, 6144, 2048), (3, 4100, 256)])
 def test_int8_pair_matches_plain_bit_for_bit(cuda, dtype, rows, n, chunk):
     """Whole and ragged rows (the tail chunk edge-padded), constant chunks,
-    chunks held in registers (<= 1024), read twice (3000) and a small odd
-    chunk; the dequantize reads the codes through the wire's row stride."""
+    whole aligned chunks (the 16-byte kernel), rows that start misaligned
+    (n % 8 != 0), n < chunk, chunks held in registers (<= 1024), read twice
+    (2048, 3000), CHUNK 256 and a small odd chunk; the dequantize reads the
+    codes through the wire's row stride."""
     x = _payload(rows, n, chunk, dtype, cuda, seed=n)
     q, scale, lo = quantize.int8_quantize(x, chunk)
     torch.cuda.synchronize()
@@ -414,6 +419,56 @@ def test_int8_pair_matches_plain_bit_for_bit(cuda, dtype, rows, n, chunk):
         w = ref.torch_int8_dequantize(q, scale, lo, n, out_dtype)
         assert got.dtype == out_dtype and got.shape == (rows, n)
         assert torch.equal(got, w)
+
+
+def _near_ties(rows, nb, chunk, seed):
+    """fp32 chunks from 0 to hi = 10**e (e uniform in [-25, 20]) whose other
+    values put (x − lo)/safe within 2 ulp of a half-integer."""
+    rng = np.random.default_rng(seed)
+    hi = (10.0 ** rng.uniform(-25, 20, size=(rows, nb, 1))).astype(np.float32)
+    safe = hi * np.float32(ref.INV255)
+    x = ((rng.integers(0, 255, size=(rows, nb, chunk)) + 0.5) * safe).astype(np.float32)
+    for _ in range(2):   # move each value up to 2 ulp either way
+        step = rng.integers(-1, 2, size=x.shape)
+        x = np.where(step > 0, np.nextafter(x, np.float32(np.inf)), x)
+        x = np.where(step < 0, np.nextafter(x, np.float32(0)), x)
+    x = np.minimum(x, hi)
+    x[..., 0], x[..., 1] = 0.0, hi[..., 0]
+    return x.reshape(rows, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["denormal", "denormal-edge", "near-ties"])
+@pytest.mark.parametrize("chunk", [1024, 3000])
+def test_int8_quantize_division_cases_match_plain(cuda, dtype, kind, chunk):
+    """Chunks of denormal range (the scale itself denormal: each value takes
+    the true division), chunks across the normal/denormal edge, and
+    quotients within 2 ulp of a half-integer, where a quotient that is not
+    correctly rounded would give another code; on both kernels."""
+    if kind == "near-ties":
+        x = torch.from_numpy(_near_ties(3, 16, chunk, seed=chunk)).to(cuda, dtype)
+    else:
+        exponents = (-44, -38) if kind == "denormal" else (-39, -30)
+        x = _payload(3, 16 * chunk, chunk, dtype, cuda, seed=chunk, exponents=exponents)
+    q, scale, lo = quantize.int8_quantize(x, chunk)
+    torch.cuda.synchronize()
+    for got, w in zip((q, scale, lo), ref.torch_int8_quantize(x, chunk)):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_int8_nan_in_a_whole_aligned_chunk_poisons_it(cuda, dtype):
+    x = _payload(2, 4096, 1024, dtype, cuda, seed=4)
+    x[1, 2000] = float("nan")
+    assert quantize.library_wide_chunks(x, 1024) == 8   # all four chunks of each row
+    q, scale, lo = quantize.int8_quantize(x, 1024)
+    want = ref.torch_int8_quantize(x, 1024)
+    for got, w in ((scale, want[1]), (lo, want[2])):
+        torch.testing.assert_close(got, w, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(lo[1, 1]) and (q[1, 1] == 0).all()
+    assert torch.equal(q[0], want[0][0]) and torch.equal(q[1, [0, 2, 3]], want[0][1, [0, 2, 3]])
 
 
 @pytest.mark.cuda
@@ -537,6 +592,19 @@ def test_rglru_scan_is_the_plain_version_bit_for_bit(cuda, shape):
     h = ops.rglru_scan(a, b)
     torch.cuda.synchronize()
     assert h.dtype == torch.float32 and h.shape == shape
+    assert torch.equal(h, ref.torch_rglru_scan(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [4095, 4096, 4097])
+@pytest.mark.parametrize("s", [1, 8, 24, 32, 33, 1024])
+def test_rglru_scan_paths_are_the_plain_version_bit_for_bit(cuda, s, w):
+    """S up to 32 loaded whole (S = 32 unpredicated), 33 and 1,024 on the
+    ring of step groups; widths around 4,096; B 2."""
+    a, b = _f32(cuda, s + w, (2, s, w), (2, s, w))
+    a = torch.sigmoid(a) * 0.5 + 0.45
+    h = rglru_scan.rglru_scan(a, b)
+    torch.cuda.synchronize()
     assert torch.equal(h, ref.torch_rglru_scan(a, b))
 
 

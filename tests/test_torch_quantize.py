@@ -91,6 +91,27 @@ def test_rows_pad_like_the_codec(n, chunk):
         np.testing.assert_array_equal(back[0].numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,chunk", [(8 * 1024 + 17, 1024), (8 * 1024 + 3, 1024), (1000, 1024),
+                                     (4100, 256), (6144, 2048), (4096, 512)])
+def test_rows_match_the_jitted_reference_where_the_kernels_split(n, chunk, dtype):
+    """The shapes on which the CUDA quantize divides its chunks between its
+    16-byte and scalar kernels (ragged tails, rows that start misaligned,
+    n < chunk, CHUNK 256 and 2048): the plain version on bf16 or fp32 rows
+    equals the jitted JAX reference on the same values read as fp32."""
+    rng = np.random.default_rng(n + chunk)
+    x = torch.from_numpy((rng.normal(size=(3, n)) * 10.0 ** rng.uniform(-3, 3, size=(3, 1)))
+                         .astype(np.float32)).to(dtype)
+    q, scale, lo = ref.torch_int8_quantize(x, chunk)
+    nc = -(-n // chunk)
+    for r in range(3):
+        padded = np.pad(x[r].float().numpy(), (0, nc * chunk - n), mode="edge").reshape(nc, chunk)
+        wq, ws, wl = (np.asarray(a) for a in jax.jit(jref.jnp_int8_quantize)(padded))
+        np.testing.assert_array_equal(q[r].numpy(), wq)
+        np.testing.assert_array_equal(scale[r].numpy(), ws)
+        np.testing.assert_array_equal(lo[r].numpy(), wl)
+
+
 class _FakeCuda(torch.Tensor):
     """A CPU tensor that reports a CUDA device."""
 

@@ -28,8 +28,11 @@ from repro_torch.models import rglru
 from repro_torch.models.config import ModelConfig
 
 CTX = ShardCtx.local()
-# (batch, seq, width): tests/test_kernels.py's sweep
-SHAPES = [(2, 64, 32), (1, 300, 128), (2, 257, 130)]
+# (batch, seq, width): tests/test_kernels.py's sweep, and the lengths at
+# which the CUDA scan changes its launch (up to 32 steps loaded whole, 33 on
+# the ring)
+SHAPES = [(2, 64, 32), (1, 300, 128), (2, 257, 130), (2, 1, 40), (1, 8, 33), (2, 24, 40),
+          (1, 32, 65), (2, 33, 40)]
 # the "rglru" config of tests/test_serve.py
 RGLRU_KW = dict(arch_type="hybrid", num_layers=3, d_model=64, num_heads=4, num_kv_heads=1,
                 d_ff=128, vocab_size=128, attn_pattern=("rglru", "rglru", "local"),
@@ -146,3 +149,4 @@ def test_apply_rglru_speculative_verify_raises():
     with pytest.raises(NotImplementedError, match="speculative"):
         rglru.apply_rglru(p, cfg, torch.zeros(1, 2, cfg.d_model), cache=cache,
                           chunk_lengths=torch.tensor([2]), chunk_exact=True)
+
