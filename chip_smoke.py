@@ -125,6 +125,31 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     1's loss within FLASH_PAIR_STEP1_RTOL of the tensor-core run's, every
     later step's within FLASH_PAIR_LOSS_RTOL (``train bf16 flash pair``).
 
+19. (with phase 3) the scans' backward kernels against their plain
+    versions: ``rglru_scan_bwd`` bit for bit at recurrentgemma-9b's training
+    shape (2, 1024, 4096), at (16, 1024, 4096) and on ragged steps and
+    widths; ``ssd_chunk_bwd`` within SSD_BWD_RTOL (normwise) at mamba2-370m's
+    training shape (16, 8, 128, 32, 64, N 128; there also against fp64), on
+    a ragged sequence, at the reduced config's shape, with a (H,) and
+    (B, H), Q 100 / 50 / 1 and P 33 / N 17; each called twice, bit for bit;
+    the flash pair at recurrentgemma-9b's training shape (bf16, B 2, S
+    1024, 16 heads of 256, KV 1, local, window 2048).  Then both timed
+    beside their plain versions (no PyTorch call computes either);
+20. train mamba2-370m at full width and depth (48 layers, phase 6's run)
+    and recurrentgemma-9b at full width with 3 layers (rglru, rglru, local:
+    its three kinds) on 2 replicas × batch 1 × seq 1024, bf16 with remat,
+    through ``run_training``: launch counts equal to the config's (each
+    kernel over the layers of its kind; one scan launch per layer and pass
+    for all replicas together), losses finite and falling, replicas apart
+    (with two replicas, after the profiled steps: a sync gives both the same
+    φ′), inner-step p50, peak memory, the profiled step's busy share and
+    each scan kernel's ms (``recurrent_kernels_split``);
+21. phase 7 for both families: ``reduced()`` in fp32 (recurrentgemma-9b at
+    3 layers), NoLoCo on the card against the CPU: identical partner
+    tables, losses within 1e-4, weight std within 1e-3; the card run is
+    profiled and every kernel of the scans' wrappers, both backward kernels
+    included, ran as many times as its wrapper counted.
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -132,6 +157,7 @@ The line before the last is the ``kernels`` JSON record; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -150,6 +176,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
 from repro_torch.comm import CommConfig, bytes_model, payload  # noqa: E402
 from repro_torch.configs import mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b  # noqa: E402
+from repro_torch.core import metrics as metrics_lib  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     build, dispatch, flash_attention, ops, paged_attention, quantize, ref, rglru_scan,
@@ -158,6 +185,7 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve import serve_run, synth_requests  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import PagedView  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.train import adapters  # noqa: E402
@@ -195,6 +223,20 @@ RECURRENT_KERNELS = tuple(f"{name}_kernel" for name in RECURRENT)
 # SSD chunk kernel against its plain version: fp32 sums of up to Q·N
 # products in another order.
 SSD_ATOL = SSD_RTOL = 1e-4
+# The scans' backward kernels.  The RG-LRU one repeats the plain version's
+# autograd arithmetic, rounding for rounding: bit for bit.  The SSD one is
+# held normwise: each of dx, ddt, da, dB and dC within SSD_BWD_RTOL of that
+# output's largest magnitude, of the plain version and, at the training
+# shape, of an fp64 evaluation.  Its sums run in other orders (dB and dC
+# over every head, ddt through a reverse cumsum of row and column sums
+# that cancel), so an elementwise bound would measure the cancellation.
+# The plain version's own distance from fp64, reported beside the
+# kernel's, is of order 1e-5 (fp32 sums of up to Q·N and H·Q terms):
+# 1e-4 leaves ~10×.
+SSD_BWD_RTOL = 1e-4
+RECURRENT_BWD = ("ssd_chunk_bwd", "rglru_scan_bwd")
+# a hand-written kernel's name in a profiler event
+KERNEL_NAME = re.compile(r"(?:flash|ssd|rglru)_\w*?kernel")
 
 H, KV, D, BS, R, C, WINDOW = 16, 8, 128, 16, 4, 32, 64
 NUM_PAGES = 128
@@ -759,85 +801,106 @@ TRAIN = dict(method="noloco", replicas=4, per_replica_batch=4, seq_len=1024, ste
 
 
 def expected_launches(cfg, run: dict, outer_syncs: int, codec: str = "none") -> dict[str, int]:
-    """Launches the config implies: per inner step one attention forward per
-    layer (twice under remat: the backward pass runs the layer again) and
-    one backward per layer; per outer sync one update per parameter leaf
-    and, on the int8 wire, one quantize and one dequantize per float buffer
-    of the fused (Δ, φ) payload (bf16 and fp32 here), every replica in the
-    same launch."""
+    """Launches the config implies: per inner step one forward per layer of
+    each kernel's kind (attention: flash; ssd: the SSD chunk scan; rglru:
+    the RG-LRU scan), twice for the layers of full periods under remat (the
+    backward pass runs the period again), and one backward per layer; every
+    replica in the same launch.  Per outer sync one update per parameter
+    leaf and, on the int8 wire, one quantize and one dequantize per float
+    buffer of the fused (Δ, φ) payload (bf16 and fp32 here)."""
     tree = bytes_model.abstract_params(cfg)
     buffers = len(payload.make_spec((tree, tree)).buffers) if codec == "int8" else 0
-    return {
-        "flash_attention": run["steps"] * cfg.num_layers * (2 if cfg.remat else 1),
-        "flash_attention_bwd": run["steps"] * cfg.num_layers,
-        "noloco_update": outer_syncs * len(tree_leaves(tree)),
-        "int8_quantize": outer_syncs * buffers,
-        "int8_dequantize": outer_syncs * buffers,
-    }
+    period, n_full, rem = tfm.layer_plan(cfg)
+    fwd_per_layer = 2 if cfg.remat else 1
+    out = {"noloco_update": outer_syncs * len(tree_leaves(tree)),
+           "int8_quantize": outer_syncs * buffers, "int8_dequantize": outer_syncs * buffers}
+    for fwd, bwd, kinds in (("flash_attention", "flash_attention_bwd", ("global", "local")),
+                            ("ssd_chunk", "ssd_chunk_bwd", ("ssd",)),
+                            ("rglru_scan", "rglru_scan_bwd", ("rglru",))):
+        in_periods = n_full * sum(k in kinds for k in period)
+        in_rem = sum(k in kinds for k in period[:rem])
+        out[fwd] = run["steps"] * (in_periods * fwd_per_layer + in_rem)
+        out[bwd] = run["steps"] * (in_periods + in_rem)
+    return out
 
 
-def train_phase(dev):
-    cfg = paper_llama.SMALL
-    log(f"train: {cfg.name} {cfg.num_layers}L d{cfg.d_model} H{cfg.num_heads} "
-        f"vocab {cfg.vocab_size} {cfg.dtype} remat={cfg.remat}: " + json.dumps(TRAIN))
-    jsonl = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train.jsonl")
+def train_phase(dev, cfg=paper_llama.SMALL, run=TRAIN, label="train"):
+    """Train ``cfg`` at its published width through ``run_training`` with
+    ``run``: launch counts against the config's, losses finite and falling,
+    replicas apart after the syncs; then the outer step timed alone and one
+    more inner step profiled."""
+    log(f"{label}: {cfg.name} {cfg.num_layers}L d{cfg.d_model} H{cfg.num_heads} "
+        f"vocab {cfg.vocab_size} {cfg.dtype} remat={cfg.remat}: " + json.dumps(run))
+    jsonl = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         f"chip_smoke_{label.replace(' ', '_')}.jsonl")
     os.makedirs(os.path.dirname(jsonl), exist_ok=True)
     if os.path.exists(jsonl):
         os.remove(jsonl)
+    gc.collect()
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks: recurrentgemma-9b needs ~69 GB
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launches()
-    res = train_cli.run_training(cfg, device="cuda", log_jsonl=jsonl, **TRAIN)
+    res = train_cli.run_training(cfg, device="cuda", log_jsonl=jsonl, **run)
     torch.cuda.synchronize()
     launches = dispatch.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = expected_launches(cfg, TRAIN, res["outer_syncs"])
-    log("train launches: " + json.dumps({k: launches[k] for k in want})
+    want = expected_launches(cfg, run, res["outer_syncs"])
+    log(f"{label} launches: " + json.dumps({k: launches[k] for k in want})
         + " expected " + json.dumps(want))
     losses = res["losses"]
-    log("train losses: " + json.dumps(losses))
+    log(f"{label} losses: " + json.dumps(losses))
     if res["outer_syncs"] != 2 or any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"launch counts {launches} differ from the config's {want}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"training did not go down: {losses}")
-    if not res["final_weight_std"] > 0:
-        raise AssertionError("replicas identical after the outer syncs")
     steps = [e for e in map(json.loads, open(jsonl)) if e["event"] == "step"]
-    m = TRAIN["inner_steps"]
+    m = run["inner_steps"]
     # steps without a sync; step 1 warms up.  A step's dt also holds the
     # device tail of the previous step's outer sync (the next batch's copy
     # to the card waits for it).
     inner = sorted(e["dt_s"] * 1e3 for e in steps[1:] if e["step"] % m)
     p50 = statistics.median(inner)
-    tokens = TRAIN["replicas"] * TRAIN["per_replica_batch"] * TRAIN["seq_len"]
-    prof = profile_steps(cfg, res["state"], dev)
+    tokens = run["replicas"] * run["per_replica_batch"] * run["seq_len"]
+    state = res.pop("state")
+    del res["partners"]
+    params = sum(t.numel() for t in tree_leaves(state.theta))
+    prof = profile_steps(cfg, state, dev, run)
+    del state
+    # Two replicas are each other's only partner: a sync gives both the same
+    # φ′, so right after the last one their std is 0 by construction; they
+    # are told apart after the profiled inner steps instead.
+    apart = res["final_weight_std"] if run["replicas"] > 2 else prof["weight_std_after_profile"]
+    if not apart > 0:
+        raise AssertionError(f"replicas identical: weight std {apart}")
     summary = {
         "inner_step_p50_ms": p50, "inner_step_p99_ms": inner[min(len(inner) - 1,
                                                                 int(0.99 * len(inner)))],
         "inner_step_samples": len(inner),
         "tokens_per_s_steady": tokens / (p50 / 1e3), "tokens_per_s_run": res["tokens_per_s"],
-        "wall_s": res["wall_s"], "peak_memory_gb": peak_gb,
+        "wall_s": res["wall_s"], "peak_memory_gb": peak_gb, "stacked_params": params,
         "final_weight_std": res["final_weight_std"], "loss_first": losses[0],
         "loss_last": losses[-1], "comm_bytes": res["comm_bytes"],
         "blocking_bytes": res["blocking_bytes"], "losses": losses, **prof,
     }
-    log("train summary: " + json.dumps(summary))
+    log(f"{label} summary: " + json.dumps(summary))
     del res
     torch.cuda.empty_cache()
     return summary, launches
 
 
-def profile_steps(cfg, state, dev) -> dict:
+def profile_steps(cfg, state, dev, run=TRAIN) -> dict:
     """On the trained state, after the launch counts were read: the outer
     step timed alone (synchronised before and after, median of 3), and one
     more inner step under torch.profiler for the device's busy share of its
-    wall time and the attention kernels' share of the busy time."""
+    wall time and the hand-written kernels' share of the busy time (each
+    kernel's ms and launches in the step)."""
     from torch.profiler import ProfilerActivity, profile
 
     tcfg = train_cli.method_config("noloco", inner_lr=3e-3, total_steps=10, warmup=1, inner_steps=5)
-    program = adapters.GossipProgram(cfg, tcfg, replicas=TRAIN["replicas"], device=dev)
+    program = adapters.GossipProgram(cfg, tcfg, replicas=run["replicas"], device=dev)
     batch = next(shard_iterator(LoaderConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
-        per_replica_batch=TRAIN["per_replica_batch"], replicas=TRAIN["replicas"]), start_step=10))
+        vocab_size=cfg.vocab_size, seq_len=run["seq_len"],
+        per_replica_batch=run["per_replica_batch"], replicas=run["replicas"]), start_step=10))
     outer_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -853,6 +916,7 @@ def profile_steps(cfg, state, dev) -> dict:
         float(metrics["loss"].mean())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    wstd = float(metrics_lib.replica_weight_std(state.theta))
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3
     by_name: dict[str, float] = {}
@@ -860,16 +924,19 @@ def profile_steps(cfg, state, dev) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     flash_ms = sum(t for n, t in by_name.items() if "flash_" in n)
-    # the flash kernels one by one: the forward, the backward's Di pre-pass,
-    # dK/dV and dQ blocks (ms over the step, launches)
-    flash_split: dict[str, list] = {}
+    # the kernels one by one (ms over the step, launches): flash's forward,
+    # Di pre-pass, dK/dV and dQ blocks; the scans' forward and backward
+    split: dict[str, list] = {}
     for e in on_card:
-        kind = re.search(r"flash_\w*?kernel", e.name)
+        kind = KERNEL_NAME.search(e.name)
         if kind:
-            row = flash_split.setdefault(kind.group(0), [0.0, 0])
+            row = split.setdefault(kind.group(0), [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
+    flash_split = {k: v for k, v in split.items() if k.startswith("flash")}
     return {
+        "recurrent_kernels_split": {k: v for k, v in split.items() if not k.startswith("flash")},
+        "weight_std_after_profile": wstd,
         "outer_step_ms": statistics.median(outer_ms), "outer_step_samples_ms": outer_ms,
         "profiled_step_wall_ms": wall_ms,
         "device_busy_ms": busy_ms if on_card else "not measured",
@@ -923,8 +990,8 @@ def flash_pair_train_phase(tc_losses: list[float]) -> dict:
         lib.flash_attention_fwd, lib.flash_attention_bwd = kept
     ran: dict[str, int] = {}
     for e in prof.events():
-        kind = re.search(r"flash_\w*?kernel", e.name)
-        if kind and e.device_type == torch.autograd.DeviceType.CUDA:
+        kind = KERNEL_NAME.search(e.name)
+        if kind and kind.group(0).startswith("flash") and e.device_type == torch.autograd.DeviceType.CUDA:
             ran[kind.group(0)] = ran.get(kind.group(0), 0) + 1
     del prof
     cc_losses = res["losses"]
@@ -1698,6 +1765,253 @@ def recurrent_parity_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 19–21: training the recurrent families
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunk_bwd_work(b, nc, q, h, p, n, a_rows):
+    """(bytes, fp32 operations) of the SSD chunk backward: x, dt, a, B, C,
+    dy and dstates read once, dx, ddt, da, dB and dC written once; per
+    chunk C Bᵀ and the two products of Σ_h dS (dC, dB), per head dM and du
+    over the causal pairs and the two state products (B·dst, (dec∘u)·dstᵀ),
+    two operations per multiply-add."""
+    xs, dts, bcs = b * nc * q * h * p, b * nc * q * h, b * nc * q * n
+    a_elems = (b if a_rows else 1) * h
+    elems = 3 * xs + 2 * dts + 2 * a_elems + 4 * bcs + b * nc * h * n * p
+    pairs = q * (q + 1) // 2
+    ops_ = 2 * b * nc * (3 * pairs * n + h * (2 * pairs * p + 2 * q * n * p))
+    return 4 * elems, ops_
+
+
+def ssd_bwd_inputs(gen, b, nc, q, h, p, n, pad=0, a_rows=True):
+    """ssd_chunk_inputs plus the output gradients; ``a`` per row (B, H), as
+    training folds the replicas into B, unless ``a_rows`` is False.  A ragged
+    sequence (``pad`` rows past its end in the last chunk) has x, B, C and
+    dt zero there, as ops.ssd_chunk pads it, and dy zero (y is cut to S)."""
+    args = ssd_chunk_inputs(gen, b, nc, q, h, p, n, pad=pad)
+    if a_rows:
+        args[2] = -torch.exp(torch.rand((b, h), generator=gen, device=gen.device) * math.log(16.0))
+    dy = torch.randn((b, nc, q, h, p), generator=gen, device=gen.device)
+    dst = torch.randn((b, nc, h, n, p), generator=gen, device=gen.device)
+    if pad:
+        for t in (args[0], args[3], args[4], dy):
+            t[:, -1, q - pad:] = 0.0
+    return args + [dy, dst]
+
+
+def ssd_bwd_f64(x, dt, a, b_mat, c_mat, dy, dst):
+    """The plain backward's vjp in fp64 on the same fp32 inputs."""
+    ins = [t.double().requires_grad_() for t in (x, dt, a, b_mat, c_mat)]
+    with torch.enable_grad():
+        q = x.shape[2]
+        cums = torch.cumsum(ins[1] * (ins[2][None, None, None] if a.dim() == 1 else ins[2][:, None, None]),
+                            dim=2)
+        diff = cums[:, :, :, None, :] - cums[:, :, None, :, :]
+        tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+        l_kern = torch.exp(torch.where(tri, diff, torch.full_like(diff, -math.inf)))
+        xdt = ins[0] * ins[1][..., None]
+        y = torch.einsum("bcij,bcijh,bcjhp->bcihp", torch.einsum("bcin,bcjn->bcij", ins[4], ins[3]),
+                         l_kern, xdt)
+        st = torch.einsum("bcjn,bcjh,bcjhp->bchnp", ins[3], torch.exp(cums[:, :, -1:] - cums), xdt)
+        return torch.autograd.grad((y, st), ins, (dy.double(), dst.double()))
+
+
+def normwise(got, want) -> float:
+    """max |got − want| over max |want|."""
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30)).item()
+
+
+def check_recurrent_bwd_kernels(dev) -> dict[str, float]:
+    """The scans' backward kernels against their plain versions: the RG-LRU
+    one bit for bit, the SSD one normwise within SSD_BWD_RTOL (at the
+    training shape also against fp64), each twice on the same inputs with
+    equal bits; then the flash pair at recurrentgemma-9b's training shape."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    reg = dispatch.registry()
+    errors = {name: 0.0 for name in (*RECURRENT_BWD, "flash_attention", "flash_attention_bwd")}
+    # recurrentgemma-9b's (R·B 2, S 1024, W 4096), the training shape, a
+    # ragged tail of steps and widths, S 1
+    for shape in ((2, 1024, 4096), (16, 1024, 4096), (3, 37, 130), (1, 1, 4097), (2, 33, 4095),
+                  (2, 17, 40)):
+        a, b = rglru_inputs(gen, *shape)
+        g = torch.randn(shape, generator=gen, device=dev)
+        h = reg["rglru_scan"].kernel(a, b)
+        got = reg["rglru_scan_bwd"].kernel(a, h, g)
+        again = reg["rglru_scan_bwd"].kernel(a, h, g)
+        torch.cuda.synchronize()
+        want = reg["rglru_scan_bwd"].plain(a, b, g)
+        err = max((x - y).abs().max().item() for x, y in zip(got, want))
+        errors["rglru_scan_bwd"] = max(errors["rglru_scan_bwd"], err)
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        log(f"check rglru_scan_bwd {shape}: max_abs_err {err:.3e} (bit-identical: {same}; "
+            f"two calls bit-identical: {repeat})")
+        if not (same and repeat):
+            raise AssertionError("rglru_scan_bwd differs from its plain version or between calls")
+        del a, b, g, h, got, again, want
+    # the training shape (a per row), a ragged sequence (S = 2·128 + 91),
+    # mamba2-370m.reduced's (R·B 8, S 64, Q 16, H 8, P 64, N 32), a (H,),
+    # Q 100 / 50 with P 33 and N 17, Q 1
+    cases = [((16, 8, 128, 32, 64, 128), 0, True), ((2, 3, 128, 32, 64, 128), 37, True),
+             ((8, 4, 16, 8, 64, 32), 0, True), ((2, 2, 64, 4, 64, 128), 0, False),
+             ((1, 2, 100, 3, 33, 17), 13, True), ((2, 1, 50, 5, 64, 128), 0, False),
+             ((2, 2, 1, 3, 16, 8), 0, True)]
+    for case, pad, a_rows in cases:
+        args = ssd_bwd_inputs(gen, *case, pad=pad, a_rows=a_rows)
+        got = reg["ssd_chunk_bwd"].kernel(*args)
+        again = reg["ssd_chunk_bwd"].kernel(*args)
+        torch.cuda.synchronize()
+        want = reg["ssd_chunk_bwd"].plain(*args)
+        names = ("dx", "ddt", "da", "db", "dc")
+        rel = {n: normwise(g, w) for n, g, w in zip(names, got, want)}
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        errors["ssd_chunk_bwd"] = max(errors["ssd_chunk_bwd"], err)
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        shapes_ok = all(g.shape == t.shape and g.dtype == torch.float32 for g, t in zip(got, args))
+        ok = shapes_ok and repeat and max(rel.values()) <= SSD_BWD_RTOL
+        log(f"check ssd_chunk_bwd B,NC,Q,H,P,N={case} pad {pad} a {'(B, H)' if a_rows else '(H,)'}: "
+            f"normwise " + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+            + f" (rtol {SSD_BWD_RTOL:g}), max_abs_err {err:.3e}, two calls bit-identical {repeat} "
+            + ("ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("ssd_chunk_bwd disagrees with its plain version or between calls")
+        if case[0] == 16:   # the training shape: both against fp64
+            exact = ssd_bwd_f64(*args)
+            far = {who: {n: normwise(o, e) for n, o, e in zip(names, outs, exact)}
+                   for who, outs in (("kernel", got), ("plain", want))}
+            log(f"check ssd_chunk_bwd B,NC,Q,H,P,N={case} against fp64 (normwise): "
+                + json.dumps(far))
+            if max(far["kernel"].values()) > SSD_BWD_RTOL:
+                raise AssertionError("ssd_chunk_bwd is farther from fp64 than SSD_BWD_RTOL")
+            del exact
+        del args, got, again, want
+    # recurrentgemma-9b's local layers in training: R·B 2, S 1024, 16 heads
+    # of 256, one kv head, window 2048, bf16
+    q, k, v, do = flash_inputs(gen, 2, 1024, 16, 1, 256, torch.bfloat16)
+    o, lse = reg["flash_attention"].kernel(q, k, v, mode="local", window=2048)
+    grads = reg["flash_attention_bwd"].kernel(q, k, v, o, lse, do, mode="local", window=2048)
+    torch.cuda.synchronize()
+    o_want, lse_want = reg["flash_attention"].plain(q, k, v, mode="local", window=2048)
+    g_want = reg["flash_attention_bwd"].plain(q, k, v, o, lse, do, mode="local", window=2048)
+    results = [("flash_attention", *_close(o, o_want, ATOL[torch.bfloat16], 0, "o")),
+               ("flash_attention", *_close(lse, lse_want, 1e-4, 1e-5, "lse"))]
+    results += [("flash_attention_bwd", *_close(g, w, ATOL[torch.bfloat16], GRAD_RTOL[torch.bfloat16], n))
+                for g, w, n in zip(grads, g_want, ("dq", "dk", "dv"))]
+    log("check flash bf16 B2 S1024 H16/KV1 D256 local 2048 (recurrentgemma-9b training) path "
+        f"{flash_attention.path_for(torch.bfloat16, 256)}: "
+        + ", ".join(f"{n} {e:.3e}" for n, e, _ in results))
+    for name, err, ok in results:
+        errors[name] = max(errors[name], err)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at recurrentgemma-9b's "
+                                 f"training shape: {err:.3e}")
+    return errors
+
+
+def time_recurrent_bwd_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
+    """Kernel and plain times of the two backward kernels at the training
+    phases' shapes: ssd_chunk_bwd at mamba2-370m's (R·B 16, S 1024: NC 8,
+    Q 128, H 32, P 64, N 128, a per row), rglru_scan_bwd at
+    recurrentgemma-9b's (2, 1024, 4096) and at (16, 1024, 4096).  No single
+    PyTorch call computes either: library_ms is null."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    reg = dispatch.registry()
+    case = (16, 8, 128, 32, 64, 128)
+    args = ssd_bwd_inputs(gen, *case)
+    nbytes, flops = ssd_chunk_bwd_work(*case, a_rows=True)
+    out = {"ssd_chunk_bwd": _timing(reg["ssd_chunk_bwd"], args, nbytes, flops,
+                                    {"B,NC,Q,H,P,N": list(case), "a": "(B, H)", "dtype": "float32"},
+                                    reps=20, plain_reps=3)}
+    log("time ssd_chunk_bwd: " + json.dumps(out["ssd_chunk_bwd"]))
+    del args
+    extra = {}
+    for key, shape in (("rglru_scan_bwd", (2, 1024, 4096)), ("rglru_scan_bwd_16", (16, 1024, 4096))):
+        a, b = rglru_inputs(gen, *shape)
+        g = torch.randn(shape, generator=gen, device=dev)
+        h = reg["rglru_scan"].kernel(a, b)
+        n = math.prod(shape)
+        t_bytes, t_ops = 20 * n / HBM_BYTES_PER_S, 3 * n / PEAK_FLOPS[torch.float32]
+        ms, mhz = cuda_ms(lambda: reg["rglru_scan_bwd"].kernel(a, h, g), reps=50)
+        t = {"ms": ms, "plain_ms": cuda_ms(lambda: reg["rglru_scan_bwd"].plain(a, b, g), reps=3)[0],
+             "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": 20 * n,
+             "flops": 3 * n, "sm_clock_mhz": mhz, "shape": {"B,S,W": list(shape), "dtype": "float32"}}
+        (out if key == "rglru_scan_bwd" else extra)[key] = t
+        log(f"time {key}: " + json.dumps(t))
+        del a, b, g, h
+    torch.cuda.empty_cache()
+    return out, extra
+
+
+# The two families at published width in bf16 with remat, NoLoCo, m 5, 10
+# steps, 2 syncs.  mamba2-370m at full depth with phase 6's run.
+# recurrentgemma-9b at the depth that holds its three kinds (rglru, rglru,
+# local) with 2 replicas × batch 1 × seq 1024: its tied embedding alone is
+# 1.05 B parameters (PERF.md holds the memory reckoning).
+RECURRENT_TRAIN = (
+    (mamba2_370m.CONFIG, TRAIN),
+    (dataclasses.replace(recurrentgemma_9b.CONFIG, num_layers=3),
+     dict(TRAIN, replicas=2, per_replica_batch=1)),
+)
+
+
+def recurrent_train_parity_phase(dev) -> dict:
+    """Phase 7 for both families: ``reduced()`` in fp32 (recurrentgemma-9b
+    at 3 layers: rglru, local, rglru), NoLoCo on the card and on the CPU from
+    the same initial state: identical partner tables, per-step losses within
+    LOSS_RTOL, final weight std within WSTD_RTOL.  The card run is profiled:
+    every CUDA kernel of the scans' wrappers ran as many times as the
+    wrapper counted its launches, both backward kernels included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run = dict(method="noloco", replicas=4, per_replica_batch=2, seq_len=64, steps=10,
+               inner_steps=5, eval_every=0, inner_lr=3e-3, seed=0)
+    out = {}
+    for base, kw, own in ((mamba2_370m.CONFIG, {}, {"ssd_chunk": ("ssd_chunk_kernel",),
+                                                     "ssd_chunk_bwd": (
+                                                         "ssd_bwd_pairs_kernel", "ssd_bwd_keys_kernel",
+                                                         "ssd_bwd_bc_kernel", "ssd_bwd_dt_kernel")}),
+                          (recurrentgemma_9b.CONFIG, {"num_layers": 3},
+                           {"rglru_scan": ("rglru_scan_kernel",),
+                            "rglru_scan_bwd": ("rglru_scan_bwd_kernel",)})):
+        cfg = base.reduced(dtype="float32", remat=False, **kw)
+        t0 = time.perf_counter()
+        dispatch.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            card = train_cli.run_training(cfg, device="cuda", **run)
+            torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+        ran: dict[str, int] = {}
+        for e in prof.events():
+            kind = KERNEL_NAME.search(e.name)
+            if kind and e.device_type == torch.autograd.DeviceType.CUDA:
+                ran[kind.group(0)] = ran.get(kind.group(0), 0) + 1
+        del prof
+        cpu = train_cli.run_training(cfg, device="cpu", **run)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+        wstd_rel = abs(card["final_weight_std"] - cpu["final_weight_std"]) / cpu["final_weight_std"]
+        same_pairs = len(card["partners"]) == 2 and all(
+            np.array_equal(a, b) for a, b in zip(card["partners"], cpu["partners"]))
+        row = {"loss_max_rel_diff": rel, "weight_std_rel_diff": wstd_rel,
+               "partner_tables_identical": same_pairs, "launches": {k: launches[k] for k in own},
+               "kernels_ran": ran, "card_losses": card["losses"], "cpu_losses": cpu["losses"],
+               "seconds": time.perf_counter() - t0}
+        log(f"train recurrent fp32 card vs cpu {cfg.name} reduced {cfg.num_layers}L: " + json.dumps(row))
+        if not same_pairs:
+            raise AssertionError(f"{cfg.name}: card and CPU runs paired replicas differently")
+        for wrapper, names in own.items():
+            if launches[wrapper] <= 0 or any(ran.get(n, 0) != launches[wrapper] for n in names):
+                raise AssertionError(f"{cfg.name}: {wrapper} counted {launches[wrapper]} launches, "
+                                     f"the card ran {ran}")
+        if not (rel <= LOSS_RTOL and wstd_rel <= WSTD_RTOL):
+            raise AssertionError(f"{cfg.name}: card and CPU training differ: losses {rel:.3e}, "
+                                 f"wstd {wstd_rel:.3e}")
+        out[cfg.name] = row
+        del card, cpu
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -1730,11 +2044,14 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
     errors = {**check_kernels(dev), **check_train_kernels(dev), **check_int8_kernels(dev)}
-    for name, err in (*check_recurrent_kernels(dev).items(), *check_split_kernels(dev).items()):
+    for name, err in (*check_recurrent_kernels(dev).items(), *check_split_kernels(dev).items(),
+                      *check_recurrent_bwd_kernels(dev).items()):
         errors[name] = max(errors.get(name, 0.0), err)
     rec_timings, rec_extra = time_recurrent_kernels(dev)
+    bwd_timings, bwd_extra = time_recurrent_bwd_kernels(dev)
+    rec_extra.update(bwd_extra)
     timings = {**time_kernels(dev), **time_train_kernels(dev), **time_int8_kernels(dev),
-               **rec_timings}
+               **rec_timings, **bwd_timings}
     sampling = sampling_phase(dev)
     summary, launches = serve_phase(dev)
     sampled = serve_phase(dev, temps=(0.0, 0.7))[0]
@@ -1756,10 +2073,16 @@ def main() -> None:
                           (recurrentgemma_9b.CONFIG, recurrentgemma_launches(recurrentgemma_9b.CONFIG))):
         family[cfg.name] = serve_phase(dev, cfg, expected)
     rec_parity = recurrent_parity_phase(dev)
+    rec_train = {}
+    for cfg, run in RECURRENT_TRAIN:
+        rec_train[cfg.name] = train_phase(dev, cfg, run, label=f"train {cfg.name}")
+    rec_train_parity = recurrent_train_parity_phase(dev)
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: int8_launches[k] for k in INT8})
     launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
     launches.update({k: family["recurrentgemma-9b"][1][k] for k in ("rglru_scan", "rglru_decode")})
+    launches["ssd_chunk_bwd"] = rec_train["mamba2-370m"][1]["ssd_chunk_bwd"]
+    launches["rglru_scan_bwd"] = rec_train["recurrentgemma-9b"][1]["rglru_scan_bwd"]
 
     kernels = []
     for name, op in dispatch.registry().items():
@@ -1787,6 +2110,11 @@ def main() -> None:
             "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "step_p50_s", "step_p99_s",
             "decode_steps", "wall_s", "peak_memory_gb")} for name, fam in family.items()},
         "recurrent_card_vs_cpu": rec_parity,
+        "train_recurrent": {name: {k: v for k, v in summ.items() if k != "losses"}
+                            for name, (summ, _) in rec_train.items()},
+        "train_recurrent_card_vs_cpu": {name: {k: row[k] for k in (
+            "loss_max_rel_diff", "weight_std_rel_diff", "partner_tables_identical", "launches")}
+            for name, row in rec_train_parity.items()},
         "sampling": sampling,
         "recurrent_timings_other_shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
                                                                  "bound_ms", "bound_by")}

@@ -64,7 +64,8 @@ class GossipTrainer:
     def inner_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         """One local AdamW step on every replica; ``batch`` leaves have a
         leading replica axis.  Returns (state, {"loss": (R,), "grad_norm":
-        (R,)})."""
+        (R,)}).  The AdamW moments of ``state`` are donated: updated in
+        place, as a jitted JAX step with donated buffers leaves them."""
         theta = tree_map(lambda p: p.detach().requires_grad_(), state.theta)
         leaves = tree_leaves(theta)
         losses = self.loss_fn(theta, batch)

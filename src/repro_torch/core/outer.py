@@ -146,6 +146,9 @@ def outer_step(state: OuterState, theta: PyTree, cfg: OuterConfig,
         raise NotImplementedError(f"stale-Δ outer steps are not ported yet ({_LATER})")
     if cfg.method == "none":
         return OuterState(phi=theta, delta=state.delta, step=state.step + 1), theta
+    if cfg.method == "noloco" and comm.cfg.codec == "none":
+        phi_next, delta_next = _noloco_leafwise(state, theta, cfg, comm)
+        return OuterState(phi=phi_next, delta=delta_next, step=state.step + 1), phi_next
     delta = outer_gradient(theta, state.phi)
     if cfg.method == "diloco":
         mean_delta = comm.allreduce_mean(delta)
@@ -161,6 +164,31 @@ def outer_step(state: OuterState, theta: PyTree, cfg: OuterConfig,
             alpha=cfg.alpha, beta=cfg.beta, gamma=cfg.resolved_gamma(),
         )
     return OuterState(phi=phi_next, delta=delta_next, step=state.step + 1), phi_next
+
+
+def _noloco_leafwise(state: OuterState, theta: PyTree, cfg: OuterConfig,
+                     comm: exchange_lib.Communicator) -> tuple[PyTree, PyTree]:
+    """The NoLoCo step over a plain wire one leaf at a time: Δ, the
+    partner's (Δ, φ), the means and the update of a leaf are formed and
+    dropped before the next, so the step's temporaries are one leaf's,
+    not the tree's (recurrentgemma-9b's stacked trees are 6.8 GB each in
+    bf16).  Each value is the whole-tree path's, operation for operation;
+    a packed wire (a codec) keeps that path."""
+    out = []
+
+    def one(t, phi, dmom):
+        delta = outer_gradient(t, phi)
+        delta_p, phi_p = comm.exchange((delta, phi))
+        mean_delta = 0.5 * (delta + delta_p)
+        del delta, delta_p
+        mean_phi = 0.5 * (phi + phi_p)
+        del phi_p
+        out.append(noloco_momentum_update(phi, dmom, mean_delta, mean_phi, alpha=cfg.alpha,
+                                          beta=cfg.beta, gamma=cfg.resolved_gamma()))
+        return len(out) - 1
+
+    index = tree_map(one, theta, state.phi, state.delta)
+    return tree_map(lambda i: out[i][0], index), tree_map(lambda i: out[i][1], index)
 
 
 @torch.no_grad()

@@ -53,6 +53,23 @@
 // than it inside a step, where a and b come from L2; unpredicated it wins
 // both ways.  Blocks of 32 or 16 channels (spreading the 32 blocks over
 // 128 or 256) did not change the time.  The measured times are in PERF.md.
+//
+// The backward, rglru_scan_bwd: the JAX package differentiates its twin
+// (src/repro/kernels/ops.py:222, the vjp of the associative scan); here a
+// reverse scan per channel from the forward's saved h and g = dL/dh:
+//
+//   dh_t = g_t + a_{t+1}·dh_{t+1}  (dh_S = g_S),  da_t = dh_t·h_{t−1}  (h_0 = 0),
+//   db_t = dh_t
+//
+// each product and sum rounded once, so it gives the plain version's
+// autograd bits (ref.torch_rglru_scan_bwd).  Bytes bound it: 12 read and 8
+// written per element, 1.34 GB at (16, 1024, 4096), 0.401 ms at 3.35 TB/s.
+// One thread per channel walks t = S−1..0 with dh and a_{t+1} in
+// registers; a ring of two kGroup-step buffers keeps the next group's loads
+// in flight while the current one is stepped, as the forward's ring does.
+// Blocks of 64 channels: at recurrentgemma-9b's (2, 1024, 4096) that is 128
+// blocks, one per SM, where 128-channel blocks would leave half the SMs
+// idle.
 
 #include <cuda_runtime.h>
 
@@ -128,6 +145,65 @@ __global__ void __launch_bounds__(kChannels)
   }
 }
 
+constexpr int kBwdChannels = 64;   // per block of the backward
+
+// a, h_{t−1} and g of steps t0 − u for u < n (walking back), from element i
+// of step t0; h_{−1} = 0.
+__device__ __forceinline__ void load_back(const float* __restrict__ a, const float* __restrict__ h,
+                                          const float* __restrict__ g, long long i, int t0, int W,
+                                          int n, float (&av)[kGroup], float (&hv)[kGroup],
+                                          float (&gv)[kGroup]) {
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) {
+    if (u < n) {
+      const long long e = i + (long long)(t0 - u) * W;
+      av[u] = a[e];
+      gv[u] = g[e];
+      hv[u] = t0 - u > 0 ? h[e - W] : 0.0f;
+    }
+  }
+}
+
+// Steps t0, t0 − 1, ..., t0 − n + 1 of the reverse scan; dh and a_next
+// (a_{t+1}) carry between groups.
+__device__ __forceinline__ void step_back(float& dh, float& a_next, const float (&av)[kGroup],
+                                          const float (&hv)[kGroup], const float (&gv)[kGroup],
+                                          float* __restrict__ da, float* __restrict__ db,
+                                          long long i, int t0, int W, int n) {
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) {
+    if (u < n) {
+      const long long e = i + (long long)(t0 - u) * W;
+      dh = __fadd_rn(gv[u], __fmul_rn(a_next, dh));
+      da[e] = __fmul_rn(dh, hv[u]);
+      db[e] = dh;
+      a_next = av[u];
+    }
+  }
+}
+
+// Grid (⌈W / kBwdChannels⌉, B), one thread per channel.
+__global__ void __launch_bounds__(kBwdChannels)
+    rglru_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                          const float* __restrict__ g, float* __restrict__ da,
+                          float* __restrict__ db, int S, int W) {
+  const int w = blockIdx.x * kBwdChannels + threadIdx.x;
+  if (w >= W) return;
+  const long long base = (long long)blockIdx.y * S * W + w;
+  float a0[kGroup], h0[kGroup], g0[kGroup], a1[kGroup], h1[kGroup], g1[kGroup];
+  float dh = 0.0f, a_next = 0.0f;   // the last step: dh = g + 0·0
+  load_back(a, h, g, base, S - 1, W, min(S, kGroup), a0, h0, g0);
+  for (int t = S - 1; t >= 0; t -= 2 * kGroup) {
+    const int n0 = min(t + 1, kGroup);
+    const int n1 = max(0, min(t + 1 - kGroup, kGroup));
+    const int n2 = max(0, min(t + 1 - 2 * kGroup, kGroup));
+    load_back(a, h, g, base, t - kGroup, W, n1, a1, h1, g1);   // in flight meanwhile
+    step_back(dh, a_next, a0, h0, g0, da, db, base, t, W, n0);
+    load_back(a, h, g, base, t - 2 * kGroup, W, n2, a0, h0, g0);
+    step_back(dh, a_next, a1, h1, g1, da, db, base, t - kGroup, W, n1);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -143,6 +219,19 @@ int rglru_scan(const float* a, const float* b, float* h, int B, int S, int W, vo
     rglru_scan_kernel<kWholeSteps><<<grid, kChannels, 0, s>>>(a, b, h, S, W);
   else
     rglru_scan_kernel<0><<<grid, kChannels, 0, s>>>(a, b, h, S, W);
+  return (int)cudaGetLastError();
+}
+
+// The backward: da, db (B, S, W) from a, the forward's h and g = dL/dh.
+// Returns a cudaError_t (0 on success), or -1 for arguments the kernel does
+// not take.
+int rglru_scan_bwd(const float* a, const float* h, const float* g, float* da, float* db, int B,
+                   int S, int W, void* stream) {
+  if (B < 0 || S < 0 || W < 0 || B > 65535) return -1;
+  if (B == 0 || S == 0 || W == 0) return 0;
+  const dim3 grid((W + kBwdChannels - 1) / kBwdChannels, B);
+  rglru_scan_bwd_kernel<<<grid, kBwdChannels, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, h, g, da, db, S, W);
   return (int)cudaGetLastError();
 }
 

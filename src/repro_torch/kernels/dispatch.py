@@ -26,7 +26,9 @@ __all__ = ["KernelOp", "registry", "reset_launches", "launch_counts"]
 
 @dataclasses.dataclass(frozen=True)
 class KernelOp:
-    """One ported op.  ``kernel`` carries a ``launches`` integer."""
+    """One ported op.  ``kernel`` carries a ``launches`` integer.  ``plain``
+    takes the kernel's arguments, except ``rglru_scan_bwd``'s, which takes
+    (a, b, g) where the kernel takes the forward's output h for b."""
 
     name: str
     kernel: Callable[..., Any]
@@ -104,12 +106,28 @@ _REGISTRY: dict[str, KernelOp] = {
             replaces="src/repro/kernels/ssd_scan.py:52",
         ),
         KernelOp(
+            name="ssd_chunk_bwd",
+            kernel=ssd_scan_mod.ssd_chunk_bwd,
+            plain=ref.torch_ssd_chunk_intra_bwd,
+            route="cuda",
+            source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ops.py:127",
+        ),
+        KernelOp(
             name="rglru_scan",
             kernel=rglru_scan_mod.rglru_scan,
             plain=ref.torch_rglru_scan,
             route="cuda",
             source="src/repro_torch/csrc/rglru_scan.cu",
             replaces="src/repro/kernels/rglru_scan.py:66",
+        ),
+        KernelOp(
+            name="rglru_scan_bwd",
+            kernel=rglru_scan_mod.rglru_scan_bwd,
+            plain=ref.torch_rglru_scan_bwd,
+            route="cuda",
+            source="src/repro_torch/csrc/rglru_scan.cu",
+            replaces="src/repro/kernels/ops.py:222",
         ),
         KernelOp(
             name="rglru_decode",

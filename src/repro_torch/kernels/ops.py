@@ -156,37 +156,36 @@ def int8_dequantize(q: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor, n: i
 # Recurrent families: the SSD chunk scan, the RG-LRU scan, the decode steps
 # ---------------------------------------------------------------------------
 
-_NO_BACKWARD = (
-    "the backward of the {} kernel is not written yet: training the recurrent "
-    "families on the card comes with ROADMAP Queue 1's next slice"
-)
-
-
 class _SSDChunkIntra(torch.autograd.Function):
-    """The SSD intra-chunk kernel on the card.  Its backward raises: the
-    JAX package differentiates the jnp twin, and the port's hand-written
-    backward kernel is still to come."""
+    """The SSD intra-chunk kernel on the card, whose backward is the
+    backward kernel (the JAX package's custom vjp differentiates the jnp
+    twin there).  It saves its inputs; under ``torch.utils.checkpoint``
+    they are dropped and the forward runs again in the backward pass."""
 
     @staticmethod
     def forward(ctx, xc, dtc, a, bc, cc):
+        ctx.save_for_backward(xc, dtc, a, bc, cc)
         return ssd_scan.ssd_chunk(xc, dtc, a, bc, cc)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(_NO_BACKWARD.format("ssd_chunk"))
+    def backward(ctx, dy, dstates):
+        return ssd_scan.ssd_chunk_bwd(*ctx.saved_tensors, dy.contiguous(), dstates.contiguous())
 
 
 class _RGLRUScan(torch.autograd.Function):
-    """The RG-LRU scan kernel on the card; its backward raises, as
-    :class:`_SSDChunkIntra`'s does."""
+    """The RG-LRU scan kernel on the card; its backward is the reverse-scan
+    kernel, from a and the saved output h."""
 
     @staticmethod
     def forward(ctx, a, b):
-        return rglru_kernel.rglru_scan(a, b)
+        h = rglru_kernel.rglru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(_NO_BACKWARD.format("rglru_scan"))
+        a, h = ctx.saved_tensors
+        return rglru_kernel.rglru_scan_bwd(a, h, grad.contiguous())
 
 
 def _ssd_chunk_intra(xc, dtc, a, bc, cc):
@@ -198,7 +197,7 @@ def _ssd_chunk_intra(xc, dtc, a, bc, cc):
 def ssd_chunk(
     x: torch.Tensor,      # (B, S, H, P)
     dt: torch.Tensor,     # (B, S, H)
-    a: torch.Tensor,      # (H,)
+    a: torch.Tensor,      # (H,) or (B, H)
     b_mat: torch.Tensor,  # (B, S, N)
     c_mat: torch.Tensor,  # (B, S, N)
     *,
@@ -209,8 +208,10 @@ def ssd_chunk(
     the sequence padded to chunks of q = min(chunk, S) (pad rows have dt 0,
     which leaves the state unchanged), the intra-chunk form by the kernel
     (card) or its plain version (CPU), then the inter-chunk state
-    recurrence and the off-diagonal output in plain PyTorch.  Returns
-    (y (B, S, H, P) in x's dtype, final state (B, H, P, N) fp32)."""
+    recurrence and the off-diagonal output in plain PyTorch, which autograd
+    differentiates as JAX does.  ``a`` (B, H) gives each row rates of its
+    own: the training forward folds the replicas into B.  Returns (y (B, S,
+    H, P) in x's dtype, final state (B, H, P, N) fp32)."""
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     q = min(chunk, s)
@@ -227,7 +228,7 @@ def ssd_chunk(
     cc = c_mat.reshape(bsz, nc, q, n)
     y_diag, states = _ssd_chunk_intra(xc, dtc, a, bc, cc)
 
-    da = dtc.float() * a.float()[None, None, None, :]
+    da = dtc.float() * ref.row_rates(a)
     chunk_decay = torch.exp(da.sum(dim=2))                 # (B, NC, H)
     cums = torch.cumsum(da, dim=2)
     # caches carry (B, H, P, N); the kernel's state layout is (B, H, N, P)

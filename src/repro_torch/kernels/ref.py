@@ -318,10 +318,17 @@ def torch_int8_dequantize(q: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def row_rates(a: torch.Tensor) -> torch.Tensor:
+    """The decay rates against (B, NC, Q, H): a (H,) shared by every row, or
+    (B, H), one set per row (replicas folded into the batch)."""
+    af = a.float()
+    return af[None, None, None, :] if af.dim() == 1 else af[:, None, None, :]
+
+
 def torch_ssd_chunk_intra(
     x: torch.Tensor,      # (B, NC, Q, H, P)
     dt: torch.Tensor,     # (B, NC, Q, H)
-    a: torch.Tensor,      # (H,)
+    a: torch.Tensor,      # (H,) or (B, H)
     b_mat: torch.Tensor,  # (B, NC, Q, N)
     c_mat: torch.Tensor,  # (B, NC, Q, N)
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -330,21 +337,48 @@ def torch_ssd_chunk_intra(
     arithmetic of the JAX package's ``ref.jnp_ssd_chunk_intra``:
     cums = cumsum(dt·a) (inclusive), L[i, j] = exp(cums_i − cums_j)·[i ≥ j],
     y = (C Bᵀ ∘ L)(dt ∘ x), state = Σ_j exp(cums_Q − cums_j)·B_j ⊗ (dt_j·x_j).
-    Returns (y_diag (B, NC, Q, H, P) in x's dtype, states (B, NC, H, N, P)
-    fp32)."""
+    ``a`` is (H,), or (B, H) with rates of its own for each row.  Returns
+    (y_diag (B, NC, Q, H, P) in x's dtype, states (B, NC, H, N, P) fp32).
+
+    L masks the differences before the exponential (exp(−inf) = 0) where
+    the JAX twin masks after it: the values are the same, but there a
+    masked entry's exp(cums_i − cums_j) overflows to inf once the chunk's
+    decay passes e^88 (Q 128 with |dt·a| ~ 1 a step), and its vjp then
+    multiplies the zero cotangent by inf, a NaN in ddt and da.  Here the
+    masked entries have exact zero gradients."""
     q = x.shape[2]
     xf, dtf, bf, cf = x.float(), dt.float(), b_mat.float(), c_mat.float()
-    da = dtf * a.float()[None, None, None, :]                    # (B, NC, Q, H)
+    da = dtf * row_rates(a)                                       # (B, NC, Q, H)
     cums = torch.cumsum(da, dim=2)
     diff = cums[:, :, :, None, :] - cums[:, :, None, :, :]      # (B, NC, Qi, Qj, H)
     tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    l_kern = torch.where(tri[None, None, :, :, None], torch.exp(diff), torch.zeros_like(diff))
+    l_kern = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                   torch.full_like(diff, -math.inf)))
     xdt = xf * dtf[..., None]                                   # dt_j · x_j
     scores = torch.einsum("bcin,bcjn->bcij", cf, bf)
     y_diag = torch.einsum("bcij,bcijh,bcjhp->bcihp", scores, l_kern, xdt)
     decay_states = torch.exp(cums[:, :, -1:, :] - cums)          # (B, NC, Q, H)
     states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bf, decay_states, xdt)
     return y_diag.to(x.dtype), states
+
+
+def torch_ssd_chunk_intra_bwd(
+    x: torch.Tensor,        # (B, NC, Q, H, P)
+    dt: torch.Tensor,       # (B, NC, Q, H)
+    a: torch.Tensor,        # (H,) or (B, H)
+    b_mat: torch.Tensor,    # (B, NC, Q, N)
+    c_mat: torch.Tensor,    # (B, NC, Q, N)
+    dy: torch.Tensor,       # (B, NC, Q, H, P) gradient of y_diag
+    dstates: torch.Tensor,  # (B, NC, H, N, P) gradient of the states
+) -> tuple[torch.Tensor, ...]:
+    """(dx, ddt, da, db_mat, dc_mat), each in its input's shape: the vjp of
+    :func:`torch_ssd_chunk_intra` by autograd, the plain version of
+    :func:`repro_torch.kernels.ssd_scan.ssd_chunk_bwd` (the JAX package's
+    ``bwd`` of its SSD op, the vjp of the jnp twin)."""
+    with torch.enable_grad():
+        ins = [t.detach().float().requires_grad_() for t in (x, dt, a, b_mat, c_mat)]
+        y, states = torch_ssd_chunk_intra(*ins)
+        return torch.autograd.grad((y, states), ins, (dy.float(), dstates.float()))
 
 
 def torch_reference_ssd(
@@ -386,16 +420,32 @@ def torch_rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b (B, S, W); returns fp32 (B, S, W).  Sequential in fp32, one product
     and one sum per step, each rounded once: the kernel's order, so the two
     agree bit for bit; the JAX twin (an associative scan) differs from both
-    by rounding order only."""
+    by rounding order only.  The steps are views of one ``unbind``, whose
+    backward stacks their gradients in one pass."""
     af, bf = a.float(), b.float()
+    if af.shape[1] == 0:
+        return bf.clone()
     h = torch.zeros_like(bf[:, 0])
     out = []
-    for t in range(af.shape[1]):
-        h = af[:, t] * h + bf[:, t]
+    for a_t, b_t in zip(af.unbind(1), bf.unbind(1)):
+        h = a_t * h + b_t
         out.append(h)
-    if not out:
-        return bf.clone()
     return torch.stack(out, dim=1)
+
+
+def torch_rglru_scan_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(da, db) fp32 (B, S, W): the vjp of :func:`torch_rglru_scan` at
+    (a, b) for g = dL/dh, by autograd — the plain version of
+    :func:`repro_torch.kernels.rglru_scan.rglru_scan_bwd` (the JAX
+    package's ``bwd`` of its RG-LRU op).  The kernel takes the forward's h
+    where this takes b; it recomputes h in the kernel's order.  Autograd's
+    arithmetic is dh_t = g_t + a_{t+1}·dh_{t+1}, da_t = dh_t·h_{t−1},
+    db_t = dh_t, each product and sum rounded once, which the kernel
+    repeats bit for bit."""
+    with torch.enable_grad():
+        ins = [t.detach().float().requires_grad_() for t in (a, b)]
+        return torch.autograd.grad(torch_rglru_scan(*ins), ins, g.float())
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@ The source picks its launch from the sequence length (:func:`library_path`
 reads the built library's choice).  ``rglru_scan.launches`` counts the
 launches.  The plain PyTorch version is ``ref.torch_rglru_scan``;
 :mod:`repro_torch.kernels.ops` picks between the two by device.
+
+:func:`rglru_scan_bwd` is its backward, a reverse scan from the saved h
+(same source, ``rglru_scan_bwd.launches``); its plain version is
+``ref.torch_rglru_scan_bwd``, which it matches bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ def library() -> ctypes.CDLL:
     lib.rglru_scan.restype = i
     lib.rglru_scan_steps.argtypes = [i]
     lib.rglru_scan_steps.restype = i
+    lib.rglru_scan_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.rglru_scan_bwd.restype = i
     return lib
 
 
@@ -73,4 +79,26 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(da, db) (B, S, W) fp32 on the card from a, the forward's output h
+    and g = dL/dh, all (B, S, W) fp32."""
+    check_f32_cuda(a=a, h=h, g=g)
+    if a.dim() != 3 or h.shape != a.shape or g.shape != a.shape:
+        raise ValueError(f"a, h and g must be (B, S, W) and equal, got {tuple(a.shape)}, "
+                         f"{tuple(h.shape)}, {tuple(g.shape)}")
+    bsz, s, w = a.shape
+    lib = library()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.rglru_scan_bwd(a.data_ptr(), h.data_ptr(), g.data_ptr(), da.data_ptr(),
+                                 db.data_ptr(), bsz, s, w, stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan_bwd launch failed: error {err}")
+    rglru_scan_bwd.launches += 1
+    return da, db
+
+
 rglru_scan.launches = 0
+rglru_scan_bwd.launches = 0

@@ -17,12 +17,14 @@ Replicas are a stacked leading axis on one device.  The full NoLoCo machinery
 runs as in the paper: inner AdamW, the gossip outer step with random
 pairings, weight-std tracking.  ``--method`` selects noloco / diloco / fsdp
 (gradient mean every step) / none (independent runs); ``--codec`` the
-gossip wire (none, fp16, bf16, int8).  On the card the attention forward
-and backward, the NoLoCo outer update and the int8 codec run the
+gossip wire (none, fp16, bf16, int8).  ``--arch`` takes the paper models,
+qwen3-0.6b and the recurrent families mamba2-370m and recurrentgemma-9b.
+On the card the attention forward and backward, the SSD and RG-LRU scans
+forward and backward, the NoLoCo outer update and the int8 codec run the
 hand-written CUDA kernels; ``--device`` defaults to ``cuda`` and raises
 without a GPU.  ``--reduced`` trains the smoke variant of the arch (two
 layers, fp32, no remat); without it the published config trains in its own
-dtype.  Checkpoints (``--ckpt-dir``, ``--ckpt-every``, ``--resume``) are in
+dtype (recurrentgemma-9b at full depth needs more than one card's memory).  Checkpoints (``--ckpt-dir``, ``--ckpt-every``, ``--resume``) are in
 the JAX package's format: either package resumes the other's.  The last
 stdout line is the JSON summary of the JAX package's CLI plus ``device``.
 """

@@ -33,7 +33,7 @@ def init_norm(cfg, dim: int, device: torch.device | str = "cpu") -> dict:
     return p
 
 
-def _over_replicas(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def over_replicas(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A stacked (R, n) vector viewed as (R, 1, ..., 1, n) against x
     (R, ..., n); an unstacked (n,) one as it is."""
     if w.dim() == 1:
@@ -44,11 +44,11 @@ def _over_replicas(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def apply_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm, or LayerNorm when ``p`` has a bias; fp32 inside."""
     x32 = x.float()
-    scale = _over_replicas(p["scale"], x)
+    scale = over_replicas(p["scale"], x)
     if "bias" in p:
         mean = x32.mean(dim=-1, keepdim=True)
         var = x32.var(dim=-1, keepdim=True, correction=0)
-        y = (x32 - mean) * torch.rsqrt(var + eps) * scale + _over_replicas(p["bias"], x)
+        y = (x32 - mean) * torch.rsqrt(var + eps) * scale + over_replicas(p["bias"], x)
     else:
         ms = x32.square().mean(dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(ms + eps) * scale

@@ -14,7 +14,10 @@ a sequence (the CUDA scan kernel on the card) and
 kernel).  Three branches, as in the JAX package: the forward with no cache,
 chunk-resumable serving prefill (``chunk_lengths``) and the decode step.  A
 cache is updated in place and returned, as the port's paged attention does
-with its page pools.
+with its page pools.  The forward with no cache also takes replica-stacked
+parameters (every leaf with a leading R) against x (R, B, S, d): the
+projections are one batched product each and the scan runs once over the
+R·B rows, where the JAX package vmaps the block over R.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import torch_dtype, truncated_normal
+from repro_torch.models.layers import matmul, over_replicas
 
 C_EXP = 8.0
 CONV_WIDTH = 4
@@ -74,17 +78,18 @@ class RGLRUCache:
 
 
 def causal_conv(u: torch.Tensor, kernel: torch.Tensor, tail: torch.Tensor | None):
-    """Depthwise causal conv of width K over u (B, S, W), the taps summed in
-    the JAX package's order; returns (out, the last K−1 inputs)."""
-    k = kernel.shape[0]
-    pad = (torch.zeros((u.shape[0], k - 1, u.shape[2]), dtype=u.dtype, device=u.device)
+    """Depthwise causal conv of width K over u (..., S, W), the taps summed
+    in the JAX package's order; returns (out, the last K−1 inputs).  A
+    stacked kernel (R, K, W) convolves u (R, B, S, W) replica by replica."""
+    k = kernel.shape[-2]
+    pad = (torch.zeros(u.shape[:-2] + (k - 1, u.shape[-1]), dtype=u.dtype, device=u.device)
            if tail is None else tail.to(u.dtype))
-    full = torch.cat([pad, u], dim=1)
-    s = u.shape[1]
-    out = full[:, 0:s] * kernel[0]
+    full = torch.cat([pad, u], dim=-2)
+    s = u.shape[-2]
+    out = full[..., 0:s, :] * over_replicas(kernel[..., 0, :], u)
     for i in range(1, k):
-        out = out + full[:, i:i + s] * kernel[i]
-    return out, full[:, -(k - 1):]
+        out = out + full[..., i:i + s, :] * over_replicas(kernel[..., i, :], u)
+    return out, full[..., -(k - 1):, :]
 
 
 def tail_at(ext: torch.Tensor, lengths: torch.Tensor, k1: int) -> torch.Tensor:
@@ -107,17 +112,17 @@ def apply_rglru(
     place).  With ``cache`` and ``chunk_lengths``: one chunk of serving
     prefill, row b real for its first ``chunk_lengths[b]`` tokens; with
     ``cache`` and S = 1: a decode step; with no cache: the forward from a
-    zero state."""
+    zero state, also on stacked ``p`` and x (R, B, S, d)."""
     if chunk_exact:
         raise NotImplementedError(
             "per-token verify states serve speculative decode (ROADMAP Queue 1)")
-    u_in = x @ p["w_x"]
-    gate = F.gelu((x @ p["w_gate"]).float(), approximate="tanh")
+    u_in = matmul(x, p["w_x"])
+    gate = F.gelu(matmul(x, p["w_gate"]).float(), approximate="tanh")
     u, new_conv = causal_conv(u_in, p["conv"], cache.conv if cache is not None else None)
-    r = torch.sigmoid((x @ p["w_r"]).float())
-    i = torch.sigmoid((x @ p["w_i"]).float())
+    r = torch.sigmoid(matmul(x, p["w_r"]).float())
+    i = torch.sigmoid(matmul(x, p["w_i"]).float())
     # a_t = σ(Λ)^(c·r_t)  ⇒  log a_t = −c·r_t·softplus(−Λ)
-    a = torch.exp(C_EXP * r * (-F.softplus(-p["lam"])))
+    a = torch.exp(C_EXP * r * over_replicas(-F.softplus(-p["lam"]), r))
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u.float())
 
     if cache is not None and chunk_lengths is not None:
@@ -139,9 +144,10 @@ def apply_rglru(
     else:
         if cache is not None:   # prefill continuing from the cache's state
             b = torch.cat([b[:, :1] + a[:, :1] * cache.h[:, None], b[:, 1:]], dim=1)
-        h = kernel_ops.rglru_scan(a, b)
+        # stacked training input (R, B, S, W): one scan over the R·B rows
+        h = kernel_ops.rglru_scan(a.flatten(0, -3), b.flatten(0, -3)).view(a.shape)
         if cache is not None:
             cache.conv.copy_(new_conv)
             cache.h.copy_(h[:, -1])
-    y = (h * gate).to(x.dtype) @ p["w_out"]
+    y = matmul((h * gate).to(x.dtype), p["w_out"])
     return y, cache

@@ -13,7 +13,11 @@ recurrence in plain PyTorch); for one token it is
 branches, as in the JAX package: the forward with no cache, chunk-resumable
 serving prefill (``chunk_lengths``) and the decode step.  A cache is updated
 in place and returned.  Caches hold the state as (B, H, P, N); the chunk
-kernel's states are (B, H, N, P), and ``ops.ssd_chunk`` turns them.
+kernel's states are (B, H, N, P), and ``ops.ssd_chunk`` turns them.  The
+forward with no cache also takes replica-stacked parameters against x
+(R, B, S, d): batched projections, and one chunked scan over the R·B rows
+with each row's rates −exp(a_log) of its replica, where the JAX package
+vmaps the block over R.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import torch_dtype, truncated_normal
+from repro_torch.models.layers import matmul, over_replicas
 from repro_torch.models.rglru import causal_conv, tail_at
 
 
@@ -99,18 +104,19 @@ def apply_ssd(
     if chunk_exact:
         raise NotImplementedError(
             "per-token verify states serve speculative decode (ROADMAP Queue 1)")
-    bsz, s, _ = x.shape
+    lead, s = x.shape[:-2], x.shape[-2]
     hd = cfg.ssm_head_dim
-    z = x @ p["w_z"]
-    u_in = x @ p["w_x"]
+    z = matmul(x, p["w_z"])
+    u_in = matmul(x, p["w_x"])
     u, new_conv = causal_conv(u_in, p["conv"], cache.conv if cache is not None else None)
     u = F.silu(u.float())
-    b_mat = (x @ p["w_b"]).float()
-    c_mat = (x @ p["w_c"]).float()
-    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])       # (B, S, H)
+    b_mat = matmul(x, p["w_b"]).float()
+    c_mat = matmul(x, p["w_c"]).float()
+    dt_raw = matmul(x, p["w_dt"]).float()
+    dt = F.softplus(dt_raw + over_replicas(p["dt_bias"], dt_raw))   # (..., S, H)
     a = -torch.exp(p["a_log"])
     heads = u.shape[-1] // hd
-    u_heads = u.reshape(bsz, s, heads, hd)
+    u_heads = u.reshape(lead + (s, heads, hd))
 
     if cache is not None and chunk_lengths is not None:
         # Row c of slot b is real iff c < chunk_lengths[b].  dt is masked to
@@ -134,17 +140,22 @@ def apply_ssd(
         cache.conv.copy_(new_conv)
         cache.state.copy_(state)
     else:
+        # stacked training input (R, B, ...): the replicas folded into R·B
+        # rows, each row with its replica's rates (R, H) → (R·B, H)
+        rows = a if a.dim() == 1 else a[:, None].expand(lead + a.shape[-1:]).flatten(0, 1)
         y, final = kernel_ops.ssd_chunk(
-            u_heads, dt, a, b_mat, c_mat, chunk=cfg.ssm_chunk,
+            u_heads.flatten(0, -4), dt.flatten(0, -3), rows, b_mat.flatten(0, -3),
+            c_mat.flatten(0, -3), chunk=cfg.ssm_chunk,
             initial_state=cache.state if cache is not None else None)
+        y = y.view(u_heads.shape)
         if cache is not None:
             cache.conv.copy_(new_conv)
             cache.state.copy_(final)
 
-    y = y + p["d_skip"][None, None, :, None] * u_heads
-    y = y.reshape(bsz, s, heads * hd)
+    y = y + over_replicas(p["d_skip"], u_heads[..., 0])[..., None] * u_heads
+    y = y.reshape(lead + (s, heads * hd))
     # gated RMSNorm (mamba2): norm(y ⊙ silu(z)), over the whole d_inner
     g = y * F.silu(z.float())
     ms = torch.mean(torch.square(g), dim=-1, keepdim=True)
-    g = g * torch.rsqrt(ms + 1e-6) * p["norm_scale"]
-    return g.to(x.dtype) @ p["w_out"], cache
+    g = g * torch.rsqrt(ms + 1e-6) * over_replicas(p["norm_scale"], g)
+    return matmul(g.to(x.dtype), p["w_out"]), cache

@@ -73,20 +73,13 @@ def apply_block(
     paged: attn_lib.PagedView | None = None,
     chunk_lengths: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Any]:
-    """Pre-norm block.  Returns (x, cache).  A recurrent mixer with no cache
-    runs the training forward: p's leaves stacked over replicas and x
-    (R, B, S, d), one replica at a time."""
+    """Pre-norm block.  Returns (x, cache).  With no cache and x (R, B, S,
+    d) this is the training forward on p's leaves stacked over replicas; a
+    recurrent mixer then runs its scan once over the R·B rows."""
     check_kind(cfg, kind)
     h = apply_norm(p["ln1"], x)
     if kind in _MIXERS:
-        apply_mixer = _MIXERS[kind][1]
-        if cache is None and h.dim() == 4:
-            y = torch.stack([
-                apply_mixer({k: v[r] for k, v in p["mixer"].items()}, cfg, h[r])[0]
-                for r in range(h.shape[0])
-            ])
-        else:
-            y, cache = apply_mixer(p["mixer"], cfg, h, cache=cache, chunk_lengths=chunk_lengths)
+        y, cache = _MIXERS[kind][1](p["mixer"], cfg, h, cache=cache, chunk_lengths=chunk_lengths)
     else:
         y, cache = attn_lib.apply_attention(
             p["attn"], cfg, h, mode="local" if kind == "local" else "causal",

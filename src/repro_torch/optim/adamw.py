@@ -5,8 +5,11 @@ correction, fp32 moments whatever the parameter dtype, the update computed
 in fp32 and cast back to each parameter's dtype.  Every leaf carries a
 leading replica axis R; the JAX package vmaps ``adamw_update`` over that
 axis, so clipping by the global norm is per replica and the step counter is
-an (R,) tensor.  The functions are pure (new tensors out), like the JAX
-package's.
+an (R,) tensor.  The update donates the moments, as a jitted JAX step with
+donated buffers does: they are updated in place, and the parameters' new
+values computed leaf by leaf in slices of at most ``SLICE`` elements, so no
+whole-tree or whole-leaf fp32 temporary exists (recurrentgemma-9b's stacked
+embedding is 2.1 B values).
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
+SLICE = 1 << 26   # elements per in-place pass over a donated leaf (fp32 temporaries: 256 MB)
+
 __all__ = [
-    "AdamWConfig", "AdamWState", "adamw_init", "global_norm", "clip_by_global_norm",
-    "adamw_update",
+    "AdamWConfig", "AdamWState", "adamw_init", "global_norm", "adamw_update",
 ]
 
 
@@ -49,11 +53,6 @@ class AdamWState:
     count: torch.Tensor   # (R,) int32 step counter
 
 
-def _per_replica(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """(R,) → (R, 1, ..., 1) broadcastable against ``like``."""
-    return x.reshape((-1,) + (1,) * (like.dim() - 1))
-
-
 def adamw_init(params: PyTree) -> AdamWState:
     leaves = tree_leaves(params)
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -64,43 +63,58 @@ def adamw_init(params: PyTree) -> AdamWState:
     )
 
 
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """(R,) fp32 Σ x² of each replica's slice; a leaf of more than 2^30
+    elements (recurrentgemma-9b's stacked embedding) in slices of SLICE
+    elements per replica, so its fp32 square is never whole."""
+    flat = x.flatten(1)
+    if flat.numel() <= 1 << 30:
+        return flat.float().square().sum(1)
+    parts = [flat[:, i:i + SLICE].float().square().sum(1) for i in range(0, flat.shape[1], SLICE)]
+    return torch.stack(parts).sum(0)
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
     """(R,) fp32 norm of each replica's slice of the tree."""
-    sums = [x.float().square().flatten(1).sum(1) for x in tree_leaves(tree)]
+    sums = [_square_sum(x) for x in tree_leaves(tree)]
     return torch.stack(sums).sum(0).sqrt()
-
-
-def clip_by_global_norm(grads: PyTree, max_norm: float) -> tuple[PyTree, torch.Tensor]:
-    """Each replica's grads scaled to norm ≤ ``max_norm`` (in fp32, cast back
-    to the grad dtype); returns (clipped, pre-clip (R,) norms)."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
-    clipped = tree_map(lambda g: (g.float() * _per_replica(scale, g)).to(g.dtype), grads)
-    return clipped, norm
 
 
 def adamw_update(
     grads: PyTree, state: AdamWState, params: PyTree, cfg: AdamWConfig
 ) -> tuple[PyTree, AdamWState, torch.Tensor]:
-    """Returns (new_params, new_state, pre-clip (R,) grad norms)."""
-    if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    else:
-        gnorm = global_norm(grads)
-
+    """Returns (new_params, new_state, pre-clip (R,) grad norms).  The moments
+    of ``state`` are donated: the returned state holds the same tensors,
+    updated in place, one slice of at most SLICE elements of one leaf at a
+    time; the parameters are new tensors (the stacked trainer's θ may share
+    its storage with φ).  Each element's clipping, moments and step are the
+    JAX package's operations in its order."""
+    gnorm = global_norm(grads)
+    scale = (torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)[:, None]
+             if cfg.clip_norm is not None else None)
     count = state.count + 1
-    lr = cfg.lr_at(count)
-    c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), count.float())
-    c2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32), count.float())
+    lr = cfg.lr_at(count)[:, None]
+    c1 = (1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), count.float()))[:, None]
+    c2 = (1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32), count.float()))[:, None]
 
-    mu = tree_map(lambda m, g: cfg.b1 * m + (1.0 - cfg.b1) * g.float(), state.mu, grads)
-    nu = tree_map(lambda v, g: cfg.b2 * v + (1.0 - cfg.b2) * g.float() * g.float(), state.nu, grads)
+    def one(g, m, v, p):
+        out = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+        r = p.shape[0]
+        g2, p2 = g.reshape(r, -1), p.reshape(r, -1)   # FSDP's mean gradients are expanded views
+        m2, v2, o2 = (t.view(r, -1) for t in (m, v, out))
+        for i in range(0, p2.shape[1], SLICE):
+            cols = slice(i, i + SLICE)
+            gs = g2[:, cols]
+            if scale is not None:   # clipped in fp32, cast back to the grad dtype
+                gs = (gs.float() * scale).to(gs.dtype)
+            ms = cfg.b1 * m2[:, cols] + (1.0 - cfg.b1) * gs.float()
+            vs = cfg.b2 * v2[:, cols] + (1.0 - cfg.b2) * gs.float() * gs.float()
+            m2[:, cols] = ms
+            v2[:, cols] = vs
+            update = (ms / c1) / (torch.sqrt(vs / c2) + cfg.eps)
+            p32 = p2[:, cols].float()
+            o2[:, cols] = (p32 - lr * (update + cfg.weight_decay * p32)).to(p.dtype)
+        return out
 
-    def _param(p, m, v):
-        update = (m / _per_replica(c1, m)) / (torch.sqrt(v / _per_replica(c2, v)) + cfg.eps)
-        p32 = p.float()
-        p32 = p32 - _per_replica(lr, p32) * (update + cfg.weight_decay * p32)
-        return p32.to(p.dtype)
-
-    new_params = tree_map(_param, params, mu, nu)
-    return new_params, AdamWState(mu=mu, nu=nu, count=count), gnorm
+    new_params = tree_map(one, grads, state.mu, state.nu, params)
+    return new_params, AdamWState(mu=state.mu, nu=state.nu, count=count), gnorm

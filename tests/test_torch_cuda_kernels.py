@@ -16,11 +16,14 @@ flash attention also get rtol 2e-2, since dK/dV sum over every query row and
 grow with it while bf16 rounding is relative.  The outer update and the
 int8 pair are exact: both versions round the same fp32 operations once,
 and so is the torch threefry on the card against its numpy twin.
-So are the RG-LRU scan, the RG-LRU decode step and the SSD decode state
-(the same fp32 products and sums in the same order); the SSD decode output
-sums its N products in another order (within 1e-5 of Σ|state′·c|), and the
-SSD chunk kernel agrees with its plain version within atol and rtol 1e-4
-(fp32 sums of up to Q·N products in another order).
+So are the RG-LRU scan, its backward, the RG-LRU decode step and the SSD
+decode state (the same fp32 products and sums in the same order); the SSD
+decode output sums its N products in another order (within 1e-5 of
+Σ|state′·c|), and the SSD chunk kernel agrees with its plain version within
+atol and rtol 1e-4 (fp32 sums of up to Q·N products in another order).  The
+SSD chunk backward is held normwise: each gradient within 1e-4 of its
+largest magnitude (its sums over heads and through a reverse cumsum of
+cancelling row and column sums run in other orders).
 """
 import numpy as np
 import pytest
@@ -367,7 +370,9 @@ def test_registry_kernels_launch(cuda):
     inputs["int8_quantize"] = lambda: [x, 1024]
     inputs["int8_dequantize"] = lambda: [*ref.torch_int8_quantize(x, 1024), 3000, torch.bfloat16]
     inputs["ssd_chunk"] = lambda: _ssd_chunk_inputs(0, 1, 2, 8, 2, 16, 8, cuda)
+    inputs["ssd_chunk_bwd"] = lambda: _ssd_bwd_inputs(0, 1, 2, 8, 2, 16, 8, cuda)
     inputs["rglru_scan"] = lambda: _f32(cuda, 0, (2, 9, 40), (2, 9, 40))
+    inputs["rglru_scan_bwd"] = lambda: _f32(cuda, 0, (2, 9, 40), (2, 9, 40), (2, 9, 40))
     inputs["rglru_decode"] = lambda: _f32(cuda, 0, (2, 40), (2, 40), (2, 40))
     inputs["ssd_decode"] = lambda: _f32(cuda, 0, (2, 12, 8), (2, 12), (2, 12), (2, 8), (2, 8))
     coef = dict(alpha=0.5, beta=0.7, gamma=0.9)
@@ -668,6 +673,149 @@ def test_recurrent_kernels_reject_bad_arguments(cuda):
     wide = _ssd_chunk_inputs(0, 1, 1, 16, 1, 64, 1024, cuda)
     with pytest.raises(RuntimeError, match="ssd_chunk launch failed"):
         ssd_scan.ssd_chunk(*wide)
+
+
+def _ssd_bwd_inputs(seed, b, nc, q, h, p, n, device, pad=0, a_rows=True):
+    """_ssd_chunk_inputs with a per row (B, H) unless ``a_rows`` is False,
+    plus the gradients dy and dstates; a ragged tail has x, B, C, dt and dy
+    zero on its ``pad`` rows, as ops.ssd_chunk pads a sequence."""
+    x, dt, a, bm, cm = _ssd_chunk_inputs(seed, b, nc, q, h, p, n, device, pad=pad)
+    rng = np.random.default_rng(seed + 1)
+    if a_rows:
+        a = torch.from_numpy(-np.exp(rng.uniform(0.0, np.log(16.0), size=(b, h))).astype(np.float32)).to(device)
+    dy, dst = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+               for s in ((b, nc, q, h, p), (b, nc, h, n, p)))
+    if pad:
+        for t in (x, bm, cm, dy):
+            t[:, -1, q - pad:] = 0.0
+    return [x, dt, a, bm, cm, dy, dst]
+
+
+def _normwise(got, want):
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30)).item()
+
+
+# (B, NC, Q, H, P, N, pad, a per row): the training shape cut to B 2, a
+# ragged tail, mamba2-370m.reduced's, a (H,), Q 100 / 50 / 1 with odd P and N
+SSD_BWD_CASES = [(2, 2, 128, 32, 64, 128, 0, True), (2, 3, 128, 8, 64, 128, 37, True),
+                 (8, 4, 16, 8, 64, 32, 0, True), (2, 2, 64, 4, 64, 128, 0, False),
+                 (1, 2, 100, 3, 33, 17, 13, True), (2, 1, 50, 5, 64, 128, 0, False),
+                 (2, 2, 1, 3, 16, 8, 0, True), (1, 1, 40, 2, 130, 64, 0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_ssd_chunk_bwd_matches_plain(cuda, case):
+    *shape, pad, a_rows = case
+    args = _ssd_bwd_inputs(sum(shape), *shape, cuda, pad=pad, a_rows=a_rows)
+    before = ssd_scan.ssd_chunk_bwd.launches
+    got = ssd_scan.ssd_chunk_bwd(*args)
+    again = ssd_scan.ssd_chunk_bwd(*args)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_chunk_bwd.launches == before + 2
+    want = ref.torch_ssd_chunk_intra_bwd(*args)
+    for g, w, arg, a2 in zip(got, want, args, again):
+        assert g.shape == arg.shape and g.dtype == torch.float32
+        assert torch.equal(g, a2)   # deterministic: no atomics
+        assert _normwise(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1024, 4096), (3, 37, 130), (1, 1, 4097), (2, 33, 4095),
+                                   (2, 17, 40), (1, 64, 33)])
+def test_rglru_scan_bwd_is_the_plain_version_bit_for_bit(cuda, shape):
+    a, b, g = _f32(cuda, shape[1], shape, shape, shape)
+    a = torch.sigmoid(a) * 0.5 + 0.45
+    h = rglru_scan.rglru_scan(a, b)
+    before = rglru_scan.rglru_scan_bwd.launches
+    da, db = rglru_scan.rglru_scan_bwd(a, h, g)
+    da2, db2 = rglru_scan.rglru_scan_bwd(a, h, g)
+    torch.cuda.synchronize()
+    assert rglru_scan.rglru_scan_bwd.launches == before + 2
+    wda, wdb = ref.torch_rglru_scan_bwd(a, b, g)
+    assert torch.equal(da, wda) and torch.equal(db, wdb)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_per_row_rates_are_each_rows_own(cuda):
+    """a (B, H) in the forward kernel: row b alone with a[b] (H,) gets the
+    bits it gets in the batch."""
+    x, dt, a, bm, cm, _, _ = _ssd_bwd_inputs(4, 3, 2, 64, 4, 64, 128, cuda)
+    y, st = ssd_scan.ssd_chunk(x, dt, a, bm, cm)
+    for b in range(3):
+        ys, sts = ssd_scan.ssd_chunk(*(t[b:b + 1].contiguous() for t in (x, dt)), a[b].contiguous(),
+                                     *(t[b:b + 1].contiguous() for t in (bm, cm)))
+        torch.cuda.synchronize()
+        assert torch.equal(ys[0], y[b]) and torch.equal(sts[0], st[b]), b
+    wy, wst = ref.torch_ssd_chunk_intra(x, dt, a, bm, cm)
+    torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, wst, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ssd_chunk", "rglru_scan"])
+def test_scan_autograd_launches_both_kernels(cuda, name):
+    """ops.ssd_chunk / ops.rglru_scan under autograd on the card: the
+    forward and the backward kernel each launch once (launch counters and
+    the profiler's kernel names), and the gradients match the plain
+    version's autograd on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if name == "ssd_chunk":
+        x, dt, a, bm, cm, _, _ = _ssd_bwd_inputs(6, 2, 1, 40, 4, 32, 16, cuda)
+        inputs = [t.reshape(2, 40, *t.shape[3:]) if t.dim() > 2 else t for t in (x, dt, a, bm, cm)]
+        call = lambda *t: ops.ssd_chunk(*t, chunk=16)[0]
+        fwd, bwd = ssd_scan.ssd_chunk, ssd_scan.ssd_chunk_bwd
+        names = {"ssd_chunk_kernel": 1, "ssd_bwd_pairs_kernel": 1, "ssd_bwd_keys_kernel": 1,
+                 "ssd_bwd_bc_kernel": 1, "ssd_bwd_dt_kernel": 1}
+    else:
+        a, b = _f32(cuda, 7, (2, 50, 40), (2, 50, 40))
+        inputs = [torch.sigmoid(a) * 0.5 + 0.45, b]
+        call = ops.rglru_scan
+        fwd, bwd = rglru_scan.rglru_scan, rglru_scan.rglru_scan_bwd
+        names = {"rglru_scan_kernel": 1, "rglru_scan_bwd_kernel": 1}
+    card = [t.detach().clone().requires_grad_() for t in inputs]
+    cpu = [t.detach().cpu().requires_grad_() for t in inputs]
+    before = fwd.launches, bwd.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = call(*card)
+        out.backward(torch.ones_like(out))
+        torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    ran = {}
+    for e in prof.events():
+        for n in names:
+            if n + "<" in e.name or n + "(" in e.name:
+                ran[n] = ran.get(n, 0) + 1
+    assert ran == names
+    want = call(*cpu)
+    want.backward(torch.ones_like(want))
+    for t, w in zip(card, cpu):
+        torch.testing.assert_close(t.grad.cpu(), w.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_scan_backward_kernels_reject_bad_arguments(cuda):
+    a, h, g = _f32(cuda, 0, (2, 5, 8), (2, 5, 8), (2, 5, 8))
+    with pytest.raises(ValueError, match="float32"):
+        rglru_scan.rglru_scan_bwd(a.bfloat16(), h, g)
+    with pytest.raises(ValueError, match="equal"):
+        rglru_scan.rglru_scan_bwd(a, h, g[:, :4].contiguous())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rglru_scan.rglru_scan_bwd(a, h, g.cpu())
+    args = _ssd_bwd_inputs(0, 1, 1, 8, 2, 16, 8, cuda)
+    with pytest.raises(ValueError, match="dstates"):
+        ssd_scan.ssd_chunk_bwd(*args[:6], args[6][..., :4].contiguous())
+    with pytest.raises(ValueError, match="must be"):
+        ssd_scan.ssd_chunk_bwd(args[0], args[1], args[2][:, :1].contiguous(), *args[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_chunk_bwd(*args[:5], args[5].transpose(3, 4), args[6])
+    # N 1024: the 32-row B and C tiles with dstates' columns exceed a block's
+    # shared memory
+    wide = _ssd_bwd_inputs(0, 1, 1, 16, 1, 64, 1024, cuda)
+    with pytest.raises(RuntimeError, match="ssd_chunk_bwd launch failed"):
+        ssd_scan.ssd_chunk_bwd(*wide)
 
 
 def _long_context_inputs(seed, chunk, dtype, device, positions=(2500, 3100), h=16, kv=1, d=256,

@@ -306,9 +306,28 @@ def test_ssd_wrappers_reject_cpu_tensors_before_they_build(monkeypatch, name):
 
 
 @pytest.mark.parametrize("name", ["ssd_chunk", "rglru_scan"])
-def test_recurrent_scan_backward_raises_on_the_card(name):
-    """The scans' backward kernels come with the training slice: on a CUDA
-    tensor the autograd function's backward raises, naming it."""
-    fn = ops._SSDChunkIntra if name == "ssd_chunk" else ops._RGLRUScan
-    with pytest.raises(NotImplementedError, match="backward of the " + name):
-        fn.backward(None, torch.zeros(1))
+def test_recurrent_scan_backward_reaches_the_kernel(monkeypatch, name):
+    """The scans' autograd functions backpropagate through the backward
+    kernels: with tensors that report a CUDA device the backward reaches the
+    kernel wrapper's library, never the plain version; on any other device
+    the wrapper raises."""
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.rand(shape, generator=g)
+    if name == "ssd_chunk":
+        fn, module, kernel = ops._SSDChunkIntra, ssd_scan, ssd_scan.ssd_chunk_bwd
+        saved = (r(1, 2, 4, 2, 8), r(1, 2, 4, 2), -r(2), r(1, 2, 4, 3), r(1, 2, 4, 3))
+        grads = (r(1, 2, 4, 2, 8), r(1, 2, 2, 3, 8))
+        monkeypatch.setattr(ref, "torch_ssd_chunk_intra_bwd", _plain_called)
+    else:
+        fn, module, kernel = ops._RGLRUScan, rglru_scan, rglru_scan.rglru_scan_bwd
+        saved, grads = (r(2, 5, 3), r(2, 5, 3)), (r(2, 5, 3),)
+        monkeypatch.setattr(ref, "torch_rglru_scan_bwd", _plain_called)
+    monkeypatch.setattr(module, "library", _launched)
+    before = kernel.launches
+    ctx = types.SimpleNamespace(saved_tensors=tuple(t.as_subclass(_FakeCuda) for t in saved))
+    with pytest.raises(_Launched):
+        fn.backward(ctx, *(t.as_subclass(_FakeCuda) for t in grads))
+    ctx.saved_tensors = tuple(t.to("meta") for t in saved)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn.backward(ctx, *(t.to("meta") for t in grads))
+    assert kernel.launches == before

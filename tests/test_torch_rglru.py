@@ -7,7 +7,10 @@ compute in fp32.  Tolerances: the scan atol and rtol 1e-5, as the JAX
 package's own sweep (the port's scan is sequential, the JAX twin an
 associative scan: they differ by rounding order only); the decode step
 1e-6 (one product and one sum); the block 1e-4 (matmuls of width 64 in
-another order).
+another order).  The scan's backward is held to the vjp of the JAX twin
+within atol and rtol 1e-5 too: the port's reverse scan and the transpose of
+JAX's associative scan sum dh_t = g_t + a_{t+1}·dh_{t+1} in other orders,
+and da_t = dh_t·h_{t−1} carries the forward's rounding differences.
 """
 import jax
 import jax.numpy as jnp
@@ -67,6 +70,56 @@ def test_rglru_scan_matches_pallas_interpret(shape):
     h = ref.torch_rglru_scan(torch.from_numpy(a), torch.from_numpy(b))
     want = pallas_rglru_scan(jnp.asarray(a), jnp.asarray(b), interpret=True)
     np.testing.assert_allclose(h.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def _vjp_inputs(shape, seed):
+    a, b = _ab(shape, seed)
+    g = (np.random.default_rng(seed + 100).normal(size=shape)).astype(np.float32)
+    return a, b, g
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 32), (1, 300, 128), (2, 33, 40)],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_rglru_scan_bwd_matches_jax_vjp(shape):
+    """The plain backward against jax.vjp of the JAX twin (what the JAX
+    package's custom vjp computes)."""
+    a, b, g = _vjp_inputs(shape, 3)
+    da, db = ref.torch_rglru_scan_bwd(*map(torch.from_numpy, (a, b, g)))
+    _, vjp = jax.vjp(jref.jnp_rglru_scan, jnp.asarray(a), jnp.asarray(b))
+    wda, wdb = vjp(jnp.asarray(g))
+    assert da.dtype == db.dtype == torch.float32 and da.shape == db.shape == shape
+    np.testing.assert_allclose(da.numpy(), np.asarray(wda), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(db.numpy(), np.asarray(wdb), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 32), (1, 8, 33)], ids=lambda s: "-".join(map(str, s)))
+def test_rglru_scan_op_gradients_match_jax(shape):
+    """ops.rglru_scan under autograd against jax.vjp of the JAX package's op
+    (jnp impl, whose custom vjp is the twin's)."""
+    a, b, g = _vjp_inputs(shape, 4)
+    ta, tb = (torch.from_numpy(v).requires_grad_() for v in (a, b))
+    ops.rglru_scan(ta, tb).backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda x, y: jops.rglru_scan(x, y, config=KernelConfig("jnp")),
+                     jnp.asarray(a), jnp.asarray(b))
+    wda, wdb = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(wda), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(wdb), atol=1e-5, rtol=1e-5)
+
+
+def test_rglru_scan_bwd_is_the_reverse_scan():
+    """The plain backward is the recurrence the kernel runs, step for step
+    in fp32: dh_t = g_t + a_{t+1}·dh_{t+1}, da_t = dh_t·h_{t−1}, db_t = dh_t."""
+    a, b, g = _vjp_inputs((2, 40, 24), 5)
+    h = ref.torch_rglru_scan(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    da, db = ref.torch_rglru_scan_bwd(*map(torch.from_numpy, (a, b, g)))
+    dh = np.zeros((2, 24), np.float32)
+    a_next = np.zeros((2, 24), np.float32)
+    for t in reversed(range(40)):
+        dh = g[:, t] + a_next * dh
+        np.testing.assert_array_equal(db[:, t].numpy(), dh)
+        prev = h[:, t - 1] if t else np.zeros_like(dh)
+        np.testing.assert_array_equal(da[:, t].numpy(), dh * prev)
+        a_next = a[:, t]
 
 
 def test_rglru_decode_matches_jax():

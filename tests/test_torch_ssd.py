@@ -7,7 +7,11 @@ compute in fp32.  Tolerances: the intra-chunk form 1e-5 (the same
 arithmetic, summed in another order); the chunked op against the oracle
 atol 2e-4 and rtol 1e-3, as the JAX package's own test; the decode step
 1e-6 (elementwise products and one N-term sum); the block 1e-4 (matmuls of
-width 64 in another order).
+width 64 in another order).  The intra-chunk backward against the vjp of
+the JAX twin: atol 1e-5 and rtol 1e-5, and the chunked op's gradients
+against jax.vjp of the JAX op 1e-5 / 1e-4 (the same arithmetic summed in
+another order; through the inter-chunk recurrence the gradients of dt and
+a are sums of up to S·P terms).
 """
 import math
 
@@ -106,6 +110,101 @@ def test_ssd_chunk_matches_reference(shape, initial):
                                      initial_state=None if s0 is None else torch.from_numpy(s0))
     np.testing.assert_allclose(oy.numpy(), np.asarray(wy), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(of.numpy(), np.asarray(wf), atol=1e-5, rtol=1e-5)
+
+
+def _cotangents(args, seed):
+    """dy and dstates for the chunked inputs, as the intra op's outputs."""
+    x, dt, a, bm, cm = args
+    b, nc, q, h, p = x.shape
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=x.shape).astype(np.float32),
+            rng.normal(size=(b, nc, h, bm.shape[-1], p)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_ssd_chunk_intra_bwd_matches_jax_vjp(shape):
+    """The plain backward against jax.vjp of the JAX twin, the JAX
+    package's custom vjp; the last shape has a ragged tail (130 = 2·64 + 2,
+    the pad rows with dt 0)."""
+    args = _chunked(shape, 5)
+    dy, dst = _cotangents(args, 6)
+    got = ref.torch_ssd_chunk_intra_bwd(*_t(*args, dy, dst))
+    _, vjp = jax.vjp(jref.jnp_ssd_chunk_intra, *map(jnp.asarray, args))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dst)))
+    for g, w, arg in zip(got, want, args):
+        assert g.shape == arg.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2] + [(1, 37, 2, 16, 8, 16)],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_ssd_chunk_op_gradients_match_jax(shape):
+    """ops.ssd_chunk under autograd (the intra op's backward and the
+    inter-chunk recurrence) against jax.vjp of the JAX op on its jnp path;
+    37 is a ragged tail of 5 rows in the last chunk of 16."""
+    x, dt, a, bm, cm = _inputs(shape, 7)
+    rng = np.random.default_rng(8)
+    gy = rng.normal(size=x.shape).astype(np.float32)
+    gf = rng.normal(size=(shape[0], shape[2], shape[3], shape[4])).astype(np.float32)
+    ins = [torch.from_numpy(v).requires_grad_() for v in (x, dt, a, bm, cm)]
+    y, final = ops.ssd_chunk(*ins, chunk=shape[5])
+    torch.autograd.backward((y, final), (torch.from_numpy(gy), torch.from_numpy(gf)))
+    _, vjp = jax.vjp(lambda *v: jops.ssd_chunk(*v, chunk=shape[5], config=KernelConfig("jnp")),
+                     *map(jnp.asarray, (x, dt, a, bm, cm)))
+    want = vjp((jnp.asarray(gy), jnp.asarray(gf)))
+    for t, w in zip(ins, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5, rtol=1e-4)
+
+
+def test_ssd_chunk_rates_per_row_are_each_rows_own():
+    """a (B, H): every row runs with its own rates, forward and backward,
+    as if it ran alone with a (H,); the gradient of a is per row."""
+    x, dt, a, bm, cm = _inputs((3, 40, 2, 8, 4, 16), 9)
+    rates = (a[None] * np.array([[1.0], [0.5], [2.0]], np.float32)).astype(np.float32)
+    ins = [torch.from_numpy(v).requires_grad_() for v in (x, dt, rates, bm, cm)]
+    y, final = ops.ssd_chunk(*ins, chunk=16)
+    (y.square().sum() + final.sum()).backward()
+    for r in range(3):
+        one = [torch.from_numpy(v[r:r + 1]).requires_grad_() for v in (x, dt)] + [
+            torch.from_numpy(rates[r]).requires_grad_()] + [
+            torch.from_numpy(v[r:r + 1]).requires_grad_() for v in (bm, cm)]
+        yr, fr = ops.ssd_chunk(*one, chunk=16)
+        (yr.square().sum() + fr.sum()).backward()
+        torch.testing.assert_close(y[r:r + 1], yr, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(ins[2].grad[r], one[2].grad, atol=1e-5, rtol=1e-5)
+        for full, solo in zip((ins[0], ins[1], ins[3], ins[4]), (one[0], one[1], one[3], one[4])):
+            torch.testing.assert_close(full.grad[r:r + 1], solo.grad, atol=1e-5, rtol=1e-5)
+
+
+def test_ssd_chunk_intra_bwd_has_no_nan_where_masked_exponentials_overflow():
+    """At Q 128 with |dt·a| ~ 1 a step the masked entries' exp(cums_i −
+    cums_j) overflow fp32; the plain version masks before the exponential,
+    so its backward stays finite (the JAX twin's vjp gives NaN there) and
+    equals an fp64 evaluation."""
+    rng = np.random.default_rng(10)
+    b, nc, q, h, p, n = 1, 1, 128, 2, 8, 8
+    x = rng.normal(size=(b, nc, q, h, p))
+    dt = np.full((b, nc, q, h), 0.5)
+    a = np.array([-4.0, -16.0])
+    bm, cm = rng.normal(size=(2, b, nc, q, n))
+    dy, dst = rng.normal(size=(b, nc, q, h, p)), rng.normal(size=(b, nc, h, n, p))
+    f32 = [torch.from_numpy(v.astype(np.float32)) for v in (x, dt, a, bm, cm, dy, dst)]
+    got = ref.torch_ssd_chunk_intra_bwd(*f32)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    f64 = [torch.from_numpy(v).double() for v in (x, dt, a, bm, cm)]
+    for t in f64:
+        t.requires_grad_()
+    cums = torch.cumsum(f64[1] * f64[2], dim=2)
+    diff = cums[:, :, :, None, :] - cums[:, :, None, :, :]
+    tri = torch.ones((q, q), dtype=torch.bool).tril()[None, None, :, :, None]
+    l_kern = torch.exp(torch.where(tri, diff, torch.full_like(diff, -np.inf)))
+    xdt = f64[0] * f64[1][..., None]
+    y = torch.einsum("bcij,bcijh,bcjhp->bcihp", torch.einsum("bcin,bcjn->bcij", f64[4], f64[3]),
+                     l_kern, xdt)
+    st = torch.einsum("bcjn,bcjh,bcjhp->bchnp", f64[3], torch.exp(cums[:, :, -1:] - cums), xdt)
+    want = torch.autograd.grad((y, st), f64, (torch.from_numpy(dy), torch.from_numpy(dst)))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.double(), w, atol=1e-4, rtol=1e-4)
 
 
 def test_ssd_chunk_pad_rows_with_zero_dt_leave_the_state_unchanged():
