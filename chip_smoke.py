@@ -131,10 +131,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     widths; ``ssd_chunk_bwd`` within SSD_BWD_RTOL (normwise) at mamba2-370m's
     training shape (16, 8, 128, 32, 64, N 128; there also against fp64), on
     a ragged sequence, at the reduced config's shape, with a (H,) and
-    (B, H), Q 100 / 50 / 1 and P 33 / N 17; each called twice, bit for bit;
+    (B, H), Q 100 / 50 / 1 and P 33 / N 17, and across the 64-row tiles and
+    64-deep steps of its tensor-core design (Q 256 with P 128; Q 130 with
+    H 1, P 30, N 66, a per row; the library's tile and grid plan on each
+    line); each
+    called twice, bit for bit;
     the flash pair at recurrentgemma-9b's training shape (bf16, B 2, S
     1024, 16 heads of 256, KV 1, local, window 2048).  Then both timed
-    beside their plain versions (no PyTorch call computes either);
+    beside their plain versions (no PyTorch call computes either) and
+    beside the first designs' times (``was``);
 20. train mamba2-370m at full width and depth (48 layers, phase 6's run)
     and recurrentgemma-9b at full width with 3 layers (rglru, rglru, local:
     its three kinds) on 2 replicas × batch 1 × seq 1024, bf16 with remat,
@@ -179,7 +184,7 @@ from repro_torch.configs import mamba2_370m, paper_llama, qwen3_0_6b, recurrentg
 from repro_torch.core import metrics as metrics_lib  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    build, dispatch, flash_attention, ops, paged_attention, quantize, ref, rglru_scan,
+    build, dispatch, flash_attention, ops, paged_attention, quantize, ref, rglru_scan, ssd_scan,
 )
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
@@ -235,6 +240,11 @@ SSD_ATOL = SSD_RTOL = 1e-4
 # 1e-4 leaves ~10×.
 SSD_BWD_RTOL = 1e-4
 RECURRENT_BWD = ("ssd_chunk_bwd", "rglru_scan_bwd")
+# The first designs of the two backwards (CUDA-core products; a register
+# ring of 16-step groups) at the timed shapes, ms, as this script measured
+# them on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table):
+# the times the tensor-core and shared-memory-ring designs are read against
+FIRST_BWD_MS = {"ssd_chunk_bwd": 4.327296, "rglru_scan_bwd": 0.345696, "rglru_scan_bwd_16": 0.590752}
 # a hand-written kernel's name in a profiler event
 KERNEL_NAME = re.compile(r"(?:flash|ssd|rglru)_\w*?kernel")
 
@@ -1833,7 +1843,7 @@ def check_recurrent_bwd_kernels(dev) -> dict[str, float]:
     # recurrentgemma-9b's (R·B 2, S 1024, W 4096), the training shape, a
     # ragged tail of steps and widths, S 1
     for shape in ((2, 1024, 4096), (16, 1024, 4096), (3, 37, 130), (1, 1, 4097), (2, 33, 4095),
-                  (2, 17, 40)):
+                  (2, 17, 40), (2, 1001, 256)):
         a, b = rglru_inputs(gen, *shape)
         g = torch.randn(shape, generator=gen, device=dev)
         h = reg["rglru_scan"].kernel(a, b)
@@ -1852,11 +1862,14 @@ def check_recurrent_bwd_kernels(dev) -> dict[str, float]:
         del a, b, g, h, got, again, want
     # the training shape (a per row), a ragged sequence (S = 2·128 + 91),
     # mamba2-370m.reduced's (R·B 8, S 64, Q 16, H 8, P 64, N 32), a (H,),
-    # Q 100 / 50 with P 33 and N 17, Q 1
+    # Q 100 / 50 with P 33 and N 17, Q 1; Q 256 with P 128 (four row tiles,
+    # two steps each of N and P), H 1 with Q 130, P 30, N 66 (a ragged last
+    # tile, 4-byte copies; a per row)
     cases = [((16, 8, 128, 32, 64, 128), 0, True), ((2, 3, 128, 32, 64, 128), 37, True),
              ((8, 4, 16, 8, 64, 32), 0, True), ((2, 2, 64, 4, 64, 128), 0, False),
              ((1, 2, 100, 3, 33, 17), 13, True), ((2, 1, 50, 5, 64, 128), 0, False),
-             ((2, 2, 1, 3, 16, 8), 0, True)]
+             ((2, 2, 1, 3, 16, 8), 0, True), ((1, 2, 256, 4, 128, 128), 0, True),
+             ((4, 2, 130, 1, 30, 66), 5, True)]
     for case, pad, a_rows in cases:
         args = ssd_bwd_inputs(gen, *case, pad=pad, a_rows=a_rows)
         got = reg["ssd_chunk_bwd"].kernel(*args)
@@ -1871,6 +1884,7 @@ def check_recurrent_bwd_kernels(dev) -> dict[str, float]:
         shapes_ok = all(g.shape == t.shape and g.dtype == torch.float32 for g, t in zip(got, args))
         ok = shapes_ok and repeat and max(rel.values()) <= SSD_BWD_RTOL
         log(f"check ssd_chunk_bwd B,NC,Q,H,P,N={case} pad {pad} a {'(B, H)' if a_rows else '(H,)'}: "
+            f"plan {json.dumps(ssd_scan.library_bwd_plan(*case, a_rows))}, "
             f"normwise " + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
             + f" (rtol {SSD_BWD_RTOL:g}), max_abs_err {err:.3e}, two calls bit-identical {repeat} "
             + ("ok" if ok else "FAIL"))
@@ -1914,7 +1928,8 @@ def time_recurrent_bwd_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
     phases' shapes: ssd_chunk_bwd at mamba2-370m's (R·B 16, S 1024: NC 8,
     Q 128, H 32, P 64, N 128, a per row), rglru_scan_bwd at
     recurrentgemma-9b's (2, 1024, 4096) and at (16, 1024, 4096).  No single
-    PyTorch call computes either: library_ms is null."""
+    PyTorch call computes either: library_ms is null.  ``was``: the first
+    designs' times at the same shapes (FIRST_BWD_MS)."""
     gen = torch.Generator(device=dev).manual_seed(12)
     reg = dispatch.registry()
     case = (16, 8, 128, 32, 64, 128)
@@ -1923,6 +1938,8 @@ def time_recurrent_bwd_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
     out = {"ssd_chunk_bwd": _timing(reg["ssd_chunk_bwd"], args, nbytes, flops,
                                     {"B,NC,Q,H,P,N": list(case), "a": "(B, H)", "dtype": "float32"},
                                     reps=20, plain_reps=3)}
+    out["ssd_chunk_bwd"]["plan"] = ssd_scan.library_bwd_plan(*case, True)
+    out["ssd_chunk_bwd"]["was"] = {"ms": FIRST_BWD_MS["ssd_chunk_bwd"], "of": "CUDA-core design"}
     log("time ssd_chunk_bwd: " + json.dumps(out["ssd_chunk_bwd"]))
     del args
     extra = {}
@@ -1936,7 +1953,9 @@ def time_recurrent_bwd_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
         t = {"ms": ms, "plain_ms": cuda_ms(lambda: reg["rglru_scan_bwd"].plain(a, b, g), reps=3)[0],
              "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": 20 * n,
-             "flops": 3 * n, "sm_clock_mhz": mhz, "shape": {"B,S,W": list(shape), "dtype": "float32"}}
+             "flops": 3 * n, "sm_clock_mhz": mhz, "shape": {"B,S,W": list(shape), "dtype": "float32"},
+             "ring": rglru_scan.library_bwd_ring(),
+             "was": {"ms": FIRST_BWD_MS[key], "of": "register-ring design"}}
         (out if key == "rglru_scan_bwd" else extra)[key] = t
         log(f"time {key}: " + json.dumps(t))
         del a, b, g, h
@@ -1970,11 +1989,12 @@ def recurrent_train_parity_phase(dev) -> dict:
     out = {}
     for base, kw, own in ((mamba2_370m.CONFIG, {}, {"ssd_chunk": ("ssd_chunk_kernel",),
                                                      "ssd_chunk_bwd": (
-                                                         "ssd_bwd_pairs_kernel", "ssd_bwd_keys_kernel",
-                                                         "ssd_bwd_bc_kernel", "ssd_bwd_dt_kernel")}),
+                                                         "ssd_bwd_cums_kernel", "ssd_bwd_pairs_mma_kernel",
+                                                         "ssd_bwd_keys_mma_kernel", "ssd_bwd_bc_mma_kernel",
+                                                         "ssd_bwd_dt_kernel")}),
                           (recurrentgemma_9b.CONFIG, {"num_layers": 3},
                            {"rglru_scan": ("rglru_scan_kernel",),
-                            "rglru_scan_bwd": ("rglru_scan_bwd_kernel",)})):
+                            "rglru_scan_bwd": ("rglru_scan_bwd_ring_kernel",)})):
         cfg = base.reduced(dtype="float32", remat=False, **kw)
         t0 = time.perf_counter()
         dispatch.reset_launches()

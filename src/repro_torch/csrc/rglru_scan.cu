@@ -63,15 +63,36 @@
 //
 // each product and sum rounded once, so it gives the plain version's
 // autograd bits (ref.torch_rglru_scan_bwd).  Bytes bound it: 12 read and 8
-// written per element, 1.34 GB at (16, 1024, 4096), 0.401 ms at 3.35 TB/s.
-// One thread per channel walks t = S−1..0 with dh and a_{t+1} in
-// registers; a ring of two kGroup-step buffers keeps the next group's loads
-// in flight while the current one is stepped, as the forward's ring does.
-// Blocks of 64 channels: at recurrentgemma-9b's (2, 1024, 4096) that is 128
-// blocks, one per SM, where 128-channel blocks would leave half the SMs
-// idle.
-
+// written per element, 168 MB at recurrentgemma-9b's training shape
+// (2, 1024, 4096), 0.050 ms at 3.35 TB/s; 1.34 GB, 0.401 ms at 16 rows.
+// S cannot be split without changing the rounding the plain version fixes,
+// so a thread per channel walks t = S−1..0 with dh and a_{t+1} in
+// registers, and only the depth of the prefetch and the layout of the work
+// are free.
+//
+// What held the first design back.  It kept the loads in registers: two
+// buffers of 16 steps, the next group's 48 loads in flight while the current
+// group was stepped, in blocks of 64 channels.  Without the card's stall
+// counters, the reading is its times and its SASS
+// (scripts/time_scan_bwd.py --sass: 144 global loads in
+// three unrolled groups of 48, no shared memory).  At (2, 1024, 4096) only
+// 256 warps exist, two an SM, and one group in flight a thread is ~1.6 MB
+// over the card: 0.3457 ms, 0.49 TB/s.  At 16 rows, eight times the warps,
+// the same kernel moved 2.27 TB/s (0.5908 ms).  Bytes in flight, not the
+// card's bandwidth, bounded the training shape.
+//
+// This design keeps them in shared memory instead: a block is one warp of
+// 32 channels of one row (256 blocks at the training shape), and a ring of
+// kRingDepth boxes, each kBoxSteps steps of a, g and h_{t−1} for the
+// warp's channels (6 KB), comes in by cp.async (16-byte copies when W is a
+// multiple of 4 and the arrays are aligned, else 4-byte), waited on by
+// cp.async.wait_group.  kRingDepth − 1 = 5 boxes are in flight while one
+// is stepped: 30 KB a warp, 7.7 MB over the card at the training shape,
+// and no register holds a load in flight.  The lane steps its channel from
+// shared memory (conflict-free: lane c reads bank c) and stores da and db
+// as it goes, coalesced across the warp.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -82,6 +103,8 @@ constexpr int kChannels = 128;    // per block, one thread each
 // The steps a thread holds for a sequence of S: kWholeSteps (the whole
 // path), or 0 for the ring of two kGroup-step buffers.
 int whole_steps(int S) { return S <= kWholeSteps ? kWholeSteps : 0; }
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 // a and b of steps 0..n−1 (n <= N) from element i, one step every W.
 template <int N>
@@ -145,62 +168,96 @@ __global__ void __launch_bounds__(kChannels)
   }
 }
 
-constexpr int kBwdChannels = 64;   // per block of the backward
+// The backward's ring: a block is one warp of kRingChannels channels of one
+// row; box k of the ring holds steps [S − (k + 1)·kBoxSteps, S − k·kBoxSteps)
+// of a and g and the step before each of h, (3, kBoxSteps, kRingChannels)
+// floats, and kRingDepth − 1 boxes are in flight while one is stepped.
+constexpr int kRingChannels = 32;
+constexpr int kBoxSteps = 16;
+constexpr int kRingDepth = 6;
 
-// a, h_{t−1} and g of steps t0 − u for u < n (walking back), from element i
-// of step t0; h_{−1} = 0.
-__device__ __forceinline__ void load_back(const float* __restrict__ a, const float* __restrict__ h,
-                                          const float* __restrict__ g, long long i, int t0, int W,
-                                          int n, float (&av)[kGroup], float (&hv)[kGroup],
-                                          float (&gv)[kGroup]) {
-#pragma unroll
-  for (int u = 0; u < kGroup; ++u) {
-    if (u < n) {
-      const long long e = i + (long long)(t0 - u) * W;
-      av[u] = a[e];
-      gv[u] = g[e];
-      hv[u] = t0 - u > 0 ? h[e - W] : 0.0f;
-    }
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 (VEC) or 4 bytes from src to shared dst; valid false writes zeros
+// and reads nothing.
+template <bool VEC>
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
+  if (VEC)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(valid ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Every copy group of this thread but the newest kRingDepth − 1 has landed.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kRingDepth - 1) : "memory");
+}
+
+// Box k's copies into ring slot k % kRingDepth (nothing past the last box):
+// rows before step 0 and channels past W become 0.  VEC: 16-byte copies
+// (W a multiple of 4, the arrays 16-byte aligned).
+template <bool VEC>
+__device__ __forceinline__ void fetch_box(float (*ring)[3][kBoxSteps][kRingChannels],
+                                          const float* __restrict__ a, const float* __restrict__ h,
+                                          const float* __restrict__ g, long long base, int k,
+                                          int boxes, int S, int W, int w0) {
+  if (k >= boxes) return;
+  constexpr int E = VEC ? 4 : 1, words = kRingChannels / E;
+  const int t_lo = S - (k + 1) * kBoxSteps;
+  for (int idx = threadIdx.x; idx < 3 * kBoxSteps * words; idx += kRingChannels) {
+    const int arr = idx / (kBoxSteps * words), rem = idx - arr * kBoxSteps * words;
+    const int r = rem / words, col = (rem - r * words) * E;
+    const int ts = t_lo + r - (arr == 2);   // h: the step before
+    const bool ok = ts >= 0 && w0 + col < W;
+    const float* src = arr == 0 ? a : arr == 1 ? g : h;
+    copy_async<VEC>(&ring[k % kRingDepth][arr][r][col],
+                    ok ? src + base + (long long)ts * W + w0 + col : src, ok);
   }
 }
 
-// Steps t0, t0 − 1, ..., t0 − n + 1 of the reverse scan; dh and a_next
-// (a_{t+1}) carry between groups.
-__device__ __forceinline__ void step_back(float& dh, float& a_next, const float (&av)[kGroup],
-                                          const float (&hv)[kGroup], const float (&gv)[kGroup],
-                                          float* __restrict__ da, float* __restrict__ db,
-                                          long long i, int t0, int W, int n) {
-#pragma unroll
-  for (int u = 0; u < kGroup; ++u) {
-    if (u < n) {
-      const long long e = i + (long long)(t0 - u) * W;
-      dh = __fadd_rn(gv[u], __fmul_rn(a_next, dh));
-      da[e] = __fmul_rn(dh, hv[u]);
-      db[e] = dh;
-      a_next = av[u];
-    }
+// Grid (⌈W / kRingChannels⌉, B), one thread per channel walking t = S−1..0
+// with dh and a_{t+1} in registers, a, g and h_{t−1} from the ring.
+template <bool VEC>
+__global__ void __launch_bounds__(kRingChannels)
+    rglru_scan_bwd_ring_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                               const float* __restrict__ g, float* __restrict__ da,
+                               float* __restrict__ db, int S, int W) {
+  __shared__ __align__(16) float ring[kRingDepth][3][kBoxSteps][kRingChannels];
+  const int lane = threadIdx.x, w0 = blockIdx.x * kRingChannels, w = w0 + lane;
+  const long long base = (long long)blockIdx.y * S * W;
+  const int boxes = (S + kBoxSteps - 1) / kBoxSteps;
+  for (int k = 0; k < kRingDepth - 1; ++k) {
+    fetch_box<VEC>(ring, a, h, g, base, k, boxes, S, W, w0);
+    cp_async_commit();
   }
-}
-
-// Grid (⌈W / kBwdChannels⌉, B), one thread per channel.
-__global__ void __launch_bounds__(kBwdChannels)
-    rglru_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
-                          const float* __restrict__ g, float* __restrict__ da,
-                          float* __restrict__ db, int S, int W) {
-  const int w = blockIdx.x * kBwdChannels + threadIdx.x;
-  if (w >= W) return;
-  const long long base = (long long)blockIdx.y * S * W + w;
-  float a0[kGroup], h0[kGroup], g0[kGroup], a1[kGroup], h1[kGroup], g1[kGroup];
   float dh = 0.0f, a_next = 0.0f;   // the last step: dh = g + 0·0
-  load_back(a, h, g, base, S - 1, W, min(S, kGroup), a0, h0, g0);
-  for (int t = S - 1; t >= 0; t -= 2 * kGroup) {
-    const int n0 = min(t + 1, kGroup);
-    const int n1 = max(0, min(t + 1 - kGroup, kGroup));
-    const int n2 = max(0, min(t + 1 - 2 * kGroup, kGroup));
-    load_back(a, h, g, base, t - kGroup, W, n1, a1, h1, g1);   // in flight meanwhile
-    step_back(dh, a_next, a0, h0, g0, da, db, base, t, W, n0);
-    load_back(a, h, g, base, t - 2 * kGroup, W, n2, a0, h0, g0);
-    step_back(dh, a_next, a1, h1, g1, da, db, base, t - kGroup, W, n1);
+  for (int k = 0; k < boxes; ++k) {
+    fetch_box<VEC>(ring, a, h, g, base, k + kRingDepth - 1, boxes, S, W, w0);
+    cp_async_commit();
+    cp_async_wait_ring();   // this lane's copies of box k have landed
+    __syncwarp();           // ... and every lane's
+    const float (*box)[kBoxSteps][kRingChannels] = ring[k % kRingDepth];
+    const int t_lo = S - (k + 1) * kBoxSteps;
+    if (w < W) {
+#pragma unroll
+      for (int r = kBoxSteps - 1; r >= 0; --r) {
+        const int t = t_lo + r;
+        if (t >= 0) {
+          const long long e = base + (long long)t * W + w;
+          dh = __fadd_rn(box[1][r][lane], __fmul_rn(a_next, dh));
+          da[e] = __fmul_rn(dh, box[2][r][lane]);
+          db[e] = dh;
+          a_next = box[0][r][lane];
+        }
+      }
+    }
+    __syncwarp();   // every lane is done with the slot the next box fills
   }
 }
 
@@ -229,10 +286,21 @@ int rglru_scan_bwd(const float* a, const float* h, const float* g, float* da, fl
                    int S, int W, void* stream) {
   if (B < 0 || S < 0 || W < 0 || B > 65535) return -1;
   if (B == 0 || S == 0 || W == 0) return 0;
-  const dim3 grid((W + kBwdChannels - 1) / kBwdChannels, B);
-  rglru_scan_bwd_kernel<<<grid, kBwdChannels, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, h, g, da, db, S, W);
+  const dim3 grid((W + kRingChannels - 1) / kRingChannels, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (W % 4 == 0 && aligned16(a) && aligned16(h) && aligned16(g))
+    rglru_scan_bwd_ring_kernel<true><<<grid, kRingChannels, 0, s>>>(a, h, g, da, db, S, W);
+  else
+    rglru_scan_bwd_ring_kernel<false><<<grid, kRingChannels, 0, s>>>(a, h, g, da, db, S, W);
   return (int)cudaGetLastError();
+}
+
+// The backward's ring, into out[3]: channels per block (one warp), steps
+// per box, boxes in the ring.
+void rglru_scan_bwd_ring(int* out) {
+  out[0] = kRingChannels;
+  out[1] = kBoxSteps;
+  out[2] = kRingDepth;
 }
 
 // The steps rglru_scan's threads hold for a sequence of S: 32 on the whole

@@ -495,88 +495,256 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 //   da = Σ_{c, t} d(dt·a)·dt
 //
 // B and C are shared by the H heads of a row and a by its chunks, so dB,
-// dC and da are sums across blocks.  Four kernels, launched in order on the
+// dC and da are sums across blocks.  Six kernels, launched in order on the
 // stream, take them without atomics: every sum runs in a fixed order, so
 // equal inputs give equal bits.
-//   1. pairs, grid (tile pairs i ≥ j, B·NC): S of the 32 × 32 tile once,
-//      then per head dM, dS, G; writes S, Σ_h dS and G's row and column
-//      sums of the tile (per head) to the workspace.
-//   2. keys, grid (row tiles · H, B·NC): du of 32 rows of one head from S
-//      (workspace) ∘ L and the state term; writes dx, Σ_p du ∘ x and
-//      dec_j E_j.
-//   3. dt, one warp per (row, head) (per head when a is (H,)): walks the
-//      chunks in order: dcums from the partial sums, its reverse cumsum in
-//      fp64, ddt, and da as an fp64 sum.
-//   4. bc, grid (row tiles, B·NC): dC and dB of 32 rows from Σ_h dS and the
-//      state term over all heads (K = H·P).
-// The products run on the CUDA cores in fp32 (2 × 2 or 2 × 4 outputs a
-// thread, operands from shared memory); cums is an fp64 warp scan as in the
-// forward, so L and dec are exp of fp64 differences rounded once, and a
-// masked entry (i < j) is never exponentiated.  What bounds it: at the
-// training shape (B 16, NC 8, Q 128, H 32, P 64, N 128) the function needs
-// 13.3 G multiply-adds (operations, 0.40 ms at the fp32 peak) against
-// 0.57 GB (0.17 ms).  This first design is simple, not fast: the tensor
-// cores wait for a later redesign.  The workspace holds S and Σ_h dS
-// (B·NC·Q² each), G's partial sums (2·B·NC·H·⌈Q/32⌉·Q) and two (B·NC·Q·H)
-// vectors: 37.7 MB at the training shape.
+//   0. cums, a warp per (chunk, head), grid (⌈H/4⌉, B·NC): the fp64
+//      inclusive cumsum of dt·a, dt and the chunk-end decay, each formed once
+//      and written to the workspace as (chunk, head, row) vectors.
+//   1. pairs, grid (tile pairs i ≥ j · head groups, B·NC): S of the 64 × 64
+//      tile once (K = N), then for each head of its group dM (K = P), dS, G;
+//      writes S, the group's Σ_h dS and G's row and column sums of the tile
+//      (per head).
+//   2. keys, grid (row tiles · H, B·NC): du of 64 rows of one head, Mᵀ dy
+//      over the i tiles (S from the workspace, ∘ L) and B·dst (K = N);
+//      writes dx, Σ_p du ∘ x and dec_j E_j.
+//   3. bc, grid (row tiles · N slabs of 64, B·NC): dC and dB of a 64 × 64
+//      tile from the groups' Σ_h dS and the state term over all heads
+//      (K = H·P).
+//   4. dt, one warp per (head, chunk): dcums from the partial sums, its
+//      reverse cumsum in fp64, ddt, and the chunk's share of da (fp64).
+//   5. da, a thread per entry of da: the chunks' shares summed in order.
+//
+// What bounds it: at the training shape (B 16, NC 8, Q 128, H 32, P 64,
+// N 128) the function needs 13.3 G multiply-adds (operations, 0.40 ms at
+// the fp32 peak) against 0.57 GB (0.17 ms).  The first design ran every
+// product on the CUDA cores from shared memory (4.33 ms on the card, 10.9×
+// its bound, PERF.md): shared-memory reads bound it, each tile came in by a
+// synchronous load, and warp 0 formed the cumsum of each head while seven
+// warps waited.  This design:
+//   * Every product runs on the tensor cores, mma.sync m16n8k8 in 3xTF32 as
+//     the forward's (split_tf32, a fresh fp32 partial per k step of 8), in
+//     steps of one 64 × 64 output tile by a depth of 64: four warps, each a
+//     32 × 32 quarter (two 16-row by four 8-column fragments), so a warp
+//     splits 8 A and 8 B values for 24 products a k step, where the
+//     forward's 16 × 32 warp tiles split 4 and 8 for 12.  Both state-term
+//     products (B·dst and (dec ∘ u)·dstᵀ, ~60% of the work) and every other
+//     product take this shape; a K past 64 (N, P or H·P) is more steps.
+//   * Each kernel walks its steps through two stages of shared memory
+//     (run_steps): step s + 1's tiles come in by cp.async (16-byte copies on
+//     aligned rows whose width is a multiple of 4, else 4-byte; rows and
+//     columns past the matrix zero-filled) while step s computes.  No tile
+//     is loaded synchronously.  Fragments are read with row strides ≡ 4 mod
+//     32 for (row, k) reads and ≡ 8 for (k, row) reads, so a warp's 32 reads
+//     fall in 32 banks.  A stage is two 64-row tiles; a block holds about
+//     74 KB, three to an SM.
+//   * The cumsum and the decays are formed once per (chunk, head) by kernel
+//     0, whose four warps scan four heads at once; the other kernels copy
+//     the vectors they need with their tiles.  L and dec stay exp of fp64
+//     differences rounded once to fp32, and a masked entry (i < j) is set to
+//     0, never exponentiated.
+//   * Enough blocks: the pairs kernel splits its heads into groups until
+//     its grid reaches kBwdMinBlocks (bwd_plan; the bc kernel sums the
+//     groups' Σ_h dS in order); the bc kernel's rows are split by N slabs.
+//     At the training shape the grids are 1,024, 384, 8,192, 512, 4,096
+//     and 4 blocks.  The three product kernels cap their registers at 168
+//     a thread (kBwdBlocksPerSM): three blocks to an SM ran faster than
+//     two at 226–255 registers, despite a few spilled values.
+// The workspace holds S and each head group's Σ_h dS (B·NC·Q² each), G's
+// partial sums (2·B·NC·H·⌈Q/64⌉·Q), two (B·NC·Q·H) vectors, dt and the
+// decay (B·NC·H·Q each), the fp64 cumsum and the chunks' fp64 shares of
+// da: 37.8 MB at the training shape.
 
-constexpr int kBT = 32;          // rows of a backward tile
-constexpr int kBThreads = 256;   // 16 × 16 threads, 2 rows each
-constexpr int kCW = 64;          // output columns of a 2 × 4 product pass
+constexpr int kBT = 64;                   // rows of a backward tile, and the depth of one step
+constexpr int kBThreads = 128;            // four warps, each a 32 × 32 quarter of a tile
+constexpr int kSR = kBT + 4;              // tile row stride for (row, k) reads, ≡ 4 mod 32
+constexpr int kSK = kBT + 8;              // tile row stride for (k, row) reads, ≡ 8 mod 32
+constexpr long long kBwdMinBlocks = 264;  // the head-group rule's aim: two blocks per SM
+constexpr int kBwdBlocksPerSM = 3;        // registers capped at 168 a thread so three fit
 
 struct BwdParams {
   const float *x, *dt, *a, *b, *c, *dy, *dst;
   float *dx, *ddt, *da, *db, *dc;
-  float *s_mat, *dss, *rowg, *colg, *dux, *ed;   // workspace
-  int B, NC, Q, H, P, N, a_rows, nt;
+  float *s_mat, *dss, *rowg, *colg, *dux, *ed, *dtv, *dec;   // workspace
+  double *cums, *da_part;                                    // workspace
+  int B, NC, Q, H, P, N, a_rows;
+  int nt, hg, hpg;   // row tiles; head groups of the pairs kernel, heads per group
+  int vec_bc, vec_xp, vec_q;   // 16-byte copies of B and C; x, dy, dstates; Q-wide rows
 };
 
-// Workspace floats, in the order of BwdParams.
-long long ws_sizes(int B, int NC, int Q, int H, long long (&sz)[6]) {
-  const long long bnc = (long long)B * NC, nt = (Q + kBT - 1) / kBT;
-  sz[0] = sz[1] = bnc * Q * Q;
-  sz[2] = sz[3] = bnc * H * nt * Q;
+struct BwdPlan {
+  int nt, npairs, hg, hpg, nslabs;
+};
+
+// The tile and grid rule: row tiles of kBT, tile pairs i ≥ j, N in slabs of
+// kBT, and the heads of the pairs kernel in hg groups of hpg: hg starts
+// from the smallest power of two (doubling stops at H) whose pairs grid
+// reaches kBwdMinBlocks, then hpg = ⌈H / hg⌉ and hg = ⌈H / hpg⌉, so no
+// group is empty.
+BwdPlan bwd_plan(int B, int NC, int Q, int H, int N) {
+  BwdPlan pl;
+  pl.nt = (Q + kBT - 1) / kBT;
+  pl.npairs = pl.nt * (pl.nt + 1) / 2;
+  pl.nslabs = (N + kBT - 1) / kBT;
+  const long long base = (long long)pl.npairs * B * NC;
+  int hg = 1;
+  while (hg < H && base * hg < kBwdMinBlocks) hg *= 2;
+  pl.hpg = H > 0 ? (H + hg - 1) / hg : 1;
+  pl.hg = H > 0 ? (H + pl.hpg - 1) / pl.hpg : 1;
+  return pl;
+}
+
+// Workspace floats, in the order of BwdParams (the fp64 parts last).
+long long ws_sizes(int B, int NC, int Q, int H, long long (&sz)[10]) {
+  const BwdPlan pl = bwd_plan(B, NC, Q, H, 1);
+  const long long bnc = (long long)B * NC;
+  sz[0] = bnc * Q * Q;
+  sz[1] = pl.hg * bnc * Q * Q;
+  sz[2] = sz[3] = bnc * H * pl.nt * Q;
   sz[4] = sz[5] = bnc * Q * H;
+  sz[6] = sz[7] = bnc * H * Q;
+  sz[8] = 2 * bnc * H * Q;
+  sz[9] = 2 * bnc * H;
   long long total = 0;
   for (long long v : sz) total += (v + 63) / 64 * 64;   // each part 256-byte aligned
   return total;
 }
 
-// acc (rows 2·ty + {0, 1}, columns CW·tx + {0..CW−1}) += A · B over k < K,
-// ty = thread / 16, tx = thread % 16: a 32 × 16·CW output tile.
-template <int CW, typename LA, typename LB>
-__device__ __forceinline__ void mm(float (&acc)[2][CW], int K, LA la, LB lb) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  for (int k = 0; k < K; ++k) {
-    const float a0 = la(2 * ty, k), a1 = la(2 * ty + 1, k);
-#pragma unroll
-    for (int j = 0; j < CW; ++j) {
-      const float bv = lb(k, CW * tx + j);
-      acc[0][j] = fmaf(a0, bv, acc[0][j]);
-      acc[1][j] = fmaf(a1, bv, acc[1][j]);
+__device__ __forceinline__ void copy_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Every copy group of this thread but the newest has landed.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + kBT) and columns [c0, c0 + kBT) of a row-major matrix of
+// rows × cols (row stride ld) into a kBT-row tile of row stride sst; entries
+// outside the matrix become 0.  vec: 16-byte copies (cols, ld, c0 and the
+// pointer's offset multiples of 4 floats, the matrix 16-byte aligned).
+__device__ __forceinline__ void copy_tile(float* dst, int sst, const float* src, long long ld,
+                                          int r0, int rows, int c0, int cols, int vec) {
+  if (vec) {
+    for (int idx = threadIdx.x; idx < kBT * kBT / 4; idx += kBThreads) {
+      const int r = idx / (kBT / 4), cc = idx % (kBT / 4) * 4;
+      const bool ok = r0 + r < rows && c0 + cc < cols;
+      copy_async<true>(dst + r * sst + cc, ok ? src + (long long)(r0 + r) * ld + c0 + cc : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kBT * kBT; idx += kBThreads) {
+      const int r = idx / kBT, cc = idx % kBT;
+      const bool ok = r0 + r < rows && c0 + cc < cols;
+      copy_async<false>(dst + r * sst + cc, ok ? src + (long long)(r0 + r) * ld + c0 + cc : src, ok);
     }
   }
 }
 
-// Rows [r0, r0 + nr) and columns [c0, c0 + w) of a (rows, cols) matrix with
-// row stride ld into a tile of row stride sst; entries outside the matrix
-// become 0.
-__device__ __forceinline__ void load_tile(float* dst, int sst, const float* src, long long ld,
-                                          int r0, int nr, int rows, int c0, int w, int cols) {
-  for (int idx = threadIdx.x; idx < nr * w; idx += blockDim.x) {
-    const int r = idx / w, cc = idx - r * w;
-    const bool ok = r0 + r < rows && c0 + cc < cols;
-    dst[r * sst + cc] = ok ? src[(long long)(r0 + r) * ld + c0 + cc] : 0.0f;
+// v[i] = src[i0 + i] for i < kBT where i0 + i < n, else 0.
+__device__ __forceinline__ void copy_vec(float* v, const float* src, int i0, int n) {
+  for (int i = threadIdx.x; i < kBT; i += kBThreads) {
+    const bool ok = i0 + i < n;
+    copy_async<false>(v + i, ok ? src + i0 + i : src, ok);
   }
 }
 
-// One warp: the inclusive fp64 cumsum of dt·a of head h over the chunk into
-// cums (Q,), and dt into dt_s, as the forward forms them.
-__device__ __forceinline__ void head_cums(const BwdParams& p, long long chunk, int h, double* cums,
-                                          float* dt_s) {
-  const int lane = threadIdx.x & 31, Q = p.Q, H = p.H;
+__device__ __forceinline__ void copy_vec(double* v, const double* src, int i0, int n) {
+  for (int i = threadIdx.x; i < kBT; i += kBThreads) {
+    const bool ok = i0 + i < n;
+    copy_async8(v + i, ok ? src + i0 + i : src, ok);
+  }
+}
+
+// The step pipeline every product kernel of the backward walks: step s + 1's
+// tiles are copied into stage (s + 1) % 2 by `fetch` while step s computes
+// from stage s % 2; `compute` runs once step s's copies have landed and
+// every thread of the block can see them.
+template <typename Fetch, typename Compute>
+__device__ __forceinline__ void run_steps(int steps, Fetch fetch, Compute compute) {
+  if (steps > 0) fetch(0, 0);
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    __syncthreads();   // step s − 1 is done with the stage step s + 1 fills
+    if (s + 1 < steps) fetch(s + 1, (s + 1) & 1);
+    cp_async_commit();
+    cp_async_wait_prior();   // this thread's copies of step s have landed
+    __syncthreads();         // ... and every thread's
+    compute(s, s & 1);
+  }
+}
+
+// The warp's row of accumulator fragment (mt, hf): 16·mt + 8·hf + lane / 4.
+__device__ __forceinline__ int frag_row(int mt, int hf) {
+  return 16 * mt + 8 * hf + ((threadIdx.x & 31) >> 2);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+}
+
+// One warp: acc (32 × 32) += A (32 × kBT) · B (kBT × 32) in 3xTF32, as
+// warp_mma does it.  la(mt, hf, k) reads A at the warp's row frag_row(mt,
+// hf) and column k, lb(k, n) reads B.  Accumulator element (mt, nt, e)
+// sits at row frag_row(mt, e / 2), column 8·nt + 2·(lane % 4) + e % 2.
+// UNROLL k steps of 8 are unrolled together (the pairs kernel, which holds
+// three accumulators, ran faster with 1).
+template <int UNROLL = 2, typename LoadA, typename LoadB>
+__device__ __forceinline__ void mma_tile(float (&acc)[2][4][4], LoadA la, LoadB lb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  auto kstep = [&](int k) {
+    uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      split_tf32(la(mt, 0, k + t), ahi[mt][0], alo[mt][0]);
+      split_tf32(la(mt, 1, k + t), ahi[mt][1], alo[mt][1]);
+      split_tf32(la(mt, 0, k + t + 4), ahi[mt][2], alo[mt][2]);
+      split_tf32(la(mt, 1, k + t + 4), ahi[mt][3], alo[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      uint32_t bhi0, blo0, bhi1, blo1;
+      split_tf32(lb(k + t, 8 * nt + g), bhi0, blo0);
+      split_tf32(lb(k + t + 4, 8 * nt + g), bhi1, blo1);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tf32(part, alo[mt], bhi0, bhi1);
+        mma_tf32(part, ahi[mt], blo0, blo1);
+        mma_tf32(part, ahi[mt], bhi0, bhi1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e], part[e]);
+      }
+    }
+  };
+  if constexpr (UNROLL == 1) {
+#pragma unroll 1
+    for (int k = 0; k < kBT; k += 8) kstep(k);
+  } else {
+#pragma unroll 2
+    for (int k = 0; k < kBT; k += 8) kstep(k);
+  }
+}
+
+__device__ __forceinline__ float decay(double ci, double cj) { return expf((float)__dsub_rn(ci, cj)); }
+
+// 0. Grid (⌈H / 4⌉, B·NC), a warp per head: the inclusive fp64 cumsum of
+// dt·a over the chunk as the forward forms it, dt, and the chunk-end decay.
+__global__ void __launch_bounds__(kBThreads) ssd_bwd_cums_kernel(BwdParams p) {
+  const int Q = p.Q, H = p.H, lane = threadIdx.x & 31;
+  const int h = blockIdx.x * (kBThreads / 32) + (threadIdx.x >> 5);
+  if (h >= H) return;
+  const long long chunk = blockIdx.y;
   const int b = (int)(chunk / p.NC);
   const float a = p.a[p.a_rows ? (long long)b * H + h : h];
+  const long long row = (chunk * H + h) * Q;
   double carry = 0.0;
   for (int j0 = 0; j0 < Q; j0 += 32) {
     const int j = j0 + lane;
@@ -589,184 +757,275 @@ __device__ __forceinline__ void head_cums(const BwdParams& p, long long chunk, i
     }
     v = __dadd_rn(carry, v);
     if (j < Q) {
-      cums[j] = v;
-      if (dt_s) dt_s[j] = d;
+      p.cums[row + j] = v;
+      p.dtv[row + j] = d;
     }
     carry = __shfl_sync(0xffffffffu, v, 31);
   }
-  __syncwarp();
+  // carry is cums_{Q−1}; each lane reads back the entries it wrote
+  for (int j = lane; j < Q; j += 32) p.dec[row + j] = decay(carry, p.cums[row + j]);
 }
 
-__device__ __forceinline__ float decay(const double* cums, int i, int j) {
-  return expf((float)__dsub_rn(cums[i], cums[j]));
-}
-
-// 1. Grid (tile pairs, B·NC): pair it·(it + 1)/2 + jt, jt <= it.
-__global__ void __launch_bounds__(kBThreads) ssd_bwd_pairs_kernel(BwdParams p) {
-  const int Q = p.Q, H = p.H, P = p.P, N = p.N, SN = N + 1, SP = P + 1;
+// 1. Grid (tile pairs · hg, B·NC): block (pair·hg + group, chunk), pair
+// it·(it + 1)/2 + jt with jt ≤ it.  Steps: ⌈N/64⌉ of S = C_i B_jᵀ, then for
+// each head of the group ⌈P/64⌉ of dM = dy_i x_jᵀ (dt_j is applied to dM's
+// columns), the last of which turns dM into dS and G.
+__global__ void __launch_bounds__(kBThreads, kBwdBlocksPerSM) ssd_bwd_pairs_mma_kernel(BwdParams p) {
+  const int Q = p.Q, H = p.H, P = p.P, N = p.N;
+  const int pair = blockIdx.x / p.hg, grp = blockIdx.x - pair * p.hg;
   int it = 0;
-  while ((it + 1) * (it + 2) / 2 <= (int)blockIdx.x) ++it;
-  const int jt = blockIdx.x - it * (it + 1) / 2;
+  while ((it + 1) * (it + 2) / 2 <= pair) ++it;
+  const int jt = pair - it * (it + 1) / 2;
   const int i0 = it * kBT, j0 = jt * kBT;
+  const int h_lo = grp * p.hpg, heads = min(H, h_lo + p.hpg) - h_lo;
   const long long chunk = blockIdx.y;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;   // the warp's rows 32·wm, columns 32·wn
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* cums = reinterpret_cast<double*>(smem_raw);   // (Q,)
-  float* dt_s = reinterpret_cast<float*>(cums + round_up(Q, 2));
-  float* c_s = dt_s + round_up(Q, 4);   // (kBT, SN) C rows of the i tile
-  float* b_s = c_s + kBT * SN;          // (kBT, SN) B rows of the j tile
-  float* y_s = b_s + kBT * SN;          // (kBT, SP) dy rows of the i tile, head h
-  float* u_s = y_s + kBT * SP;          // (kBT, SP) dt·x rows of the j tile, head h
-  float* g_s = u_s + kBT * SP;          // (kBT, kBT + 1) G of head h
+  double* cij = reinterpret_cast<double*>(smem_raw);       // (stage, i or j) cums of the tile's rows
+  float* tiles = reinterpret_cast<float*>(cij + 4 * kBT);  // (stage, A or B) kBT × kSR
+  float* dtj = tiles + 4 * kBT * kSR;                      // (stage) dt of the j rows
+  float* red = dtj + 2 * kBT;                              // row sums by wn, column sums by wm
 
-  load_tile(c_s, SN, p.c + chunk * Q * N, N, i0, kBT, Q, 0, N, N);
-  load_tile(b_s, SN, p.b + chunk * Q * N, N, j0, kBT, Q, 0, N, N);
-  __syncthreads();
-  float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  mm<2>(s, N, [&](int r, int k) { return c_s[r * SN + k]; },
-        [&](int k, int c) { return b_s[c * SN + k]; });
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int i = i0 + 2 * ty + rr, j = j0 + 2 * tx + jj;
-      if (i < Q && j < Q) p.s_mat[(chunk * Q + i) * Q + j] = s[rr][jj];
-    }
-
+  const float* cb = p.c + chunk * Q * N;
+  const float* bb = p.b + chunk * Q * N;
   const float* xb = p.x + chunk * Q * H * P;
   const float* yb = p.dy + chunk * Q * H * P;
   const long long ld = (long long)H * P;
-  float dss[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  for (int h = 0; h < H; ++h) {
-    __syncthreads();  // the previous head's tiles are consumed
-    if (warp == 0) head_cums(p, chunk, h, cums, dt_s);
-    load_tile(y_s, SP, yb + h * P, ld, i0, kBT, Q, 0, P, P);
-    load_tile(u_s, SP, xb + h * P, ld, j0, kBT, Q, 0, P, P);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kBT * P; idx += kBThreads) {
-      const int r = idx / P, cc = idx - r * P;
-      if (j0 + r < Q) u_s[r * SP + cc] = __fmul_rn(u_s[r * SP + cc], dt_s[j0 + r]);
+  const int ks = (N + kBT - 1) / kBT, kp = (P + kBT - 1) / kBT;
+  float s_acc[2][4][4], dss[2][4][4], dm[2][4][4];
+  zero(s_acc);
+  zero(dss);
+  zero(dm);
+
+  auto fetch = [&](int step, int st) {
+    float* ta = tiles + st * 2 * kBT * kSR;
+    float* tb = ta + kBT * kSR;
+    if (step < ks) {
+      copy_tile(ta, kSR, cb, N, i0, Q, step * kBT, N, p.vec_bc);
+      copy_tile(tb, kSR, bb, N, j0, Q, step * kBT, N, p.vec_bc);
+      return;
     }
-    __syncthreads();
-    float dm[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-    mm<2>(dm, P, [&](int r, int k) { return y_s[r * SP + k]; },
-          [&](int k, int c) { return u_s[c * SP + k]; });
+    const int hh = (step - ks) / kp, pc = step - ks - hh * kp, h = h_lo + hh;
+    copy_tile(ta, kSR, yb + h * P, ld, i0, Q, pc * kBT, P, p.vec_xp);
+    copy_tile(tb, kSR, xb + h * P, ld, j0, Q, pc * kBT, P, p.vec_xp);
+    if (pc == kp - 1) {
+      const long long row = (chunk * H + h) * Q;
+      copy_vec(cij + st * 2 * kBT, p.cums + row, i0, Q);
+      copy_vec(cij + st * 2 * kBT + kBT, p.cums + row, j0, Q);
+      copy_vec(dtj + st * kBT, p.dtv + row, j0, Q);
+    }
+  };
+
+  auto compute = [&](int step, int st) {
+    const float* wa = tiles + st * 2 * kBT * kSR + (32 * wm) * kSR;
+    const float* wb = tiles + st * 2 * kBT * kSR + kBT * kSR + (32 * wn) * kSR;
+    auto la = [&](int mt, int hf, int k) { return wa[frag_row(mt, hf) * kSR + k]; };
+    auto lb = [&](int k, int n) { return wb[n * kSR + k]; };
+    if (step < ks) {
+      mma_tile<1>(s_acc, la, lb);
+      return;
+    }
+    const int hh = (step - ks) / kp, pc = step - ks - hh * kp, h = h_lo + hh;
+    if (pc == 0) zero(dm);
+    mma_tile<1>(dm, la, lb);
+    if (pc < kp - 1) return;
+    const double* ci = cij + st * 2 * kBT;
+    const double* cj = ci + kBT;
+    const float* dtjs = dtj + st * kBT;
+    float rowp[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+    float colp[4][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int r = 2 * ty + rr, c = 2 * tx + jj, i = i0 + r, j = j0 + c;
-        float g = 0.0f;
-        if (i < Q && j < Q && i >= j) {
-          const float ds = __fmul_rn(dm[rr][jj], decay(cums, i, j));
-          dss[rr][jj] = __fadd_rn(dss[rr][jj], ds);
-          g = __fmul_rn(ds, s[rr][jj]);
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 32 * wm + frag_row(mt, e >> 1), cc = 32 * wn + 8 * nt + 2 * t + (e & 1);
+          const int i = i0 + r, j = j0 + cc;
+          float gv = 0.0f;
+          if (i < Q && j <= i) {
+            const float ds = __fmul_rn(__fmul_rn(dm[mt][nt][e], dtjs[cc]), decay(ci[r], cj[cc]));
+            dss[mt][nt][e] = __fadd_rn(dss[mt][nt][e], ds);
+            gv = __fmul_rn(ds, s_acc[mt][nt][e]);
+          }
+          rowp[mt][e >> 1] = __fadd_rn(rowp[mt][e >> 1], gv);
+          colp[nt][e & 1] = __fadd_rn(colp[nt][e & 1], gv);
         }
-        g_s[r * (kBT + 1) + c] = g;
+    // G's row sums over the quad's four lanes, column sums over the eight quads
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float v = rowp[mt][hf];
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        rowp[mt][hf] = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
       }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = colp[nt][e];
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
+        colp[nt][e] = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
+      }
+    if (t == 0)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) red[wn * kBT + 32 * wm + frag_row(mt, hf)] = rowp[mt][hf];
+    if (g == 0)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) red[2 * kBT + wm * kBT + 32 * wn + 8 * nt + 2 * t + e] = colp[nt][e];
     __syncthreads();
     const long long part = (chunk * H + h) * p.nt;
-    if (threadIdx.x < kBT) {   // row sums: this tile's share of Σ_j G_ij
+    if (threadIdx.x < kBT) {   // this tile's share of Σ_j G_ij
       const int r = threadIdx.x;
-      float sum = 0.0f;
-      for (int c = 0; c < kBT; ++c) sum = __fadd_rn(sum, g_s[r * (kBT + 1) + c]);
-      if (i0 + r < Q) p.rowg[(part + jt) * Q + i0 + r] = sum;
-    } else if (threadIdx.x < 2 * kBT) {   // column sums: Σ_i G_ij
-      const int c = threadIdx.x - kBT;
-      float sum = 0.0f;
-      for (int r = 0; r < kBT; ++r) sum = __fadd_rn(sum, g_s[r * (kBT + 1) + c]);
-      if (j0 + c < Q) p.colg[(part + it) * Q + j0 + c] = sum;
+      if (i0 + r < Q) p.rowg[(part + jt) * Q + i0 + r] = __fadd_rn(red[r], red[kBT + r]);
+    } else {                   // Σ_i G_ij
+      const int cc = threadIdx.x - kBT;
+      if (j0 + cc < Q) p.colg[(part + it) * Q + j0 + cc] = __fadd_rn(red[2 * kBT + cc], red[3 * kBT + cc]);
     }
-  }
+  };
+
+  run_steps(ks + heads * kp, fetch, compute);
+
+  float* dsg = p.dss + ((long long)grp * p.B * p.NC + chunk) * Q * Q;
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int i = i0 + 2 * ty + rr, j = j0 + 2 * tx + jj;
-      if (i < Q && j < Q) p.dss[(chunk * Q + i) * Q + j] = dss[rr][jj];
-    }
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + 32 * wm + frag_row(mt, e >> 1), j = j0 + 32 * wn + 8 * nt + 2 * t + (e & 1);
+        if (i < Q && j < Q) {
+          if (grp == 0) p.s_mat[(chunk * Q + i) * Q + j] = s_acc[mt][nt][e];
+          dsg[(long long)i * Q + j] = dss[mt][nt][e];
+        }
+      }
 }
 
-// 2. Grid (row tiles · H, B·NC): du of rows [j0, j0 + 32) of head h.
-__global__ void __launch_bounds__(kBThreads) ssd_bwd_keys_kernel(BwdParams p) {
-  const int Q = p.Q, H = p.H, P = p.P, N = p.N, SN = N + 1;
+// 2. Grid (nt · H, B·NC): block (h·nt + jt, chunk), du of rows [j0, j0 + 64)
+// of head h, P in passes of 64 columns.  A pass's steps: for each i tile ≥
+// jt, M_ij = S_ij ∘ L in place, then du += M_ijᵀ dy_i; then ⌈N/64⌉ steps of
+// bt = B_j dst_h; its last step writes dx and adds the row sums Σ_p du ∘ x
+// and Σ_p x ∘ bt.
+__global__ void __launch_bounds__(kBThreads, kBwdBlocksPerSM) ssd_bwd_keys_mma_kernel(BwdParams p) {
+  const int Q = p.Q, H = p.H, P = p.P, N = p.N;
   const int jt = blockIdx.x % p.nt, h = blockIdx.x / p.nt, j0 = jt * kBT;
   const long long chunk = blockIdx.y;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15, warp = threadIdx.x >> 5;
-  constexpr int SX = kCW + 1, SM = kBT + 1, SR = 17;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* cums = reinterpret_cast<double*>(smem_raw);   // (Q,)
-  float* dt_s = reinterpret_cast<float*>(cums + round_up(Q, 2));
-  float* b_s = dt_s + round_up(Q, 4);   // (kBT, SN) B rows of the j tile
-  float* t_s = b_s + kBT * SN;          // (N, kCW) dst of head h, this pass's columns
-  float* x_s = t_s + N * kCW;           // (kBT, SX) x rows of the j tile
-  float* y_s = x_s + kBT * SX;          // (kBT, SX) dy rows of an i tile
-  float* m_s = y_s + kBT * SX;          // (kBT, SM) M = S ∘ L of the (i, j) tile
-  float* red = m_s + kBT * SM;          // (2, kBT, SR) row partial sums
+  double* ci = reinterpret_cast<double*>(smem_raw);      // (stage) cums of the i rows
+  double* cj = ci + 2 * kBT;                              // cums of the j rows
+  float* tiles = reinterpret_cast<float*>(cj + kBT);      // (stage, A or B) kBT × kSK
+  float* dtj = tiles + 4 * kBT * kSK;                     // dt of the j rows
+  float* decj = dtj + kBT;                                // dec of the j rows
 
-  if (warp == 0) head_cums(p, chunk, h, cums, dt_s);
-  load_tile(b_s, SN, p.b + chunk * Q * N, N, j0, kBT, Q, 0, N, N);
-  const float* xb = p.x + chunk * Q * H * P + h * P;
+  const long long row = (chunk * H + h) * Q;
+  copy_vec(cj, p.cums + row, j0, Q);   // these join step 0's copies
+  copy_vec(dtj, p.dtv + row, j0, Q);
+  copy_vec(decj, p.dec + row, j0, Q);
+  const float* sb = p.s_mat + chunk * Q * Q;
   const float* yb = p.dy + chunk * Q * H * P + h * P;
+  const float* bb = p.b + chunk * Q * N;
   const float* tb = p.dst + (chunk * H + h) * (long long)N * P;
   const long long ld = (long long)H * P;
-  float pdux[2] = {0.0f, 0.0f}, pe[2] = {0.0f, 0.0f};
-  for (int c0 = 0; c0 < P; c0 += kCW) {
-    __syncthreads();  // the previous pass's tiles are consumed
-    load_tile(x_s, SX, xb, ld, j0, kBT, Q, c0, kCW, P);
-    load_tile(t_s, kCW, tb, P, 0, N, N, c0, kCW, P);
-    float du[2][4] = {}, bt[2][4] = {};
-    for (int it = jt; it < p.nt; ++it) {
-      const int i0 = it * kBT;
-      __syncthreads();  // m_s and y_s are consumed; cums and dt_s are in place
-      for (int idx = threadIdx.x; idx < kBT * kBT; idx += kBThreads) {
-        const int r = idx / kBT, c = idx - r * kBT, i = i0 + r, j = j0 + c;
-        m_s[r * SM + c] = i < Q && j < Q && i >= j
-                              ? __fmul_rn(p.s_mat[(chunk * Q + i) * Q + j], decay(cums, i, j))
-                              : 0.0f;
+  const int ni = p.nt - jt, per_pass = ni + (N + kBT - 1) / kBT, passes = (P + kBT - 1) / kBT;
+  float du[2][4][4], bt[2][4][4];
+  float pd[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}}, pe[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+
+  auto fetch = [&](int step, int st) {
+    const int pass = step / per_pass, k = step - pass * per_pass, p0 = pass * kBT;
+    float* ta = tiles + st * 2 * kBT * kSK;
+    float* tbuf = ta + kBT * kSK;
+    if (k < ni) {
+      const int i0 = (jt + k) * kBT;
+      copy_tile(ta, kSK, sb, Q, i0, Q, j0, Q, p.vec_q);
+      copy_tile(tbuf, kSK, yb, ld, i0, Q, p0, P, p.vec_xp);
+      copy_vec(ci + st * kBT, p.cums + row, i0, Q);
+    } else {
+      const int n0 = (k - ni) * kBT;
+      copy_tile(ta, kSR, bb, N, j0, Q, n0, N, p.vec_bc);
+      copy_tile(tbuf, kSK, tb, P, n0, N, p0, P, p.vec_xp);
+    }
+  };
+
+  auto compute = [&](int step, int st) {
+    const int pass = step / per_pass, k = step - pass * per_pass, p0 = pass * kBT;
+    float* ta = tiles + st * 2 * kBT * kSK;
+    const float* tbuf = ta + kBT * kSK;
+    auto lb = [&](int kk, int n) { return tbuf[kk * kSK + 32 * wn + n]; };
+    if (k == 0) {
+      zero(du);
+      zero(bt);
+    }
+    if (k < ni) {
+      const int i0 = (jt + k) * kBT;
+      const double* cis = ci + st * kBT;
+      for (int idx = threadIdx.x; idx < kBT * kBT; idx += kBThreads) {   // M = S ∘ L
+        const int r = idx / kBT, cc = idx % kBT, i = i0 + r, j = j0 + cc;
+        float* m = ta + r * kSK + cc;
+        *m = i < Q && j <= i ? __fmul_rn(*m, decay(cis[r], cj[cc])) : 0.0f;
       }
-      load_tile(y_s, SX, yb, ld, i0, kBT, Q, c0, kCW, P);
       __syncthreads();
-      mm<4>(du, kBT, [&](int r, int k) { return m_s[k * SM + r]; },
-            [&](int k, int c) { return y_s[k * SX + c]; });
+      mma_tile(du, [&](int mt, int hf, int kk) { return ta[kk * kSK + 32 * wm + frag_row(mt, hf)]; }, lb);
+    } else {
+      mma_tile(bt, [&](int mt, int hf, int kk) { return ta[(32 * wm + frag_row(mt, hf)) * kSR + kk]; }, lb);
     }
-    mm<4>(bt, N, [&](int r, int k) { return b_s[r * SN + k]; },
-          [&](int k, int c) { return t_s[k * kCW + c]; });
+    if (k < per_pass - 1) return;
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = 2 * ty + rr, j = j0 + r;
-      if (j >= Q) continue;
-      const float dtj = dt_s[j], dec = decay(cums, Q - 1, j);
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int c = 4 * tx + jj, pc = c0 + c;
-        if (pc >= P) continue;
-        const float xv = x_s[r * SX + c];
-        const float duv = __fadd_rn(du[rr][jj], __fmul_rn(dec, bt[rr][jj]));
-        p.dx[((chunk * Q + j) * H + h) * P + pc] = __fmul_rn(duv, dtj);
-        pdux[rr] = __fadd_rn(pdux[rr], __fmul_rn(duv, xv));
-        pe[rr] = __fadd_rn(pe[rr], __fmul_rn(__fmul_rn(dtj, xv), bt[rr][jj]));
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 32 * wm + frag_row(mt, e >> 1), j = j0 + r;
+          const int pc = p0 + 32 * wn + 8 * nt + 2 * t + (e & 1);
+          if (j >= Q || pc >= P) continue;
+          const long long at = ((chunk * Q + j) * H + h) * P + pc;
+          const float xv = p.x[at];
+          const float duv = __fadd_rn(du[mt][nt][e], __fmul_rn(decj[r], bt[mt][nt][e]));
+          p.dx[at] = __fmul_rn(duv, dtj[r]);
+          pd[mt][e >> 1] = __fadd_rn(pd[mt][e >> 1], __fmul_rn(duv, xv));
+          pe[mt][e >> 1] = __fadd_rn(pe[mt][e >> 1], __fmul_rn(xv, bt[mt][nt][e]));
+        }
+  };
+
+  const int steps = passes * per_pass;
+  run_steps(steps, fetch, compute);
+
+  // The row sums over the quad's four lanes, then over the two column halves;
+  // red is the stage no step reads any more.
+  float* red = tiles + (steps & 1) * 2 * kBT * kSK;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float d = pd[mt][hf], v = pe[mt][hf];
+      d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, 1));
+      d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, 2));
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      if (t == 0) {
+        const int r = 32 * wm + frag_row(mt, hf);
+        red[wn * kBT + r] = d;
+        red[(2 + wn) * kBT + r] = v;
       }
     }
-  }
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    red[(2 * ty + rr) * SR + tx] = pdux[rr];
-    red[(kBT + 2 * ty + rr) * SR + tx] = pe[rr];
-  }
   __syncthreads();
   if (threadIdx.x < kBT) {
     const int r = threadIdx.x, j = j0 + r;
-    float sd = 0.0f, se = 0.0f;
-    for (int c = 0; c < 16; ++c) {
-      sd = __fadd_rn(sd, red[r * SR + c]);
-      se = __fadd_rn(se, red[(kBT + r) * SR + c]);
-    }
     if (j < Q) {
-      p.dux[(chunk * Q + j) * H + h] = sd;
-      p.ed[(chunk * Q + j) * H + h] = __fmul_rn(se, decay(cums, Q - 1, j));
+      const long long e = (chunk * Q + j) * H + h;
+      p.dux[e] = __fadd_rn(red[r], red[kBT + r]);
+      p.ed[e] = __fmul_rn(__fmul_rn(__fadd_rn(red[2 * kBT + r], red[3 * kBT + r]), dtj[r]), decj[r]);
     }
   }
 }
@@ -777,174 +1036,161 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// 3. Grid (H, B when a is (B, H), else 1), one warp: ddt of head h over the
-// rows' chunks in order, and da.
-__global__ void __launch_bounds__(32) ssd_bwd_dt_kernel(BwdParams p) {
-  const int Q = p.Q, H = p.H, h = blockIdx.x, lane = threadIdx.x;
-  const int b_lo = p.a_rows ? blockIdx.y : 0, b_hi = p.a_rows ? blockIdx.y + 1 : p.B;
-  double da_acc = 0.0;
-  for (int b = b_lo; b < b_hi; ++b) {
-    const float a = p.a[p.a_rows ? (long long)b * H + h : h];
-    for (int c = 0; c < p.NC; ++c) {
-      const long long chunk = (long long)b * p.NC + c;
-      const long long part = (chunk * H + h) * p.nt;
-      double sed = 0.0;
-      for (int i = lane; i < Q; i += 32) sed = __dadd_rn(sed, (double)p.ed[(chunk * Q + i) * H + h]);
-      sed = warp_sum(sed);
-      double carry = 0.0;   // Σ dcums over the rows after this group of 32
-      for (int base = (Q - 1) / 32 * 32; base >= 0; base -= 32) {
-        const int i = base + lane;
-        double v = 0.0;
-        if (i < Q) {
-          const int ti = i / kBT;
-          double rs = 0.0, cs = 0.0;
-          for (int t = 0; t <= ti; ++t) rs = __dadd_rn(rs, (double)p.rowg[(part + t) * Q + i]);
-          for (int t = ti; t < p.nt; ++t) cs = __dadd_rn(cs, (double)p.colg[(part + t) * Q + i]);
-          v = rs - cs - (double)p.ed[(chunk * Q + i) * H + h] + (i == Q - 1 ? sed : 0.0);
-        }
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {   // reverse inclusive scan
-          const double u = __shfl_down_sync(0xffffffffu, v, off);
-          if (lane + off < 32) v = __dadd_rn(v, u);
-        }
-        v = __dadd_rn(v, carry);
-        carry = __shfl_sync(0xffffffffu, v, 0);
-        if (i < Q) {
-          const long long e = (chunk * Q + i) * H + h;
-          const float dda = (float)v;
-          p.ddt[e] = __fadd_rn(__fmul_rn(dda, a), p.dux[e]);
-          da_acc = __dadd_rn(da_acc, (double)dda * (double)p.dt[e]);
-        }
-      }
-    }
-    if (p.a_rows) {
-      const double total = warp_sum(da_acc);
-      if (lane == 0) p.da[(long long)b * H + h] = (float)total;
-      da_acc = 0.0;
-    }
-  }
-  if (!p.a_rows) {
-    const double total = warp_sum(da_acc);
-    if (lane == 0) p.da[h] = (float)total;
-  }
-}
-
-// 4. Grid (row tiles, B·NC): dC and dB of rows [r0, r0 + 32).
-__global__ void __launch_bounds__(kBThreads) ssd_bwd_bc_kernel(BwdParams p) {
-  const int Q = p.Q, H = p.H, P = p.P, N = p.N, SP = P + 1;
-  const int rt = blockIdx.x, r0 = rt * kBT;
+// 3. Grid (nt · ⌈N/64⌉, B·NC): block (rt·slabs + slab, chunk), dC and dB of
+// rows [r0, r0 + 64) and columns [n0, n0 + 64).  Steps: for each head
+// group, dC += dss_g[r, j]·B[j, n] over the j tiles ≤ rt; then dB +=
+// dss_g[i, r]·C[i, n] over the i tiles ≥ rt; then for each head and each 64
+// columns of P, dB += (dec·dt)_r x[r, h, p]·dst[h, n, p].
+__global__ void __launch_bounds__(kBThreads, kBwdBlocksPerSM) ssd_bwd_bc_mma_kernel(BwdParams p) {
+  const int Q = p.Q, H = p.H, P = p.P, N = p.N, nt = p.nt;
+  const int slabs = (N + kBT - 1) / kBT;
+  const int rt = blockIdx.x / slabs, r0 = rt * kBT, n0 = (blockIdx.x - rt * slabs) * kBT;
   const long long chunk = blockIdx.y;
-  const int b = (int)(chunk / p.NC);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15, warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  constexpr int SD = kBT + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* cw = reinterpret_cast<double*>(smem_raw);      // (8, kBT) each warp's cums of the tile
-  float* dec_s = reinterpret_cast<float*>(cw + 8 * kBT); // (H, kBT) dec of every head
-  float* dt_t = dec_s + H * kBT;                         // (kBT, H)
-  float* d_s = dt_t + kBT * H;                           // (kBT, SD) a Σ_h dS tile
-  float* v_s = d_s + kBT * SD;                           // (kBT, kCW) B or C rows
-  float* x_s = v_s + kBT * kCW;                          // (kBT, SP) (dt·x)·dec of head h
-  float* t_s = x_s + kBT * SP;                           // (kCW, SP) dst rows of head h
+  float* tiles = reinterpret_cast<float*>(smem_raw);   // (stage, A or B) kBT × kSK
+  float* vdec = tiles + 4 * kBT * kSK;                  // (stage) dec of the step's head, rows r
+  float* vdt = vdec + 2 * kBT;                          // (stage) dt
 
-  load_tile(dt_t, H, p.dt + chunk * Q * H, H, r0, kBT, Q, 0, H, H);
-  for (int h = warp; h < H; h += kBThreads / 32) {   // each warp scans its heads
-    const float a = p.a[p.a_rows ? (long long)b * H + h : h];
-    double carry = 0.0;
-    for (int j0 = 0; j0 < Q; j0 += 32) {
-      const int j = j0 + lane;
-      double v = __fmul_rn(j < Q ? p.dt[(chunk * Q + j) * H + h] : 0.0f, a);
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const double u = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v = __dadd_rn(u, v);
-      }
-      v = __dadd_rn(carry, v);
-      if (j >= r0 && j < r0 + kBT) cw[warp * kBT + j - r0] = v;
-      carry = __shfl_sync(0xffffffffu, v, 31);
-    }
-    __syncwarp();
-    dec_s[h * kBT + lane] = r0 + lane < Q ? expf((float)__dsub_rn(carry, cw[warp * kBT + lane])) : 0.0f;
-    __syncwarp();
-  }
-
-  const float* dsb = p.dss + chunk * Q * Q;
+  const long long bnc = (long long)p.B * p.NC;
   const float* bb = p.b + chunk * Q * N;
   const float* cb = p.c + chunk * Q * N;
-  for (int n0 = 0; n0 < N; n0 += kCW) {
-    // dC rows r: Σ_j dss[r, j]·B[j, n]
-    float acc[2][4] = {};
-    for (int jt = 0; jt <= rt; ++jt) {
-      __syncthreads();
-      load_tile(d_s, SD, dsb, Q, r0, kBT, Q, jt * kBT, kBT, Q);
-      load_tile(v_s, kCW, bb, N, jt * kBT, kBT, Q, n0, kCW, N);
-      __syncthreads();
-      mm<4>(acc, kBT, [&](int r, int k) { return d_s[r * SD + k]; },
-            [&](int k, int c) { return v_s[k * kCW + c]; });
+  const float* xb = p.x + chunk * Q * H * P;
+  const long long ld = (long long)H * P;
+  const int kp = (P + kBT - 1) / kBT;
+  const int n1 = p.hg * (rt + 1), n2 = p.hg * (nt - rt);
+  float acc_c[2][4][4], acc_b[2][4][4];
+  zero(acc_c);
+  zero(acc_b);
+
+  auto fetch = [&](int step, int st) {
+    float* ta = tiles + st * 2 * kBT * kSK;
+    float* tbuf = ta + kBT * kSK;
+    if (step < n1) {
+      const int grp = step / (rt + 1), jt = step - grp * (rt + 1);
+      const float* dsg = p.dss + (grp * bnc + chunk) * Q * Q;
+      copy_tile(ta, kSR, dsg, Q, r0, Q, jt * kBT, Q, p.vec_q);
+      copy_tile(tbuf, kSK, bb, N, jt * kBT, Q, n0, N, p.vec_bc);
+    } else if (step < n1 + n2) {
+      const int s2 = step - n1, grp = s2 / (nt - rt), it = rt + s2 - grp * (nt - rt);
+      const float* dsg = p.dss + (grp * bnc + chunk) * Q * Q;
+      copy_tile(ta, kSK, dsg, Q, it * kBT, Q, r0, Q, p.vec_q);
+      copy_tile(tbuf, kSK, cb, N, it * kBT, Q, n0, N, p.vec_bc);
+    } else {
+      const int s3 = step - n1 - n2, h = s3 / kp, pc = s3 - h * kp;
+      copy_tile(ta, kSR, xb + h * P, ld, r0, Q, pc * kBT, P, p.vec_xp);
+      copy_tile(tbuf, kSR, p.dst + (chunk * H + h) * (long long)N * P, P, n0, N, pc * kBT, P,
+                p.vec_xp);
+      copy_vec(vdec + st * kBT, p.dec + (chunk * H + h) * Q, r0, Q);
+      copy_vec(vdt + st * kBT, p.dtv + (chunk * H + h) * Q, r0, Q);
     }
+  };
+
+  auto compute = [&](int step, int st) {
+    const float* ta = tiles + st * 2 * kBT * kSK;
+    const float* tbuf = ta + kBT * kSK;
+    if (step < n1) {
+      mma_tile(acc_c, [&](int mt, int hf, int k) { return ta[(32 * wm + frag_row(mt, hf)) * kSR + k]; },
+               [&](int k, int n) { return tbuf[k * kSK + 32 * wn + n]; });
+    } else if (step < n1 + n2) {
+      mma_tile(acc_b, [&](int mt, int hf, int k) { return ta[k * kSK + 32 * wm + frag_row(mt, hf)]; },
+               [&](int k, int n) { return tbuf[k * kSK + 32 * wn + n]; });
+    } else {
+      float rs[2][2];   // (dec·dt) of the warp's A rows
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int r = r0 + 2 * ty + rr, n = n0 + 4 * tx + jj;
-        if (r < Q && n < N) p.dc[(chunk * Q + r) * N + n] = acc[rr][jj];
-      }
-    // dB rows r: Σ_i dss[i, r]·C[i, n] + Σ_h Σ_p dec_r·dt_r·x[r, h, p]·dst[h, n, p]
-    float acc2[2][4] = {};
-    for (int it = rt; it < p.nt; ++it) {
-      __syncthreads();
-      load_tile(d_s, SD, dsb, Q, it * kBT, kBT, Q, r0, kBT, Q);
-      load_tile(v_s, kCW, cb, N, it * kBT, kBT, Q, n0, kCW, N);
-      __syncthreads();
-      mm<4>(acc2, kBT, [&](int r, int k) { return d_s[k * SD + r]; },
-            [&](int k, int c) { return v_s[k * kCW + c]; });
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = 32 * wm + frag_row(mt, hf);
+          rs[mt][hf] = __fmul_rn(vdec[st * kBT + r], vdt[st * kBT + r]);
+        }
+      mma_tile(acc_b,
+               [&](int mt, int hf, int k) {
+                 return __fmul_rn(ta[(32 * wm + frag_row(mt, hf)) * kSR + k], rs[mt][hf]);
+               },
+               [&](int k, int n) { return tbuf[(32 * wn + n) * kSR + k]; });
     }
-    for (int h = 0; h < H; ++h) {
-      __syncthreads();
-      const float* xh = p.x + chunk * Q * H * P + h * P;
-      for (int idx = threadIdx.x; idx < kBT * P; idx += kBThreads) {
-        const int r = idx / P, cc = idx - r * P;
-        float v = 0.0f;
-        if (r0 + r < Q)
-          v = __fmul_rn(__fmul_rn(xh[(long long)(r0 + r) * H * P + cc], dt_t[r * H + h]),
-                        dec_s[h * kBT + r]);
-        x_s[r * SP + cc] = v;
-      }
-      load_tile(t_s, SP, p.dst + (chunk * H + h) * (long long)N * P, P, n0, kCW, N, 0, P, P);
-      __syncthreads();
-      mm<4>(acc2, P, [&](int r, int k) { return x_s[r * SP + k]; },
-            [&](int k, int c) { return t_s[c * SP + k]; });
-    }
+  };
+
+  run_steps(n1 + n2 + H * kp, fetch, compute);
+
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int r = r0 + 2 * ty + rr, n = n0 + 4 * tx + jj;
-        if (r < Q && n < N) p.db[(chunk * Q + r) * N + n] = acc2[rr][jj];
+    for (int nt4 = 0; nt4 < 4; ++nt4)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 32 * wm + frag_row(mt, e >> 1), n = n0 + 32 * wn + 8 * nt4 + 2 * t + (e & 1);
+        if (r < Q && n < N) {
+          p.dc[(chunk * Q + r) * N + n] = acc_c[mt][nt4][e];
+          p.db[(chunk * Q + r) * N + n] = acc_b[mt][nt4][e];
+        }
       }
-  }
 }
 
-size_t smem_pairs(int Q, int N, int P) {
-  return sizeof(double) * round_up(Q, 2) +
-         sizeof(float) * (round_up(Q, 4) + 2 * kBT * (N + 1) + 2 * kBT * (P + 1) + kBT * (kBT + 1));
+// 4. Grid (H, B·NC), one warp per (head, chunk): dcums from the partial
+// sums, its reverse cumsum in fp64, ddt, and the chunk's share of da as an
+// fp64 sum.
+__global__ void __launch_bounds__(32) ssd_bwd_dt_kernel(BwdParams p) {
+  const int Q = p.Q, H = p.H, h = blockIdx.x, lane = threadIdx.x;
+  const long long chunk = blockIdx.y;
+  const int b = (int)(chunk / p.NC);
+  const float a = p.a[p.a_rows ? (long long)b * H + h : h];
+  const long long part = (chunk * H + h) * p.nt;
+  double sed = 0.0;
+  for (int i = lane; i < Q; i += 32) sed = __dadd_rn(sed, (double)p.ed[(chunk * Q + i) * H + h]);
+  sed = warp_sum(sed);
+  double carry = 0.0, da_acc = 0.0;   // carry: Σ dcums over the rows after this group of 32
+  for (int base = (Q - 1) / 32 * 32; base >= 0; base -= 32) {
+    const int i = base + lane;
+    double v = 0.0;
+    if (i < Q) {
+      const int ti = i / kBT;
+      double rs = 0.0, cs = 0.0;
+      for (int t = 0; t <= ti; ++t) rs = __dadd_rn(rs, (double)p.rowg[(part + t) * Q + i]);
+      for (int t = ti; t < p.nt; ++t) cs = __dadd_rn(cs, (double)p.colg[(part + t) * Q + i]);
+      v = rs - cs - (double)p.ed[(chunk * Q + i) * H + h] + (i == Q - 1 ? sed : 0.0);
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {   // reverse inclusive scan
+      const double u = __shfl_down_sync(0xffffffffu, v, off);
+      if (lane + off < 32) v = __dadd_rn(v, u);
+    }
+    v = __dadd_rn(v, carry);
+    carry = __shfl_sync(0xffffffffu, v, 0);
+    if (i < Q) {
+      const long long e = (chunk * Q + i) * H + h;
+      const float dda = (float)v;
+      p.ddt[e] = __fadd_rn(__fmul_rn(dda, a), p.dux[e]);
+      da_acc = __dadd_rn(da_acc, (double)dda * (double)p.dt[e]);
+    }
+  }
+  da_acc = warp_sum(da_acc);
+  if (lane == 0) p.da_part[chunk * H + h] = da_acc;
 }
-size_t smem_keys(int Q, int N) {
-  return sizeof(double) * round_up(Q, 2) +
-         sizeof(float) * (round_up(Q, 4) + kBT * (N + 1) + (size_t)N * kCW + 2 * kBT * (kCW + 1) +
-                          kBT * (kBT + 1) + 2 * kBT * 17);
+
+// 5. One thread per entry of da ((B, H) or (H,)): the chunks' shares in
+// order of (row, chunk), in fp64.
+__global__ void __launch_bounds__(kBThreads) ssd_bwd_da_kernel(BwdParams p) {
+  const int H = p.H, o = blockIdx.x * kBThreads + threadIdx.x;
+  if (o >= (p.a_rows ? p.B : 1) * H) return;
+  const int h = o % H;
+  const long long c_lo = p.a_rows ? (long long)(o / H) * p.NC : 0;
+  const long long c_hi = p.a_rows ? c_lo + p.NC : (long long)p.B * p.NC;
+  double total = 0.0;
+  for (long long chunk = c_lo; chunk < c_hi; ++chunk) total = __dadd_rn(total, p.da_part[chunk * H + h]);
+  p.da[o] = (float)total;
 }
-size_t smem_bc(int H, int P) {
-  return sizeof(double) * 8 * kBT +
-         sizeof(float) * (2 * (size_t)H * kBT + kBT * (kBT + 1) + kBT * kCW + kBT * (P + 1) +
-                          (size_t)kCW * (P + 1));
-}
+
+constexpr size_t kSmemPairs = sizeof(double) * 4 * kBT + sizeof(float) * (4 * kBT * kSR + 2 * kBT + 4 * kBT);
+constexpr size_t kSmemKeys = sizeof(double) * 3 * kBT + sizeof(float) * (4 * kBT * kSK + 2 * kBT);
+constexpr size_t kSmemBc = sizeof(float) * (4 * kBT * kSK + 4 * kBT);
 
 template <typename Kernel>
 int launch_bwd(Kernel kernel, dim3 grid, int threads, size_t smem, const BwdParams& prm,
                cudaStream_t stream) {
-  if (smem > kMaxSmem) return -1;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -985,15 +1231,37 @@ int ssd_chunk(const float* x, const float* dt, const float* a, const float* b, c
 // Bytes of the workspace ssd_chunk_bwd needs.
 long long ssd_chunk_bwd_workspace(int B, int NC, int Q, int H) {
   if (B < 0 || NC < 0 || Q < 1 || H < 0) return -1;
-  long long sz[6];
+  long long sz[10];
   return ws_sizes(B, NC, Q, H, sz) * (long long)sizeof(float);
+}
+
+// The backward's tile and grid rule (bwd_plan) at a shape, into out[9]: the
+// tile rows, the pairs kernel's head groups and heads per group, then the
+// blocks of the cums, pairs, keys, bc, dt and da grids.  Returns 0, or -1 for
+// a shape ssd_chunk_bwd does not take.
+int ssd_chunk_bwd_plan(int B, int NC, int Q, int H, int P, int N, int a_rows, int* out) {
+  if (B < 1 || NC < 1 || Q < 1 || H < 1 || P < 1 || N < 1 || (long long)B * NC > 65535) return -1;
+  const BwdPlan pl = bwd_plan(B, NC, Q, H, N);
+  const int bnc = B * NC;
+  const long long grids[6] = {(long long)(H + 3) / 4 * bnc, (long long)pl.npairs * pl.hg * bnc,
+                              (long long)pl.nt * H * bnc, (long long)pl.nt * pl.nslabs * bnc,
+                              (long long)H * bnc,
+                              ((long long)(a_rows ? B : 1) * H + kBThreads - 1) / kBThreads};
+  out[0] = kBT;
+  out[1] = pl.hg;
+  out[2] = pl.hpg;
+  for (int k = 0; k < 6; ++k) {
+    if (grids[k] > 0x7fffffffLL) return -1;
+    out[3 + k] = (int)grids[k];
+  }
+  return 0;
 }
 
 // The backward: dx, ddt, da (a's shape), db, dc from the forward's inputs and
 // the gradients dy (B, NC, Q, H, P) and dst (B, NC, H, N, P); `work` holds
 // ssd_chunk_bwd_workspace bytes.  Returns a cudaError_t (0 on success), or
-// -1 for arguments the kernels do not take (a shared-memory footprint
-// above a block's 227 KB included).
+// -1 for arguments the kernels do not take (B·NC above 65,535, a grid's
+// row of blocks past 2^31 − 1).
 int ssd_chunk_bwd(const float* x, const float* dt, const float* a, const float* b, const float* c,
                   const float* dy, const float* dst, float* dx, float* ddt, float* da, float* db,
                   float* dc, float* work, int B, int NC, int Q, int H, int P, int N, int a_rows,
@@ -1002,28 +1270,38 @@ int ssd_chunk_bwd(const float* x, const float* dt, const float* a, const float* 
       B > 65535)
     return -1;
   if (B == 0 || NC == 0 || H == 0) return 0;
-  const int nt = (Q + kBT - 1) / kBT;
-  long long sz[6];
+  const BwdPlan pl = bwd_plan(B, NC, Q, H, N);
+  if ((long long)pl.nt * H > 0x7fffffffLL || (long long)pl.npairs * pl.hg > 0x7fffffffLL) return -1;
+  long long sz[10];
   ws_sizes(B, NC, Q, H, sz);
-  float* ws[6];
+  float* ws[10];
   float* at = work;
-  for (int k = 0; k < 6; ++k) {
+  for (int k = 0; k < 10; ++k) {
     ws[k] = at;
     at += (sz[k] + 63) / 64 * 64;
   }
+  const int vec_bc = N % 4 == 0 && aligned16(b) && aligned16(c);
+  const int vec_xp = P % 4 == 0 && aligned16(x) && aligned16(dy) && aligned16(dst);
   const BwdParams prm{x, dt, a, b, c, dy, dst, dx, ddt, da, db, dc,
-                      ws[0], ws[1], ws[2], ws[3], ws[4], ws[5],
-                      B, NC, Q, H, P, N, a_rows ? 1 : 0, nt};
+                      ws[0], ws[1], ws[2], ws[3], ws[4], ws[5], ws[6], ws[7],
+                      reinterpret_cast<double*>(ws[8]), reinterpret_cast<double*>(ws[9]),
+                      B, NC, Q, H, P, N, a_rows ? 1 : 0, pl.nt, pl.hg, pl.hpg,
+                      vec_bc, vec_xp, Q % 4 == 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned bnc = (unsigned)(B * NC);
-  int err = launch_bwd(ssd_bwd_pairs_kernel, dim3(nt * (nt + 1) / 2, bnc), kBThreads,
-                       smem_pairs(Q, N, P), prm, s);
+  int err = launch_bwd(ssd_bwd_cums_kernel, dim3((H + 3) / 4, bnc), kBThreads, 0, prm, s);
   if (err) return err;
-  err = launch_bwd(ssd_bwd_keys_kernel, dim3(nt * H, bnc), kBThreads, smem_keys(Q, N), prm, s);
+  err = launch_bwd(ssd_bwd_pairs_mma_kernel, dim3(pl.npairs * pl.hg, bnc), kBThreads, kSmemPairs,
+                   prm, s);
   if (err) return err;
-  err = launch_bwd(ssd_bwd_bc_kernel, dim3(nt, bnc), kBThreads, smem_bc(H, P), prm, s);
+  err = launch_bwd(ssd_bwd_keys_mma_kernel, dim3(pl.nt * H, bnc), kBThreads, kSmemKeys, prm, s);
   if (err) return err;
-  return launch_bwd(ssd_bwd_dt_kernel, dim3(H, a_rows ? B : 1), 32, 0, prm, s);
+  err = launch_bwd(ssd_bwd_bc_mma_kernel, dim3(pl.nt * pl.nslabs, bnc), kBThreads, kSmemBc, prm, s);
+  if (err) return err;
+  err = launch_bwd(ssd_bwd_dt_kernel, dim3(H, bnc), 32, 0, prm, s);
+  if (err) return err;
+  return launch_bwd(ssd_bwd_da_kernel, dim3(((a_rows ? B : 1) * H + kBThreads - 1) / kBThreads),
+                    kBThreads, 0, prm, s);
 }
 
 }  // extern "C"

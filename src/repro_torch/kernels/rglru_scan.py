@@ -12,8 +12,10 @@ launches.  The plain PyTorch version is ``ref.torch_rglru_scan``;
 :mod:`repro_torch.kernels.ops` picks between the two by device.
 
 :func:`rglru_scan_bwd` is its backward, a reverse scan from the saved h
-(same source, ``rglru_scan_bwd.launches``); its plain version is
-``ref.torch_rglru_scan_bwd``, which it matches bit for bit.
+that reads a, g and h through a ring of step boxes in shared memory (same
+source, ``rglru_scan_bwd.launches``; :func:`library_bwd_ring` reads the
+ring's shape); its plain version is ``ref.torch_rglru_scan_bwd``, which it
+matches bit for bit.
 """
 
 from __future__ import annotations
@@ -37,7 +39,17 @@ def library() -> ctypes.CDLL:
     lib.rglru_scan_steps.restype = i
     lib.rglru_scan_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.rglru_scan_bwd.restype = i
+    lib.rglru_scan_bwd_ring.argtypes = [p]
+    lib.rglru_scan_bwd_ring.restype = None
     return lib
+
+
+def library_bwd_ring() -> dict:
+    """The built library's ring for ``rglru_scan_bwd``: channels per block
+    (one warp), steps per box and boxes in the ring."""
+    out = (ctypes.c_int * 3)()
+    library().rglru_scan_bwd_ring(out)
+    return {"channels": out[0], "box_steps": out[1], "depth": out[2]}
 
 
 def library_path(s: int) -> str:

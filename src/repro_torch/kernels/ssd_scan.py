@@ -12,11 +12,13 @@ library is built at the first launch (:mod:`repro_torch.kernels.build`).
 ``ref.torch_ssd_chunk_intra``; :mod:`repro_torch.kernels.ops` runs the
 inter-chunk recurrence around either.
 
-:func:`ssd_chunk_bwd` is its backward (four kernels of the same source,
-one call): the gradients of x, dt, a, B and C from those of y_diag and the
-states, the counterpart of the JAX package's vjp of its jnp twin.  Its
-plain version is ``ref.torch_ssd_chunk_intra_bwd``.  Both kernels take the
-rates ``a`` as (H,) or as (B, H), one set per row.
+:func:`ssd_chunk_bwd` is its backward (six kernels of the same source,
+one call, one count): the gradients of x, dt, a, B and C from those of
+y_diag and the states, the counterpart of the JAX package's vjp of its jnp
+twin, with its products on the tensor cores.  Its plain version is
+``ref.torch_ssd_chunk_intra_bwd``.  Its tile and grid rule lives in the
+source's host code; :func:`library_bwd_plan` reads it.  Both kernels take
+the rates ``a`` as (H,) or as (B, H), one set per row.
 """
 
 from __future__ import annotations
@@ -41,7 +43,23 @@ def library() -> ctypes.CDLL:
     lib.ssd_chunk_bwd.restype = i
     lib.ssd_chunk_bwd_workspace.argtypes = [i, i, i, i]
     lib.ssd_chunk_bwd_workspace.restype = ctypes.c_longlong
+    lib.ssd_chunk_bwd_plan.argtypes = [i] * 7 + [p]
+    lib.ssd_chunk_bwd_plan.restype = i
     return lib
+
+
+BWD_GRIDS = ("cums", "pairs", "keys", "bc", "dt", "da")
+
+
+def library_bwd_plan(b: int, nc: int, q: int, h: int, p: int, n: int, a_rows: bool) -> dict:
+    """The built library's tile and grid rule for ``ssd_chunk_bwd`` at a
+    shape: ``tile`` rows, the pairs kernel's ``head_groups`` of
+    ``heads_per_group``, and the blocks of each of its six grids."""
+    out = (ctypes.c_int * 9)()
+    if library().ssd_chunk_bwd_plan(b, nc, q, h, p, n, int(a_rows), out) != 0:
+        raise ValueError(f"ssd_chunk_bwd does not take B {b}, NC {nc}, Q {q}, H {h}, P {p}, N {n}")
+    return {"tile": out[0], "head_groups": out[1], "heads_per_group": out[2],
+            "blocks": dict(zip(BWD_GRIDS, out[3:]))}
 
 
 def _check(x, dt, a, b_mat, c_mat) -> tuple[int, ...]:
@@ -113,8 +131,7 @@ def ssd_chunk_bwd(
     if err != 0:
         raise RuntimeError(
             f"ssd_chunk_bwd launch failed: error {err} (-1: arguments the kernels do not take, "
-            f"such as B·NC {bsz * nc} above 65,535 or N {n} and P {p} whose tiles exceed a "
-            f"block's shared memory)")
+            f"such as B·NC {bsz * nc} above 65,535)")
     ssd_chunk_bwd.launches += 1
     return tuple(outs)
 

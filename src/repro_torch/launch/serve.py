@@ -22,9 +22,10 @@ Runs on CUDA unless ``--device cpu`` is given; with no GPU it raises.
     # small config on the CPU (the plain versions of the kernels):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu [--arch mamba2-370m]
 
-Without ``--full`` the architecture is cut by ``ModelConfig.reduced()`` to a
-two-layer fp32 smoke model; with it the published config is served in its
-own dtype; a promoted checkpoint must have that config's shapes.  The last
+Without ``--full`` (or with the JAX CLI's ``--reduced``, the default) the
+architecture is cut by ``ModelConfig.reduced()`` to a two-layer fp32 smoke
+model; with ``--full`` the published config is served in its own dtype; a
+promoted checkpoint must have that config's shapes.  The last
 stdout line is the run_end summary JSON, with the same keys as the JAX
 package's ``repro.launch.serve`` (``promoted``: the resolved step, replica,
 source and world of a promoted checkpoint).
@@ -121,8 +122,11 @@ def serve_run(
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen3-0.6b")
-    ap.add_argument("--full", action="store_true",
-                    help="serve the published config (default: its reduced() smoke variant)")
+    size = ap.add_mutually_exclusive_group()
+    size.add_argument("--full", action="store_true",
+                      help="serve the published config (default: its reduced() smoke variant)")
+    size.add_argument("--reduced", dest="full", action="store_false",
+                      help="serve the reduced() smoke variant (the default; the JAX CLI's flag)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; cpu runs the plain versions)")
     ap.add_argument("--requests", type=int, default=8)
@@ -162,12 +166,17 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def resolve_config(args: argparse.Namespace):
+    """The config ``--arch`` names: published with ``--full``, else its
+    two-layer fp32 ``reduced()`` variant, as the JAX CLI's ``--reduced``."""
+    cfg = registry.get_config(args.arch)
+    return cfg if args.full else cfg.reduced(dtype="float32", remat=False)
+
+
 def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    cfg = registry.get_config(args.arch)
-    if not args.full:
-        cfg = cfg.reduced(dtype="float32", remat=False)
+    cfg = resolve_config(args)
     promo_info = None
     if args.ckpt:
         params, promo_info = promote(args.ckpt, cfg, step=args.step, replica=args.replica,

@@ -26,7 +26,8 @@ PyTree = Any
 SLICE = 1 << 26   # elements per in-place pass over a donated leaf (fp32 temporaries: 256 MB)
 
 __all__ = [
-    "AdamWConfig", "AdamWState", "adamw_init", "global_norm", "adamw_update",
+    "AdamWConfig", "AdamWState", "adamw_init", "global_norm", "clip_by_global_norm",
+    "adamw_update",
 ]
 
 
@@ -80,6 +81,26 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     return torch.stack(sums).sum(0).sqrt()
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """(R,) fp32 min(1, max_norm / max(norm, 1e-12))."""
+    return torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float) -> tuple[PyTree, torch.Tensor]:
+    """(clipped, (R,) pre-clip norms): each replica's slice of every leaf
+    scaled by min(1, max_norm / max(norm, 1e-12)) of that replica's global
+    norm, in fp32 and cast back to the leaf's dtype, as the JAX package's
+    ``clip_by_global_norm`` under its vmap over replicas."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+
+    def one(g: torch.Tensor) -> torch.Tensor:
+        s = scale.reshape((-1,) + (1,) * (g.dim() - 1))
+        return (g.float() * s).to(g.dtype)
+
+    return tree_map(one, grads), norm
+
+
 def adamw_update(
     grads: PyTree, state: AdamWState, params: PyTree, cfg: AdamWConfig
 ) -> tuple[PyTree, AdamWState, torch.Tensor]:
@@ -90,8 +111,7 @@ def adamw_update(
     its storage with φ).  Each element's clipping, moments and step are the
     JAX package's operations in its order."""
     gnorm = global_norm(grads)
-    scale = (torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)[:, None]
-             if cfg.clip_norm is not None else None)
+    scale = _clip_scale(gnorm, cfg.clip_norm)[:, None] if cfg.clip_norm is not None else None
     count = state.count + 1
     lr = cfg.lr_at(count)[:, None]
     c1 = (1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), count.float()))[:, None]

@@ -13,9 +13,23 @@ from typing import Callable
 
 import torch
 
-__all__ = ["Schedule", "warmup_cosine"]
+__all__ = ["Schedule", "constant", "linear_warmup", "warmup_cosine"]
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+def constant(value: float) -> Schedule:
+    """``value`` at every step."""
+    return lambda step: torch.full(step.shape, value, dtype=torch.float32, device=step.device)
+
+
+def linear_warmup(peak: float, warmup_steps: int) -> Schedule:
+    """peak · min(step / max(warmup_steps, 1), 1)."""
+
+    def fn(step: torch.Tensor) -> torch.Tensor:
+        return peak * torch.clamp(step.float() / max(warmup_steps, 1), max=1.0)
+
+    return fn
 
 
 def warmup_cosine(

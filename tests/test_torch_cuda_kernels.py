@@ -696,11 +696,20 @@ def _normwise(got, want):
 
 
 # (B, NC, Q, H, P, N, pad, a per row): the training shape cut to B 2, a
-# ragged tail, mamba2-370m.reduced's, a (H,), Q 100 / 50 / 1 with odd P and N
+# ragged tail, mamba2-370m.reduced's, a (H,), Q 100 / 50 / 1 with odd P and N;
+# then the backward's 64-row tiles and 64-deep steps crossed: Q 256 (four
+# row tiles, ten tile pairs, N and P in two steps each), Q 200 (a ragged
+# last tile) with P 20 and N 36 (one partial step each, 16-byte copies),
+# H 1 with Q 130 (a 2-row last tile), P 30 and N 66 (4-byte copies, N's
+# second step 2 columns wide; a per row, four of them, since one head's da
+# under a (H,) is a single cancelling sum), and H 3 split into head groups
+# of one
 SSD_BWD_CASES = [(2, 2, 128, 32, 64, 128, 0, True), (2, 3, 128, 8, 64, 128, 37, True),
                  (8, 4, 16, 8, 64, 32, 0, True), (2, 2, 64, 4, 64, 128, 0, False),
                  (1, 2, 100, 3, 33, 17, 13, True), (2, 1, 50, 5, 64, 128, 0, False),
-                 (2, 2, 1, 3, 16, 8, 0, True), (1, 1, 40, 2, 130, 64, 0, True)]
+                 (2, 2, 1, 3, 16, 8, 0, True), (1, 1, 40, 2, 130, 64, 0, True),
+                 (1, 2, 256, 4, 128, 128, 0, True), (1, 1, 200, 2, 20, 36, 0, True),
+                 (4, 2, 130, 1, 30, 66, 5, True), (1, 1, 64, 3, 64, 64, 0, True)]
 
 
 @pytest.mark.cuda
@@ -722,7 +731,7 @@ def test_ssd_chunk_bwd_matches_plain(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 1024, 4096), (3, 37, 130), (1, 1, 4097), (2, 33, 4095),
-                                   (2, 17, 40), (1, 64, 33)])
+                                   (2, 17, 40), (1, 64, 33), (2, 1001, 256)])
 def test_rglru_scan_bwd_is_the_plain_version_bit_for_bit(cuda, shape):
     a, b, g = _f32(cuda, shape[1], shape, shape, shape)
     a = torch.sigmoid(a) * 0.5 + 0.45
@@ -767,18 +776,22 @@ def test_scan_autograd_launches_both_kernels(cuda, name):
         inputs = [t.reshape(2, 40, *t.shape[3:]) if t.dim() > 2 else t for t in (x, dt, a, bm, cm)]
         call = lambda *t: ops.ssd_chunk(*t, chunk=16)[0]
         fwd, bwd = ssd_scan.ssd_chunk, ssd_scan.ssd_chunk_bwd
-        names = {"ssd_chunk_kernel": 1, "ssd_bwd_pairs_kernel": 1, "ssd_bwd_keys_kernel": 1,
-                 "ssd_bwd_bc_kernel": 1, "ssd_bwd_dt_kernel": 1}
+        names = {"ssd_chunk_kernel": 1, "ssd_bwd_cums_kernel": 1, "ssd_bwd_pairs_mma_kernel": 1,
+                 "ssd_bwd_keys_mma_kernel": 1, "ssd_bwd_bc_mma_kernel": 1, "ssd_bwd_dt_kernel": 1}
     else:
         a, b = _f32(cuda, 7, (2, 50, 40), (2, 50, 40))
         inputs = [torch.sigmoid(a) * 0.5 + 0.45, b]
         call = ops.rglru_scan
         fwd, bwd = rglru_scan.rglru_scan, rglru_scan.rglru_scan_bwd
-        names = {"rglru_scan_kernel": 1, "rglru_scan_bwd_kernel": 1}
+        names = {"rglru_scan_kernel": 1, "rglru_scan_bwd_ring_kernel": 1}
     card = [t.detach().clone().requires_grad_() for t in inputs]
     cpu = [t.detach().cpu().requires_grad_() for t in inputs]
     before = fwd.launches, bwd.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a first kernel of no interest: after earlier profiled tests in the
+        # same process, the trace can lose the first kernel of a window
+        torch.zeros(1, device=cuda).add_(1.0)
+        torch.cuda.synchronize()
         out = call(*card)
         out.backward(torch.ones_like(out))
         torch.cuda.synchronize()
@@ -788,7 +801,8 @@ def test_scan_autograd_launches_both_kernels(cuda, name):
         for n in names:
             if n + "<" in e.name or n + "(" in e.name:
                 ran[n] = ran.get(n, 0) + 1
-    assert ran == names
+    assert ran == names, [e.name[:60] for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
     want = call(*cpu)
     want.backward(torch.ones_like(want))
     for t, w in zip(card, cpu):
@@ -811,11 +825,16 @@ def test_scan_backward_kernels_reject_bad_arguments(cuda):
         ssd_scan.ssd_chunk_bwd(args[0], args[1], args[2][:, :1].contiguous(), *args[3:])
     with pytest.raises(ValueError, match="contiguous"):
         ssd_scan.ssd_chunk_bwd(*args[:5], args[5].transpose(3, 4), args[6])
-    # N 1024: the 32-row B and C tiles with dstates' columns exceed a block's
-    # shared memory
+    # N is walked in 64-column steps, so N 1024 runs; B·NC above 65,535
+    # exceeds the grids' second dimension
     wide = _ssd_bwd_inputs(0, 1, 1, 16, 1, 64, 1024, cuda)
+    got = ssd_scan.ssd_chunk_bwd(*wide)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ref.torch_ssd_chunk_intra_bwd(*wide)):
+        assert _normwise(g, w) <= 1e-4
+    many = _ssd_bwd_inputs(0, 1, 65536, 1, 1, 1, 1, cuda)
     with pytest.raises(RuntimeError, match="ssd_chunk_bwd launch failed"):
-        ssd_scan.ssd_chunk_bwd(*wide)
+        ssd_scan.ssd_chunk_bwd(*many)
 
 
 def _long_context_inputs(seed, chunk, dtype, device, positions=(2500, 3100), h=16, kv=1, d=256,
