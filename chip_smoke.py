@@ -155,6 +155,35 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     profiled and every kernel of the scans' wrappers, both backward kernels
     included, ran as many times as its wrapper counted.
 
+22. (with phase 3) the flash pair and the paged pair at granite-moe-1b-a400m's
+    heads (H 16, KV 8, D 64): flash at its training shape (B 8 = 2 replicas
+    × batch 4, S 1024, causal), ragged and local, the paged pair causal and
+    local, bf16 and fp32, against their plain versions; then timed there in
+    bf16 beside SDPA and the bound (``time flash_attention at granite's
+    training shape``, ``time paged_* at D 64``);
+23. serve granite-moe-1b-a400m at its published width in bf16 with the
+    phase-4 mix: launch counts equal to the design (one paged kernel per
+    layer per chunk call and per decode step), every request's budget,
+    tokens/s, TTFT and step p50/p99, peak memory, the profiled request; no
+    solo re-decode (MoE capacity is shared by the rows routed together);
+24. train granite-moe-1b-a400m at full width and depth (24 layers, 32
+    experts, top-8) through ``run_training``: NoLoCo, 2 replicas × batch 4
+    × seq 1024, 5 inner steps, 10 steps, as phase 6 (launch counts, losses
+    finite and falling, replicas apart after the profiled steps, inner
+    p50/p99, outer step alone, peak memory, the profiled step's busy share
+    and top device ops); then one MoE layer's forward and backward timed
+    alone at that shape, beside its expert products alone (``time moe
+    block granite``: the rest is the eager routing, dispatch and combine);
+25. card against CPU on ``reduced()`` in fp32, every MoE routing call of
+    both runs recorded (``RoutingLog``): granite serving the phase-4 mix
+    (identical tokens), granite NoLoCo training as phase 7 (partner tables,
+    losses within 1e-4, weight std within 1e-3), and one loss-and-gradient
+    evaluation each of gemma-2b, stablelm-1.6b, minitron-8b and
+    qwen3-moe-235b-a22b (loss within 1e-4, gradients within 1e-4 normwise);
+    the routing decisions that differ are counted (0 expected), and any
+    must be a near tie (top-k margin under 1e-5): the losses and tokens are
+    then held up to it.
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -180,7 +209,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
 from repro_torch.comm import CommConfig, bytes_model, payload  # noqa: E402
-from repro_torch.configs import mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    granite_moe_1b, mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b, registry,
+)
 from repro_torch.core import metrics as metrics_lib  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -190,11 +221,12 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve import serve_run, synth_requests  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import PagedView  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.train import adapters  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and per-type compute.
 HBM_BYTES_PER_S = 3.35e12
@@ -264,7 +296,7 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(gen, *, chunk, dtype, h=H, kv=KV, r=R, positions=None):
+def kernel_inputs(gen, *, chunk, dtype, h=H, kv=KV, r=R, positions=None, d=D):
     """Pools of NUM_PAGES pages plus trash, each slot owning its own pages in
     a random order; table entries past a slot's pages are stale ids of other
     slots or trash, as an engine that has evicted requests leaves them."""
@@ -280,37 +312,41 @@ def kernel_inputs(gen, *, chunk, dtype, h=H, kv=KV, r=R, positions=None):
         stale = (torch.arange(4, device=dev) + start + n) % NUM_PAGES
         tables[i, n:n + 4] = perm[stale]
         start += n
-    qshape = (r, C, h, D) if chunk else (r, h, D)
+    qshape = (r, C, h, d) if chunk else (r, h, d)
     q = torch.randn(qshape, generator=gen, device=dev).to(dtype)
-    kp = torch.randn((NUM_PAGES + 1, BS, kv, D), generator=gen, device=dev).to(dtype)
-    vp = torch.randn((NUM_PAGES + 1, BS, kv, D), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((NUM_PAGES + 1, BS, kv, d), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((NUM_PAGES + 1, BS, kv, d), generator=gen, device=dev).to(dtype)
     return q, kp, vp, tables, torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
+def check_paged_case(gen, name, dtype, mode, window, h, kv, d=D, label="") -> float:
+    """One paged kernel on pools of NUM_PAGES pages against its plain
+    version; returns the max abs error."""
+    op = dispatch.registry()[name]
+    args = kernel_inputs(gen, chunk=name == "paged_chunk_attention", dtype=dtype, h=h, kv=kv, d=d)
+    got = op.kernel(*args, mode=mode, window=window)
+    torch.cuda.synchronize()
+    want = op.plain(*args, mode=mode, window=window)
+    if got.dtype != dtype or got.shape != args[0].shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
+    err = (got.float() - want.float()).abs().max().item()
+    ok = math.isfinite(err) and err <= ATOL[dtype]
+    log(f"check {name}{label} {str(dtype)[6:]} {mode} H{h}/KV{kv}{'' if d == D else f' D{d}'}: "
+        f"max_abs_err {err:.3e} (atol {ATOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
 
 
 def check_kernels(dev) -> dict[str, float]:
     gen = torch.Generator(device=dev).manual_seed(1)
     errors = {}
     for name in PAGED:
-        op = dispatch.registry()[name]
-        chunk = name == "paged_chunk_attention"
-        worst = 0.0
-        for dtype in (torch.bfloat16, torch.float32):
+        errors[name] = max(
+            check_paged_case(gen, name, dtype, mode, window, h, kv)
+            for dtype in (torch.bfloat16, torch.float32)
             for mode, window, h, kv in (("causal", 0, H, KV), ("local", WINDOW, H, KV),
-                                        ("causal", 0, 6, 4)):
-                args = kernel_inputs(gen, chunk=chunk, dtype=dtype, h=h, kv=kv)
-                got = op.kernel(*args, mode=mode, window=window)
-                torch.cuda.synchronize()
-                want = op.plain(*args, mode=mode, window=window)
-                if got.dtype != dtype or got.shape != args[0].shape:
-                    raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
-                err = (got.float() - want.float()).abs().max().item()
-                ok = math.isfinite(err) and err <= ATOL[dtype]
-                log(f"check {name} {str(dtype)[6:]} {mode} H{h}/KV{kv}: "
-                    f"max_abs_err {err:.3e} (atol {ATOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"{name} disagrees with its plain version")
-                worst = max(worst, err)
-        errors[name] = worst
+                                        ("causal", 0, 6, 4)))
     return errors
 
 
@@ -344,12 +380,13 @@ def sdpa_inputs(q, kp, vp, tables, positions, chunk):
     the positional mask: what one library attention call needs."""
     r = tables.shape[0]
     c = q.shape[1] if chunk else 1
+    h, (kv, d) = q.shape[-2], kp.shape[-2:]
     t = int(positions.max()) + c
     blocks = -(-t // BS)
     idx = tables[:, :blocks].long()
-    k = kp[idx].reshape(r, blocks * BS, KV, D)[:, :t]
-    v = vp[idx].reshape(r, blocks * BS, KV, D)[:, :t]
-    g = H // KV
+    k = kp[idx].reshape(r, blocks * BS, kv, d)[:, :t]
+    v = vp[idx].reshape(r, blocks * BS, kv, d)[:, :t]
+    g = h // kv
     k = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()   # (R, H, T, D)
     v = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     qd = (q if chunk else q[:, None]).transpose(1, 2).contiguous()  # (R, H, C, D)
@@ -389,6 +426,31 @@ def _close(got, want, atol, rtol, what):
     return diff.max().item(), ok
 
 
+def check_flash_case(gen, dtype, b, s, h, kv, d, mode, window, errors, label="") -> None:
+    """Flash forward (o and lse) and backward of one case against their
+    plain versions; the worst error of each kernel goes into ``errors``."""
+    reg = dispatch.registry()
+    q, k, v, do = flash_inputs(gen, b, s, h, kv, d, dtype)
+    o, lse = reg["flash_attention"].kernel(q, k, v, mode=mode, window=window)
+    grads = reg["flash_attention_bwd"].kernel(q, k, v, o, lse, do, mode=mode, window=window)
+    torch.cuda.synchronize()
+    o_want, lse_want = reg["flash_attention"].plain(q, k, v, mode=mode, window=window)
+    g_want = reg["flash_attention_bwd"].plain(q, k, v, o, lse, do, mode=mode, window=window)
+    results = [("flash_attention", *_close(o, o_want, ATOL[dtype], 0, "o")),
+               ("flash_attention", *_close(lse, lse_want, 1e-4, 1e-5, "lse"))]
+    results += [("flash_attention_bwd", *_close(g, w, ATOL[dtype], GRAD_RTOL[dtype], n))
+                for g, w, n in zip(grads, g_want, ("dq", "dk", "dv"))]
+    for name, err, ok in results:
+        errors[name] = max(errors.get(name, 0.0), err)
+        if not ok:
+            raise AssertionError(
+                f"{name} disagrees with its plain version: {str(dtype)[6:]} B{b} S{s} "
+                f"H{h}/KV{kv} D{d} {mode}: max_abs_err {err:.3e}")
+    log(f"check flash{label} {str(dtype)[6:]} B{b} S{s} H{h}/KV{kv} D{d} {mode} "
+        f"path {flash_attention.path_for(dtype, d)}: "
+        + ", ".join(f"{n} {e:.3e}" for n, e, _ in results) + " ok")
+
+
 def check_train_kernels(dev) -> dict[str, float]:
     """Flash forward (o and lse) and backward, and the outer update, against
     their plain versions on the card."""
@@ -400,26 +462,8 @@ def check_train_kernels(dev) -> dict[str, float]:
              (2, 257, 16, 8, 64, "full", 0), (1, 1024, 8, 8, 128, "causal", 0),
              (1, 1024, 4, 2, 256, "causal", 0), (2, 300, 8, 4, 36, "causal", 0)]
     for dtype in (torch.bfloat16, torch.float32):
-        for b, s, h, kv, d, mode, window in cases:
-            q, k, v, do = flash_inputs(gen, b, s, h, kv, d, dtype)
-            o, lse = reg["flash_attention"].kernel(q, k, v, mode=mode, window=window)
-            grads = reg["flash_attention_bwd"].kernel(q, k, v, o, lse, do, mode=mode, window=window)
-            torch.cuda.synchronize()
-            o_want, lse_want = reg["flash_attention"].plain(q, k, v, mode=mode, window=window)
-            g_want = reg["flash_attention_bwd"].plain(q, k, v, o, lse, do, mode=mode, window=window)
-            results = [("flash_attention", *_close(o, o_want, ATOL[dtype], 0, "o")),
-                       ("flash_attention", *_close(lse, lse_want, 1e-4, 1e-5, "lse"))]
-            results += [("flash_attention_bwd", *_close(g, w, ATOL[dtype], GRAD_RTOL[dtype], n))
-                        for g, w, n in zip(grads, g_want, ("dq", "dk", "dv"))]
-            for name, err, ok in results:
-                errors[name] = max(errors[name], err)
-                if not ok:
-                    raise AssertionError(
-                        f"{name} disagrees with its plain version: {str(dtype)[6:]} B{b} S{s} "
-                        f"H{h}/KV{kv} D{d} {mode}: max_abs_err {err:.3e}")
-            log(f"check flash {str(dtype)[6:]} B{b} S{s} H{h}/KV{kv} D{d} {mode} "
-                f"path {flash_attention.path_for(dtype, d)}: "
-                + ", ".join(f"{n} {e:.3e}" for n, e, _ in results) + " ok")
+        for case in cases:
+            check_flash_case(gen, dtype, *case, errors)
     op = reg["noloco_update"]
     coef = dict(alpha=0.5, beta=0.7, gamma=0.9186)
     for dtype, mant in ((torch.bfloat16, 7), (torch.float32, 23)):
@@ -491,19 +535,17 @@ def flash_cuda_core(q, k, v, o=None, lse=None, do=None):
     return outs
 
 
-def time_train_kernels(dev) -> dict[str, dict]:
-    """Kernel, plain and library times at the training path's shapes in
-    bf16: attention at the paper model's (R·B 16, S 1024, H = KV = 16, D 48,
-    causal) on the path the main path takes (tensor cores) and on the kept
-    CUDA-core kernels (``cuda_core_ms``), the outer update on the stacked
-    embedding leaf, the largest of the path (4 × 128,000 × 768)."""
-    gen = torch.Generator(device=dev).manual_seed(4)
+def time_flash(gen, b, s, h, kv, d, label="") -> dict[str, dict]:
+    """The flash pair in bf16 at (b, s, h, kv, d), causal: kernel, kept
+    CUDA-core kernels, plain version and SDPA (K/V heads expanded for GQA:
+    what one library call needs), with the bound."""
     reg = dispatch.registry()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q, k, v, do = flash_inputs(gen, *PAPER.values(), torch.bfloat16)
+    q, k, v, do = flash_inputs(gen, b, s, h, kv, d, torch.bfloat16)
     o, lse = reg["flash_attention"].kernel(q, k, v)
     # SDPA takes (B, H, S, D); its backward is timed from one retained graph
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    qt, kt, vt = (t.repeat_interleave(h // t.shape[2], dim=2).transpose(1, 2).contiguous()
+                  .requires_grad_() for t in (q, k, v))
     ot = sdpa(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2).contiguous()
     out = {}
@@ -513,16 +555,28 @@ def time_train_kernels(dev) -> dict[str, dict]:
         lib = ((lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
                if backward else (lambda: sdpa(qt, kt, vt, is_causal=True)))
         ms, mhz = cuda_ms(lambda: op.kernel(*args), reps=30)
-        bound_ms, bound_by, bound_what = flash_bound(*PAPER.values(), 2, backward, mhz)
-        out[name] = {"ms": ms, "path": flash_attention.path_for(q.dtype, PAPER["d"]),
+        bound_ms, bound_by, bound_what = flash_bound(b, s, h, kv, d, 2, backward, mhz)
+        out[name] = {"ms": ms, "path": flash_attention.path_for(q.dtype, d),
                      "cuda_core_ms": cuda_ms(lambda: flash_cuda_core(*args), reps=10)[0],
                      "plain_ms": cuda_ms(lambda: op.plain(*args), reps=10)[0],
                      "library_ms": cuda_ms(lib, reps=30)[0], "bound_ms": bound_ms,
                      "bound_by": bound_by, "bound_by_detail": bound_what, "sm_clock_mhz": mhz,
                      "shape": {"q": list(q.shape), "kv": list(k.shape), "mode": "causal",
                                "dtype": "bfloat16"}}
-        log(f"time {name}: " + json.dumps(out[name]))
+        log(f"time {name}{label}: " + json.dumps(out[name]))
     del qt, kt, vt, ot
+    return out
+
+
+def time_train_kernels(dev) -> dict[str, dict]:
+    """Kernel, plain and library times at the training path's shapes in
+    bf16: attention at the paper model's (R·B 16, S 1024, H = KV = 16, D 48,
+    causal) on the path the main path takes (tensor cores) and on the kept
+    CUDA-core kernels (``cuda_core_ms``), the outer update on the stacked
+    embedding leaf, the largest of the path (4 × 128,000 × 768)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    reg = dispatch.registry()
+    out = time_flash(gen, **PAPER)
     args = [torch.randn((4, 128_000, 768), generator=gen, device=dev).to(torch.bfloat16)
             for _ in range(4)]
     coef = dict(alpha=0.5, beta=0.7, gamma=0.9186)
@@ -550,7 +604,7 @@ def split_counts(args, chunk, mode, window) -> dict:
             "slot_splits": [n for _, _, n in plans]}
 
 
-def time_kernels(dev) -> dict[str, dict]:
+def time_kernels(dev, h=H, kv=KV, d=D) -> dict[str, dict]:
     """Kernel, plain and library times at the serve phase's shapes in bf16:
     decode over its 4 slots, one prefill chunk of 32 (the engine prefills
     one slot per call) at the last chunk of a 200-token prompt.  The kernel
@@ -559,16 +613,18 @@ def time_kernels(dev) -> dict[str, dict]:
     part; the lines carry the split plan (``split_counts``)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    heads = dict(h=h, kv=kv, d=d)
     out = {}
     for name in PAGED:
         op = dispatch.registry()[name]
         chunk = name == "paged_chunk_attention"
         pos = [168] if chunk else DECODE_POS
-        args = kernel_inputs(gen, chunk=chunk, dtype=torch.bfloat16, r=len(pos), positions=pos)
+        args = kernel_inputs(gen, chunk=chunk, dtype=torch.bfloat16, r=len(pos), positions=pos,
+                             **heads)
         short = kernel_inputs(gen, chunk=chunk, dtype=torch.bfloat16, r=len(pos),
-                              positions=[0] if chunk else [15] * len(pos))
+                              positions=[0] if chunk else [15] * len(pos), **heads)
         qd, k, v, mask = sdpa_inputs(*args, chunk)
-        bound_ms, bound_by = bound(args[0], args[1], args[4], chunk)
+        bound_ms, bound_by = bound(args[0], args[1], args[4], chunk, kv=kv, d=d)
         ms, mhz = cuda_ms(lambda: op.kernel(*args))
         out[name] = {
             "ms": ms,
@@ -582,7 +638,7 @@ def time_kernels(dev) -> dict[str, dict]:
             "shape": {"q": list(args[0].shape), "pages": list(args[1].shape),
                       "positions": pos, "dtype": "bfloat16"},
         }
-        log(f"time {name}: " + json.dumps(out[name]))
+        log(f"time {name}{'' if d == D else f' at D {d}'}: " + json.dumps(out[name]))
     return out
 
 
@@ -596,13 +652,15 @@ SERVE_CFG = dict(max_slots=4, num_pages=NUM_PAGES, page_size=BS, max_new_cap=32,
                  prefill_chunk=32, sync_each_step=True)
 
 
-def serve_phase(dev, cfg=qwen3_0_6b.CONFIG, expected=None, temps=(0.0,)):
+def serve_phase(dev, cfg=qwen3_0_6b.CONFIG, expected=None, temps=(0.0,), solo=True):
     """Serve ``cfg`` at published width on weights from seed 0 with the
     phase-4 mix, request i at ``temps[i % len(temps)]``.
     ``expected(chunk_calls, decode_steps)`` gives the launch count of every
     kernel the model runs; without it the paged kernels must have launched.
-    The profiled request is request 0 cut to 8 tokens at the highest
-    temperature."""
+    Requests 1 and 5 are decoded again alone unless ``solo`` is False (MoE:
+    capacity is shared by the rows routed together, so a request's tokens
+    may depend on its batch).  The profiled request is request 0 cut to 8
+    tokens at the highest temperature."""
     label = cfg.name + (" sampled" if max(temps) > 0 else "")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -643,12 +701,13 @@ def serve_phase(dev, cfg=qwen3_0_6b.CONFIG, expected=None, temps=(0.0,)):
             f"{summary['decode_steps']} decode steps): " + json.dumps(want))
         if any(launches[k] != n for k, n in want.items()):
             raise AssertionError(f"{cfg.name}: launch counts {launches} differ from the design's {want}")
-    for r in (requests[1], requests[5]):
-        [solo] = ServeEngine(params, cfg, scfg).run([dataclasses.replace(r)])
-        if solo.tokens != finished[r.rid]:
+    for r in (requests[1], requests[5]) if solo else ():
+        [alone] = ServeEngine(params, cfg, scfg).run([dataclasses.replace(r)])
+        if alone.tokens != finished[r.rid]:
             raise AssertionError(f"{label} request {r.rid}: batched tokens differ from solo")
-    log(f"serve {label}: batched == solo for requests 1 and 5 "
-        f"(temperatures {requests[1].temperature}, {requests[5].temperature})")
+    log(f"serve {label}: " + (f"batched == solo for requests 1 and 5 (temperatures "
+                              f"{requests[1].temperature}, {requests[5].temperature})" if solo else
+                              "batched == solo not held (MoE: capacity is shared by the batch)"))
     # 1 prefill chunk, 7 decode steps
     short = dataclasses.replace(requests[0], max_new=8, temperature=max(temps))
     summary["profile"] = profile_request(params, cfg, scfg, short)
@@ -2032,6 +2091,262 @@ def recurrent_train_parity_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 22–25: the MoE family
+# ---------------------------------------------------------------------------
+
+GRANITE = granite_moe_1b.CONFIG
+# granite-moe-1b-a400m's heads (16 of 64, KV 8) and its training shape, 2
+# replicas × batch 4 folded into B
+GRANITE_HEADS = dict(h=16, kv=8, d=64)
+GRANITE_TRAIN_SHAPE = dict(b=8, s=1024, **GRANITE_HEADS)
+GRANITE_TRAIN = dict(TRAIN, replicas=2, per_replica_batch=4)
+# A routing decision that differs between card and CPU must be a near tie:
+# its top-k margin (the k-th probability less the next) under NEAR_TIE.
+NEAR_TIE = 1e-5
+# One loss-and-gradient evaluation, card against CPU (fp32): the loss
+# within LOSS_RTOL; each gradient leaf within GRAD_NORM_RTOL of that leaf's
+# largest magnitude (sums of up to B·S terms in another order).
+GRAD_NORM_RTOL = 1e-4
+OTHER_ARCHS = ("gemma-2b", "stablelm-1.6b", "minitron-8b", "qwen3-moe-235b-a22b")
+
+
+def check_granite_kernels(dev) -> dict[str, float]:
+    """Phase 22: the flash pair at granite's training shape (B 8, S 1024,
+    H 16, KV 8, D 64, causal), ragged and local, bf16 (tensor cores) and
+    fp32 (CUDA cores); the paged pair at its heads, causal and local, bf16
+    and fp32; each against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    errors: dict[str, float] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s, mode, window in ((8, 1024, "causal", 0), (2, 333, "causal", 0),
+                                   (2, 300, "local", WINDOW)):
+            check_flash_case(gen, dtype, b, s, 16, 8, 64, mode, window, errors, label=" granite")
+    for name in PAGED:
+        errors[name] = max(
+            check_paged_case(gen, name, dtype, mode, window, 16, 8, d=64, label=" granite")
+            for dtype in (torch.bfloat16, torch.float32)
+            for mode, window in (("causal", 0), ("local", WINDOW)))
+    return errors
+
+
+def time_granite_kernels(dev) -> dict[str, dict]:
+    """The flash pair at granite's training shape and the paged pair at its
+    heads (the serve phase's slots and chunk), bf16, with SDPA and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    flash = time_flash(gen, **GRANITE_TRAIN_SHAPE, label=" at granite's training shape")
+    paged = time_kernels(dev, **GRANITE_HEADS)
+    return {f"{k}_granite": v for k, v in {**flash, **paged}.items()}
+
+
+def time_moe_block(dev) -> dict:
+    """One granite MoE layer at its training shape (2 replicas × 4 × 1024
+    tokens, bf16), forward and backward, device ms: the whole block, and
+    its expert products alone (the three batched products and the
+    activation on a full (E, cap, d) buffer).  The difference is routing,
+    ranks, dispatch and combine: eager PyTorch."""
+    cfg = GRANITE
+    gen = torch.Generator(device=dev).manual_seed(24)
+    p = {k: v[None].expand(2, *v.shape).contiguous().requires_grad_()
+         for k, v in moe.init_moe(gen, cfg).items()}
+    x = torch.randn((2, 4, 1024, cfg.d_model), generator=gen, device=dev).bfloat16()
+    x.requires_grad_()
+    dy = torch.randn_like(x)
+    cap = moe.capacity(4 * 1024, cfg.num_experts_per_token, cfg.num_experts,
+                       cfg.moe_capacity_factor)
+    buf = torch.randn((2, cfg.num_experts, cap, cfg.d_model), generator=gen,
+                      device=dev).bfloat16().requires_grad_()
+    dbuf = torch.randn_like(buf)
+    leaves = [x, buf, *p.values()]
+
+    def block():
+        for t in leaves:
+            t.grad = None
+        y, aux = moe.apply_moe(p, cfg, x)
+        torch.autograd.backward([y, aux], [dy, torch.ones_like(aux)])
+
+    def products():
+        for t in leaves:
+            t.grad = None
+        h = torch.matmul(buf, p["w_in"])
+        out = torch.matmul(torch.nn.functional.silu(torch.matmul(buf, p["w_gate"])) * h, p["w_out"])
+        out.backward(dbuf)
+
+    out = {"block_ms": cuda_ms(block, reps=10)[0], "products_ms": cuda_ms(products, reps=10)[0],
+           "tokens": 2 * 4 * 1024, "capacity": cap}
+    out["routing_dispatch_combine_ms"] = out["block_ms"] - out["products_ms"]
+    log("time moe block granite (fwd + bwd): " + json.dumps(out))
+    del p, x, buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def granite_launches(cfg):
+    n = cfg.num_layers
+    return lambda chunks, steps: {"paged_chunk_attention": chunks * n,
+                                  "paged_attention": steps * n, "ssd_chunk": 0,
+                                  "ssd_decode": 0, "rglru_scan": 0, "rglru_decode": 0}
+
+
+class RoutingLog:
+    """While entered, records every MoE routing call of the port: its top-k
+    expert ids and each token's top-k margin, on the host."""
+
+    def __enter__(self):
+        self.calls, self._real = [], moe.route
+        moe.route = self._spy
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._real
+
+    def _spy(self, router, xt, k):
+        probs, top_p, top_e = self._real(router, xt, k)
+        srt = probs.detach().sort(dim=-1, descending=True).values
+        self.calls.append((top_e.cpu(), (srt[..., k - 1] - srt[..., k]).cpu()))
+        return probs, top_p, top_e
+
+
+def routing_diff(card: RoutingLog, cpu: RoutingLog) -> dict:
+    """Routing decisions that differ between two runs' calls, call for
+    call: the count of tokens whose top-k differs, the first call with one,
+    and the flipped tokens' margins on the CPU."""
+    if len(card.calls) != len(cpu.calls):
+        return {"calls": [len(card.calls), len(cpu.calls)], "differ": None}
+    count, first, margins = 0, None, []
+    for i, ((ce, _), (pe, pm)) in enumerate(zip(card.calls, cpu.calls)):
+        differ = (ce != pe).any(dim=-1)
+        n = int(differ.sum())
+        if n and first is None:
+            first = i
+        count += n
+        margins += pm[differ].tolist()
+    return {"calls": len(cpu.calls), "differ": count, "first_call": first,
+            "margins": margins}
+
+
+def near_ties_only(diff: dict, what: str) -> None:
+    if diff["differ"] is None:
+        raise AssertionError(f"{what}: card and CPU made {diff['calls']} routing calls")
+    if diff["differ"] and max(diff["margins"]) >= NEAR_TIE:
+        raise AssertionError(f"{what}: routing decisions differ off a near tie: {diff}")
+
+
+def moe_serve_parity(dev) -> dict:
+    """granite-moe-1b-a400m.reduced() in fp32, the phase-4 mix through the
+    engine on the card and on the CPU from the same weights: identical
+    tokens, the routing decisions that differ counted (0 expected; any
+    must be a near tie, and the tokens are then held up to it)."""
+    cfg = GRANITE.reduced(dtype="float32", remat=False)
+    cpu_params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    gpu_params = _tree_to(cpu_params, dev)
+    scfg = ServeConfig(**SERVE_CFG)
+    requests = synth_requests(SERVE_MIX["n"], cfg.vocab_size, SERVE_MIX["prompt_lens"],
+                              SERVE_MIX["gen_lens"], [0.0], seed=0)
+    t0 = time.perf_counter()
+    dispatch.reset_launches()
+    with RoutingLog() as card_log:
+        card = {f.rid: f.tokens for f in ServeEngine(gpu_params, cfg, scfg).run(
+            [dataclasses.replace(r) for r in requests])}
+    torch.cuda.synchronize()
+    launches = {k: dispatch.launch_counts()[k] for k in PAGED}
+    with RoutingLog() as cpu_log:
+        cpu = {f.rid: f.tokens for f in ServeEngine(cpu_params, cfg, scfg).run(
+            [dataclasses.replace(r) for r in requests])}
+    diff = routing_diff(card_log, cpu_log)
+    row = {"tokens_identical": card == cpu, "routing": diff, "launches": launches,
+           "requests": len(requests), "seconds": time.perf_counter() - t0}
+    log("serve granite-moe-1b-a400m fp32 card vs cpu reduced: " + json.dumps(row))
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"fp32 card serving skipped a paged kernel: {launches}")
+    near_ties_only(diff, "granite serving")
+    if diff["differ"] == 0 and card != cpu:
+        raise AssertionError("granite serving: card and CPU tokens differ")
+    return row
+
+
+def moe_train_parity(dev) -> dict:
+    """Phase 7 for granite-moe-1b-a400m.reduced() in fp32 (NoLoCo, 4
+    replicas, 2 outer rounds), with every routing call of both runs
+    recorded: identical partner tables, the routing decisions that differ
+    counted (0 expected), per-step losses within LOSS_RTOL before the first
+    step with one and the final weight std within WSTD_RTOL if there is
+    none; a differing decision must be a near tie."""
+    cfg = GRANITE.reduced(dtype="float32", remat=False)
+    run = dict(method="noloco", replicas=4, per_replica_batch=2, seq_len=64, steps=10,
+               inner_steps=5, eval_every=0, inner_lr=3e-3, seed=0)
+    t0 = time.perf_counter()
+    dispatch.reset_launches()
+    with RoutingLog() as card_log:
+        card = train_cli.run_training(cfg, device="cuda", **run)
+        torch.cuda.synchronize()
+    launches = {k: dispatch.launch_counts()[k] for k in TRAIN_KERNELS}
+    with RoutingLog() as cpu_log:
+        cpu = train_cli.run_training(cfg, device="cpu", **run)
+    diff = routing_diff(card_log, cpu_log)
+    per_step = cfg.num_layers   # one routing call a layer a step (no remat, no eval)
+    held = run["steps"] if not diff["differ"] else diff["first_call"] // per_step
+    rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"])]
+    wstd_rel = abs(card["final_weight_std"] - cpu["final_weight_std"]) / cpu["final_weight_std"]
+    same_pairs = len(card["partners"]) == 2 and all(
+        np.array_equal(a, b) for a, b in zip(card["partners"], cpu["partners"]))
+    row = {"loss_max_rel_diff": max(rel), "loss_rel_diff": rel, "losses_held_steps": held,
+           "weight_std_rel_diff": wstd_rel, "partner_tables_identical": same_pairs,
+           "routing": diff, "launches": launches, "card_losses": card["losses"],
+           "cpu_losses": cpu["losses"], "seconds": time.perf_counter() - t0}
+    log("train granite-moe-1b-a400m fp32 card vs cpu reduced: " + json.dumps(row))
+    if not same_pairs:
+        raise AssertionError("granite: card and CPU runs paired replicas differently")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"granite fp32 card training skipped a kernel: {launches}")
+    near_ties_only(diff, "granite training")
+    if max(rel[:held], default=0.0) > LOSS_RTOL or (not diff["differ"] and wstd_rel > WSTD_RTOL):
+        raise AssertionError(f"granite: card and CPU training differ: losses {rel}, "
+                             f"wstd {wstd_rel:.3e}")
+    return row
+
+
+def archs_parity(dev) -> dict:
+    """One loss-and-gradient evaluation of each other newly registered
+    arch's reduced() config in fp32 (2 × 64 tokens) on the card and on the
+    CPU from the same weights: the loss within LOSS_RTOL, each gradient leaf
+    within GRAD_NORM_RTOL of its largest magnitude, the flash kernels
+    launched, and for qwen3-moe the routing decisions that differ counted."""
+    out = {}
+    for arch in OTHER_ARCHS:
+        cfg = registry.get_config(arch).reduced(dtype="float32", remat=False)
+        cpu_params = M.init_params(torch.Generator().manual_seed(0), cfg)
+        toks = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, size=(2, 65)).astype(np.int32))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        res = {}
+        for key, device, params in (("card", dev, _tree_to(cpu_params, dev)),
+                                    ("cpu", torch.device("cpu"), cpu_params)):
+            params = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+            dispatch.reset_launches()
+            with RoutingLog() as rlog:
+                loss, parts = M.loss_fn(params, cfg, {k: v.to(device) for k, v in batch.items()})
+                loss.backward()
+            res[key] = (loss.item(), parts["aux_loss"].item(),
+                        [t.grad.cpu() for t in tree_leaves(params)], rlog,
+                        {k: dispatch.launch_counts()[k] for k in TRAIN_KERNELS[:2]})
+        (gl, ga, gg, glog, launches), (cl, ca, cg, clog, _) = res["card"], res["cpu"]
+        grad_rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                       for a, b in zip(gg, cg))
+        diff = routing_diff(glog, clog)
+        row = {"loss_card": gl, "loss_cpu": cl, "loss_rel_diff": abs(gl - cl) / abs(cl),
+               "aux_card": ga, "aux_cpu": ca, "grad_max_normwise_diff": grad_rel,
+               "routing": diff, "launches": launches}
+        log(f"loss and grads fp32 card vs cpu {arch} reduced: " + json.dumps(row))
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"{arch}: the card run skipped a flash kernel: {launches}")
+        near_ties_only(diff, arch)
+        if not diff["differ"] and (row["loss_rel_diff"] > LOSS_RTOL or grad_rel > GRAD_NORM_RTOL):
+            raise AssertionError(f"{arch}: card and CPU differ: {row}")
+        out[arch] = row
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -2065,11 +2380,13 @@ def main() -> None:
 
     errors = {**check_kernels(dev), **check_train_kernels(dev), **check_int8_kernels(dev)}
     for name, err in (*check_recurrent_kernels(dev).items(), *check_split_kernels(dev).items(),
-                      *check_recurrent_bwd_kernels(dev).items()):
+                      *check_recurrent_bwd_kernels(dev).items(),
+                      *check_granite_kernels(dev).items()):
         errors[name] = max(errors.get(name, 0.0), err)
     rec_timings, rec_extra = time_recurrent_kernels(dev)
     bwd_timings, bwd_extra = time_recurrent_bwd_kernels(dev)
     rec_extra.update(bwd_extra)
+    granite_timings = time_granite_kernels(dev)
     timings = {**time_kernels(dev), **time_train_kernels(dev), **time_int8_kernels(dev),
                **rec_timings, **bwd_timings}
     sampling = sampling_phase(dev)
@@ -2097,6 +2414,11 @@ def main() -> None:
     for cfg, run in RECURRENT_TRAIN:
         rec_train[cfg.name] = train_phase(dev, cfg, run, label=f"train {cfg.name}")
     rec_train_parity = recurrent_train_parity_phase(dev)
+    granite_serve = serve_phase(dev, GRANITE, granite_launches(GRANITE), solo=False)[0]
+    granite_train = train_phase(dev, GRANITE, GRANITE_TRAIN, label=f"train {GRANITE.name}")[0]
+    granite_train["moe_block"] = time_moe_block(dev)
+    moe_parity = {"serve": moe_serve_parity(dev), "train": moe_train_parity(dev),
+                  "archs": archs_parity(dev)}
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: int8_launches[k] for k in INT8})
     launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
@@ -2139,6 +2461,20 @@ def main() -> None:
         "recurrent_timings_other_shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
                                                                  "bound_ms", "bound_by")}
                                            for k, v in rec_extra.items()},
+        "granite_kernel_timings": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
+                                                         "bound_ms", "bound_by")}
+                                   for k, v in granite_timings.items()},
+        "serve_granite": {k: granite_serve.get(k) for k in (
+            "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "step_p50_s", "step_p99_s",
+            "decode_steps", "wall_s", "peak_memory_gb")},
+        "train_granite": {k: v for k, v in granite_train.items() if k != "losses"},
+        "moe_card_vs_cpu": {
+            "serve": {k: moe_parity["serve"][k] for k in ("tokens_identical", "routing")},
+            "train": {k: moe_parity["train"][k] for k in (
+                "loss_max_rel_diff", "weight_std_rel_diff", "partner_tables_identical",
+                "routing")},
+            "archs": {a: {k: r[k] for k in ("loss_rel_diff", "grad_max_normwise_diff", "routing")}
+                      for a, r in moe_parity["archs"].items()}},
         "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,6 @@
-from repro_torch.data.loader import LoaderConfig, eval_batches, shard_iterator
+from repro_torch.data.loader import LoaderConfig, TokenFileSource, eval_batches, shard_iterator
+from repro_torch.data.packing import pack_documents
 from repro_torch.data.synthetic import SyntheticLM
 
-__all__ = ["LoaderConfig", "SyntheticLM", "eval_batches", "shard_iterator"]
+__all__ = ["LoaderConfig", "SyntheticLM", "TokenFileSource", "eval_batches", "pack_documents",
+           "shard_iterator"]

@@ -3,9 +3,10 @@
 ``params_from_jax_numpy`` takes the JAX model's value tree with numpy
 leaves, as ``jax.tree.map(np.asarray, values_of(params))`` gives it, and
 returns the port's parameter tree: the same nested dicts and lists, each
-leaf a tensor on ``device``.  Norm scales and biases and the recurrent
-mixers' rates, skips, norm scales and Λ (fp32 in both packages at every
-model dtype) stay fp32; every other weight takes ``dtype``.  The structure
+leaf a tensor on ``device``.  Norm scales and biases, the recurrent
+mixers' rates, skips, norm scales and Λ, and the MoE router (fp32 in both
+packages at every model dtype) stay fp32; every other weight takes
+``dtype``.  The structure
 and every shape are checked against what the port's own ``init_params``
 makes for ``cfg``.
 
@@ -35,7 +36,7 @@ from repro_torch.tree import tree_map
 PyTree = Any
 
 FP32_LEAVES = {"scale", "bias", "q_norm", "k_norm",
-               "dt_bias", "a_log", "d_skip", "norm_scale", "lam"}
+               "dt_bias", "a_log", "d_skip", "norm_scale", "lam", "router"}
 
 
 def _to_tensor(arr, device, dtype) -> torch.Tensor:
@@ -78,7 +79,13 @@ def expected_shapes(cfg) -> PyTree:
             if cfg.qk_norm:
                 attn.update(q_norm=(hd,), k_norm=(hd,))
             p = {"ln1": norm(), "attn": attn}
-        if cfg.d_ff > 0:
+        if cfg.arch_type == "moe":
+            e, f = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+            moe = {"router": (d, e), "w_in": (e, d, f), "w_out": (e, f, d)}
+            if cfg.mlp_variant in ("swiglu", "geglu"):
+                moe["w_gate"] = (e, d, f)
+            p.update(ln2=norm(), moe=moe)
+        elif cfg.d_ff > 0:
             mlp = {"w_in": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
             if cfg.mlp_variant in ("swiglu", "geglu"):
                 mlp["w_gate"] = (d, cfg.d_ff)

@@ -11,7 +11,11 @@ tree's structure and layouts (``{"embed", "stack": {"scan", "rem"},
 The training loss runs on replica-stacked parameters (every leaf with a
 leading replica axis R) and batches (R, B, S): :func:`stacked_loss` returns
 the (R,) per-replica losses in one forward, where the JAX package vmaps
-``loss_fn`` over R.  :func:`loss_fn` is the one-replica view of it.
+``loss_fn`` over R.  :func:`loss_fn` is the one-replica view of it.  An MoE
+model's loss is the LM loss plus its blocks' auxiliary load-balance loss, as
+in the reference; its paged serving steps route the rows the reference
+routes together (a slot's chunk with the pad rows of a ragged last chunk;
+the R decode rows with the idle slots'), since capacity is shared by them.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
     cfg.validate()
     if cfg.is_encoder_decoder or cfg.frontend == "vision":
         raise NotImplementedError(
-            "encoder-decoder and vision models are not ported yet (ROADMAP Queue 1 item 8)"
+            "encoder-decoder and vision models are not ported yet (ROADMAP Queue 1 item 8d)"
         )
     return {
         "embed": init_embedding(gen, cfg),
@@ -107,7 +111,7 @@ def _embed(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, positions: to
 def _check_token_model(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder or cfg.frontend == "vision":
         raise NotImplementedError(
-            "encoder-decoder and vision models are not ported yet (ROADMAP Queue 1 item 8)"
+            "encoder-decoder and vision models are not ported yet (ROADMAP Queue 1 item 8d)"
         )
 
 
@@ -142,25 +146,34 @@ def _lm_loss(params: PyTree, cfg: ModelConfig, x: torch.Tensor, labels: torch.Te
     return nll / torch.clamp_min(cnt, 1.0)
 
 
-def stacked_loss(params: PyTree, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Next-token LM loss of every replica, (R,) fp32: params with a leading
-    replica axis, ``batch["tokens"]``/``["labels"]`` (R, B, S), optional
-    ``["loss_mask"]``.  Backpropagating the sum gives each replica's slice of
-    the gradient its own loss's gradient."""
+def _stacked_parts(params: PyTree, cfg: ModelConfig, batch: dict):
+    """(LM loss (R,), MoE auxiliary loss (R,) or None) of every replica."""
     x = embed_input(params, cfg, batch)
     positions = torch.arange(x.shape[2], device=x.device)
-    x, _ = tfm.apply_stack(params["stack"], cfg, x, positions=positions)
+    x, _, aux = tfm.apply_stack(params["stack"], cfg, x, positions=positions)
     x = apply_norm(params["final_norm"], x)
-    return _lm_loss(params, cfg, x, batch["labels"], batch.get("loss_mask"))
+    return _lm_loss(params, cfg, x, batch["labels"], batch.get("loss_mask")), aux
+
+
+def stacked_loss(params: PyTree, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Next-token LM loss of every replica plus, for MoE models, its
+    auxiliary loss, (R,) fp32: params with a leading replica axis,
+    ``batch["tokens"]``/``["labels"]`` (R, B, S), optional
+    ``["loss_mask"]``.  Backpropagating the sum gives each replica's slice of
+    the gradient its own loss's gradient."""
+    lm, aux = _stacked_parts(params, cfg, batch)
+    return lm if aux is None else lm + aux
 
 
 def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
     """The JAX package's ``loss_fn`` for ONE replica: unstacked params,
-    batch (B, S).  Returns (loss, {"lm_loss", "aux_loss"}); dense models
-    have no auxiliary loss."""
+    batch (B, S).  Returns (LM loss + aux, {"lm_loss", "aux_loss"}); models
+    without MoE blocks have an auxiliary loss of 0."""
     one = {k: v[None] for k, v in batch.items()}
-    loss = stacked_loss(tree_map(lambda t: t[None], params), cfg, one)[0]
-    return loss, {"lm_loss": loss, "aux_loss": torch.zeros((), device=loss.device)}
+    lm, aux = _stacked_parts(tree_map(lambda t: t[None], params), cfg, one)
+    if aux is None:
+        return lm[0], {"lm_loss": lm[0], "aux_loss": torch.zeros((), device=lm.device)}
+    return lm[0] + aux[0], {"lm_loss": lm[0], "aux_loss": aux[0]}
 
 
 def paged_prefill_chunk(
@@ -178,7 +191,7 @@ def paged_prefill_chunk(
     c = tokens.shape[1]
     positions = view.positions.long()[:, None] + torch.arange(c, device=tokens.device)[None]
     x = _embed(params, cfg, tokens, positions)
-    x, caches = tfm.apply_stack(
+    x, caches, _ = tfm.apply_stack(
         params["stack"], cfg, x, positions=positions, caches=caches, paged=view,
         chunk_lengths=lengths,
     )
@@ -197,7 +210,7 @@ def paged_decode_step(
     goes to the trash page.  Returns (logits (R, 1, V) fp32, caches)."""
     positions = view.positions.long()[:, None]
     x = _embed(params, cfg, tokens, positions)
-    x, caches = tfm.apply_stack(
+    x, caches, _ = tfm.apply_stack(
         params["stack"], cfg, x, positions=positions, caches=caches, decode=True,
         paged=view,
     )

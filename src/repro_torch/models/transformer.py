@@ -9,7 +9,10 @@ axis, the port loops over it in Python.  The training forward (no caches)
 takes replica-stacked parameters, so its scanned leaves are (R, L, ...) and
 the layer axis is 1; with ``cfg.remat`` each period of layers runs under
 ``torch.utils.checkpoint``, the counterpart of JAX's ``jax.checkpoint`` of
-the scan body: its activations are recomputed in the backward pass.
+the scan body: its activations are recomputed in the backward pass.  MoE
+blocks (``"moe"`` in place of ``"mlp"``) return their auxiliary
+load-balance loss, which the stack sums over layers: per replica, (R,), in
+the training forward.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
@@ -35,11 +39,11 @@ _MIXERS = {"rglru": (rglru_lib.init_rglru, rglru_lib.apply_rglru),
 def check_kind(cfg, kind: str) -> None:
     if kind not in _ATTENTION and kind not in _MIXERS:
         raise NotImplementedError(
-            f"{kind!r} layers are not ported yet (ROADMAP Queue 1 item 8)"
+            f"{kind!r} layers are not ported yet (ROADMAP Queue 1 item 8d)"
         )
-    if cfg.arch_type == "moe" or cfg.is_encoder_decoder:
+    if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.arch_type} blocks are not ported yet (ROADMAP Queue 1 item 8)"
+            f"{cfg.arch_type} blocks are not ported yet (ROADMAP Queue 1 item 8d)"
         )
 
 
@@ -55,7 +59,10 @@ def init_block(gen: torch.Generator, cfg, kind: str) -> dict:
         p["mixer"] = _MIXERS[kind][0](gen, cfg)
     else:
         p["attn"] = attn_lib.init_attention(gen, cfg)
-    if cfg.d_ff > 0:
+    if cfg.arch_type == "moe":
+        p["ln2"] = init_norm(cfg, cfg.d_model, gen.device)
+        p["moe"] = moe_lib.init_moe(gen, cfg)
+    elif cfg.d_ff > 0:
         p["ln2"] = init_norm(cfg, cfg.d_model, gen.device)
         p["mlp"] = init_mlp(gen, cfg)
     return p
@@ -72,10 +79,12 @@ def apply_block(
     decode: bool = False,
     paged: attn_lib.PagedView | None = None,
     chunk_lengths: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, Any]:
-    """Pre-norm block.  Returns (x, cache).  With no cache and x (R, B, S,
+) -> tuple[torch.Tensor, Any, torch.Tensor | None]:
+    """Pre-norm block.  Returns (x, cache, aux): aux is an MoE block's
+    load-balance loss, None for the others.  With no cache and x (R, B, S,
     d) this is the training forward on p's leaves stacked over replicas; a
-    recurrent mixer then runs its scan once over the R·B rows."""
+    recurrent mixer then runs its scan once over the R·B rows, an MoE block
+    routes each replica's B·S tokens on their own."""
     check_kind(cfg, kind)
     h = apply_norm(p["ln1"], x)
     if kind in _MIXERS:
@@ -87,9 +96,13 @@ def apply_block(
             chunk_lengths=chunk_lengths,
         )
     x = x + y
-    if "mlp" in p:
+    aux = None
+    if "moe" in p:
+        y, aux = moe_lib.apply_moe(p["moe"], cfg, apply_norm(p["ln2"], x))
+        x = x + y
+    elif "mlp" in p:
         x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["ln2"], x))
-    return x, cache
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -147,13 +160,14 @@ def apply_stack(
     decode: bool = False,
     paged: attn_lib.PagedView | None = None,
     chunk_lengths: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, dict | None]:
+) -> tuple[torch.Tensor, dict | None, torch.Tensor | None]:
     """Run all layers in the JAX package's order: every full period, then
     the remainder.  With ``caches`` None this is the training forward over
     replica-stacked parameters; otherwise ``caches`` mirrors the params
     structure with entries ``(PagedAttnCache | RGLRUCache | SSDCache,
     None)``, the caches are written in place and the same tree is
-    returned."""
+    returned.  The third result is the MoE blocks' auxiliary loss summed
+    over layers, (R,) in training (None without MoE blocks)."""
     period, n_full, rem = layer_plan(cfg)
     training = caches is None
     layer_axis = 1 if training else 0
@@ -161,7 +175,11 @@ def apply_stack(
     def cache_of(entry):
         return entry[0] if entry is not None else None
 
+    def add(total, aux):
+        return aux if total is None else (total if aux is None else total + aux)
+
     kw = dict(positions=positions, decode=decode, paged=paged, chunk_lengths=chunk_lengths)
+    aux_total = None
     if n_full:
         layer_params = [
             _unstack(params["scan"][pos], n_full, layer_axis) for pos in range(len(period))
@@ -172,17 +190,21 @@ def apply_stack(
         ]
         for i in range(n_full):
             def period_body(x, i=i):
+                period_aux = None
                 for pos, kind in enumerate(period):
-                    x, _ = apply_block(
+                    x, _, aux = apply_block(
                         layer_params[pos][i], cfg, x, kind, cache=layer_caches[pos][i], **kw
                     )
-                return x
+                    period_aux = add(period_aux, aux)
+                return x, period_aux
 
             if training and cfg.remat:
-                x = checkpoint(period_body, x, use_reentrant=False)
+                x, aux = checkpoint(period_body, x, use_reentrant=False)
             else:
-                x = period_body(x)
+                x, aux = period_body(x)
+            aux_total = add(aux_total, aux)
     for j in range(rem):
         c = None if training else cache_of(caches["rem"][j])
-        x, _ = apply_block(params["rem"][j], cfg, x, period[j % len(period)], cache=c, **kw)
-    return x, caches
+        x, _, aux = apply_block(params["rem"][j], cfg, x, period[j % len(period)], cache=c, **kw)
+        aux_total = add(aux_total, aux)
+    return x, caches, aux_total

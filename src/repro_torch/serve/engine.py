@@ -35,6 +35,12 @@ threefry bits drawn on the logits' device, every sampled row of a step in
 one batch; the uniforms are bit-identical to JAX's and the logs are
 torch's.
 
+MoE blocks break the batched == solo guarantee, as in the JAX engine:
+capacity is shared by the rows routed together (a prefill chunk with its
+pad rows, a decode step's R rows with the idle slots'), so a request's
+tokens can depend on what else is in the batch.  They serve fine, and give
+the JAX engine's tokens for the same load.
+
 Single-shot prefill (``prefill_chunk=0``) needs flash attention and comes
 with that slice.
 """

@@ -108,8 +108,8 @@ def test_init_params_matches_jax_structure(arch):
 
 
 def test_other_archs_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_config("granite-moe-1b-a400m")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8d"):
+        registry.get_config("whisper-base")
 
 
 def test_paged_cache_tree_rejects_encdec():

@@ -57,11 +57,13 @@ QUICKSTART = dict(name="quickstart-lm", num_layers=2, d_model=96, num_heads=4,
                   remat=False)                                     # examples/quickstart.py
 
 
-# the recurrent families' smoke configs; recurrentgemma-9b at 3 layers
-# (rglru, local, rglru) so that both mixers and the local attention run
+# the recurrent families' and the MoE family's smoke configs;
+# recurrentgemma-9b at 3 layers (rglru, local, rglru) so that both mixers
+# and the local attention run
 REDUCED = {"paper-small-125m.reduced": ("paper-small-125m", {}),
            "mamba2-370m.reduced": ("mamba2-370m", {}),
-           "recurrentgemma-9b.reduced3": ("recurrentgemma-9b", {"num_layers": 3})}
+           "recurrentgemma-9b.reduced3": ("recurrentgemma-9b", {"num_layers": 3}),
+           "granite-moe-1b-a400m.reduced": ("granite-moe-1b-a400m", {})}
 
 
 def _configs(kind):
@@ -335,9 +337,12 @@ def test_run_training_matches_jax(method, tmp_path, monkeypatch):
     check_run_training(method, "tiny", tmp_path, monkeypatch)
 
 
-def check_run_training(method, kind, tmp_path, monkeypatch):
+def check_run_training(method, kind, tmp_path, monkeypatch, held=None):
     """The comparison of :func:`test_run_training_matches_jax` for ``kind``
-    (see ``tests/test_torch_train_families.py`` for mamba2-370m's)."""
+    (see ``tests/test_torch_train_families.py`` for mamba2-370m's and
+    ``tests/test_torch_train_moe.py`` for granite's, which pass ``held``,
+    the steps whose losses and evals are held).  Returns (port's,
+    reference's) summaries."""
     jcfg, cfg = _configs(kind)
     params = _jax_params(jcfg)
     monkeypatch.setattr(adapters.GossipProgram, "initial_params",
@@ -347,13 +352,16 @@ def check_run_training(method, kind, tmp_path, monkeypatch):
     jlog, plog = tmp_path / "jax.jsonl", tmp_path / "port.jsonl"
     want = jax_run_training(jcfg, method=method, impl="jnp", log_jsonl=str(jlog), **RUN)
     got = train_cli.run_training(cfg, method=method, device="cpu", log_jsonl=str(plog), **RUN)
-    held = RUN["inner_steps"] if kind == "mamba2-370m.reduced" else RUN["steps"]
+    evals_upto = RUN["steps"] if held is None else held
+    if held is None:
+        held = RUN["inner_steps"] if kind == "mamba2-370m.reduced" else RUN["steps"]
     assert np.isfinite(got["losses"]).all() and len(got["losses"]) == RUN["steps"]
     np.testing.assert_allclose(got["losses"][:held], want["losses"][:held], rtol=1e-4, atol=0)
     np.testing.assert_allclose(got["final_weight_std"], want["final_weight_std"], rtol=1e-3,
                                atol=1e-9)
-    np.testing.assert_allclose([e for _, e in got["evals"]], [e for _, e in want["evals"]],
-                               rtol=1e-4)
+    assert [t for t, _ in got["evals"]] == [t for t, _ in want["evals"]]
+    np.testing.assert_allclose([e for t, e in got["evals"] if t <= evals_upto],
+                               [e for t, e in want["evals"] if t <= evals_upto], rtol=1e-4)
     for key in ("comm_bytes", "blocking_bytes", "blocking_fraction", "outer_syncs",
                 "stream_count", "membership_epoch", "steps_run"):
         assert got[key] == want[key], key
@@ -365,6 +373,7 @@ def check_run_training(method, kind, tmp_path, monkeypatch):
         assert len(got["partners"]) == 2
         for i, table in enumerate(got["partners"]):
             np.testing.assert_array_equal(table, jpairing.partner_table(i, 4, seed=0))
+    return got, want
 
 
 def test_comm_cost_matches_jax_at_full_width():
