@@ -184,6 +184,44 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     must be a near tie (top-k margin under 1e-5): the losses and tokens are
     then held up to it.
 
+26. (with phase 3) the flash pair at the encoder-decoder and vision
+    models' shapes against its plain versions, bf16 and fp32, each line
+    naming the kernels that served it: whisper-base's encoder (B 16 =
+    4 replicas × batch 4, 1,500 frames, 8/8 heads of 64, full), its
+    cross-attention (448 queries over 1,500 keys, full) and decoder (448,
+    causal), internvl2-76b's layers (1,024, 64/8 heads of 128, causal), and
+    full mode at Sq 1 / Sk 37 and Sq 5 / Sk 1,500; then the first four
+    timed in bf16 beside the CUDA-core kernels, the plain version, SDPA
+    and the bound (``time flash_attention* B16 S448/Sk1500 ...``);
+27. whisper-base at full width and depth (6 + 6 layers) in bf16 on seed-0
+    weights: NoLoCo through ``GossipProgram`` (``core/noloco.GossipTrainer``
+    with ``model.stacked_loss``) on 4 replicas × batch 4, 1,500 stub frames
+    and 448 text tokens a row, phase 6's outer settings: launch counts
+    equal the design's (per step one flash forward per encoder layer and
+    two per decoder layer, twice under remat, one backward each; one
+    update per leaf a sync), losses finite and falling, replicas apart;
+    inner p50/p99, text tokens/s, the outer step alone, peak memory, the
+    profiled step's busy share, top ops and flash ms by call
+    (``flash_ms_by_mode``); then served from the dense cache (4 rows,
+    4-token prompts, a cache of 448, ``prefill`` and 64 greedy
+    ``decode_step``s): prefill ms, step p50/p99, tokens/s, peak memory,
+    the prefill's flash launches, and the cross-attention's plain
+    blockwise calls in one more step (their span on the stream, and the
+    function alone per layer);
+28. internvl2-76b at full width with 2 layers (3.84 B parameters) in bf16,
+    seed-0 weights drawn on the card layer by layer into the stacked tree:
+    one loss and gradient on 256 stub patch embeddings and 768 text
+    tokens (finite, gradient norm above 0, flash launches as the design),
+    then a dense prefill of the image and 32 tokens and 16 greedy steps;
+    times and peak memory;
+29. card against CPU on ``reduced()`` in fp32: whisper-base's and
+    internvl2-76b's loss and gradients (LOSS_RTOL, GRAD_NORM_RTOL), dense
+    greedy tokens identical for whisper-base, internvl2-76b, qwen3-0.6b,
+    recurrentgemma-9b and mamba2-370m (logits within LOGIT_ATOL; each
+    kernel the dense path reaches launched: flash in prefill, the scans in
+    prefill, the decode steps), and a whisper-base NoLoCo run of 10 steps
+    (identical partner tables, losses within LOSS_RTOL).
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -210,7 +248,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
 from repro_torch.comm import CommConfig, bytes_model, payload  # noqa: E402
 from repro_torch.configs import (  # noqa: E402
-    granite_moe_1b, mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b, registry,
+    granite_moe_1b, internvl2_76b, mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b,
+    registry, whisper_base,
 )
 from repro_torch.core import metrics as metrics_lib  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
@@ -224,6 +263,7 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import PagedView  # noqa: E402
+from repro_torch.models.layers import logits_sharded  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.train import adapters  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -411,9 +451,11 @@ def bound(q, kp, positions, chunk, kv=KV, d=D):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_inputs(gen, b, s, h, kv, d, dtype):
+def flash_inputs(gen, b, s, h, kv, d, dtype, sk=None):
+    """q, k, v, dO; Sk = ``sk`` keys (default S)."""
     dev = gen.device
-    shapes = [(b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)]
+    sk = s if sk is None else sk
+    shapes = [(b, s, h, d), (b, sk, kv, d), (b, sk, kv, d), (b, s, h, d)]
     return [torch.randn(sh, generator=gen, device=dev).to(dtype) for sh in shapes]
 
 
@@ -426,11 +468,12 @@ def _close(got, want, atol, rtol, what):
     return diff.max().item(), ok
 
 
-def check_flash_case(gen, dtype, b, s, h, kv, d, mode, window, errors, label="") -> None:
-    """Flash forward (o and lse) and backward of one case against their
-    plain versions; the worst error of each kernel goes into ``errors``."""
+def check_flash_case(gen, dtype, b, s, h, kv, d, mode, window, errors, label="", sk=None) -> None:
+    """Flash forward (o and lse) and backward of one case (S queries over
+    ``sk`` keys, default S) against their plain versions; the worst error of
+    each kernel goes into ``errors``."""
     reg = dispatch.registry()
-    q, k, v, do = flash_inputs(gen, b, s, h, kv, d, dtype)
+    q, k, v, do = flash_inputs(gen, b, s, h, kv, d, dtype, sk)
     o, lse = reg["flash_attention"].kernel(q, k, v, mode=mode, window=window)
     grads = reg["flash_attention_bwd"].kernel(q, k, v, o, lse, do, mode=mode, window=window)
     torch.cuda.synchronize()
@@ -445,8 +488,9 @@ def check_flash_case(gen, dtype, b, s, h, kv, d, mode, window, errors, label="")
         if not ok:
             raise AssertionError(
                 f"{name} disagrees with its plain version: {str(dtype)[6:]} B{b} S{s} "
-                f"H{h}/KV{kv} D{d} {mode}: max_abs_err {err:.3e}")
-    log(f"check flash{label} {str(dtype)[6:]} B{b} S{s} H{h}/KV{kv} D{d} {mode} "
+                f"Sk{k.shape[1]} H{h}/KV{kv} D{d} {mode}: max_abs_err {err:.3e}")
+    keys = "" if sk is None else f"/Sk{sk}"
+    log(f"check flash{label} {str(dtype)[6:]} B{b} S{s}{keys} H{h}/KV{kv} D{d} {mode} "
         f"path {flash_attention.path_for(dtype, d)}: "
         + ", ".join(f"{n} {e:.3e}" for n, e, _ in results) + " ok")
 
@@ -486,22 +530,29 @@ def check_train_kernels(dev) -> dict[str, float]:
     return errors
 
 
-def flash_bound(b, s, h, kv, d, esz, backward, sm_mhz):
-    """Least time for causal attention, the largest of three: q, k, v (and
-    o, dO) read once and the outputs written once; the flops of the visible
-    (row, key) pairs, 4·D each forward (QKᵀ and PV), 10·D backward
-    (recomputed QKᵀ, dO·Vᵀ, dV, dK, dQ), at the bf16 tensor-core peak; one
-    exp2 per visible pair, forward and backward alike (the function needs
-    one; the tensor-core backward's dQ blocks recompute P and take a second,
-    a cost of that design and not of the function), at the special-function
-    units' rate at the measured SM clock.  Returns (ms, "bytes" or
-    "operations", which of the three)."""
-    qo, kv_elems, rows = b * s * h * d, b * s * kv * d, b * h * s
+def flash_bound(b, s, h, kv, d, esz, backward, sm_mhz, sk=None, mode="causal"):
+    """Least time for attention of S queries over ``sk`` keys (default S),
+    causal or full, the largest of three: q, k, v (and o, dO) read once and
+    the outputs written once; the flops of the visible (row, key) pairs
+    (S(S+1)/2 per head causal, S·Sk full), 4·D each forward (QKᵀ and PV),
+    10·D backward (recomputed QKᵀ, dO·Vᵀ, dV, dK, dQ), at the bf16
+    tensor-core peak; one exp2 per visible pair, forward and backward alike
+    (the function needs one; the tensor-core backward's dQ blocks recompute
+    P and take a second, a cost of that design and not of the function), at
+    the special-function units' rate at the measured SM clock.  Returns
+    (ms, "bytes" or "operations", which of the three)."""
+    sk = s if sk is None else sk
+    qo, kv_elems, rows = b * s * h * d, b * sk * kv * d, b * h * s
     if backward:   # read q, k, v, o, dO, lse; write dq, dk, dv
         nbytes = (4 * qo + 4 * kv_elems) * esz + 4 * rows
     else:          # read q, k, v; write o, lse
         nbytes = (2 * qo + 2 * kv_elems) * esz + 4 * rows
-    pairs = b * h * s * (s + 1) / 2
+    if mode == "full":
+        pairs = b * h * s * sk
+    elif mode == "causal" and sk == s:
+        pairs = b * h * s * (s + 1) / 2
+    else:
+        raise ValueError(f"flash_bound counts causal (Sq = Sk) and full pairs, got {mode}")
     times = {"bytes": nbytes / HBM_BYTES_PER_S,
              "flops": (10 if backward else 4) * d * pairs / PEAK_FLOPS[torch.bfloat16],
              "exponentials": pairs / (EX2_PER_CLOCK * sm_mhz * 1e6)}
@@ -509,11 +560,12 @@ def flash_bound(b, s, h, kv, d, esz, backward, sm_mhz):
     return times[what] * 1e3, ("bytes" if what == "bytes" else "operations"), what
 
 
-def flash_cuda_core(q, k, v, o=None, lse=None, do=None):
-    """The kept CUDA-core flash kernels on the paper shape's causal inputs,
-    whatever their type: the library's ``*_cuda_core`` entry points, which
-    the port's wrappers never call (they let the source choose by type and
-    head dim).  Forward with three tensors, backward with six."""
+def flash_cuda_core(q, k, v, o=None, lse=None, do=None, mode="causal"):
+    """The kept CUDA-core flash kernels, whatever the inputs' type: the
+    library's ``*_cuda_core`` entry points, which the port's wrappers never
+    call (they let the source choose by type and head dim).  Forward with
+    three tensors, backward with six; causal or full."""
+    code = flash_attention.MODES[mode]
     lib = flash_attention.library()
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -522,46 +574,49 @@ def flash_cuda_core(q, k, v, o=None, lse=None, do=None):
         o, lse = torch.empty_like(q), torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         err = lib.flash_attention_fwd_cuda_core(
             dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, sq, sk, h, kvh, d, 0, 0, 1.0 / math.sqrt(d), stream)
+            b, sq, sk, h, kvh, d, code, 0, 1.0 / math.sqrt(d), stream)
         outs = (o, lse)
     else:
         outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
         err = lib.flash_attention_bwd_cuda_core(
             dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), *(t.data_ptr() for t in outs), b, sq, sk, h, kvh, d, 0, 0,
+            lse.data_ptr(), *(t.data_ptr() for t in outs), b, sq, sk, h, kvh, d, code, 0,
             1.0 / math.sqrt(d), stream, None)
     if err:
         raise RuntimeError(f"CUDA-core flash launch failed: cudaError_t {err}")
     return outs
 
 
-def time_flash(gen, b, s, h, kv, d, label="") -> dict[str, dict]:
-    """The flash pair in bf16 at (b, s, h, kv, d), causal: kernel, kept
-    CUDA-core kernels, plain version and SDPA (K/V heads expanded for GQA:
-    what one library call needs), with the bound."""
+def time_flash(gen, b, s, h, kv, d, label="", sk=None, mode="causal") -> dict[str, dict]:
+    """The flash pair in bf16 at (b, s, h, kv, d), S queries over ``sk``
+    keys (default S), causal or full: kernel, kept CUDA-core kernels, plain
+    version and SDPA (K/V heads expanded for GQA: what one library call
+    needs), with the bound."""
     reg = dispatch.registry()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q, k, v, do = flash_inputs(gen, b, s, h, kv, d, torch.bfloat16)
-    o, lse = reg["flash_attention"].kernel(q, k, v)
+    causal = mode == "causal"
+    q, k, v, do = flash_inputs(gen, b, s, h, kv, d, torch.bfloat16, sk)
+    o, lse = reg["flash_attention"].kernel(q, k, v, mode=mode)
     # SDPA takes (B, H, S, D); its backward is timed from one retained graph
     qt, kt, vt = (t.repeat_interleave(h // t.shape[2], dim=2).transpose(1, 2).contiguous()
                   .requires_grad_() for t in (q, k, v))
-    ot = sdpa(qt, kt, vt, is_causal=True)
+    ot = sdpa(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2).contiguous()
     out = {}
     for name, backward in (("flash_attention", False), ("flash_attention_bwd", True)):
         op = reg[name]
         args = (q, k, v, o, lse, do) if backward else (q, k, v)
         lib = ((lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
-               if backward else (lambda: sdpa(qt, kt, vt, is_causal=True)))
-        ms, mhz = cuda_ms(lambda: op.kernel(*args), reps=30)
-        bound_ms, bound_by, bound_what = flash_bound(b, s, h, kv, d, 2, backward, mhz)
+               if backward else (lambda: sdpa(qt, kt, vt, is_causal=causal)))
+        ms, mhz = cuda_ms(lambda: op.kernel(*args, mode=mode), reps=30)
+        bound_ms, bound_by, bound_what = flash_bound(b, s, h, kv, d, 2, backward, mhz, sk, mode)
         out[name] = {"ms": ms, "path": flash_attention.path_for(q.dtype, d),
-                     "cuda_core_ms": cuda_ms(lambda: flash_cuda_core(*args), reps=10)[0],
-                     "plain_ms": cuda_ms(lambda: op.plain(*args), reps=10)[0],
+                     "cuda_core_ms": cuda_ms(lambda: flash_cuda_core(*args, mode=mode),
+                                             reps=10)[0],
+                     "plain_ms": cuda_ms(lambda: op.plain(*args, mode=mode), reps=10)[0],
                      "library_ms": cuda_ms(lib, reps=30)[0], "bound_ms": bound_ms,
                      "bound_by": bound_by, "bound_by_detail": bound_what, "sm_clock_mhz": mhz,
-                     "shape": {"q": list(q.shape), "kv": list(k.shape), "mode": "causal",
+                     "shape": {"q": list(q.shape), "kv": list(k.shape), "mode": mode,
                                "dtype": "bfloat16"}}
         log(f"time {name}{label}: " + json.dumps(out[name]))
     del qt, kt, vt, ot
@@ -871,25 +926,36 @@ TRAIN = dict(method="noloco", replicas=4, per_replica_batch=4, seq_len=1024, ste
 
 def expected_launches(cfg, run: dict, outer_syncs: int, codec: str = "none") -> dict[str, int]:
     """Launches the config implies: per inner step one forward per layer of
-    each kernel's kind (attention: flash; ssd: the SSD chunk scan; rglru:
-    the RG-LRU scan), twice for the layers of full periods under remat (the
-    backward pass runs the period again), and one backward per layer; every
-    replica in the same launch.  Per outer sync one update per parameter
-    leaf and, on the int8 wire, one quantize and one dequantize per float
-    buffer of the fused (Δ, φ) payload (bf16 and fp32 here)."""
+    each kernel's kind (attention, the whisper encoder's layers and every
+    decoder layer's cross-attention block: flash; ssd: the SSD chunk scan;
+    rglru: the RG-LRU scan), twice for the layers of full periods under
+    remat (the backward pass runs the period again), and one backward per
+    layer; every replica in the same launch.  Per outer sync one update per
+    parameter leaf and, on the int8 wire, one quantize and one dequantize
+    per float buffer of the fused (Δ, φ) payload (bf16 and fp32 here)."""
     tree = bytes_model.abstract_params(cfg)
     buffers = len(payload.make_spec((tree, tree)).buffers) if codec == "int8" else 0
-    period, n_full, rem = tfm.layer_plan(cfg)
-    fwd_per_layer = 2 if cfg.remat else 1
+    # each stack with whether its layers carry a cross-attention block
+    stacks = [(cfg, cfg.is_encoder_decoder)]
+    if cfg.is_encoder_decoder:
+        stacks.append((M.encoder_cfg(cfg), False))
     out = {"noloco_update": outer_syncs * len(tree_leaves(tree)),
            "int8_quantize": outer_syncs * buffers, "int8_dequantize": outer_syncs * buffers}
-    for fwd, bwd, kinds in (("flash_attention", "flash_attention_bwd", ("global", "local")),
+    for fwd, bwd, kinds in (("flash_attention", "flash_attention_bwd",
+                             ("global", "local", "encoder")),
                             ("ssd_chunk", "ssd_chunk_bwd", ("ssd",)),
                             ("rglru_scan", "rglru_scan_bwd", ("rglru",))):
-        in_periods = n_full * sum(k in kinds for k in period)
-        in_rem = sum(k in kinds for k in period[:rem])
-        out[fwd] = run["steps"] * (in_periods * fwd_per_layer + in_rem)
-        out[bwd] = run["steps"] * (in_periods + in_rem)
+        out[fwd] = out[bwd] = 0
+        for c, cross in stacks:
+            period, n_full, rem = tfm.layer_plan(c)
+
+            def per_layer(kind):
+                return (kind in kinds) + (cross and fwd == "flash_attention")
+
+            in_periods = n_full * sum(map(per_layer, period))
+            in_rem = sum(map(per_layer, period[:rem]))
+            out[fwd] += run["steps"] * (in_periods * (2 if c.remat else 1) + in_rem)
+            out[bwd] += run["steps"] * (in_periods + in_rem)
     return out
 
 
@@ -2347,6 +2413,556 @@ def archs_parity(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 26–29: the encoder-decoder and vision models, the dense KV cache
+# ---------------------------------------------------------------------------
+
+WHISPER = whisper_base.CONFIG
+INTERNVL = internvl2_76b.CONFIG
+# This slice's flash calls, (B, Sq, Sk, H, KV, D, mode): whisper-base's
+# encoder (1,500 frames, full), cross-attention (448 queries over 1,500
+# frames, full) and decoder self-attention (448, causal), 4 replicas ×
+# batch 4 folded into B; internvl2-76b's layers (64/8 heads of 128) over 256
+# image and 768 text tokens.  Then single queries and a short prompt over
+# every frame (decode-like Sq), full.
+FRONTEND_FLASH = [(16, 1500, 1500, 8, 8, 64, "full"), (16, 448, 1500, 8, 8, 64, "full"),
+                  (16, 448, 448, 8, 8, 64, "causal"), (1, 1024, 1024, 64, 8, 128, "causal")]
+FRONTEND_FLASH_ODD = [(4, 1, 37, 8, 8, 64, "full"), (4, 5, 1500, 8, 8, 64, "full")]
+WHISPER_RUN = dict(replicas=4, per_replica_batch=4, seq_len=448, steps=10, inner_steps=5,
+                   inner_lr=3e-3, seed=0)
+# whisper served from the dense cache: 4 rows, 4-token prompts, a cache of
+# 448 positions, 64 greedy steps
+WHISPER_SERVE = dict(rows=4, prompt=4, length=448, steps=64)
+INTERNVL_LAYERS = 2
+INTERNVL_TRAIN = dict(text=768)
+INTERNVL_SERVE = dict(rows=1, prompt=32, steps=16)
+# Card against CPU (phase 29): the dense-cache greedy list (the reference's
+# smoke decode list plus internvl2-76b) and the whisper NoLoCo run.
+DENSE_ARCHS = {"whisper-base": ("flash_attention",), "internvl2-76b": ("flash_attention",),
+               "qwen3-0.6b": ("flash_attention",),
+               "recurrentgemma-9b": ("flash_attention", "rglru_scan", "rglru_decode"),
+               "mamba2-370m": ("ssd_chunk", "ssd_decode")}
+WHISPER_PARITY_RUN = dict(replicas=4, per_replica_batch=2, seq_len=64, steps=10, inner_steps=5,
+                          inner_lr=3e-3, seed=0)
+
+
+def check_frontend_kernels(dev) -> dict[str, float]:
+    """Phase 26: the flash pair at this slice's shapes, bf16 and fp32,
+    against the plain versions; each line names the kernels that served it."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    errors: dict[str, float] = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, sq, sk, h, kv, d, mode in FRONTEND_FLASH + FRONTEND_FLASH_ODD:
+            check_flash_case(gen, dtype, b, sq, h, kv, d, mode, 0, errors, label=" frontend",
+                             sk=sk)
+    return errors
+
+
+def time_frontend_kernels(dev) -> dict[str, dict]:
+    """Phase 26's timings: the flash pair in bf16 at FRONTEND_FLASH's
+    shapes, with the CUDA-core kernels, the plain version, SDPA and the
+    bound (4·Sq·Sk·D·H flops forward in full mode)."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = {}
+    for b, sq, sk, h, kv, d, mode in FRONTEND_FLASH:
+        label = f" B{b} S{sq}/Sk{sk} H{h}/KV{kv} D{d} {mode}"
+        for name, row in time_flash(gen, b, sq, h, kv, d, label=label, sk=sk, mode=mode).items():
+            out[name + label] = row
+    return out
+
+
+def frontend_batches(cfg, run, device, dtype, steps) -> list[dict]:
+    """``steps`` training batches, made before the run: the synthetic
+    loader's tokens and labels (R, B, S) beside the stub frontend's
+    embeddings (``encoder_embeds`` (R, B, encoder_seq, F) or
+    ``image_embeds`` (R, B, frontend_tokens, F)), normal draws of a
+    generator on ``device`` seeded with the step."""
+    it = shard_iterator(LoaderConfig(
+        vocab_size=cfg.vocab_size, seq_len=run["seq_len"],
+        per_replica_batch=run["per_replica_batch"], replicas=run["replicas"], seed=run["seed"]))
+    key, n = (("encoder_embeds", cfg.encoder_seq) if cfg.is_encoder_decoder
+              else ("image_embeds", cfg.frontend_tokens))
+    out = []
+    for step in range(steps):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for k, v in next(it).items()}
+        gen = torch.Generator(device=device).manual_seed(1000 + step)
+        batch[key] = torch.randn((run["replicas"], run["per_replica_batch"], n, cfg.frontend_dim),
+                                 generator=gen, device=device).to(dtype)
+        out.append(batch)
+    return out
+
+
+def gossip_run(cfg, dev, run, batches):
+    """NoLoCo over ``batches`` through ``GossipProgram``, whose trainer is
+    ``core/noloco.GossipTrainer`` with ``model.stacked_loss``: every replica
+    starts from the seed's weights; an outer step (pairing from the
+    elastic partner table) after every ``inner_steps``.  Synchronised after
+    each step.  Returns (losses, step ms, synced flags, state, program)."""
+    tcfg = train_cli.method_config(
+        "noloco", inner_lr=run["inner_lr"], total_steps=run["steps"],
+        warmup=max(run["steps"] // 10, 1), inner_steps=run["inner_steps"], seed=run["seed"])
+    program = adapters.GossipProgram(cfg, tcfg, replicas=run["replicas"], seed=run["seed"],
+                                     device=dev)
+    state = program.init_state(None)
+    losses, step_ms, synced = [], [], []
+    for batch in batches:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = program.trainer.inner_step(state, batch)
+        losses.append(float(metrics["loss"].mean()))
+        state, did = program.maybe_outer_step(state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        synced.append(did)
+    return losses, step_ms, synced, state, program
+
+
+class FlashModeLog:
+    """While entered, records the mode and the query and key lengths of
+    every flash wrapper call, in order, so that a profiled step's flash
+    kernels can be told apart by call (the kernels' names do not carry
+    them)."""
+
+    def __enter__(self):
+        self.calls = []
+        self._real = (flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd)
+        fwd, bwd = self._real
+
+        def spy_fwd(q, k, *a, mode="causal", **kw):
+            self.calls.append(("fwd", f"{mode} {q.shape[1]}/{k.shape[1]}"))
+            return fwd(q, k, *a, mode=mode, **kw)
+
+        def spy_bwd(q, k, *a, mode="causal", **kw):
+            self.calls.append(("bwd", f"{mode} {q.shape[1]}/{k.shape[1]}"))
+            return bwd(q, k, *a, mode=mode, **kw)
+
+        # the real wrappers count their launches on the module's names: give
+        # the spies counters of their own (this run's counts were read before)
+        spy_fwd.launches = spy_bwd.launches = 0
+        flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd = spy_fwd, spy_bwd
+        return self
+
+    def __exit__(self, *exc):
+        flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd = self._real
+
+
+def flash_split_by_mode(on_card, calls) -> dict:
+    """Device ms and kernel count of the flash kernels by pass, mode and
+    Sq/Sk, from a profiled step's kernel events in launch order: the
+    tensor-core forward is one kernel a call, its backward three (Di
+    pre-pass, dK/dV, dQ)."""
+    kernels = sorted((e for e in on_card if "flash_" in e.name),
+                     key=lambda e: e.time_range.start)
+    per_call = {"fwd": 1, "bwd": 3}
+    if sum(per_call[kind] for kind, _ in calls) != len(kernels):
+        return {"not measured": f"{len(kernels)} flash kernels for {len(calls)} calls"}
+    out: dict[str, list] = {}
+    it = iter(kernels)
+    for kind, what in calls:
+        row = out.setdefault(f"{kind} {what}", [0.0, 0])
+        for _ in range(per_call[kind]):
+            row[0] += next(it).time_range.elapsed_us() / 1e3
+            row[1] += 1
+    return out
+
+
+def frontend_profile(program, state, batch) -> dict:
+    """The outer step timed alone (median of 3), then one more inner step
+    under torch.profiler: its busy share, top device ops and the flash
+    kernels' ms by mode."""
+    from torch.profiler import ProfilerActivity, profile
+
+    outer_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program.trainer.outer_step(state)
+        torch.cuda.synchronize()
+        outer_ms.append((time.perf_counter() - t0) * 1e3)
+    state, _ = program.trainer.inner_step(state, batch)   # warm
+    torch.cuda.synchronize()
+    with FlashModeLog() as modes, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = program.trainer.inner_step(state, batch)
+        float(metrics["loss"].mean())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = span_union_ms(on_card)
+    by_name: dict[str, float] = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"outer_step_ms": statistics.median(outer_ms), "outer_step_samples_ms": outer_ms,
+            "profiled_step_wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if on_card else "not measured",
+            "device_busy_share": busy_ms / wall_ms if on_card else "not measured",
+            "flash_ms_by_mode": flash_split_by_mode(on_card, modes.calls),
+            "device_ops": len(on_card), "top_device_ops_ms": [[n[:60], t] for n, t in top],
+            "weight_std_after_profile": float(metrics_lib.replica_weight_std(state.theta))}
+
+
+def whisper_train_phase(dev) -> tuple[dict, dict]:
+    """Phase 27, training: whisper-base at full width and depth in bf16,
+    NoLoCo through GossipTrainer with model.stacked_loss (WHISPER_RUN).
+    Launch counts equal the design's, losses finite and falling, the
+    replicas apart; inner p50/p99, text tokens/s, the outer step alone,
+    peak memory, and the profiled step."""
+    cfg, run = WHISPER, WHISPER_RUN
+    log(f"train {cfg.name}: {cfg.num_encoder_layers}+{cfg.num_layers}L d{cfg.d_model} "
+        f"H{cfg.num_heads} frames {cfg.encoder_seq} vocab {cfg.vocab_size} {cfg.dtype} "
+        f"remat={cfg.remat}: " + json.dumps(run))
+    batches = frontend_batches(cfg, run, dev, torch.bfloat16, run["steps"] + 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    losses, step_ms, synced, state, program = gossip_run(cfg, dev, run, batches[:run["steps"]])
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = expected_launches(cfg, run, sum(synced))
+    log(f"train {cfg.name} launches: " + json.dumps({k: launches[k] for k in want})
+        + " expected " + json.dumps(want))
+    log(f"train {cfg.name} losses: " + json.dumps(losses))
+    if sum(synced) != 2 or any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"launch counts {launches} differ from the design's {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not go down: {losses}")
+    inner = sorted(ms for i, ms in enumerate(step_ms) if i > 0 and not synced[i])
+    p50 = statistics.median(inner)
+    text_tokens = run["replicas"] * run["per_replica_batch"] * run["seq_len"]
+    prof = frontend_profile(program, state, batches[-1])
+    if not prof["weight_std_after_profile"] > 0:
+        raise AssertionError("replicas identical after the profiled steps")
+    summary = {"inner_step_p50_ms": p50, "inner_step_p99_ms": inner[-1],
+               "inner_step_samples": len(inner),
+               "text_tokens_per_s_steady": text_tokens / (p50 / 1e3),
+               "frames_per_step": run["replicas"] * run["per_replica_batch"] * cfg.encoder_seq,
+               "peak_memory_gb": peak_gb,
+               "stacked_params": sum(t.numel() for t in tree_leaves(state.theta)),
+               "loss_first": losses[0], "loss_last": losses[-1], "losses": losses, **prof}
+    log(f"train {cfg.name} summary: " + json.dumps(summary))
+    del state, program, batches
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def dense_greedy(params, cfg, batch, steps, length):
+    """Dense-cache serving: ``prefill`` of ``batch`` (B rows), then
+    ``steps`` greedy ``decode_step``s at index = prompt length (image
+    patches included), each step's token the argmax of its logits.
+    Synchronised around prefill and each step on the card.  Returns
+    (tokens (B, steps + 1) on the host, fp32 logits of every step on the
+    host, prefill ms, step ms)."""
+    device = batch["tokens"].device
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    rows, n = batch["tokens"].shape
+    n += batch["image_embeds"].shape[1] if "image_embeds" in batch else 0
+    with torch.no_grad():
+        caches = M.init_cache_tree(cfg, rows, length, device)
+        sync()
+        t0 = time.perf_counter()
+        h, caches = M.prefill(params, cfg, batch, caches)
+        logits = logits_sharded(params["embed"], cfg, h)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        toks, rows_out, step_ms = [tok], [logits[:, -1]], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            logits, caches = M.decode_step(params, cfg, tok, n + i, caches)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+            rows_out.append(logits[:, -1])
+    return (torch.cat(toks, 1).cpu(), torch.stack(rows_out, 1).float().cpu(), prefill_ms,
+            step_ms)
+
+
+def serve_summary(prefill_ms, step_ms, rows) -> dict:
+    s = sorted(step_ms[1:])   # step 1 warms up
+    return {"prefill_ms": prefill_ms, "decode_step_p50_ms": statistics.median(s),
+            "decode_step_p99_ms": s[min(len(s) - 1, int(0.99 * len(s)))],
+            "decode_steps": len(step_ms),
+            "tokens_per_s": rows * len(step_ms) / (sum(step_ms) / 1e3)}
+
+
+class CrossTimer:
+    """While entered, brackets every cross-attention call of the plain
+    blockwise function (mode "full") with CUDA events on the stream."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+
+        self.module, self.real, self.events = attention, attention.blockwise_attention, []
+
+        def spy(*a, mode="causal", **kw):
+            if mode != "full":
+                return self.real(*a, mode=mode, **kw)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(*a, mode=mode, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        attention.blockwise_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.blockwise_attention = self.real
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def whisper_serve_phase(dev) -> tuple[dict, dict]:
+    """Phase 27, serving: whisper-base at full width in bf16 on seed-0
+    weights from the dense cache (WHISPER_SERVE): launch counts (the
+    prefill's flash calls: one per encoder layer, one per decoder layer;
+    decode runs the plain blockwise function), tokens in the vocabulary;
+    prefill ms, decode-step p50/p99, tokens/s, peak memory; then one more
+    step with each cross-attention call bracketed by CUDA events (its
+    span on the stream), and the plain function alone at that shape."""
+    cfg, sv = WHISPER, WHISPER_SERVE
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (sv["rows"], sv["prompt"]), generator=gen,
+                                     device=dev, dtype=torch.int32),
+             "encoder_embeds": torch.randn((sv["rows"], cfg.encoder_seq, cfg.frontend_dim),
+                                           generator=gen, device=dev).bfloat16()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    tokens, _, prefill_ms, step_ms = dense_greedy(params, cfg, batch, sv["steps"], sv["length"])
+    launches = dispatch.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": cfg.num_encoder_layers + cfg.num_layers, "flash_attention_bwd": 0}
+    summary = {**serve_summary(prefill_ms, step_ms, sv["rows"]), "peak_memory_gb": peak_gb,
+               "launches": {k: launches[k] for k in want}, "rows": sv["rows"],
+               "prompt": sv["prompt"], "cache_length": sv["length"]}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"whisper serving launched {launches}, the design {want}")
+    if not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("whisper serving produced tokens outside the vocabulary")
+    # one more step, its cross-attention calls bracketed on the stream
+    with torch.no_grad():
+        caches = M.init_cache_tree(cfg, sv["rows"], sv["length"], dev)
+        M.prefill(params, cfg, batch, caches)
+        tok = tokens[:, -1:].to(dev)
+        torch.cuda.synchronize()
+        with CrossTimer() as cross:
+            t0 = time.perf_counter()
+            M.decode_step(params, cfg, tok, sv["prompt"], caches)
+            torch.cuda.synchronize()
+            step = (time.perf_counter() - t0) * 1e3
+        from repro_torch.models import attention
+        q = torch.randn((sv["rows"], 1, cfg.num_heads, cfg.resolved_head_dim), generator=gen,
+                        device=dev).bfloat16()
+        ck = caches["scan"][0][1].k[0]
+        kv_pos = torch.arange(ck.shape[1], device=dev)
+        qpos = torch.zeros(1, dtype=torch.long, device=dev)
+        expand = lambda t: attention._expand_kv(t, cfg.num_heads)
+        alone = cuda_ms(lambda: attention.blockwise_attention(
+            q, expand(ck), expand(ck), qpos, kv_pos, mode="full"), reps=30)[0]
+    summary.update(cross_attention_step_ms=step, cross_attention_span_ms=cross.ms(),
+                   cross_attention_calls=len(cross.events),
+                   cross_attention_alone_ms_per_layer=alone)
+    log(f"serve {cfg.name} dense cache: " + json.dumps(summary))
+    del params, caches
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def internvl_phase(dev) -> dict:
+    """Phase 28: internvl2-76b at full width with INTERNVL_LAYERS layers in
+    bf16, seed-0 weights drawn on the card layer by layer into the stacked
+    tree: one loss and gradient on 256 stub image embeddings and 768 text
+    tokens (loss finite, every gradient finite, their norm above 0; flash
+    launches as the design: one forward per layer, two under remat, one
+    backward), then a dense prefill of the image and 32 tokens and 16
+    greedy steps (tokens in the vocabulary).  Times and peak memory."""
+    cfg = dataclasses.replace(INTERNVL, num_layers=INTERNVL_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(28)
+    text = INTERNVL_TRAIN["text"]
+    toks = torch.randint(0, cfg.vocab_size, (1, text + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "image_embeds": torch.randn((1, cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+                                         device=dev).bfloat16()}
+    params = tree_map(lambda t: t.requires_grad_(), params)
+    times = []
+    for _ in range(2):   # the first call warms up
+        for t in tree_leaves(params):
+            t.grad = None
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = M.loss_fn(params, cfg, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dispatch.launch_counts()
+    grad_peak = torch.cuda.max_memory_allocated() / 1e9
+    grads = [t.grad for t in tree_leaves(params)]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    gnorm = math.sqrt(sum(float(g.float().square().sum()) for g in grads))
+    want = {"flash_attention": cfg.num_layers * (2 if cfg.remat else 1),
+            "flash_attention_bwd": cfg.num_layers}
+    params = tree_map(lambda t: t.detach(), params)
+    del grads
+    for t in tree_leaves(params):
+        t.grad = None
+    sv = INTERNVL_SERVE
+    prompt = {"tokens": toks[:sv["rows"], :sv["prompt"]],
+              "image_embeds": batch["image_embeds"][:sv["rows"]]}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    length = cfg.frontend_tokens + sv["prompt"] + sv["steps"]
+    tokens, _, prefill_ms, step_ms = dense_greedy(params, cfg, prompt, sv["steps"], length)
+    serve_launches = dispatch.launch_counts()
+    row = {"layers": cfg.num_layers, "params": n_params, "init_s": init_s,
+           "init_peak_memory_gb": init_peak, "loss": loss.item(), "grad_norm": gnorm,
+           "grads_finite": finite, "loss_and_grad_ms": times[-1],
+           "loss_and_grad_first_ms": times[0], "loss_and_grad_peak_memory_gb": grad_peak,
+           "tokens_per_step": cfg.frontend_tokens + text,
+           "launches": {k: launches[k] for k in want},
+           "serve": {**serve_summary(prefill_ms, step_ms, sv["rows"]),
+                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "flash_attention_launches": serve_launches["flash_attention"],
+                     "tokens": tokens[0].tolist()}}
+    log(f"internvl2-76b full width {cfg.num_layers}L: " + json.dumps(row))
+    if not (math.isfinite(row["loss"]) and finite and gnorm > 0):
+        raise AssertionError(f"internvl2-76b loss or gradient not finite and nonzero: {row}")
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"internvl2-76b launched {launches}, the design {want}")
+    if serve_launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"internvl2-76b prefill launched {serve_launches}")
+    if not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("internvl2-76b produced tokens outside the vocabulary")
+    del params, batch, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def frontend_inputs(cfg, rows, seq, seed) -> dict:
+    """Tokens (rows, seq + 1) split into tokens and labels, with the stub
+    frontend's embeddings where the model takes them, fp32, from a numpy
+    seed (on the CPU, then moved: card and CPU get the same values)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(rows, seq + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encoder_decoder:
+        out["encoder_embeds"] = rng.normal(size=(rows, cfg.encoder_seq, cfg.frontend_dim))
+    elif cfg.frontend == "vision":
+        out["image_embeds"] = rng.normal(size=(rows, cfg.frontend_tokens, cfg.frontend_dim))
+    return {k: torch.from_numpy(np.ascontiguousarray(v).astype(
+        np.int32 if v.dtype == np.int32 else np.float32)) for k, v in out.items()}
+
+
+def frontend_parity_phase(dev) -> dict:
+    """Phase 29: card against CPU on ``reduced()`` in fp32.  whisper-base and
+    internvl2-76b: one loss and gradient (loss within LOSS_RTOL, each
+    gradient leaf within GRAD_NORM_RTOL of its largest magnitude).  The
+    dense cache, DENSE_ARCHS: 2 rows, a 12-token prompt (with the stub
+    frames or patches), 8 greedy steps on the card and on the CPU from the
+    same weights: identical tokens, logits within LOGIT_ATOL, and each
+    kernel the dense path reaches launched.  A whisper NoLoCo run
+    (WHISPER_PARITY_RUN): identical partner tables, losses within
+    LOSS_RTOL."""
+    cpu = torch.device("cpu")
+    out: dict = {"loss": {}, "dense": {}}
+    for arch in ("whisper-base", "internvl2-76b"):
+        cfg = registry.get_config(arch).reduced(dtype="float32", remat=False)
+        cpu_params = M.init_params(torch.Generator().manual_seed(0), cfg)
+        batch = frontend_inputs(cfg, 2, 32, seed=6)
+        res = {}
+        for key, device, params in (("card", dev, _tree_to(cpu_params, dev)),
+                                    ("cpu", cpu, cpu_params)):
+            params = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+            dispatch.reset_launches()
+            loss, _ = M.loss_fn(params, cfg, {k: v.to(device) for k, v in batch.items()})
+            loss.backward()
+            res[key] = (loss.item(), [t.grad.cpu() for t in tree_leaves(params)],
+                        {k: dispatch.launch_counts()[k] for k in TRAIN_KERNELS[:2]})
+        (gl, gg, launches), (cl, cg, _) = res["card"], res["cpu"]
+        grad_rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                       for a, b in zip(gg, cg))
+        row = {"loss_card": gl, "loss_cpu": cl, "loss_rel_diff": abs(gl - cl) / abs(cl),
+               "grad_max_normwise_diff": grad_rel, "launches": launches}
+        log(f"loss and grads fp32 card vs cpu {arch} reduced: " + json.dumps(row))
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"{arch}: the card run skipped a flash kernel: {launches}")
+        if row["loss_rel_diff"] > LOSS_RTOL or grad_rel > GRAD_NORM_RTOL:
+            raise AssertionError(f"{arch}: card and CPU differ: {row}")
+        out["loss"][arch] = row
+    for arch, kernels in DENSE_ARCHS.items():
+        cfg = registry.get_config(arch).reduced(dtype="float32", remat=False)
+        cpu_params = M.init_params(torch.Generator().manual_seed(0), cfg)
+        prompt = frontend_inputs(cfg, 2, 12, seed=7)
+        del prompt["labels"]
+        extra = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+        length = extra + 12 + 8
+        dispatch.reset_launches()
+        card_toks, card_logits, _, _ = dense_greedy(
+            _tree_to(cpu_params, dev), cfg, {k: v.to(dev) for k, v in prompt.items()}, 8, length)
+        launches = {k: dispatch.launch_counts()[k] for k in kernels}
+        cpu_toks, cpu_logits, _, _ = dense_greedy(cpu_params, cfg, prompt, 8, length)
+        err = (card_logits - cpu_logits).abs().max().item()
+        row = {"tokens_identical": bool(torch.equal(card_toks, cpu_toks)),
+               "card_tokens": card_toks.tolist(), "max_logit_diff": err, "launches": launches}
+        log(f"dense cache fp32 card vs cpu {arch} reduced: " + json.dumps(row))
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"{arch}: the dense path skipped a kernel: {launches}")
+        if not row["tokens_identical"]:
+            raise AssertionError(f"{arch}: card and CPU dense greedy tokens differ")
+        if not (torch.isfinite(card_logits).all() and err <= LOGIT_ATOL):
+            raise AssertionError(f"{arch}: card and CPU logits differ beyond tolerance")
+        out["dense"][arch] = row
+    cfg = WHISPER.reduced(dtype="float32", remat=False)
+    run = WHISPER_PARITY_RUN
+    batches = frontend_batches(cfg, run, cpu, torch.float32, run["steps"])
+    dispatch.reset_launches()
+    card = gossip_run(cfg, dev, run, [{k: v.to(dev) for k, v in b.items()} for b in batches])
+    launches = {k: dispatch.launch_counts()[k] for k in TRAIN_KERNELS}
+    host = gossip_run(cfg, cpu, run, batches)
+    rel = [abs(a - b) / abs(b) for a, b in zip(card[0], host[0])]
+    partners = (card[4].partners, host[4].partners)
+    same_pairs = len(partners[0]) == 2 and all(
+        np.array_equal(a, b) for a, b in zip(*partners))
+    row = {"loss_max_rel_diff": max(rel), "partner_tables_identical": same_pairs,
+           "launches": launches, "card_losses": card[0], "cpu_losses": host[0]}
+    log(f"train whisper-base fp32 card vs cpu reduced: " + json.dumps(row))
+    if not same_pairs:
+        raise AssertionError("whisper: card and CPU runs paired replicas differently")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"whisper fp32 card training skipped a kernel: {launches}")
+    if max(rel) > LOSS_RTOL:
+        raise AssertionError(f"whisper: card and CPU training differ: losses {rel}")
+    out["train"] = row
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -2381,12 +2997,13 @@ def main() -> None:
     errors = {**check_kernels(dev), **check_train_kernels(dev), **check_int8_kernels(dev)}
     for name, err in (*check_recurrent_kernels(dev).items(), *check_split_kernels(dev).items(),
                       *check_recurrent_bwd_kernels(dev).items(),
-                      *check_granite_kernels(dev).items()):
+                      *check_granite_kernels(dev).items(), *check_frontend_kernels(dev).items()):
         errors[name] = max(errors.get(name, 0.0), err)
     rec_timings, rec_extra = time_recurrent_kernels(dev)
     bwd_timings, bwd_extra = time_recurrent_bwd_kernels(dev)
     rec_extra.update(bwd_extra)
     granite_timings = time_granite_kernels(dev)
+    frontend_timings = time_frontend_kernels(dev)
     timings = {**time_kernels(dev), **time_train_kernels(dev), **time_int8_kernels(dev),
                **rec_timings, **bwd_timings}
     sampling = sampling_phase(dev)
@@ -2419,6 +3036,10 @@ def main() -> None:
     granite_train["moe_block"] = time_moe_block(dev)
     moe_parity = {"serve": moe_serve_parity(dev), "train": moe_train_parity(dev),
                   "archs": archs_parity(dev)}
+    whisper_train = whisper_train_phase(dev)[0]
+    whisper_serve = whisper_serve_phase(dev)[0]
+    internvl = internvl_phase(dev)
+    frontend_parity = frontend_parity_phase(dev)
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: int8_launches[k] for k in INT8})
     launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
@@ -2475,6 +3096,20 @@ def main() -> None:
                 "routing")},
             "archs": {a: {k: r[k] for k in ("loss_rel_diff", "grad_max_normwise_diff", "routing")}
                       for a, r in moe_parity["archs"].items()}},
+        "frontend_kernel_timings": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms",
+                                                          "bound_ms", "bound_by")}
+                                    for k, v in frontend_timings.items()},
+        "train_whisper": {k: v for k, v in whisper_train.items() if k != "losses"},
+        "serve_whisper": whisper_serve,
+        "internvl2_76b": {k: v for k, v in internvl.items() if k != "serve"}
+        | {"serve": {k: v for k, v in internvl["serve"].items() if k != "tokens"}},
+        "frontend_card_vs_cpu": {
+            "loss": {a: {k: r[k] for k in ("loss_rel_diff", "grad_max_normwise_diff")}
+                     for a, r in frontend_parity["loss"].items()},
+            "dense_tokens_identical": {a: r["tokens_identical"]
+                                       for a, r in frontend_parity["dense"].items()},
+            "train_whisper": {k: frontend_parity["train"][k] for k in (
+                "loss_max_rel_diff", "partner_tables_identical")}},
         "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,16 +1,25 @@
-"""Attention: GQA with qk-norm and RoPE, for training and for the paged
-serving cache.
+"""Attention: GQA with qk-norm and RoPE; causal, sliding-window and full
+(encoder self-attention and cross-attention) modes; training, the dense KV
+cache and the paged serving cache.
 
-The port of ``repro/models/attention.py::apply_attention``, its no-cache
-(training) branch and its paged branch, and the cache types the latter uses.
-Training runs every replica of the stacked simulation in one forward: the
-parameters carry a leading replica axis R and x is (R, B, S, d); R is folded
-into the batch before the flash-attention op, so one kernel launch serves
-every replica.  Chunked prefill and decode scatter the new tokens' K/V into
-the page pools (masked tokens to the trash page) and then run the
-paged-attention ops.  On the card both launch the CUDA kernels.  The
-dense-cache and cross-attention branches come with the slices that need
-them.
+The port of ``repro/models/attention.py::apply_attention`` and the cache
+types it uses.  Training runs every replica of the stacked simulation in
+one forward: the parameters carry a leading replica axis R and x is
+(R, B, S, d) (cross-attention's ``kv_source`` (R, B, S_enc, d)); R is
+folded into the batch before the flash-attention op, so one kernel launch
+serves every replica.  The dense cache (:class:`AttnCache`) serves
+``models/model.py``'s ``prefill``/``decode_step``: prefill runs the flash
+op over the fresh K/V and writes them into the cache, decode appends one
+token and runs :func:`blockwise_attention`, the reference's
+positions-aware online softmax in plain PyTorch (it is jnp there, not a
+Pallas kernel).  Cross-attention with a cache reads the encoder K/V that
+:func:`build_cross_cache` projected once, through the same plain function,
+in prefill as in decode, as the reference does.  Chunked prefill and
+decode over the paged cache scatter the new tokens' K/V into the page
+pools (masked tokens to the trash page) and then run the paged-attention
+ops.  On the card the flash and paged ops launch the CUDA kernels.  The
+reference's sequence-sharded dense cache (``ctx.kv_shard_seq``, tensor
+parallel heads) is multi-device and comes with ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -23,6 +32,9 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import torch_dtype, truncated_normal
 from repro_torch.models.layers import apply_norm, apply_rope
+
+NEG_INF = -1e30
+_NO_POSITION = -(10**9)   # kv position of padding and unwritten cache slots
 
 # ---------------------------------------------------------------------------
 # Params
@@ -44,6 +56,127 @@ def init_attention(gen: torch.Generator, cfg) -> dict:
         p["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=gen.device)
         p["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=gen.device)
     return p
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (flash-style) attention in plain PyTorch, positions-aware
+# ---------------------------------------------------------------------------
+
+
+def _mask_block(mode: str, q_pos: torch.Tensor, kv_pos: torch.Tensor, window: int):
+    """(Sq, Bk) additive mask from absolute positions.  Negative kv
+    positions mark padding and unwritten cache slots and are never valid."""
+    qp = q_pos[:, None]
+    kp = kv_pos[None, :]
+    valid = (kp >= 0).expand(qp.shape[0], kp.shape[1])
+    if mode == "causal":
+        valid = valid & (kp <= qp)
+    elif mode == "local":
+        valid = valid & (kp <= qp) & (kp > qp - window)
+    elif mode != "full":
+        raise ValueError(mode)
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(valid, zero, torch.full_like(zero, NEG_INF))
+
+
+def blockwise_attention(
+    q: torch.Tensor,             # (B, Sq, H, D)
+    k: torch.Tensor,             # (B, Sk, H, D), kv heads already expanded to H
+    v: torch.Tensor,             # (B, Sk, H, D)
+    q_positions: torch.Tensor,   # (Sq,) absolute positions
+    kv_positions: torch.Tensor,  # (Sk,)
+    *,
+    mode: str = "causal",
+    window: int = 0,
+    block_kv: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of ``block_kv``, the
+    reference's ``blockwise_attention``: fp32 scores of q·scale, a -1e30
+    additive mask from the positions, the (m, l, acc) recurrence in fp32
+    and acc / max(l, 1e-30) cast to q's dtype."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    q32 = (q.float() * (1.0 / math.sqrt(d))).transpose(1, 2)        # (B, H, Sq, D)
+    nblk = max(1, math.ceil(sk / block_kv))
+    pad = nblk * block_kv - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad), value=_NO_POSITION)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for i in range(nblk):
+        blk = slice(i * block_kv, (i + 1) * block_kv)
+        kb = k[:, blk].transpose(1, 2).float()                      # (B, H, Bk, D)
+        vb = v[:, blk].transpose(1, 2).float()
+        s = torch.einsum("bhqd,bhkd->bhqk", q32, kb)
+        s = s + _mask_block(mode, q_positions, kv_positions[blk], window)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _expand_kv(x: torch.Tensor, h: int) -> torch.Tensor:
+    """The kv head of each query head, (B, S, KV, D) -> (B, S, H, D): query
+    head i reads kv head (i·KV)//H."""
+    kv = x.shape[2]
+    head_map = (torch.arange(h, device=x.device) * kv) // h
+    return x.index_select(2, head_map)
+
+
+# ---------------------------------------------------------------------------
+# Dense KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class AttnCache:
+    """Decode cache.  For "global" layers ``k``/``v`` hold the whole context
+    (B, length, KV, D); for "local" layers they are a ring of
+    min(length, window) slots written at ``index % size``; a cross-attention
+    cache holds the encoder's K/V (B, S_enc, KV, D).  ``index`` is one int32
+    scalar for the whole batch: the number of tokens already cached (every
+    row sits at the same position).  Prefill and decode write the tensors
+    in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: torch.Tensor
+
+    @staticmethod
+    def init(cfg, batch: int, length: int, mode: str, device="cpu") -> "AttnCache":
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        size = min(length, cfg.sliding_window) if mode == "local" else length
+        dt = torch_dtype(cfg.dtype)
+        return AttnCache(
+            k=torch.zeros((batch, size, kv, hd), dtype=dt, device=device),
+            v=torch.zeros((batch, size, kv, hd), dtype=dt, device=device),
+            index=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+
+def _project_kv(p: dict, cfg, kv_in: torch.Tensor, eq: str):
+    k = torch.einsum(eq, kv_in, p["w_k"])
+    v = torch.einsum(eq, kv_in, p["w_v"])
+    if cfg.qk_norm:  # RMSNorm over head_dim, as the JAX package's _rms
+        k = apply_norm({"scale": p["k_norm"]}, k)
+    return k, v
+
+
+def build_cross_cache(p: dict, cfg, encoder_out: torch.Tensor, cache: AttnCache) -> AttnCache:
+    """Project the encoder output (B, S_enc, d) to cross-attention K/V once
+    (``k_norm`` with qk-norm, no RoPE), into ``cache`` in place."""
+    k, v = _project_kv(p, cfg, encoder_out, "bsd,dhk->bshk")
+    cache.k.copy_(k)
+    cache.v.copy_(v)
+    cache.index.zero_()
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -91,79 +224,142 @@ class PagedView:
 
 
 # ---------------------------------------------------------------------------
-# Attention block (projections + paged attention + out-proj)
+# Attention block (projections + attention + out-proj)
 # ---------------------------------------------------------------------------
 
 
-def _training_attention(p: dict, cfg, x: torch.Tensor, mode: str, positions) -> torch.Tensor:
+def _training_attention(p: dict, cfg, x: torch.Tensor, mode: str, positions,
+                        kv_source: torch.Tensor | None) -> torch.Tensor:
     """Attention of the stacked training forward: p's leaves (R, ...), x
-    (R, B, S, d), canonical positions."""
+    (R, B, S, d), K/V from ``kv_source`` (R, B, S_enc, d) for
+    cross-attention, canonical positions."""
     r, b, s, _ = x.shape
     q = torch.einsum("rbsd,rdhk->rbshk", x, p["w_q"])
-    k = torch.einsum("rbsd,rdhk->rbshk", x, p["w_k"])
-    v = torch.einsum("rbsd,rdhk->rbshk", x, p["w_v"])
     if cfg.qk_norm:  # RMSNorm over head_dim, as the JAX package's _rms
         q = apply_norm({"scale": p["q_norm"]}, q)
-        k = apply_norm({"scale": p["k_norm"]}, k)
+    k, v = _project_kv(p, cfg, x if kv_source is None else kv_source, "rbsd,rdhk->rbshk")
     if cfg.use_rope and mode != "full":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     window = (cfg.sliding_window or 0) if mode == "local" else 0
     out = kernel_ops.flash_attention(
         q.reshape(r * b, s, *q.shape[3:]).contiguous(),
-        k.reshape(r * b, s, *k.shape[3:]).contiguous(),
-        v.reshape(r * b, s, *v.shape[3:]).contiguous(),
+        k.reshape(r * b, k.shape[2], *k.shape[3:]).contiguous(),
+        v.reshape(r * b, v.shape[2], *v.shape[3:]).contiguous(),
         mode=mode, window=window,
     )
     return torch.einsum("rbshk,rhkd->rbsd", out.reshape(q.shape), p["w_o"])
 
 
+def _dense_attention(cfg, q, k, v, cache: AttnCache, mode: str,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Dense-cache self-attention of one layer, the cache written in place.
+    Prefill (S > 1, canonical positions): the flash op over the fresh K/V,
+    then the cache filled, a local ring with the last ``size`` tokens in
+    slot order pos % size; index = S.  Decode (S = 1): the token written at
+    ``index`` (local: ``index % size``), then :func:`blockwise_attention`
+    over the cache with each slot's position (unwritten slots and, on a
+    ring, slots older than the window get none)."""
+    s, h = q.shape[1], q.shape[2]
+    size = cache.k.shape[1]
+    window = cfg.sliding_window or 0
+    if s > 1:
+        out = kernel_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         mode=mode, window=window if mode == "local" else 0)
+        if mode == "local" and s >= size:
+            take = s - size
+            roll = -(take % size)
+            cache.k.copy_(torch.roll(k[:, take:], roll, 1))
+            cache.v.copy_(torch.roll(v[:, take:], roll, 1))
+        else:
+            cache.k[:, :s] = k
+            cache.v[:, :s] = v
+        cache.index.fill_(s)
+        return out
+    index = cache.index.long()
+    slots = torch.arange(size, device=q.device)
+    if mode == "local":
+        slot = index % size
+        kv_positions = index - (slot - slots) % size
+        valid = kv_positions >= torch.clamp_min(index - size + 1, 0)
+    else:
+        slot = index
+        kv_positions = slots
+        valid = slots <= index
+    kv_positions = torch.where(valid, kv_positions, torch.full_like(kv_positions, _NO_POSITION))
+    cache.k.index_copy_(1, slot.reshape(1), k.to(cache.k.dtype))
+    cache.v.index_copy_(1, slot.reshape(1), v.to(cache.v.dtype))
+    cache.index.add_(1)
+    return blockwise_attention(q, _expand_kv(cache.k, h), _expand_kv(cache.v, h), positions,
+                               kv_positions, mode=mode, window=window)
+
+
 def apply_attention(
     p: dict,
     cfg,
-    x: torch.Tensor,                          # (R, S, d); training: (R, B, S, d)
+    x: torch.Tensor,                          # (B, S, d); training: (R, B, S, d)
     *,
-    mode: str = "causal",                     # causal | local
-    positions: torch.Tensor | None = None,    # (R, S) absolute positions of x
-    cache: PagedAttnCache | None = None,
+    mode: str = "causal",                     # causal | local | full
+    positions: torch.Tensor | None = None,    # absolute positions of x
+    kv_source: torch.Tensor | None = None,    # cross-attention: the encoder states
+    cache: AttnCache | PagedAttnCache | None = None,
     paged: PagedView | None = None,
     decode: bool = False,                     # paged phase selector
     chunk_lengths: torch.Tensor | None = None,  # (R,) valid tokens per chunk row
-) -> tuple[torch.Tensor, PagedAttnCache]:
-    """Attention block.  With no cache: the training forward over canonical
-    positions, p's leaves and x stacked over replicas (R, B, S, d); returns
-    (y, None).  Over the paged cache: chunked prefill (``decode`` False,
-    ``chunk_lengths`` given) or one decode token per slot (``decode`` True).
+) -> tuple[torch.Tensor, AttnCache | PagedAttnCache | None]:
+    """Attention block.  With no cache: the training (or encoder) forward
+    over canonical positions, p's leaves and x stacked over replicas
+    (R, B, S, d), ``kv_source`` (R, B, S_enc, d) for cross-attention;
+    returns (y, None).  With an :class:`AttnCache` (unstacked p, x (B, S, d),
+    ``positions`` (S,)): dense prefill (S > 1) or decode (S = 1); in
+    ``"full"`` mode the cache holds the encoder K/V of
+    :func:`build_cross_cache` and is only read.  Over the paged cache:
+    chunked prefill (``decode`` False, ``chunk_lengths`` given) or one
+    decode token per slot (``decode`` True).
 
-    The page pools are written in place (``index_put_``) where the JAX
-    package donated the buffers and returned new ones; the cache returned is
-    the one passed in."""
+    Caches are written in place (``index_put_``/``copy_``) where the JAX
+    package returned new ones; the cache returned is the one passed in."""
     if cache is None and paged is None:
         if positions is None:
             positions = torch.arange(x.shape[2], device=x.device)
-        return _training_attention(p, cfg, x, mode, positions), None
-    if not isinstance(cache, PagedAttnCache) or paged is None:
-        raise NotImplementedError(
-            "the port's attention runs training and the paged cache; dense-cache "
-            "attention comes with the rest of serving (ROADMAP Queue 1 item 12)"
-        )
-    if not decode and chunk_lengths is None:
-        raise NotImplementedError(
-            "single-shot paged prefill needs flash attention (ROADMAP Queue 1); "
-            "use chunked prefill"
-        )
+        return _training_attention(p, cfg, x, mode, positions, kv_source), None
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)
-
     q = torch.einsum("bsd,dhk->bshk", x, p["w_q"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["w_k"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["w_v"])
-    if cfg.qk_norm:  # RMSNorm over head_dim, as the JAX package's _rms
+    if cfg.qk_norm:
         q = apply_norm({"scale": p["q_norm"]}, q)
-        k = apply_norm({"scale": p["k_norm"]}, k)
-    if cfg.use_rope:
+    if cfg.use_rope and mode != "full":
         q = apply_rope(q, positions, cfg.rope_theta)
+
+    if isinstance(cache, AttnCache):
+        if mode == "full":
+            # Cross-attention over the cached encoder K/V, prefill and decode
+            # alike: the reference runs its blockwise function here (its
+            # ``reuse_cross`` branch), not the flash kernel, and so does the
+            # port, on the card too.
+            h = q.shape[2]
+            kv_positions = torch.arange(cache.k.shape[1], device=x.device)
+            out = blockwise_attention(q, _expand_kv(cache.k, h), _expand_kv(cache.v, h),
+                                      positions, kv_positions, mode="full")
+        else:
+            k, v = _project_kv(p, cfg, x, "bsd,dhk->bshk")
+            if cfg.use_rope:
+                k = apply_rope(k, positions, cfg.rope_theta)
+            out = _dense_attention(cfg, q, k, v, cache, mode, positions)
+        return torch.einsum("bshk,hkd->bsd", out, p["w_o"]), cache
+
+    if not isinstance(cache, PagedAttnCache) or paged is None:
+        raise ValueError("paged attention needs a PagedAttnCache and a PagedView")
+    if mode not in ("causal", "local"):
+        raise ValueError(f"paged attention mode must be causal or local, got {mode!r}")
+    if not decode and chunk_lengths is None:
+        raise NotImplementedError(
+            "single-shot paged prefill needs flash attention (ROADMAP Queue 1 item 12); "
+            "use chunked prefill"
+        )
+    k, v = _project_kv(p, cfg, x, "bsd,dhk->bshk")
+    if cfg.use_rope:
         k = apply_rope(k, positions, cfg.rope_theta)
 
     window = cfg.sliding_window or 0

@@ -8,7 +8,9 @@ mixers' rates, skips, norm scales and Λ, and the MoE router (fp32 in both
 packages at every model dtype) stay fp32; every other weight takes
 ``dtype``.  The structure
 and every shape are checked against what the port's own ``init_params``
-makes for ``cfg``.
+makes for ``cfg``, the encoder (``encoder``, ``enc_norm``, ``enc_proj``),
+the cross-attention blocks (``ln_cross``, ``cross_attn``) and the vision
+``projector`` included.
 
 ``train_state_from_jax_numpy`` does the same for the stacked trainer's
 whole state (θ, AdamW μ/ν/count, φ, δ and the two step counters), given as
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import torch_dtype
+from repro_torch.models.model import encoder_cfg
 from repro_torch.models.rglru import CONV_WIDTH, lru_width
 from repro_torch.models.ssd import d_inner, num_heads_ssm
 from repro_torch.tree import tree_map
@@ -70,15 +73,20 @@ def expected_shapes(cfg) -> PyTree:
                 "w_dt": (d, nh), "dt_bias": (nh,), "a_log": (nh,), "d_skip": (nh,),
                 "conv": (cfg.ssm_conv_width, di), "norm_scale": (di,), "w_out": (di, d)}
 
-    def block(kind, lead):
-        tfm.check_kind(cfg, kind)
+    def attn():
+        p = {"w_q": (d, h, hd), "w_k": (d, kv, hd), "w_v": (d, kv, hd), "w_o": (h, hd, d)}
+        if cfg.qk_norm:
+            p.update(q_norm=(hd,), k_norm=(hd,))
+        return p
+
+    def block(kind, lead, cross):
+        tfm.check_kind(kind)
         if kind in ("rglru", "ssd"):
             p = {"ln1": norm(), "mixer": mixer(kind)}
         else:
-            attn = {"w_q": (d, h, hd), "w_k": (d, kv, hd), "w_v": (d, kv, hd), "w_o": (h, hd, d)}
-            if cfg.qk_norm:
-                attn.update(q_norm=(hd,), k_norm=(hd,))
-            p = {"ln1": norm(), "attn": attn}
+            p = {"ln1": norm(), "attn": attn()}
+        if cross:
+            p.update(ln_cross=norm(), cross_attn=attn())
         if cfg.arch_type == "moe":
             e, f = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
             moe = {"router": (d, e), "w_in": (e, d, f), "w_out": (e, f, d)}
@@ -92,18 +100,25 @@ def expected_shapes(cfg) -> PyTree:
             p.update(ln2=norm(), mlp=mlp)
         return _map(lambda s: lead + s, p)
 
-    period, n_full, rem = tfm.layer_plan(cfg)
+    def stack(c, cross=False):
+        period, n_full, rem = tfm.layer_plan(c)
+        return {
+            "scan": [block(kind, (n_full,), cross) if n_full else None for kind in period],
+            "rem": [block(period[j], (), cross) for j in range(rem)],
+        }
+
     embed = {"table": (cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
         embed["unembed"] = (d, cfg.vocab_size)
-    return {
-        "embed": embed,
-        "stack": {
-            "scan": [block(kind, (n_full,)) if n_full else None for kind in period],
-            "rem": [block(period[j], ()) for j in range(rem)],
-        },
-        "final_norm": norm(),
-    }
+    out = {"embed": embed, "stack": stack(cfg, cross=cfg.is_encoder_decoder),
+           "final_norm": norm()}
+    if cfg.is_encoder_decoder:
+        out.update(encoder=stack(encoder_cfg(cfg)), enc_norm=norm())
+        if cfg.frontend_dim and cfg.frontend_dim != d:
+            out["enc_proj"] = (cfg.frontend_dim, d)
+    if cfg.frontend == "vision":
+        out["projector"] = (cfg.frontend_dim, d)
+    return out
 
 
 def _map(fn, tree):

@@ -77,10 +77,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
     """Whisper-style fixed sinusoidal embeddings (S, D)."""
-    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
-    half = torch.arange(dim // 2, dtype=torch.float32, device=device)
+    return sinusoidal_at(torch.arange(seq, device=device), dim)
+
+
+def sinusoidal_at(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """The rows of :func:`sinusoidal_positions` at integer ``positions`` of
+    any shape: positions.shape + (D,), fp32."""
+    pos = positions.to(torch.float32)[..., None]
+    half = torch.arange(dim // 2, dtype=torch.float32, device=positions.device)
     inv = torch.exp(-math.log(10_000.0) * half / max(dim // 2 - 1, 1))
-    ang = pos * inv[None, :]
+    ang = pos * inv
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 

@@ -1,6 +1,8 @@
-"""Every decoder-only architecture of the reference's registry in the port:
-registry, parameter structure, conversion and one loss-and-gradient
-evaluation against the JAX package on the CPU.
+"""Every architecture of the reference's registry in the port: registry,
+parameter structure and conversion of each, and one loss-and-gradient
+evaluation of each decoder-only one against the JAX package on the CPU
+(the encoder-decoder and vision models' losses are held in
+``tests/test_torch_encdec.py`` and ``tests/test_torch_vision.py``).
 
 Configs are ``reduced(dtype="float32", remat=False)``; weights come from the
 JAX initialiser and are converted.  Tolerances: the loss (LM + MoE aux)
@@ -25,8 +27,11 @@ from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.tree import tree_leaves, tree_map
 
-DECODER_ONLY = [a for a in jax_registry.ASSIGNED if a not in ("whisper-base", "internvl2-76b")]
-ARCHS = DECODER_ONLY + ["paper-small-125m", "paper-medium-1.3b", "paper-large-6.8b"]
+FRONTEND = ["whisper-base", "internvl2-76b"]
+DECODER_ONLY = [a for a in jax_registry.ASSIGNED if a not in FRONTEND]
+PAPER = ["paper-small-125m", "paper-medium-1.3b", "paper-large-6.8b"]
+ARCHS = DECODER_ONLY + PAPER
+EVERY = list(jax_registry.ASSIGNED) + PAPER
 NEW = ["granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "gemma-2b", "stablelm-1.6b", "minitron-8b"]
 LOSS_ATOL, AUX_ATOL, GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-6, 1e-5, 1e-5
 
@@ -63,7 +68,7 @@ def test_decoder_only_list_is_the_reference_minus_encdec_and_vision():
     assert len(DECODER_ONLY) == 8 and set(NEW) <= set(DECODER_ONLY)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", EVERY)
 def test_published_config_is_the_reference(arch):
     """Every published field of the port's config equals the reference's
     (the port's ModelConfig lacks only the JAX tracing fields)."""
@@ -72,13 +77,19 @@ def test_published_config_is_the_reference(arch):
     assert {k: want[k] for k in got} == got
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-76b"])
+@pytest.mark.parametrize("arch", FRONTEND)
 def test_encdec_and_vision_name_item_8d(arch):
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        registry.get_config(arch)
+    """The two archs of ROADMAP item 8d resolve, with the reference's
+    fields, and the registry holds every arch of the reference's."""
+    cfg = registry.get_config(arch)
+    want = dataclasses.asdict(jax_registry.get_config(arch))
+    assert {k: want[k] for k in dataclasses.asdict(cfg)} == dataclasses.asdict(cfg)
+    assert cfg.is_encoder_decoder == (arch == "whisper-base")
+    assert cfg.frontend == ("audio" if arch == "whisper-base" else "vision")
+    assert set(registry.ARCHS) == set(jax_registry.ARCHS)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", EVERY)
 def test_init_structure_and_dtypes_match_jax(arch):
     """The port's init at the model's own dtype (bf16) has the reference's
     tree, shapes and leaf dtypes (fp32 norms, mixers' rates and routers)."""
@@ -90,7 +101,7 @@ def test_init_structure_and_dtypes_match_jax(arch):
         assert str(g.dtype).removeprefix("torch.") == str(w.dtype)
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + FRONTEND)
 def test_convert_round_trips_bf16_tree(arch):
     """A bf16 JAX tree converts leaf for leaf, fp32 leaves staying fp32,
     and the port's host view of it is the same tree bit for bit."""

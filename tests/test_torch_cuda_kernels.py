@@ -279,6 +279,36 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
         _assert_grad_close(got_g, want_g, dtype)
 
 
+# Cross-attention's regime: full mode with Sq != Sk (448 decoder queries over
+# 1,500 encoder keys, Sk no multiple of any tile), single queries, and GQA
+# 64/8 at D 128 (internvl2-76b's heads); (B, Sq, Sk, H, KV, D)
+FLASH_CROSS_CASES = [(2, 1, 37, 8, 8, 64), (2, 5, 1500, 8, 8, 64), (2, 448, 1500, 8, 8, 64),
+                     (1, 100, 1500, 64, 8, 128), (1, 70, 37, 6, 4, 48), (1, 5, 1500, 8, 8, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CROSS_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernels_full_mode_with_sq_ne_sk_match_plain(cuda, case, dtype):
+    b, sq, sk, h, kv, d = case
+    rng = np.random.default_rng(sq + sk + d)
+    q, do = (torch.from_numpy(rng.normal(size=(b, sq, h, d)).astype(np.float32)).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(b, sk, kv, d)).astype(np.float32)).to(cuda, dtype)
+            for _ in range(2))
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, mode="full")
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, mode="full")
+    torch.cuda.synchronize()
+    o_want, lse_want = ref.torch_flash_attention_fwd(q, k, v, mode="full")
+    assert o.shape == q.shape and lse.shape == (b, h, sq)
+    torch.testing.assert_close(o.float(), o_want.float(), atol=TOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, lse_want, atol=1e-4, rtol=1e-5)
+    want = ref.torch_flash_attention_bwd(q, k, v, o, lse, do, mode="full")
+    for got_g, want_g, t in zip(grads, want, (q, k, v)):
+        assert got_g.dtype == dtype and got_g.shape == t.shape
+        _assert_grad_close(got_g, want_g, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(2, 1024, 4, 2, 48, "causal", 0), (1, 300, 6, 4, 128, "local", 100)],
                          ids=lambda c: "-".join(map(str, c)))

@@ -108,8 +108,17 @@ def test_init_params_matches_jax_structure(arch):
 
 
 def test_other_archs_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8d"):
-        registry.get_config("whisper-base")
+    """whisper-base resolves since ROADMAP item 8d; paged serving refuses it
+    with the reference's ValueError (its prompts are no plain token
+    streams), and the dense cache serves it (tests/test_torch_encdec.py)."""
+    jcfg = jax_registry.get_config("whisper-base").reduced(dtype="float32", remat=False)
+    cfg = registry.get_config("whisper-base").reduced(dtype="float32", remat=False)
+    with pytest.raises(ValueError) as want:
+        JM.init_paged_cache_tree(jcfg, 1, 4, 4)
+    with pytest.raises(ValueError) as got:
+        M.init_paged_cache_tree(cfg, 1, 4, 4)
+    assert str(got.value) == str(want.value)
+    assert "paged serving supports decoder-only token models" in str(got.value)
 
 
 def test_paged_cache_tree_rejects_encdec():
