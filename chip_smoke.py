@@ -222,6 +222,38 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     prefill, the decode steps), and a whisper-base NoLoCo run of 10 steps
     (identical partner tables, losses within LOSS_RTOL).
 
+30. paper-small-125m at full width in bf16 on 8 replicas × batch 2 × seq
+    1024 through ``launch.train_elastic.run_elastic_training`` (m 5, 50
+    steps, an eval of one batch every 5) under a fault plan: replicas 3
+    and 5 drop at round 2 and rejoin at round 5, warm-started from replica
+    0; replica 1 straggles at round 6; a partition into two halves at round
+    7 heals at round 9.  Launch counts equal ``expected_launches`` (every
+    inner step one batched forward and backward over all 8 replicas, frozen
+    ones included; every round one update per leaf) plus the evals'
+    forwards; losses finite and falling; rounds 2–4 pair 6 replicas and
+    leave 3 and 5 alone; the partition's rounds never pair across the cut;
+    the final membership is epoch 2 with all 8; the dropped replicas' θ, φ,
+    δ, moments and step count bit-identical (row checksums) from the drop
+    to the rejoin, and after it θ = φ = the source's φ with zero δ,
+    moments and count.  Inner step p50/p99 by phase (full, masked,
+    partitioned), the outer step by round kind, the warm start, peak
+    memory, losses, weight std at every eval, the rounds; then
+    ``profile_steps`` on the final state (the full outer step alone, the
+    profiled step's busy share);
+31. the 2× straggler (replica 1 at rate 0.5 from round 0, ``stale=
+    "momentum"``) at phase 30's width, m 4, 24 steps: ``max_staleness`` 1,
+    ``blocked_syncs`` 0, each merged tick's table an involution over its
+    participants, launch counts as designed; the merged ticks' ms beside
+    the synchronous outer step (``time_outer`` on the final state); then a
+    rate-1 world (``async_clock=True``, 8 steps) against the synchronous run
+    of the same steps: losses and final θ bit-identical under both stale
+    rules;
+32. card against CPU on ``reduced()`` in fp32 (8 × 2 × 64): phase 30's and
+    phase 31's plans give identical round histories, losses within
+    LOSS_RTOL and weight std within WSTD_RTOL; then on the card a resume
+    mid-straggle (the debt outlives the first run's 8 steps) and one
+    mid-async (step 13), each bit-identical to its uninterrupted run.
+
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -257,6 +289,7 @@ from repro_torch.kernels import (  # noqa: E402
     build, dispatch, flash_attention, ops, paged_attention, quantize, ref, rglru_scan, ssd_scan,
 )
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.train_elastic import run_elastic_training  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.serve import serve_run, synth_requests  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -265,6 +298,7 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import PagedView  # noqa: E402
 from repro_torch.models.layers import logits_sharded  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.sim import FaultPlan  # noqa: E402
 from repro_torch.train import adapters  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -2963,6 +2997,362 @@ def frontend_parity_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 30–32: elastic membership and asynchronous rounds
+# ---------------------------------------------------------------------------
+
+# Phase 30: paper-small-125m at full width on 8 replicas through a fault plan.
+ELASTIC = dict(replicas=8, per_replica_batch=2, seq_len=1024, steps=50, inner_steps=5,
+               eval_every=5, eval_batches=1, inner_lr=3e-3, seed=0)
+ELASTIC_PLAN = [
+    {"kind": "drop", "round": 2, "replicas": [3, 5]},
+    {"kind": "rejoin", "round": 5, "replicas": [3, 5]},
+    {"kind": "straggle", "round": 6, "replicas": [1], "rounds": 1},
+    {"kind": "partition", "round": 7, "groups": [[0, 1, 2, 3], [4, 5, 6, 7]]},
+    {"kind": "heal", "round": 9},
+]
+# Phase 31: a 2× straggler on its own round clock, the stale Δ discounted.
+ASYNC = dict(replicas=8, per_replica_batch=2, seq_len=1024, steps=24, inner_steps=4,
+             eval_every=0, inner_lr=3e-3, seed=0, stale="momentum")
+ASYNC_PLAN = [{"kind": "rate", "round": 0, "replicas": [1], "rate": 0.5}]
+RATE1_STEPS = 8
+# Phase 32: a straggle debt that outlives the first run's horizon (steps 4–16).
+STRAGGLE_PLAN = [{"kind": "straggle", "round": 1, "replicas": [1], "rounds": 3}]
+INT_BITS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def bits_checksum(x: torch.Tensor) -> int:
+    """A position-weighted sum of a tensor's raw bits in int64 (wrapping):
+    equal tensors give equal sums, and a flipped bit changes the sum.
+    Computed in slices, without a copy of the tensor."""
+    flat = x.reshape(-1).view(INT_BITS[x.dtype])
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(0, flat.numel(), 1 << 24):
+        c = flat[i:i + (1 << 24)].long()
+        total += (c * torch.arange(i + 1, i + 1 + c.numel(), device=x.device)).sum()
+    return int(total)
+
+
+def _trees(state) -> dict:
+    return {"theta": state.theta, "phi": state.outer.phi, "delta": state.outer.delta,
+            "mu": state.opt.mu, "nu": state.opt.nu}
+
+
+def row_checksums(state, r: int) -> dict:
+    """Replica ``r``'s checksum of every leaf of θ, φ, δ and both moments,
+    and its step count."""
+    out = {k: [bits_checksum(x[r]) for x in tree_leaves(t)] for k, t in _trees(state).items()}
+    out["count"] = int(state.opt.count[r])
+    return out
+
+
+def warm_started(state, r: int, source: int) -> bool:
+    """Replica ``r``'s rows after a rejoin: θ and φ equal the source's φ,
+    δ and both moments zero, step count 0."""
+    phi = tree_leaves(state.outer.phi)
+    return (all(torch.equal(t[r], p[source]) and torch.equal(p[r], p[source])
+                for t, p in zip(tree_leaves(state.theta), phi))
+            and not any(bool(x[r].any()) for k in ("delta", "mu", "nu")
+                        for x in tree_leaves(_trees(state)[k]))
+            and int(state.opt.count[r]) == 0)
+
+
+def round_kind(rec: dict, world: int) -> str:
+    """A round record's kind: a merged tick with a stale Δ, a straggled,
+    partitioned or shrunken round, or a full one."""
+    if "due" in rec:
+        if any(rec["staleness"][r] for r in rec["due"]):
+            return "merged tick, stale Δ discounted"
+        return "merged tick, all due" if len(rec["due"]) == world else "merged tick, partial"
+    if rec["absent"]:
+        return "straggled"
+    if rec["partition"]:
+        return "partitioned"
+    return f"{len(rec['active'])} active" if len(rec["active"]) < world else "full"
+
+
+class ElasticProbe:
+    """While entered, times ``SimCluster``'s inner and outer steps and the
+    program's warm start on the host clock, synchronised before and after.
+    A step is tagged "full", "masked" (a replica out of the membership),
+    "partitioned" or "rejoin" (its warm start inside); a round by
+    :func:`round_kind`.  ``frozen_at`` ({step: replicas}) takes those
+    replicas' row checksums at the start of that step; every warm start
+    takes the rejoining replica's checksums before the surgery and checks
+    its rows after it (:func:`warm_started`)."""
+
+    def __init__(self, frozen_at: dict | None = None):
+        self.frozen_at = frozen_at or {}
+
+    def __enter__(self):
+        from repro_torch.sim import cluster
+
+        self.steps, self.rounds, self.warm_ms = [], [], []
+        self.frozen, self.rejoined = {}, {}
+        self._real = (cluster.SimCluster.inner_step, cluster.SimCluster.maybe_outer_step,
+                      adapters.GossipProgram.warm_start)
+        inner, outer, warm = self._real
+        probe = self
+
+        def timed(fn, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        def spy_inner(sim, state, batch):
+            t = sim.program.inner_step_index(state)
+            for r in probe.frozen_at.get(t, ()):
+                probe.frozen[r] = row_checksums(state, r)
+            warm_before = len(probe.warm_ms)
+            out, ms = timed(inner, sim, state, batch)
+            kind = ("rejoin" if len(probe.warm_ms) > warm_before
+                    else "masked" if not sim.program.membership.is_full
+                    else "partitioned" if sim.program.partition else "full")
+            probe.steps.append((t + 1, kind, ms))
+            return out
+
+        def spy_outer(sim, state):
+            (state, synced), ms = timed(outer, sim, state)
+            if synced:
+                probe.rounds.append((sim.history[-1], ms))
+            return state, synced
+
+        def spy_warm(program, state, replica, source):
+            before = row_checksums(state, replica)
+            new, ms = timed(warm, program, state, replica, source)
+            probe.warm_ms.append(ms)
+            probe.rejoined[replica] = (before, warm_started(new, replica, source))
+            return new
+
+        (cluster.SimCluster.inner_step, cluster.SimCluster.maybe_outer_step,
+         adapters.GossipProgram.warm_start) = spy_inner, spy_outer, spy_warm
+        self._cluster = cluster
+        return self
+
+    def __exit__(self, *exc):
+        (self._cluster.SimCluster.inner_step, self._cluster.SimCluster.maybe_outer_step,
+         adapters.GossipProgram.warm_start) = self._real
+
+    def step_ms(self) -> dict:
+        """Inner step p50 / p99 ms by kind (step 1, the warm-up, left out)."""
+        out = {}
+        for kind in ("full", "masked", "partitioned"):
+            ms = sorted(m for step, k, m in self.steps if k == kind and step > 1)
+            if ms:
+                out[kind] = {"p50": statistics.median(ms),
+                             "p99": ms[min(len(ms) - 1, int(0.99 * len(ms)))], "n": len(ms)}
+        return out
+
+    def round_ms(self, world: int) -> dict:
+        by_kind: dict[str, list] = {}
+        for rec, ms in self.rounds:
+            by_kind.setdefault(round_kind(rec, world), []).append(ms)
+        return {k: {"median": statistics.median(v), "samples": v} for k, v in by_kind.items()}
+
+
+def _compact(rounds: list[dict]) -> list[dict]:
+    keys = ("round", "active", "absent", "due", "staleness", "partner", "partition")
+    return [{k: r[k] for k in keys if k in r} for r in rounds]
+
+
+def _elastic_launches(cfg, run, res) -> dict[str, int]:
+    """``expected_launches`` for the training steps and syncs, plus the
+    evals' forwards: one flash forward per attention layer an eval batch
+    (as many as one step's backwards)."""
+    want = expected_launches(cfg, run, res["outer_syncs"])
+    evals = len(res["evals"]) * run.get("eval_batches", 0)
+    want["flash_attention"] += evals * expected_launches(cfg, {"steps": 1}, 0)["flash_attention_bwd"]
+    return want
+
+
+def elastic_phase(dev, cfg=paper_llama.SMALL, run=ELASTIC, plan=ELASTIC_PLAN) -> tuple[dict, dict]:
+    """Phase 30: ``run_elastic_training`` at full width through ``plan``:
+    drop {3, 5} at round 2, rejoin at round 5 warm-started from replica 0,
+    straggle {1} at round 6, partition at round 7, heal at round 9."""
+    m, world = run["inner_steps"], run["replicas"]
+    drop = next(e for e in plan if e["kind"] == "drop")
+    rejoin = next(e for e in plan if e["kind"] == "rejoin")
+    part = next(e for e in plan if e["kind"] == "partition")
+    heal = next(e for e in plan if e["kind"] == "heal")
+    log(f"elastic: {cfg.name} {cfg.num_layers}L d{cfg.d_model} {cfg.dtype}: " + json.dumps(run)
+        + " plan " + json.dumps(plan))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    with ElasticProbe({drop["round"] * m: drop["replicas"]}) as probe:
+        res = run_elastic_training(cfg, FaultPlan.build(plan), device=dev, **run)
+    launches = dispatch.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = _elastic_launches(cfg, run, res)
+    log("elastic launches: " + json.dumps({k: launches[k] for k in want})
+        + " expected " + json.dumps(want))
+    losses, rounds = res["losses"], res["rounds"]
+    log("elastic losses: " + json.dumps(losses))
+    log("elastic weight std at each eval: " + json.dumps(res["weight_stds"]))
+    log("elastic rounds: " + json.dumps(_compact(rounds)))
+    by_round = {r["round"]: r for r in rounds}
+    out_ids = [i for i in range(world) if i not in drop["replicas"]]
+    cut = {r: g for g, grp in enumerate(part["groups"]) for r in grp}
+    checks = {
+        "launches_as_designed": all(launches[k] == n for k, n in want.items()),
+        "syncs": res["outer_syncs"] == run["steps"] // m,
+        "losses_finite_falling": all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+        "dropped_rounds": all(by_round[k]["active"] == out_ids
+                              and all(by_round[k]["partner"][r] == r for r in drop["replicas"])
+                              for k in range(drop["round"], rejoin["round"])),
+        "partition_rounds_within_islands": all(
+            all(cut[i] == cut[p] for i, p in enumerate(by_round[k]["partner"]))
+            for k in range(part["round"], heal["round"])),
+        "membership": res["membership"] == {"epoch": 2, "active": list(range(world))},
+        "frozen_rows_bit_identical": sorted(probe.rejoined) == sorted(drop["replicas"]) and all(
+            probe.frozen[r] == probe.rejoined[r][0] for r in drop["replicas"]),
+        "rejoined_rows_warm_started": all(ok for _, ok in probe.rejoined.values()),
+    }
+    state = res.pop("state")
+    prof = profile_steps(cfg, state, dev, run)
+    del state
+    summary = {
+        "inner_step_ms": probe.step_ms(), "outer_step_ms": probe.round_ms(world),
+        "warm_start_ms": probe.warm_ms, "peak_memory_gb": peak_gb,
+        "outer_syncs": res["outer_syncs"], "membership": res["membership"],
+        "loss_first": losses[0], "loss_last": losses[-1], "final_weight_std": res["final_weight_std"],
+        "evals": res["evals"], "wall_s": res["wall_s"], "checks": checks,
+        "outer_step_ms_full_alone": prof["outer_step_ms"],
+        **{k: prof[k] for k in ("device_busy_ms", "device_busy_share", "profiled_step_wall_ms",
+                                "flash_kernels_ms", "top_device_ops_ms")},
+    }
+    log("elastic summary: " + json.dumps(summary))
+    del res
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"elastic phase failed its checks: {checks}")
+    return summary, launches
+
+
+def async_phase(dev, cfg=paper_llama.SMALL, run=ASYNC, plan=ASYNC_PLAN) -> dict:
+    """Phase 31: the 2× straggler on its own clock at full width, the merged
+    ticks timed beside the synchronous outer step (``time_outer`` on the
+    same state); then a rate-1 world against the synchronous run of the
+    same steps, bit for bit, under both stale rules."""
+    world = run["replicas"]
+    log("async: " + json.dumps(run) + " plan " + json.dumps(plan))
+    gc.collect()
+    torch.cuda.empty_cache()
+    dispatch.reset_launches()
+    with ElasticProbe() as probe:
+        res = run_elastic_training(cfg, FaultPlan.build(plan), device=dev, **run)
+    launches = dispatch.launch_counts()
+    want = _elastic_launches(cfg, run, res)
+    log("async launches: " + json.dumps({k: launches[k] for k in want})
+        + " expected " + json.dumps(want))
+    log("async rounds: " + json.dumps(_compact(res["rounds"])))
+    involution = all(r["partner"][r["partner"][i]] == i
+                     for r in res["rounds"] for i in set(r["active"]) - set(r["absent"]))
+    sync_outer = time_outer(cfg, res.pop("state"), dev)["none"]
+    base = {k: v for k, v in run.items() if k != "stale"}
+    base["steps"] = RATE1_STEPS
+    sync = run_elastic_training(cfg, FaultPlan(), device=dev, **base)
+    theta = sync.pop("state").theta
+    rate1 = {}
+    for stale in ("naive", "momentum"):
+        a = run_elastic_training(cfg, FaultPlan(), device=dev, async_clock=True, stale=stale, **base)
+        rate1[stale] = {
+            "losses_identical": a["losses"] == sync["losses"],
+            "theta_bit_identical": all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(a["state"].theta), tree_leaves(theta))),
+            "max_staleness": a["max_staleness"], "blocked_syncs": a["blocked_syncs"]}
+        del a
+    del theta
+    torch.cuda.empty_cache()
+    checks = {
+        "launches_as_designed": all(launches[k] == n for k, n in want.items()),
+        "max_staleness_1": res["max_staleness"] == 1, "blocked_syncs_0": res["blocked_syncs"] == 0,
+        "involution": involution, "losses_finite": all(map(math.isfinite, res["losses"])),
+        "rate1_bit_identical": all(r["losses_identical"] and r["theta_bit_identical"]
+                                   and r["max_staleness"] == 0 for r in rate1.values()),
+    }
+    summary = {"merged_tick_ms": probe.round_ms(world),
+               "sync_outer_step_ms": statistics.median(sync_outer),
+               "sync_outer_step_samples_ms": sync_outer, "inner_step_ms": probe.step_ms(),
+               "merged_ticks": res["outer_syncs"], "max_staleness": res["max_staleness"],
+               "blocked_syncs": res["blocked_syncs"], "losses": res["losses"],
+               "rate1_vs_sync": rate1, "rate1_losses": sync["losses"], "checks": checks}
+    log("async summary: " + json.dumps(summary))
+    if not all(checks.values()):
+        raise AssertionError(f"async phase failed its checks: {checks}")
+    return summary
+
+
+def _rel(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def elastic_parity_phase(dev) -> dict:
+    """Phase 32: phases 30 and 31's plans on ``reduced()`` in fp32, on the
+    card and on the CPU (identical round histories, losses within
+    LOSS_RTOL, weight std within WSTD_RTOL); then two resumes on the card,
+    each bit-identical to its uninterrupted run: mid-straggle (the debt
+    outlives the first run's horizon) and mid-async."""
+    cfg = paper_llama.SMALL.reduced(dtype="float32", remat=False)
+    small = dict(per_replica_batch=2, seq_len=64)
+    out, card_runs = {}, {}
+    for name, run, plan in (("elastic", {**ELASTIC, **small}, ELASTIC_PLAN),
+                            ("async", {**ASYNC, **small}, ASYNC_PLAN)):
+        dispatch.reset_launches()
+        card = run_elastic_training(cfg, FaultPlan.build(plan), device=dev, **run)
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+        cpu = run_elastic_training(cfg, FaultPlan.build(plan), device="cpu", **run)
+        wstd = [w for _, w in card["weight_stds"]] + [card["final_weight_std"]]
+        cpu_wstd = [w for _, w in cpu["weight_stds"]] + [cpu["final_weight_std"]]
+        out[name] = {"rounds_identical": card["rounds"] == cpu["rounds"],
+                     "loss_max_rel_diff": _rel(card["losses"], cpu["losses"]),
+                     "weight_std_max_rel_diff": _rel(wstd, cpu_wstd),
+                     "launches": {k: launches[k] for k in TRAIN_KERNELS}}
+        card_runs[name] = card
+        del cpu
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_elastic")
+    straggle = dict(ELASTIC, **small, steps=24, total_steps=24, inner_steps=4, eval_every=0)
+    resumes = (("mid-straggle", straggle, STRAGGLE_PLAN, 8, None),
+               ("mid-async", dict(ASYNC, **small, total_steps=24), ASYNC_PLAN, 13,
+                card_runs["async"]))
+    for name, run, plan, mid, full in resumes:
+        shutil.rmtree(d, ignore_errors=True)
+        plan = FaultPlan.build(plan)
+        full = full or run_elastic_training(cfg, plan, device=dev, **run)
+        run_elastic_training(cfg, plan, device=dev, ckpt_dir=d, **{**run, "steps": mid})
+        sim = ckpt_lib.restore(d, mid)["program"]["sim"]
+        cont = run_elastic_training(cfg, plan, device=dev, ckpt_dir=d, resume=True, **run)
+        same = {k: all(torch.equal(a, b) for a, b in zip(tree_leaves(x), tree_leaves(y)))
+                for k, x, y in zip(("theta", "phi", "delta"), (
+                    cont["state"].theta, cont["state"].outer.phi, cont["state"].outer.delta), (
+                    full["state"].theta, full["state"].outer.phi, full["state"].outer.delta))}
+        out[name] = {"start_step": cont["start_step"], "straggle_owed": sim["straggle"].tolist(),
+                     "clock": "clock" in sim,
+                     "losses_identical": cont["losses"] == full["losses"][mid:],
+                     "rounds_identical": cont["rounds"] == full["rounds"][-len(cont["rounds"]):],
+                     "bit_identical": same}
+    shutil.rmtree(d, ignore_errors=True)
+    log("elastic fp32 card vs cpu and resumes: " + json.dumps(out))
+    for name in ("elastic", "async"):
+        row = out[name]
+        if not (row["rounds_identical"] and row["loss_max_rel_diff"] <= LOSS_RTOL
+                and row["weight_std_max_rel_diff"] <= WSTD_RTOL
+                and min(row["launches"].values()) > 0):
+            raise AssertionError(f"{name}: card and CPU runs differ: {row}")
+    for name in ("mid-straggle", "mid-async"):
+        row = out[name]
+        if not (row["losses_identical"] and row["rounds_identical"]
+                and all(row["bit_identical"].values())):
+            raise AssertionError(f"{name}: the resumed run differs from the uninterrupted one: {row}")
+    if not any(out["mid-straggle"]["straggle_owed"]) or not out["mid-async"]["clock"]:
+        raise AssertionError(f"the checkpoints did not hold the in-flight state: {out}")
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -3040,6 +3430,9 @@ def main() -> None:
     whisper_serve = whisper_serve_phase(dev)[0]
     internvl = internvl_phase(dev)
     frontend_parity = frontend_parity_phase(dev)
+    elastic, elastic_launches = elastic_phase(dev)
+    async_summary = async_phase(dev)
+    elastic_parity = elastic_parity_phase(dev)
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: int8_launches[k] for k in INT8})
     launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
@@ -3110,6 +3503,10 @@ def main() -> None:
                                        for a, r in frontend_parity["dense"].items()},
             "train_whisper": {k: frontend_parity["train"][k] for k in (
                 "loss_max_rel_diff", "partner_tables_identical")}},
+        "elastic": {k: v for k, v in elastic.items() if k != "evals"}
+        | {"launches": {k: elastic_launches[k] for k in TRAIN_KERNELS}},
+        "async": {k: v for k, v in async_summary.items() if k not in ("losses", "rate1_losses")},
+        "elastic_card_vs_cpu": elastic_parity,
         "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -97,7 +97,7 @@ def outer_step_cost(
     if cfg.streams > 1:
         raise NotImplementedError(
             "the per-stream schedule of streaming outer steps is not ported yet "
-            "(ROADMAP Queue 1 item 10)"
+            "(ROADMAP Queue 1 item 10b)"
         )
     if cfg.overlap:
         delta_bytes, delta_msgs = spec_cost(delta_spec, cfg)

@@ -94,5 +94,5 @@ class StackedGather(Communicator):
 def exchange_gossip(comm: Communicator, delta: PyTree, phi: PyTree) -> tuple[PyTree, PyTree]:
     """Blocking part of the gossip exchange: the partner's (Δ, φ), which
     travel together as one payload (the §3.2 φ-prefetch comes with
-    streaming, ROADMAP Queue 1 item 10)."""
+    streaming, ROADMAP Queue 1 item 10b)."""
     return comm.exchange((delta, phi))

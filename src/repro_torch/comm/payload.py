@@ -9,7 +9,7 @@ the packed buffers.  Leaves and buffers follow the JAX package's order
 (dict keys sorted, buffers in order of first appearance), so the int8
 codec's chunk boundaries fall where the JAX package puts them.  The stream
 partition of streaming outer steps comes with the streaming runtime
-(ROADMAP Queue 1 item 10).
+(ROADMAP Queue 1 item 10b).
 """
 
 from __future__ import annotations

@@ -61,11 +61,16 @@ class GossipTrainer:
             inner_step=0,
         )
 
-    def inner_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+    def inner_step(self, state: TrainState, batch: dict,
+                   active: torch.Tensor | None = None) -> tuple[TrainState, dict]:
         """One local AdamW step on every replica; ``batch`` leaves have a
         leading replica axis.  Returns (state, {"loss": (R,), "grad_norm":
         (R,)}).  The AdamW moments of ``state`` are donated: updated in
-        place, as a jitted JAX step with donated buffers leaves them."""
+        place, as a jitted JAX step with donated buffers leaves them.
+
+        ``active``: optional (R,) bool mask; the other replicas keep θ, both
+        moments and the step count as they were (their forward and gradient
+        are still computed, in the same batched call)."""
         theta = tree_map(lambda p: p.detach().requires_grad_(), state.theta)
         leaves = tree_leaves(theta)
         losses = self.loss_fn(theta, batch)
@@ -77,18 +82,22 @@ class GossipTrainer:
                 lambda g: g.float().mean(0, keepdim=True).to(g.dtype).expand_as(g), grads
             )
         with torch.no_grad():
-            theta, opt, gnorm = adamw_update(grads, state.opt, state.theta, self.cfg.inner)
+            theta, opt, gnorm = adamw_update(grads, state.opt, state.theta, self.cfg.inner,
+                                             active=active)
         new_state = TrainState(theta=theta, opt=opt, outer=state.outer,
                                inner_step=state.inner_step + 1)
         return new_state, {"loss": losses.detach(), "grad_norm": gnorm}
 
-    def outer_step(self, state: TrainState, partner=None, active=None) -> TrainState:
+    def outer_step(self, state: TrainState, partner=None, active=None,
+                   staleness=None) -> TrainState:
         """Gossip / all-reduce sync of the slow weights; the fast weights
         restart from the new slow weights.  ``partner`` None derives the
-        pairing from the outer step counter."""
+        pairing from the outer step counter; ``active`` masks the round's
+        participants; ``staleness`` is the (R,) τ of an asynchronous merged
+        tick."""
         new_outer, new_theta = outer_lib.outer_step_stacked(
             state.outer, state.theta, self.cfg.outer, partner=partner, active=active,
-            comm_cfg=self.cfg.comm,
+            comm_cfg=self.cfg.comm, staleness=staleness,
         )
         return TrainState(theta=new_theta, opt=state.opt, outer=new_outer,
                           inner_step=state.inner_step)

@@ -14,8 +14,9 @@ consistent +β sign the JAX package documents::
 
 The arithmetic keeps the JAX package's dtypes and order: Δ and the group
 means in the parameters' dtype (``mean = 0.5·(a + b)`` rounded there), the
-momentum update in fp32 cast back.  Stale-Δ discounting, streaming and the
-sharded steps come with the elastic and multi-GPU runtimes.
+momentum update in fp32 cast back.  Asynchronous rounds discount a stale
+Δ on the wire (:func:`stale_discount`); streaming and the sharded steps
+come with ROADMAP Queue 1 items 10b and 9.
 """
 
 from __future__ import annotations
@@ -36,11 +37,9 @@ PyTree = Any
 
 __all__ = [
     "OuterConfig", "OuterState", "gamma_band", "default_gamma", "init_outer_state",
-    "outer_gradient", "noloco_momentum_update", "diloco_momentum_update", "outer_step",
-    "outer_step_stacked",
+    "outer_gradient", "stale_discount", "noloco_momentum_update", "diloco_momentum_update",
+    "outer_step", "outer_step_stacked",
 ]
-
-_LATER = "ROADMAP Queue 1 item 10 (elasticity, streaming and async)"
 
 
 def gamma_band(alpha: float, n: int = 2) -> tuple[float, float]:
@@ -120,6 +119,30 @@ def outer_gradient(theta: PyTree, phi: PyTree) -> PyTree:
     return tree_map(lambda t, p: (t - p.to(t.dtype)).to(p.dtype), theta, phi)
 
 
+def _wire_discount(staleness):
+    """The stale rule's map of a Δ leaf onto its wire copy: each replica's
+    rows times 1/(1+τ), in fp32 cast back."""
+    scale = 1.0 / (1.0 + torch.as_tensor(staleness, dtype=torch.float32))
+
+    def discount(d: torch.Tensor) -> torch.Tensor:
+        s = scale.to(d.device)
+        if s.dim() == 1:
+            s = s.reshape((-1,) + (1,) * (d.dim() - 1))
+        return (d.float() * s).to(d.dtype)
+
+    return discount
+
+
+def stale_discount(delta: PyTree, staleness) -> PyTree:
+    """Scale each replica's Δ by 1/(1+τ), in fp32 cast back (the
+    ``stale="momentum"`` rule): a Δ that arrives τ merged ticks late is
+    anchored at a φ (1+τ) round intervals old.  Applied to the wire copy
+    only; a replica's own Δ enters its own mean undiscounted.
+    ``staleness`` is a (world,) vector or a scalar; τ = 0 scales by
+    exactly 1.0."""
+    return tree_map(_wire_discount(staleness), delta)
+
+
 def noloco_momentum_update(phi, delta_mom, mean_delta, mean_phi, *, alpha: float,
                            beta: float, gamma: float) -> tuple[PyTree, PyTree]:
     """Eqs. 2–3 given the group means, through the fused kernel op.
@@ -140,14 +163,20 @@ def outer_step(state: OuterState, theta: PyTree, cfg: OuterConfig,
                comm: exchange_lib.Communicator | None, *,
                staleness: torch.Tensor | None = None) -> tuple[OuterState, PyTree]:
     """One outer step against a communicator.  Returns (new_state,
-    new_theta): the fast weights restart from the new slow weights."""
+    new_theta): the fast weights restart from the new slow weights.
+
+    ``staleness`` (asynchronous rounds): each replica's τ.  Under
+    ``cfg.stale == "momentum"`` the partner receives the Δ discounted by
+    :func:`stale_discount`, while each replica's own Δ enters its own mean
+    undiscounted; under ``"naive"`` it is ignored."""
     cfg.validate()
-    if staleness is not None:
-        raise NotImplementedError(f"stale-Δ outer steps are not ported yet ({_LATER})")
+    discount = None
+    if staleness is not None and cfg.method == "noloco" and cfg.stale == "momentum":
+        discount = _wire_discount(staleness)
     if cfg.method == "none":
         return OuterState(phi=theta, delta=state.delta, step=state.step + 1), theta
     if cfg.method == "noloco" and comm.cfg.codec == "none":
-        phi_next, delta_next = _noloco_leafwise(state, theta, cfg, comm)
+        phi_next, delta_next = _noloco_leafwise(state, theta, cfg, comm, discount)
         return OuterState(phi=phi_next, delta=delta_next, step=state.step + 1), phi_next
     delta = outer_gradient(theta, state.phi)
     if cfg.method == "diloco":
@@ -156,7 +185,9 @@ def outer_step(state: OuterState, theta: PyTree, cfg: OuterConfig,
             state.phi, state.delta, mean_delta, alpha=cfg.alpha, beta=cfg.beta
         )
     else:  # noloco
-        delta_p, phi_p = exchange_lib.exchange_gossip(comm, delta, state.phi)
+        delta_wire = delta if discount is None else tree_map(discount, delta)
+        delta_p, phi_p = exchange_lib.exchange_gossip(comm, delta_wire, state.phi)
+        del delta_wire
         mean_delta = tree_map(lambda a, b: 0.5 * (a + b), delta, delta_p)
         mean_phi = tree_map(lambda a, b: 0.5 * (a + b), state.phi, phi_p)
         phi_next, delta_next = noloco_momentum_update(
@@ -167,18 +198,22 @@ def outer_step(state: OuterState, theta: PyTree, cfg: OuterConfig,
 
 
 def _noloco_leafwise(state: OuterState, theta: PyTree, cfg: OuterConfig,
-                     comm: exchange_lib.Communicator) -> tuple[PyTree, PyTree]:
+                     comm: exchange_lib.Communicator,
+                     discount=None) -> tuple[PyTree, PyTree]:
     """The NoLoCo step over a plain wire one leaf at a time: Δ, the
     partner's (Δ, φ), the means and the update of a leaf are formed and
     dropped before the next, so the step's temporaries are one leaf's,
     not the tree's (recurrentgemma-9b's stacked trees are 6.8 GB each in
     bf16).  Each value is the whole-tree path's, operation for operation;
-    a packed wire (a codec) keeps that path."""
+    a packed wire (a codec) keeps that path.  ``discount`` (the stale
+    rule's) maps a Δ leaf onto the copy that goes on the wire."""
     out = []
 
     def one(t, phi, dmom):
         delta = outer_gradient(t, phi)
-        delta_p, phi_p = comm.exchange((delta, phi))
+        wire = delta if discount is None else discount(delta)
+        delta_p, phi_p = comm.exchange((wire, phi))
+        del wire
         mean_delta = 0.5 * (delta + delta_p)
         del delta, delta_p
         mean_phi = 0.5 * (phi + phi_p)
@@ -202,7 +237,8 @@ def outer_step_stacked(state: OuterState, theta: PyTree, cfg: OuterConfig, *,
     ``active``: (world,) bool mask of this round's participants; the others
     keep (φ, δ, θ) as they were.  A participant paired with itself runs the
     self-group update (its own Δ and φ are the group means).
-    Returns (new_state, new_theta)."""
+    ``staleness``: (world,) τ of an asynchronous merged tick (see
+    :func:`outer_step`).  Returns (new_state, new_theta)."""
     cfg.validate()
     world = tree_leaves(theta)[0].shape[0]
     device = tree_leaves(theta)[0].device

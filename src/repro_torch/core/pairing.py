@@ -16,14 +16,18 @@ The serving engine draws its sampling noise from the same cipher:
 torch integer ops on any device, so a decode step draws every sampled row's
 bits on the card in one fixed sequence of ops.
 
-Only full membership is ported (what the stacked trainer uses when no
-replica has dropped out); partitions, the hypercube schedule and churn come
-with the elastic runtime.
+Elastic scheduling (:class:`Membership`, :func:`elastic_partner_table`)
+filters the same full-world permutation to the active replicas, optionally
+within partition components, so a schedule under churn is still a pure
+function of ``(seed, step, membership, groups)``, and with full membership
+it is the static one.  The hypercube tables are pure numpy, as in the
+reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
@@ -37,8 +41,14 @@ __all__ = [
     "random_bits_torch",
     "pairing_permutation",
     "partner_table",
+    "hypercube_dim",
+    "hypercube_partner_table",
+    "all_pairs_seen",
     "Membership",
     "elastic_partner_table",
+    "elastic_ppermute_pairs",
+    "elastic_hypercube_partner_table",
+    "elastic_route_permutation",
 ]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -140,10 +150,55 @@ def partner_table(step: int, world: int, *, seed: int = 0) -> np.ndarray:
     return partner
 
 
+def hypercube_dim(step: int, world: int, *, seed: int = 0) -> int:
+    """The hypercube dimension ``j`` used at outer step ``step``: a random
+    cyclic order over the log2(world) dimensions, refreshed every log2(world)
+    steps (numpy's generator, as the JAX package draws it)."""
+    if world & (world - 1):
+        raise ValueError("hypercube schedule needs a power-of-two world size")
+    dims = max(int(np.log2(world)), 1)
+    cycle, slot = divmod(step, dims)
+    order = np.random.default_rng((seed + 1) * 7_919 + cycle).permutation(dims)
+    return int(order[slot])
+
+
+def hypercube_partner_table(step: int, world: int, *, seed: int = 0) -> np.ndarray:
+    """The hypercube gossip schedule: partner = id XOR 2^j, with ``j`` from
+    :func:`hypercube_dim`.  After any log2(world) consecutive distinct
+    dimensions every pair of replicas has exchanged information.  Needs a
+    power-of-two world."""
+    j = hypercube_dim(step, world, seed=seed)
+    ids = np.arange(world, dtype=np.int64)
+    if world == 1:
+        return ids
+    return ids ^ (1 << j)
+
+
+def all_pairs_seen(steps: int, world: int, *, seed: int = 0) -> np.ndarray:
+    """Symmetric boolean matrix: which (i, j) pairs met within ``steps`` outer
+    steps of :func:`partner_table` (the mixing diagnostic)."""
+    seen = np.eye(world, dtype=bool)
+    for t in range(steps):
+        partner = partner_table(t, world, seed=seed)
+        for i in range(world):
+            seen[i, partner[i]] = True
+            seen[partner[i], i] = True
+    return seen
+
+
+# ---------------------------------------------------------------------------
+# Elastic (membership-aware) scheduling
+# ---------------------------------------------------------------------------
+
+
 @dataclasses.dataclass(frozen=True)
 class Membership:
-    """Epoch-stamped view of which replica slots are alive; only the full
-    view is constructed in this port (:meth:`full`)."""
+    """Epoch-stamped view of which replica slots are alive.
+
+    ``mask[i]`` is True iff replica ``i`` participates in training.  The
+    ``epoch`` increments on every membership change (drop / rejoin); the
+    pairing is a pure function of ``(seed, step, mask)``, so two epochs with
+    identical masks schedule identically."""
 
     world: int
     mask: tuple[bool, ...]
@@ -165,18 +220,131 @@ class Membership:
     def active_ids(self) -> tuple[int, ...]:
         return tuple(i for i, m in enumerate(self.mask) if m)
 
+    @property
+    def num_active(self) -> int:
+        return sum(self.mask)
 
-def elastic_partner_table(step: int, membership: Membership, *, seed: int = 0) -> np.ndarray:
+    @property
+    def is_full(self) -> bool:
+        return all(self.mask)
+
+    def active_array(self) -> np.ndarray:
+        """(world,) bool mask of the active replicas."""
+        return np.asarray(self.mask, dtype=bool)
+
+    def drop(self, replicas: Iterable[int]) -> "Membership":
+        """New membership with ``replicas`` deactivated; epoch bumped."""
+        ids = self._check_ids(replicas)
+        for r in ids:
+            if not self.mask[r]:
+                raise ValueError(f"replica {r} is already inactive")
+        mask = tuple(m and i not in ids for i, m in enumerate(self.mask))
+        return Membership(world=self.world, mask=mask, epoch=self.epoch + 1)
+
+    def add(self, replicas: Iterable[int]) -> "Membership":
+        """New membership with ``replicas`` (re)activated; epoch bumped."""
+        ids = self._check_ids(replicas)
+        for r in ids:
+            if self.mask[r]:
+                raise ValueError(f"replica {r} is already active")
+        mask = tuple(m or i in ids for i, m in enumerate(self.mask))
+        return Membership(world=self.world, mask=mask, epoch=self.epoch + 1)
+
+    def without(self, replicas: Iterable[int]) -> "Membership":
+        """Transient view excluding ``replicas`` (stragglers missing one
+        round): the epoch is not bumped, only this round's participation
+        changed."""
+        ids = self._check_ids(replicas)
+        if not ids:
+            return self
+        mask = tuple(m and i not in ids for i, m in enumerate(self.mask))
+        return Membership(world=self.world, mask=mask, epoch=self.epoch)
+
+    def _check_ids(self, replicas: Iterable[int]) -> frozenset[int]:
+        ids = frozenset(int(r) for r in replicas)
+        for r in ids:
+            if not 0 <= r < self.world:
+                raise ValueError(f"replica id {r} outside world {self.world}")
+        return ids
+
+
+def elastic_partner_table(step: int, membership: Membership, *, seed: int = 0,
+                          groups: Sequence[Sequence[int]] | None = None) -> np.ndarray:
     """Partner table over the active replicas of ``membership``: the world's
     permutation filtered to the active ids (order kept), consecutive actives
     paired; inactive replicas and the odd active out map to themselves.  With
-    full membership it equals :func:`partner_table`."""
-    perm = pairing_permutation(step, membership.world, seed=seed)
-    partner = np.arange(membership.world, dtype=np.int64)
+    full membership and no groups it equals :func:`partner_table`.
+
+    ``groups`` restricts pairing to network-partition components: each group
+    pairs its active members internally and no pair crosses a component.
+    Groups must be disjoint; active replicas in no group sit out."""
+    world = membership.world
+    perm = pairing_permutation(step, world, seed=seed)
+    partner = np.arange(world, dtype=np.int64)
+    if groups is None:
+        components = [membership.active_ids]
+    else:
+        components = [tuple(int(r) for r in g) for g in groups]
+        flat = [r for g in components for r in g]
+        if len(flat) != len(set(flat)):
+            raise ValueError("partition groups must be disjoint")
+        for r in flat:
+            if not 0 <= r < world:
+                raise ValueError(f"partition replica id {r} outside world {world}")
     active = set(membership.active_ids)
-    order = [int(r) for r in perm if int(r) in active]
-    for k in range(0, len(order) - 1, 2):
-        a, b = order[k], order[k + 1]
-        partner[a] = b
-        partner[b] = a
+    for comp in components:
+        members = set(comp) & active
+        order = [int(r) for r in perm if int(r) in members]
+        for k in range(0, len(order) - 1, 2):
+            a, b = order[k], order[k + 1]
+            partner[a] = b
+            partner[b] = a
     return partner
+
+
+def elastic_ppermute_pairs(step: int, membership: Membership, *, seed: int = 0,
+                           groups: Sequence[Sequence[int]] | None = None
+                           ) -> list[tuple[int, int]]:
+    """(source, destination) list of the elastic matching: sit-outs and
+    inactive replicas address themselves, so the permutation is total."""
+    table = elastic_partner_table(step, membership, seed=seed, groups=groups)
+    return [(int(src), int(table[src])) for src in range(membership.world)]
+
+
+def elastic_hypercube_partner_table(step: int, membership: Membership, *, seed: int = 0,
+                                    groups: Sequence[Sequence[int]] | None = None
+                                    ) -> np.ndarray:
+    """Membership-filtered hypercube matching: partner = id XOR 2^j, with any
+    pair that touches an inactive replica or crosses a partition component
+    (or has a replica in no component) degraded to two self-loops.  With full
+    membership and no groups it equals :func:`hypercube_partner_table`."""
+    world = membership.world
+    j = hypercube_dim(step, world, seed=seed)
+    ids = np.arange(world, dtype=np.int64)
+    if world == 1:
+        return ids
+    raw = ids ^ (1 << j)
+    comp = np.zeros(world, dtype=np.int64)
+    if groups is not None:
+        comp[:] = -1
+        for gid, g in enumerate(groups):
+            for r in g:
+                comp[int(r)] = gid
+    active = np.asarray(membership.mask, dtype=bool)
+    ok = active & active[raw] & (comp == comp[raw]) & (comp >= 0)
+    return np.where(ok, raw, ids)
+
+
+def elastic_route_permutation(step: int, membership: Membership, *, seed: int = 0) -> np.ndarray:
+    """The routed pipeline's permutation restricted to the active ids:
+    ``route[i]`` is the replica whose activations replica ``i`` consumes;
+    inactive replicas route to themselves.  With full membership it equals
+    :func:`pairing_permutation`."""
+    world = membership.world
+    perm = pairing_permutation(step, world, seed=seed)
+    route = np.arange(world, dtype=np.int64)
+    active = set(membership.active_ids)
+    targets = [int(r) for r in perm if int(r) in active]
+    for slot, src in zip(sorted(active), targets):
+        route[slot] = src
+    return route

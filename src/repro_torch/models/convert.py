@@ -205,17 +205,20 @@ def to_host(t: torch.Tensor):
     return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
-def train_state_to_numpy(state) -> dict:
+def train_state_to_numpy(state, membership: dict | None = None) -> dict:
     """The JAX ``GossipProgram.state_pytree`` tree of a port
     :class:`~repro_torch.core.noloco.TrainState`, with host leaves (see the
     module docstring): ``{"theta", "opt": {"mu", "nu", "count"}, "outer":
     {"phi", "delta", "step"}, "inner_step", "membership": {"mask", "epoch",
     "partition"}}``, parameter dicts in sorted key order, the step counters
-    int32 scalars as JAX writes them, and the full membership of
-    ``repro/core/elastic.py``'s ``state_dict`` (every replica active, epoch
-    0, no partition)."""
+    int32 scalars as JAX writes them.  ``membership`` is the program's
+    :meth:`~repro_torch.core.elastic.ElasticContext.state_dict`; None gives
+    the full membership (every replica active, epoch 0, no partition)."""
     params = lambda t: tree_map(to_host, t)
     world = int(state.opt.count.shape[0])
+    if membership is None:
+        membership = {"mask": np.ones((world,), dtype=bool), "epoch": np.int64(0),
+                      "partition": np.full((world,), -1, dtype=np.int64)}
     return {
         "theta": params(state.theta),
         "opt": {"mu": params(state.opt.mu), "nu": params(state.opt.nu),
@@ -223,6 +226,5 @@ def train_state_to_numpy(state) -> dict:
         "outer": {"phi": params(state.outer.phi), "delta": params(state.outer.delta),
                   "step": np.int32(state.outer.step)},
         "inner_step": np.int32(state.inner_step),
-        "membership": {"mask": np.ones((world,), dtype=bool), "epoch": np.int64(0),
-                       "partition": np.full((world,), -1, dtype=np.int64)},
+        "membership": membership,
     }

@@ -102,17 +102,24 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> tuple[PyTree, torch.T
 
 
 def adamw_update(
-    grads: PyTree, state: AdamWState, params: PyTree, cfg: AdamWConfig
+    grads: PyTree, state: AdamWState, params: PyTree, cfg: AdamWConfig,
+    active: torch.Tensor | None = None,
 ) -> tuple[PyTree, AdamWState, torch.Tensor]:
     """Returns (new_params, new_state, pre-clip (R,) grad norms).  The moments
     of ``state`` are donated: the returned state holds the same tensors,
     updated in place, one slice of at most SLICE elements of one leaf at a
     time; the parameters are new tensors (the stacked trainer's θ may share
     its storage with φ).  Each element's clipping, moments and step are the
-    JAX package's operations in its order."""
+    JAX package's operations in its order.
+
+    ``active`` ((R,) bool) freezes the other replicas, as the JAX package's
+    elastic trainer selects the old values for them: their parameters, both
+    moments and ``count`` stay as they were, and the active rows keep the
+    bits of the unmasked update."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)[:, None] if cfg.clip_norm is not None else None
     count = state.count + 1
+    act = None if active is None else active.to(count.device, torch.bool)[:, None]
     lr = cfg.lr_at(count)[:, None]
     c1 = (1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), count.float()))[:, None]
     c2 = (1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32), count.float()))[:, None]
@@ -129,12 +136,19 @@ def adamw_update(
                 gs = (gs.float() * scale).to(gs.dtype)
             ms = cfg.b1 * m2[:, cols] + (1.0 - cfg.b1) * gs.float()
             vs = cfg.b2 * v2[:, cols] + (1.0 - cfg.b2) * gs.float() * gs.float()
-            m2[:, cols] = ms
-            v2[:, cols] = vs
             update = (ms / c1) / (torch.sqrt(vs / c2) + cfg.eps)
             p32 = p2[:, cols].float()
-            o2[:, cols] = (p32 - lr * (update + cfg.weight_decay * p32)).to(p.dtype)
+            new = (p32 - lr * (update + cfg.weight_decay * p32)).to(p.dtype)
+            if act is not None:   # frozen rows: the old moments and parameters
+                ms = torch.where(act, ms, m2[:, cols])
+                vs = torch.where(act, vs, v2[:, cols])
+                new = torch.where(act, new, p2[:, cols])
+            m2[:, cols] = ms
+            v2[:, cols] = vs
+            o2[:, cols] = new
         return out
 
     new_params = tree_map(one, grads, state.mu, state.nu, params)
+    if act is not None:
+        count = torch.where(act[:, 0], count, state.count)
     return new_params, AdamWState(mu=state.mu, nu=state.nu, count=count), gnorm

@@ -5,11 +5,21 @@ Replicas sit on a leading axis of every state leaf, on one device: the
 card, or the CPU when asked.  Every replica starts from the same weights,
 the port's initialisation from ``seed`` drawn on the CPU generator and then
 moved to the device, so a card run and a CPU run of the same config start
-from the same point.  Membership is always full: the elastic context,
-streaming, the φ-prefetch overlap and asynchronous rounds come with ROADMAP
-Queue 1 item 10 and raise until then.  The checkpoint view of the state is
-the JAX ``GossipProgram.state_pytree`` layout (:func:`repro_torch.models.
-convert.train_state_to_numpy`), so a JAX checkpoint resumes here and this
+from the same point.
+
+Elasticity is owned by one :class:`~repro_torch.core.elastic.
+ElasticContext` (membership epoch, partition view, per-round stragglers,
+the last partner table), which :class:`~repro_torch.sim.SimCluster` and the
+loop's telemetry drive through this program's elastic surface.  Every
+round's pairing comes from :func:`~repro_torch.core.pairing.
+elastic_partner_table` through ``ElasticContext.plan_round``: dropped
+replicas are frozen in inner and outer steps, a replica whose partner
+misses the round pairs with itself, and eval, weight std and the reported
+loss cover the active replicas only.  Streaming and the φ-prefetch overlap
+come with ROADMAP Queue 1 item 10b and raise until then.  The checkpoint
+view of the state is the JAX ``GossipProgram.state_pytree`` layout,
+membership included (:func:`repro_torch.models.convert.
+train_state_to_numpy`), so a JAX checkpoint resumes here and this
 program's restore in JAX.
 """
 
@@ -23,16 +33,32 @@ import torch
 from repro_torch.comm import bytes_model
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import pairing as pairing_lib
+from repro_torch.core.elastic import ElasticContext
 from repro_torch.core.noloco import GossipTrainer, TrainerConfig, TrainState
+from repro_torch.core.outer import OuterState
+from repro_torch.core.pairing import Membership
 from repro_torch.device import resolve_device
 from repro_torch.models import convert
 from repro_torch.models import model as model_api
 from repro_torch.models.config import ModelConfig
-from repro_torch.tree import tree_map
+from repro_torch.optim import AdamWState
+from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
 __all__ = ["GossipProgram"]
+
+_LATER = "ROADMAP Queue 1 item 10b"
+
+
+def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.data_ptr() == b.data_ptr() and a.shape == b.shape and a.stride() == b.stride()
+
+
+def _unflatten(like: PyTree, leaves: list) -> PyTree:
+    """``leaves`` (in flatten order) in the structure of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 class GossipProgram:
@@ -41,22 +67,26 @@ class GossipProgram:
     ``partners`` records the partner table of every NoLoCo outer step, in
     order."""
 
-    membership_epoch = 0  # full membership, never changes
-
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig, *, replicas: int, seed: int = 0,
+                 membership: Membership | None = None, elastic: ElasticContext | None = None,
                  device: torch.device | str = "cuda"):
         tcfg.comm.validate()
         if tcfg.comm.streams > 1 or tcfg.comm.overlap:
             raise NotImplementedError(
-                "streaming outer steps and the φ-prefetch overlap are not ported yet "
-                "(ROADMAP Queue 1 item 10)"
+                f"streaming outer steps and the φ-prefetch overlap are not ported yet ({_LATER})"
             )
+        if elastic is None:
+            elastic = ElasticContext(membership or Membership.full(replicas))
+        elif membership is not None:
+            raise ValueError("pass membership OR elastic, not both")
+        if elastic.world != replicas:
+            raise ValueError(f"elastic world {elastic.world} != replicas {replicas}")
         self.cfg = cfg
         self.tcfg = tcfg
         self.replicas = replicas
         self.seed = seed
         self.device = resolve_device(device)
-        self.membership = pairing_lib.Membership.full(replicas)
+        self.elastic = elastic
         self.partners: list[np.ndarray] = []
         self.trainer = GossipTrainer(
             tcfg, lambda params, batch: model_api.stacked_loss(params, cfg, batch)
@@ -70,6 +100,81 @@ class GossipProgram:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
+    def _ids(self) -> torch.Tensor:
+        return torch.as_tensor(self.elastic.active_ids(), dtype=torch.int64, device=self.device)
+
+    # -- the elastic surface (SimCluster and the loop's telemetry) ----------
+
+    @property
+    def membership(self) -> Membership:
+        return self.elastic.membership
+
+    @property
+    def membership_epoch(self) -> int:
+        return self.elastic.epoch
+
+    @property
+    def partition(self):
+        return self.elastic.partition
+
+    @property
+    def round_absent(self) -> frozenset[int]:
+        return self.elastic.round_absent
+
+    @round_absent.setter
+    def round_absent(self, value) -> None:
+        self.elastic.round_absent = frozenset(value)
+
+    @property
+    def last_partner(self) -> np.ndarray | None:
+        return self.elastic.last_partner
+
+    def set_membership(self, membership: Membership) -> None:
+        self.elastic.set_membership(membership)
+
+    def set_partition(self, groups) -> None:
+        """Restrict pairings to partition components (None heals)."""
+        self.elastic.set_partition(groups)
+
+    def inner_step_index(self, state: TrainState) -> int:
+        return int(state.inner_step)
+
+    def outer_round_index(self, state: TrainState) -> int:
+        return int(state.outer.step)
+
+    def sync_due(self, state: TrainState) -> bool:
+        return self.trainer.should_sync(state)
+
+    @torch.no_grad()
+    def warm_start(self, state: TrainState, replica: int, source: int) -> TrainState:
+        """Rejoin surgery: the replica adopts a live peer's slow weights as
+        both its φ and its θ, with zero outer momentum, zero AdamW moments and
+        a step count of 0.  θ and φ are new tensors (one shared tensor where
+        they alias, as right after an outer step), δ too; the donated
+        moments are zeroed in place."""
+        def adopt(x, p):
+            fresh = x.clone()
+            fresh[replica] = p[source]
+            return fresh
+
+        phis, thetas = [], []
+        for th, p in zip(tree_leaves(state.theta), tree_leaves(state.outer.phi)):
+            phis.append(adopt(p, p))
+            thetas.append(phis[-1] if _same_storage(th, p) else adopt(th, p))
+        for m in tree_leaves(state.opt.mu) + tree_leaves(state.opt.nu):
+            m[replica].zero_()
+        count = state.opt.count.clone()
+        count[replica] = 0
+        row = torch.tensor([replica], device=self.device)
+        return TrainState(
+            theta=_unflatten(state.theta, thetas),
+            opt=AdamWState(mu=state.opt.mu, nu=state.opt.nu, count=count),
+            outer=OuterState(phi=_unflatten(state.outer.phi, phis),
+                             delta=tree_map(lambda d: d.index_fill(0, row, 0), state.outer.delta),
+                             step=state.outer.step),
+            inner_step=state.inner_step,
+        )
+
     # -- TrainProgram -------------------------------------------------------
 
     def init_state(self, example_batch: dict) -> TrainState:
@@ -81,49 +186,92 @@ class GossipProgram:
         return self.trainer.init(stacked)
 
     def inner_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        return self.trainer.inner_step(state, self._batch(batch))
+        """One inner step; frozen replicas (dropped, or not granted a step by
+        the asynchronous clock) keep their state, and the reported loss
+        covers the active members only."""
+        active = self.elastic.active_array()
+        if active is None:
+            return self.trainer.inner_step(state, self._batch(batch))
+        state, metrics = self.trainer.inner_step(
+            state, self._batch(batch), active=torch.from_numpy(active).to(self.device))
+        return state, dict(metrics, loss=metrics["loss"].index_select(0, self._ids()))
+
+    def _partner_fn(self, key: int):
+        seed = self.tcfg.outer.seed
+        return lambda parts: pairing_lib.elastic_partner_table(
+            key, parts, seed=seed, groups=self.elastic.partition)
+
+    def _outer(self, state: TrainState, partner, active, staleness=None) -> TrainState:
+        if self.tcfg.outer.method == "noloco":
+            self.partners.append(partner)
+        to_dev = lambda a: None if a is None else torch.as_tensor(a, device=self.device)
+        return self.trainer.outer_step(state, partner=partner, active=to_dev(active),
+                                       staleness=to_dev(staleness))
 
     def maybe_outer_step(self, state: TrainState) -> tuple[TrainState, bool]:
         if not self.trainer.should_sync(state):
             return state, False
-        partner = None
-        if self.tcfg.outer.method == "noloco":
-            partner = pairing_lib.elastic_partner_table(
-                state.outer.step, self.membership, seed=self.tcfg.outer.seed
-            )
-            self.partners.append(partner)
-        return self.trainer.outer_step(state, partner=partner), True
+        noloco = self.tcfg.outer.method == "noloco"
+        plan = self.elastic.plan_round(self._partner_fn(state.outer.step) if noloco else None)
+        return self._outer(state, plan.partner, plan.active), True
+
+    def outer_step_async(self, state: TrainState, *, sync_index: int, due,
+                         staleness) -> tuple[TrainState, bool]:
+        """One merged sync tick of the asynchronous clock.  The pairing is
+        drawn over all round participants at key ``sync_index`` (the merged
+        tick), so non-due participants are passive sources; only ``due``
+        replicas apply the update.  Under ``stale="momentum"`` each Δ on the
+        wire is discounted by its staleness.  With everyone due and nobody
+        late it is the synchronous call itself."""
+        if self.tcfg.outer.method != "noloco":
+            raise ValueError("asynchronous merged-tick sync is NoLoCo-only")
+        plan = self.elastic.plan_round(self._partner_fn(sync_index))
+        if plan.all_absent:   # every member in straggle debt: a frozen round
+            return self._outer(state, plan.partner, plan.active), True
+        update = np.asarray(due, dtype=bool).copy()
+        tau = np.asarray(staleness)
+        if plan.active is not None:
+            update &= np.asarray(plan.active, dtype=bool)
+        if update.all() and not tau.any():
+            return self._outer(state, plan.partner, None), True
+        stale = None
+        if self.tcfg.outer.stale == "momentum" and tau.any():
+            stale = tau.astype(np.float32)
+        return self._outer(state, plan.partner, update, stale), True
 
     def eval_step(self, state: TrainState, batch: dict) -> float:
-        return float(self.trainer.eval_loss(state.theta, self._batch(batch)).mean())
+        losses = self.trainer.eval_loss(state.theta, self._batch(batch))
+        return float(losses.index_select(0, self._ids()).mean())
 
     def weight_std(self, state: TrainState) -> float:
-        if self.replicas < 2:
+        """Cross-replica weight std over the active replicas (a dropped
+        replica's stale weights are not part of the ensemble)."""
+        if self.elastic.membership.num_active < 2:
             return 0.0
-        return float(metrics_lib.replica_weight_std(state.theta))
+        theta = state.theta
+        if not self.elastic.is_full:
+            ids = self._ids()
+            theta = tree_map(lambda x: x.index_select(0, ids), theta)
+        return float(metrics_lib.replica_weight_std(theta))
 
     def state_pytree(self, state: TrainState) -> dict:
-        return convert.train_state_to_numpy(state)
+        return convert.train_state_to_numpy(state, membership=self.elastic.state_dict())
 
     def load_state_pytree(self, state: TrainState, tree: dict) -> TrainState:
-        """The state of a checkpoint in the JAX layout.  Only full
-        membership is ported: a saved membership with a dropped replica or
-        a partition, or in-flight streaming state, raises."""
+        """The state of a checkpoint in the JAX layout, its membership and
+        partition restored into the elastic context.  In-flight streaming
+        state raises."""
+        if "stream" in tree:
+            raise NotImplementedError(
+                f"the checkpoint holds streaming outer-step state; streaming is not ported "
+                f"yet ({_LATER})"
+            )
         mem = tree.get("membership")
         if mem is not None:
             mask = np.asarray(mem["mask"], dtype=bool)
             if mask.shape != (self.replicas,):
                 raise ValueError(f"checkpoint holds {mask.shape[0]} replicas, this run {self.replicas}")
-            if not mask.all() or (np.asarray(mem["partition"]) >= 0).any():
-                raise NotImplementedError(
-                    "the checkpoint's membership has dropped replicas or a partition; elastic "
-                    "membership is not ported yet (ROADMAP Queue 1 item 10)"
-                )
-        if "stream" in tree:
-            raise NotImplementedError(
-                "the checkpoint holds streaming outer-step state; streaming is not ported "
-                "yet (ROADMAP Queue 1 item 10)"
-            )
+            self.elastic.load_state_dict(mem)
         return convert.train_state_from_jax_numpy(tree, self.cfg, device=self.device)
 
     def comm_cost(self):

@@ -5,7 +5,8 @@ cadence, wall-clock and tokens/s accounting, comm-bytes accounting from
 :mod:`repro_torch.comm.bytes_model` (per outer sync: payload and blocking
 bytes), the JSONL telemetry stream with the JAX package's schema
 (``run_start`` / ``step`` / ``outer`` / ``eval`` / ``ckpt`` / ``run_end``,
-one JSON object per line) and the same run summary, and periodic
+and ``membership`` / ``outer_async`` for elastic programs; one JSON object
+per line) and the same run summary, and periodic
 checkpoints with full resume: the program's state (``TrainProgram.
 state_pytree``) and the loop's step cursor, in the JAX package's layout, the
 data loader fast-forwarded with ``make_loader(start_step)``.  A resumed run
@@ -114,7 +115,6 @@ class TrainLoop:
         state, start_step, keys = self._try_resume(state)
         loader = self.make_loader(start_step)
         cost = self.program.comm_cost()
-        epoch = getattr(self.program, "membership_epoch", None)
         self._emit(
             "run_start", program=type(self.program).__name__, replicas=self.program.replicas,
             steps=cfg.steps, start_step=start_step, resumed=start_step > 0,
@@ -124,6 +124,11 @@ class TrainLoop:
         evals: list[tuple[int, float]] = []
         weight_stds: list[tuple[int, float]] = []
         outer_syncs = comm_bytes = blocking_bytes = total_tokens = 0
+        max_staleness = blocked_syncs = 0
+        drain_async = getattr(self.program, "drain_async_events", None)
+        # elastic programs expose an epoch-stamped membership: a `membership`
+        # event whenever the view changes (drop / rejoin)
+        last_epoch = getattr(self.program, "membership_epoch", None)
         t0 = time.time()
         for t in range(start_step, cfg.steps):
             batch = next(loader)
@@ -133,6 +138,18 @@ class TrainLoop:
             losses.append(loss)
             total_tokens += int(np.prod(batch["tokens"].shape))
             state, synced = self.program.maybe_outer_step(state)
+            # one event per sync: the due set, each replica's staleness τ and
+            # the blocked participants (the synchronous clock emits τ = 0)
+            for ev in drain_async() if drain_async is not None else ():
+                max_staleness = max(max_staleness, int(ev.get("max_staleness", 0)))
+                blocked_syncs += int(ev.get("blocked", 0))
+                self._emit("outer_async", step=t + 1, **ev)
+            epoch = getattr(self.program, "membership_epoch", None)
+            if epoch != last_epoch:
+                last_epoch = epoch
+                mem = self.program.membership
+                self._emit("membership", step=t + 1, epoch=epoch,
+                           num_active=mem.num_active, active=list(mem.active_ids))
             dt = time.time() - step_t0
             self._emit(
                 "step", step=t + 1, loss=loss, dt_s=round(dt, 6),
@@ -171,10 +188,13 @@ class TrainLoop:
             "blocking_bytes": blocking_bytes,
             "blocking_fraction": blocking_bytes / comm_bytes if comm_bytes else 0.0,
             "final_weight_std": float(self.program.weight_std(state)),
-            "membership_epoch": epoch,
+            "membership_epoch": last_epoch,
             "recompiles": 0,
             "stream_count": getattr(cost, "stream_count", 1) if cost else 1,
         }
+        if drain_async is not None:
+            summary["max_staleness"] = max_staleness
+            summary["blocked_syncs"] = blocked_syncs
         self._emit("run_end", **summary)
         return {
             "losses": losses,

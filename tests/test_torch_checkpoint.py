@@ -244,17 +244,36 @@ def test_state_pytree_is_the_jax_layout(jax_weights):
 
 @pytest.mark.parametrize("change", ["dropped", "partition", "stream"])
 def test_loading_elastic_or_streaming_state_raises(jax_weights, change):
+    """Streaming state still raises (ROADMAP Queue 1 item 10b).  A dropped
+    replica or a partition loads since elastic membership was ported: the
+    restored membership and partition are what the JAX package's
+    ``ElasticContext.load_state_dict`` makes of the same tree."""
+    from repro.core.elastic import ElasticContext as JElasticContext
+
     cfg = jax_weights
     program = adapters.GossipProgram(cfg, train_cli.method_config("noloco", inner_lr=1e-3,
                                                                   total_steps=4), replicas=3,
                                      device="cpu")
     state = program.init_state(None)
     tree = program.state_pytree(state)
+    if change == "stream":
+        tree["stream"] = {"pre_partner": np.zeros((1, 3), np.int64)}
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            program.load_state_pytree(state, tree)
+        return
     if change == "dropped":
         tree["membership"]["mask"] = np.array([True, False, True])
-    elif change == "partition":
-        tree["membership"]["partition"] = np.array([0, 0, 1])
+        tree["membership"]["epoch"] = np.int64(1)
     else:
-        tree["stream"] = {"pre_partner": np.zeros((1, 3), np.int64)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        program.load_state_pytree(state, tree)
+        tree["membership"]["partition"] = np.array([0, 0, 1])
+    restored = program.load_state_pytree(state, tree)
+    want = JElasticContext(world=3)
+    want.load_state_dict(tree["membership"])
+    assert program.membership.mask == want.membership.mask
+    assert program.membership.epoch == want.membership.epoch
+    assert program.partition == want.partition
+    assert program.partition == (None if change == "dropped" else ((0, 1), (2,)))
+    for a, b in zip(tree_leaves(restored.theta), tree_leaves(state.theta)):
+        assert torch.equal(a, b)
+    for k, v in program.state_pytree(restored)["membership"].items():
+        np.testing.assert_array_equal(v, tree["membership"][k])
