@@ -254,7 +254,41 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     mid-straggle (the debt outlives the first run's 8 steps) and one
     mid-async (step 13), each bit-identical to its uninterrupted run.
 
-The line before the last is the ``kernels`` JSON record; the last line is
+33. paper-small-125m at full width in bf16 through ``run_training`` with
+    streaming outer steps: phase 6's run (4 × 4 × 1024, m 5) for 15 steps
+    with 4 staggered streams and the φ-prefetch overlap, on the plain and
+    the int8 wire.  The syncs fall at steps 5–8, 10–13 and 15 on streams
+    0–3, 0–3, 0; each stream's first sync blocks and the later ones consume
+    their prefetch (``stream_sync`` events); each sync's bytes are the byte
+    model's; stream 0 holds no leaf, moves 0 bytes and launches nothing;
+    launch counts as designed (the flash pair as phase 6, one update per
+    leaf of the synced stream: 26, and on the int8 wire one quantize and
+    one dequantize per buffer of what each sync moves and of its pre-send);
+    losses finite and falling.  Inner step p50/p99, each stream's sync in
+    the run and alone, a cycle of four syncs (blocking, then consuming)
+    against one full outer step on the same state (``time_outer``), each
+    φ′ pre-send alone, peak memory.  Then one stream with the overlap at
+    phase 6's own run gives phase 6's losses bit for bit;
+34. the streamed run through churn at full width (8 × 2 × 1024, m 4, 4
+    streams, 28 steps; replica 3 drops at step 9 and rejoins at step 17)
+    through ``run_elastic_training``: each stream falls back to the
+    blocking exchange at most once per membership change, at least one
+    does, none before the first change; the dropped replica self-paired
+    while out; launches as designed; losses finite;
+35. card against CPU on ``reduced()`` in fp32: the streamed run on both
+    wires and the streamed churn (identical ``stream_sync`` events,
+    partner tables and rounds, losses within LOSS_RTOL, weight std within
+    WSTD_RTOL), ``core/theory.py``'s ``simulate_quadratic`` synchronous and
+    with a 2× slow replica (trajectories within THEORY_RTOL; on the card
+    every outer step launches ``noloco_update``), and a resume mid-stream
+    on the card (step 7, the prefetch in the checkpoint), bit-identical to
+    the uninterrupted run.
+
+``time rglru_decode`` also carries ``launch_floor_ms``: an empty kernel
+(``torch.cuda._sleep(0)``) timed by the kernel table's own method.
+
+The line before the last is the ``kernels`` JSON record (launches: the
+serve and train phases', phase 33's and 34's added); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -278,12 +312,13 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.checkpoint import ckpt as ckpt_lib  # noqa: E402
-from repro_torch.comm import CommConfig, bytes_model, payload  # noqa: E402
+from repro_torch.comm import CommConfig, bytes_model, exchange, payload  # noqa: E402
 from repro_torch.configs import (  # noqa: E402
     granite_moe_1b, internvl2_76b, mamba2_370m, paper_llama, qwen3_0_6b, recurrentgemma_9b,
     registry, whisper_base,
 )
 from repro_torch.core import metrics as metrics_lib  # noqa: E402
+from repro_torch.core import pairing  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     build, dispatch, flash_attention, ops, paged_attention, quantize, ref, rglru_scan, ssd_scan,
@@ -1839,6 +1874,8 @@ def time_recurrent_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
     out["rglru_decode"] = _timing(reg["rglru_decode"], (h, a, b), 16 * h.numel(), 2 * h.numel(),
                                   {"R,W": [4, 4096], "dtype": "float32"},
                                   library=lambda: torch.addcmul(b, a, h))
+    # the card's launch floor: an empty kernel, timed by the same method
+    out["rglru_decode"]["launch_floor_ms"] = cuda_ms(lambda: torch.cuda._sleep(0))[0]
     log("time rglru_decode: " + json.dumps(out["rglru_decode"]))
     args = ssd_decode_inputs(gen, 4, 2048, 128)
     r, hp, n = args[0].shape
@@ -3353,6 +3390,428 @@ def elastic_parity_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 33–35: streaming outer steps with the φ-prefetch overlap
+# ---------------------------------------------------------------------------
+
+# Phase 33: phase 6's run for 15 steps with 4 staggered streams and the
+# overlap: syncs at inner steps 5–8, 10–13 and 15 on streams 0–3, 0–3, 0.
+STREAMS = 4
+STREAM_RUN = dict(TRAIN, steps=15)
+STREAM_SYNCS = dict(steps=[5, 6, 7, 8, 10, 11, 12, 13, 15], streams=[0, 1, 2, 3, 0, 1, 2, 3, 0])
+# Phase 34: tests/test_streaming.py's churn plan at full width: replica 3
+# drops at step 9 and rejoins at step 17 (m 4: every step from 4 syncs a
+# stream).
+STREAM_CHURN = dict(replicas=8, per_replica_batch=2, seq_len=1024, steps=28, inner_steps=4,
+                    eval_every=0, inner_lr=3e-3, seed=0, stream_count=STREAMS)
+STREAM_CHURN_PLAN = [{"kind": "drop", "step": 9, "replicas": [3]},
+                     {"kind": "rejoin", "step": 17, "replicas": [3]}]
+# Phase 35: core/theory.py's quadratic model, card against CPU.  The two
+# draw their normals through erfinv implementations that may differ in the
+# last bits; the trajectories are held within THEORY_RTOL.
+THEORY = dict(world=8, outer_steps=40, inner_steps=5, seed=0)
+THEORY_DIM = 32
+THEORY_RATES = (1.0,) * 7 + (0.5,)
+THEORY_RTOL = 1e-4
+STREAM_MID = 7   # a resume between stream 1's and stream 2's syncs
+
+
+class StreamProbe:
+    """While entered, times each stream sync and each inner step of
+    ``GossipProgram`` on the host clock, synchronised before and after, and
+    records the kernel launches of each sync."""
+
+    def __enter__(self):
+        self.syncs, self.inner_ms = [], []
+        self._real = (adapters.GossipProgram._maybe_stream_sync, adapters.GossipProgram.inner_step)
+        sync, inner = self._real
+        probe = self
+
+        def spy_sync(program, state):
+            k = program._schedule.due(program.inner_step_index(state))
+            before = dispatch.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, synced = sync(program, state)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = dispatch.launch_counts()
+            if synced:
+                probe.syncs.append({"stream": k, "ms": ms, "launches": {
+                    n: after[n] - before[n] for n in after if after[n] != before[n]}})
+            return state, synced
+
+        def spy_inner(program, state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(program, state, batch)
+            torch.cuda.synchronize()
+            probe.inner_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        adapters.GossipProgram._maybe_stream_sync = spy_sync
+        adapters.GossipProgram.inner_step = spy_inner
+        return self
+
+    def __exit__(self, *exc):
+        adapters.GossipProgram._maybe_stream_sync, adapters.GossipProgram.inner_step = self._real
+
+    def ms_by_stream(self) -> dict:
+        out: dict[int, list] = {}
+        for rec in self.syncs:
+            out.setdefault(rec["stream"], []).append(rec["ms"])
+        return {k: {"median": statistics.median(v), "samples": v} for k, v in sorted(out.items())}
+
+
+def _stream_subs(cfg):
+    """One replica's parameter leaves of each stream (nothing allocated)."""
+    tree = bytes_model.abstract_params(cfg)
+    leaves = tree_leaves(tree)
+    part = payload.stream_partition(tree, STREAMS)
+    return part, [[leaves[i] for i in part.leaf_indices(k)] for k in range(STREAMS)]
+
+
+def stream_launches(cfg, run: dict, events: list[dict], codec: str) -> dict[str, int]:
+    """Launches the design implies for a streamed run: the flash pair as
+    ``expected_launches`` counts it; one update per leaf of each synced
+    stream; on the int8 wire one quantize and one dequantize per buffer of
+    what each sync moves (the fused (Δ_k, φ_k) when it blocks, Δ_k when it
+    consumes its prefetch) and of its φ′_k pre-send."""
+    want = expected_launches(cfg, run, 0)
+    _, subs = _stream_subs(cfg)
+    want["noloco_update"] = sum(len(subs[ev["stream"]]) for ev in events)
+    n = 0
+    if codec == "int8":
+        for ev in events:
+            sub = subs[ev["stream"]]
+            moved = (sub, sub) if ev["blocked"] else sub
+            n += len(payload.make_spec(moved).buffers) + len(payload.make_spec(sub).buffers)
+    want["int8_quantize"] = want["int8_dequantize"] = n
+    return want
+
+
+def _events(jsonl: str, kind: str) -> list[dict]:
+    return [e for e in map(json.loads, open(jsonl)) if e["event"] == kind]
+
+
+def _jsonl(name: str) -> str:
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def time_stream_cycle(cfg, state, dev, codec: str, reps: int = 3) -> dict:
+    """On one state: each stream's sync alone (synchronised), the first
+    cycle blocking and pre-sending, the later ones consuming their
+    prefetch; each stream's φ′ pre-send alone; and the full outer step of
+    ``time_outer`` beside them."""
+    tcfg = train_cli.method_config("noloco", inner_lr=3e-3, total_steps=10, warmup=1,
+                                   inner_steps=5,
+                                   comm=CommConfig(codec=codec, streams=STREAMS, overlap=True))
+    program = adapters.GossipProgram(cfg, tcfg, replicas=TRAIN["replicas"], device=dev)
+    world = TRAIN["replicas"]
+    phi_pre, cycles, presend = None, [], {k: [] for k in range(STREAMS)}
+    phi = tree_leaves(state.outer.phi)
+    for rep in range(reps):
+        per = []
+        for k in range(STREAMS):
+            i = rep * STREAMS + k
+            nxt = pairing.partner_table(i + STREAMS, world)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, phi_pre = program.trainer.outer_step_stream(
+                state, stream=k, partition=program._partition,
+                partner=pairing.partner_table(i, world), phi_pre=phi_pre,
+                consume_prefetch=rep > 0, partner_next=nxt)
+            torch.cuda.synchronize()
+            per.append((time.perf_counter() - t0) * 1e3)
+            del new
+            leaves = [phi[j] for j in program._partition.leaf_indices(k)]
+            comm = exchange.StackedGather(torch.as_tensor(nxt, device=dev), tcfg.comm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sent = exchange.presend(comm, leaves)
+            torch.cuda.synchronize()
+            presend[k].append((time.perf_counter() - t0) * 1e3)
+            del sent
+        cycles.append(per)
+    full = time_outer(cfg, state, dev)
+    steady = [sum(c) for c in cycles[1:]]
+    return {"cycle_ms_blocking": sum(cycles[0]), "cycle_ms_consuming": statistics.median(steady),
+            "sync_ms_by_stream": {k: [c[k] for c in cycles] for k in range(STREAMS)},
+            "presend_ms_by_stream": presend,
+            "full_outer_step_ms": statistics.median(full[codec]),
+            "full_outer_step_samples_ms": full[codec]}
+
+
+def stream_train_phase(dev, codec: str, phase6: dict) -> tuple[dict, dict]:
+    """Phase 33 for one wire: paper-small-125m at full width, 4 × 4 ×
+    1024, m 5, 4 streams with the overlap, 15 steps."""
+    cfg = paper_llama.SMALL
+    label = f"stream {codec}"
+    run = dict(STREAM_RUN, codec=codec)
+    log(f"{label}: {cfg.name} streams {STREAMS} overlap: " + json.dumps(run))
+    jsonl = _jsonl(f"chip_smoke_stream_{codec}.jsonl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    with StreamProbe() as probe:
+        res = train_cli.run_training(cfg, device="cuda", streams=STREAMS, overlap=True,
+                                     log_jsonl=jsonl, **run)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    events = _events(jsonl, "stream_sync")
+    want = stream_launches(cfg, run, events, codec)
+    log(f"{label} launches: " + json.dumps({k: launches[k] for k in want})
+        + " expected " + json.dumps(want))
+    log(f"{label} events: " + json.dumps([{k: e[k] for k in (
+        "step", "stream", "sync_index", "payload_bytes", "blocking_bytes", "blocked",
+        "epoch_fallback")} for e in events]))
+    cost = bytes_model.outer_step_cost(
+        bytes_model.abstract_params(cfg),
+        CommConfig(codec=codec, streams=STREAMS, overlap=True), world=TRAIN["replicas"])
+    per = cost.per_stream
+    losses = res["losses"]
+    log(f"{label} losses: " + json.dumps(losses))
+    seen: set[int] = set()
+    first = []
+    for e in events:
+        first.append(e["stream"] not in seen)
+        seen.add(e["stream"])
+    stream0 = [r for r in probe.syncs if r["stream"] == 0]
+    checks = {
+        "schedule": [e["step"] for e in events] == STREAM_SYNCS["steps"]
+        and [e["stream"] for e in events] == STREAM_SYNCS["streams"]
+        and [e["sync_index"] for e in events] == list(range(len(events))),
+        "first_blocks_later_consume": [e["blocked"] for e in events] == first
+        and not any(e["epoch_fallback"] for e in events),
+        "bytes_as_byte_model": all(
+            e["payload_bytes"] == per[e["stream"]].payload_bytes
+            and e["blocking_bytes"] == (per[e["stream"]].payload_bytes if e["blocked"]
+                                        else per[e["stream"]].blocking_bytes) for e in events)
+        and res["comm_bytes"] == sum(e["payload_bytes"] for e in events),
+        "stream0_empty": per[0].payload_bytes == 0 and len(stream0) == 3
+        and all(not r["launches"] for r in stream0),
+        "launches_as_designed": all(launches[k] == n for k, n in want.items()),
+        "losses_finite_falling": all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+    }
+    inner = sorted(probe.inner_ms[1:])
+    steps = _events(jsonl, "step")
+    state = res.pop("state")
+    cycle = time_stream_cycle(cfg, state, dev, codec)
+    del state
+    summary = {
+        "inner_step_p50_ms": statistics.median(inner),
+        "inner_step_p99_ms": inner[min(len(inner) - 1, int(0.99 * len(inner)))],
+        "inner_step_p50_ms_phase6": phase6["inner_step_p50_ms"],
+        "step_dt_ms": [e["dt_s"] * 1e3 for e in steps],
+        "sync_ms_in_run": probe.ms_by_stream(),
+        "sync_launches_in_run": [{k: r[k] for k in ("stream", "launches")} for r in probe.syncs],
+        **cycle,
+        "peak_memory_gb": peak_gb, "peak_memory_gb_phase6": phase6["peak_memory_gb"],
+        "phi_pre_gb": payload.make_spec(bytes_model.abstract_params(cfg)).nbytes
+        * TRAIN["replicas"] / 1e9,
+        "comm_bytes": res["comm_bytes"], "blocking_bytes": res["blocking_bytes"],
+        "blocking_fraction": res["blocking_fraction"],
+        "byte_model_steady_blocking_fraction": cost.blocking_bytes / cost.payload_bytes,
+        "per_stream_bytes": [dataclasses.asdict(s) for s in per],
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "final_weight_std": res["final_weight_std"], "wall_s": res["wall_s"], "checks": checks,
+    }
+    log(f"{label} summary: " + json.dumps(summary))
+    del res
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"{label} failed its checks: {checks}")
+    return summary, launches
+
+
+def stream1_overlap_phase(dev, phase6_losses: list[float]) -> dict:
+    """Phase 33's last check: one stream with the overlap at phase 6's own
+    run gives phase 6's losses bit for bit (φ does not change during the
+    inner steps, so the prefetched φ is the one the blocking exchange
+    would have gathered)."""
+    dispatch.reset_launches()
+    res = train_cli.run_training(paper_llama.SMALL, device="cuda", streams=1, overlap=True,
+                                 **TRAIN)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    out = {"losses_identical": res["losses"] == phase6_losses, "losses": res["losses"],
+           "blocking_fraction": res["blocking_fraction"],
+           "launches": {k: launches[k] for k in TRAIN_KERNELS}}
+    log("stream 1 overlap vs phase 6: " + json.dumps(out))
+    del res
+    torch.cuda.empty_cache()
+    if not out["losses_identical"]:
+        raise AssertionError("one stream with the overlap differs from phase 6's run")
+    return out
+
+
+def stream_epochs(jsonl: str) -> list[tuple[int, int]]:
+    """(first step, epoch) of each membership view of a run's events."""
+    return [(0, 0)] + [(e["step"], e["epoch"]) for e in _events(jsonl, "membership")]
+
+
+def _epoch_at(views, step: int) -> int:
+    return [epoch for first, epoch in views if step >= first][-1]
+
+
+def stream_churn_phase(dev, cfg=paper_llama.SMALL, run=STREAM_CHURN,
+                       plan=STREAM_CHURN_PLAN) -> tuple[dict, dict]:
+    """Phase 34: the streamed run through a drop and a rejoin at full width:
+    a stream falls back to the blocking exchange at most once per
+    membership change, and at least one does."""
+    log("stream churn: " + json.dumps(run) + " plan " + json.dumps(plan))
+    jsonl = _jsonl("chip_smoke_stream_churn.jsonl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    with StreamProbe() as probe:
+        res = run_elastic_training(cfg, FaultPlan.build(plan), device=dev, log_jsonl=jsonl, **run)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    events = _events(jsonl, "stream_sync")
+    want = stream_launches(cfg, run, events, "none")
+    log("stream churn launches: " + json.dumps({k: launches[k] for k in want})
+        + " expected " + json.dumps(want))
+    views = stream_epochs(jsonl)
+    fallbacks = [(e["step"], e["stream"]) for e in events if e["epoch_fallback"]]
+    by_epoch: dict[int, list[int]] = {}
+    for step, k in fallbacks:
+        by_epoch.setdefault(_epoch_at(views, step), []).append(k)
+    log("stream churn fallbacks (step, stream): " + json.dumps(fallbacks)
+        + " membership views " + json.dumps(views))
+    drop = plan[0]["replicas"]
+    rounds = res["rounds"]
+    checks = {
+        "fallback_once_per_stream_per_change": all(len(v) == len(set(v)) for v in by_epoch.values())
+        and 0 not in by_epoch,
+        "some_fallback": len(fallbacks) > 0,
+        "syncs": len(events) == run["steps"] - run["inner_steps"] + 1 == res["outer_syncs"],
+        "dropped_self_paired": all(r["partner"][d] == d for r in rounds
+                                   if not set(drop) & set(r["active"]) for d in drop),
+        "membership": res["membership"] == {"epoch": 2, "active": list(range(run["replicas"]))},
+        "launches_as_designed": all(launches[k] == n for k, n in want.items()),
+        "losses_finite": all(map(math.isfinite, res["losses"])),
+    }
+    summary = {"fallbacks": fallbacks, "fallbacks_by_epoch": by_epoch,
+               "sync_ms_in_run": probe.ms_by_stream(),
+               "inner_step_p50_ms": statistics.median(sorted(probe.inner_ms[1:])),
+               "blocking_fraction": res["blocking_fraction"], "peak_memory_gb": peak_gb,
+               "losses": res["losses"], "final_weight_std": res["final_weight_std"],
+               "wall_s": res["wall_s"], "checks": checks}
+    log("stream churn summary: " + json.dumps(summary))
+    del res
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"stream churn failed its checks: {checks}")
+    return summary, launches
+
+
+def stream_parity_phase(dev) -> dict:
+    """Phase 35: card against CPU on ``reduced()`` in fp32: the streamed run
+    on the plain and the int8 wire and the streamed churn (identical
+    ``stream_sync`` events, partner tables and rounds, losses within
+    LOSS_RTOL, weight std within WSTD_RTOL), ``theory.simulate_quadratic``
+    synchronous and with rates (within THEORY_RTOL; the card's outer steps
+    launch ``noloco_update``), and a resume mid-stream on the card,
+    bit-identical to the uninterrupted run."""
+    from repro_torch.core import theory
+
+    cfg = paper_llama.SMALL.reduced(dtype="float32", remat=False)
+    small = dict(replicas=4, per_replica_batch=2, seq_len=64, steps=15, total_steps=15,
+                 inner_steps=5, eval_every=0, inner_lr=3e-3, seed=0)
+    out, card_runs = {}, {}
+    for name in ("none", "int8", "churn"):
+        runs, logs = {}, {}
+        dispatch.reset_launches()
+        for where in ("cuda", "cpu"):
+            logs[where] = _jsonl(f"chip_smoke_stream_parity_{name}_{where}.jsonl")
+            if name == "churn":
+                runs[where] = run_elastic_training(
+                    cfg, FaultPlan.build(STREAM_CHURN_PLAN), device=where, log_jsonl=logs[where],
+                    **{**STREAM_CHURN, "per_replica_batch": 2, "seq_len": 64})
+            else:
+                runs[where] = train_cli.run_training(cfg, device=where, codec=name,
+                                                     streams=STREAMS, overlap=True,
+                                                     log_jsonl=logs[where], **small)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                launches = dispatch.launch_counts()
+        card, cpu = runs["cuda"], runs["cpu"]
+        ev = {w: [{k: v for k, v in e.items() if k != "run"} for e in _events(logs[w], "stream_sync")]
+              for w in logs}
+        out[name] = {
+            "stream_events_identical": ev["cuda"] == ev["cpu"] and len(ev["cuda"]) > 0,
+            "partner_tables_identical": len(card["partners"]) == len(cpu["partners"]) and all(
+                np.array_equal(a, b) for a, b in zip(card["partners"], cpu["partners"])),
+            "rounds_identical": card.get("rounds") == cpu.get("rounds"),
+            "loss_max_rel_diff": _rel(card["losses"], cpu["losses"]),
+            "weight_std_rel_diff": _rel([card["final_weight_std"]], [cpu["final_weight_std"]]),
+            "fallbacks": sum(e["epoch_fallback"] for e in ev["cuda"]),
+            "launches": {k: launches[k] for k in TRAIN_KERNELS + (INT8 if name == "int8" else ())}}
+        card_runs[name] = card
+        del cpu
+    theory_out = {}
+    model = theory.QuadraticModel(a_eigs=tuple(np.linspace(0.05, 1.0, THEORY_DIM)))
+    for name, rates in (("sync", None), ("rates", THEORY_RATES)):
+        dispatch.reset_launches()
+        card = theory.simulate_quadratic(model, rates=rates, device=dev, **THEORY)
+        torch.cuda.synchronize()
+        n = dispatch.launch_counts()["noloco_update"]
+        cpu = theory.simulate_quadratic(model, rates=rates, device="cpu", **THEORY)
+        theory_out[name] = {
+            "max_rel_diff": {k: float(np.max(np.abs(card[k] - cpu[k]) / np.maximum(
+                np.abs(cpu[k]), 1e-30))) for k in ("mean_norm", "replica_std", "var")},
+            "staleness_identical": bool(np.array_equal(card.get("staleness", 0),
+                                                       cpu.get("staleness", 0))),
+            "noloco_update_launches": n, "mean_norm_last": float(card["mean_norm"][-1])}
+    out["theory"] = theory_out
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_stream")
+    shutil.rmtree(d, ignore_errors=True)
+    full = card_runs["none"]
+    train_cli.run_training(cfg, device=dev, streams=STREAMS, overlap=True, ckpt_dir=d,
+                           **{**small, "steps": STREAM_MID})
+    stream_tree = ckpt_lib.restore(d, STREAM_MID)["program"]["stream"]
+    cont = train_cli.run_training(cfg, device=dev, streams=STREAMS, overlap=True, ckpt_dir=d,
+                                  resume=True, **small)
+    same = {k: all(torch.equal(a, b) for a, b in zip(tree_leaves(x), tree_leaves(y)))
+            for k, x, y in zip(("theta", "phi", "delta"), (
+                cont["state"].theta, cont["state"].outer.phi, cont["state"].outer.delta), (
+                full["state"].theta, full["state"].outer.phi, full["state"].outer.delta))}
+    out["mid-stream"] = {"start_step": cont["start_step"],
+                         "pre_epoch": stream_tree["pre_epoch"].tolist(),
+                         "phi_pre_in_checkpoint": "phi_pre" in stream_tree,
+                         "losses_identical": cont["losses"] == full["losses"][STREAM_MID:],
+                         "bit_identical": same}
+    shutil.rmtree(d, ignore_errors=True)
+    log("stream fp32 card vs cpu and resume: " + json.dumps(out))
+    for name in ("none", "int8", "churn"):
+        row = out[name]
+        if not (row["stream_events_identical"] and row["partner_tables_identical"]
+                and row["rounds_identical"] and row["loss_max_rel_diff"] <= LOSS_RTOL
+                and row["weight_std_rel_diff"] <= WSTD_RTOL
+                and min(row["launches"].values()) > 0):
+            raise AssertionError(f"stream {name}: card and CPU runs differ: {row}")
+    if out["churn"]["fallbacks"] == 0:
+        raise AssertionError("the streamed churn run fell back nowhere")
+    for name, row in theory_out.items():
+        if max(row["max_rel_diff"].values()) > THEORY_RTOL or not row["staleness_identical"] \
+                or row["noloco_update_launches"] <= 0:
+            raise AssertionError(f"theory {name}: card and CPU differ: {row}")
+    row = out["mid-stream"]
+    if not (row["start_step"] == STREAM_MID and row["phi_pre_in_checkpoint"]
+            and row["losses_identical"] and all(row["bit_identical"].values())):
+        raise AssertionError(f"the mid-stream resume differs from the uninterrupted run: {row}")
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -3433,12 +3892,21 @@ def main() -> None:
     elastic, elastic_launches = elastic_phase(dev)
     async_summary = async_phase(dev)
     elastic_parity = elastic_parity_phase(dev)
+    streamed, streamed_launches = {}, {}
+    for codec in ("none", "int8"):
+        streamed[codec], streamed_launches[codec] = stream_train_phase(dev, codec, train_summary)
+    stream1 = stream1_overlap_phase(dev, train_summary["losses"])
+    stream_churn, churn_launches = stream_churn_phase(dev)
+    stream_parity = stream_parity_phase(dev)
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: int8_launches[k] for k in INT8})
     launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
     launches.update({k: family["recurrentgemma-9b"][1][k] for k in ("rglru_scan", "rglru_decode")})
     launches["ssd_chunk_bwd"] = rec_train["mamba2-370m"][1]["ssd_chunk_bwd"]
     launches["rglru_scan_bwd"] = rec_train["recurrentgemma-9b"][1]["rglru_scan_bwd"]
+    for counts in (*streamed_launches.values(), churn_launches):   # the streamed paths
+        for k in TRAIN_KERNELS + INT8:
+            launches[k] += counts[k]
 
     kernels = []
     for name, op in dispatch.registry().items():
@@ -3507,6 +3975,12 @@ def main() -> None:
         | {"launches": {k: elastic_launches[k] for k in TRAIN_KERNELS}},
         "async": {k: v for k, v in async_summary.items() if k not in ("losses", "rate1_losses")},
         "elastic_card_vs_cpu": elastic_parity,
+        "stream": {codec: {k: v for k, v in row.items() if k not in (
+            "step_dt_ms", "sync_launches_in_run", "per_stream_bytes")}
+            for codec, row in streamed.items()},
+        "stream1_overlap": {k: v for k, v in stream1.items() if k != "losses"},
+        "stream_churn": {k: v for k, v in stream_churn.items() if k != "losses"},
+        "stream_card_vs_cpu": stream_parity,
         "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

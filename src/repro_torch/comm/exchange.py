@@ -8,7 +8,10 @@ axis (masked to the active replicas when a mask is given).  A lossy codec
 is applied to the gathered values as an encode→decode round trip
 (:func:`wire_roundtrip`), each replica's payload packed and coded on its
 own, so the simulation sees the values a compressed wire would deliver.
-The multi-GPU communicators come with the multi-GPU runtime.
+:func:`exchange_gossip` expresses the paper's §3.2 overlap: when the
+partner's φ was pre-sent (:func:`presend`) during the previous inner phase
+(φ does not change during inner steps), only Δ crosses the wire at the
+sync.  The multi-GPU communicators come with the multi-GPU runtime.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from repro_torch.tree import tree_map
 
 PyTree = Any
 
-__all__ = ["Communicator", "StackedGather", "wire_roundtrip", "exchange_gossip"]
+__all__ = ["Communicator", "StackedGather", "wire_roundtrip", "exchange_gossip", "presend"]
 
 
 def wire_roundtrip(tree: PyTree, cfg: CommConfig, *, lead: int = 0) -> PyTree:
@@ -91,8 +94,18 @@ class StackedGather(Communicator):
         return tree_map(_masked, tree)
 
 
-def exchange_gossip(comm: Communicator, delta: PyTree, phi: PyTree) -> tuple[PyTree, PyTree]:
-    """Blocking part of the gossip exchange: the partner's (Δ, φ), which
-    travel together as one payload (the §3.2 φ-prefetch comes with
-    streaming, ROADMAP Queue 1 item 10b)."""
+def exchange_gossip(comm: Communicator, delta: PyTree, phi: PyTree, *,
+                    phi_prefetched: PyTree | None = None) -> tuple[PyTree, PyTree]:
+    """Blocking part of the gossip exchange: the partner's (Δ, φ).  With
+    ``phi_prefetched`` (the §3.2 overlap) the partner's φ arrived during the
+    previous inner phase, so only Δ is exchanged here; otherwise Δ and φ
+    travel together as one payload."""
+    if phi_prefetched is not None:
+        return comm.exchange(delta), phi_prefetched
     return comm.exchange((delta, phi))
+
+
+def presend(comm_next: Communicator, phi_next: PyTree) -> PyTree:
+    """The φ′ transfer along the NEXT pairing, a payload of its own; on a
+    wire it overlaps the next m inner steps."""
+    return comm_next.exchange(phi_next)

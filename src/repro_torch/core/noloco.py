@@ -19,7 +19,7 @@ import torch
 from repro_torch.comm import CommConfig
 from repro_torch.core import outer as outer_lib
 from repro_torch.optim import AdamWConfig, AdamWState, adamw_init, adamw_update
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 StackedLossFn = Callable[[PyTree, dict], torch.Tensor]
@@ -75,8 +75,7 @@ class GossipTrainer:
         leaves = tree_leaves(theta)
         losses = self.loss_fn(theta, batch)
         grads = torch.autograd.grad(losses.sum(), leaves)
-        it = iter(grads)
-        grads = tree_map(lambda _: next(it), theta)
+        grads = tree_unflatten(theta, grads)
         if self.cfg.sync_grads:
             grads = tree_map(
                 lambda g: g.float().mean(0, keepdim=True).to(g.dtype).expand_as(g), grads
@@ -101,6 +100,23 @@ class GossipTrainer:
         )
         return TrainState(theta=new_theta, opt=state.opt, outer=new_outer,
                           inner_step=state.inner_step)
+
+    def outer_step_stream(self, state: TrainState, *, stream: int, partition, partner,
+                          active=None, phi_pre: PyTree | None = None,
+                          consume_prefetch: bool = False,
+                          partner_next=None) -> tuple[TrainState, PyTree | None]:
+        """One stream's gossip sync (streaming outer steps): only the leaves
+        ``partition`` assigns to ``stream`` are exchanged and updated (see
+        :func:`repro_torch.core.outer.outer_step_stacked_stream` for the
+        prefetch and the pre-send).  Returns (new_state, the updated
+        prefetch tree or None)."""
+        new_outer, new_theta, phi_pre_out = outer_lib.outer_step_stacked_stream(
+            state.outer, state.theta, self.cfg.outer, stream=stream, partition=partition,
+            partner=partner, active=active, phi_pre=phi_pre, consume_prefetch=consume_prefetch,
+            partner_next=partner_next, comm_cfg=self.cfg.comm,
+        )
+        return TrainState(theta=new_theta, opt=state.opt, outer=new_outer,
+                          inner_step=state.inner_step), phi_pre_out
 
     @torch.no_grad()
     def eval_loss(self, theta: PyTree, batch: dict) -> torch.Tensor:

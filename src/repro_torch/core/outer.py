@@ -15,8 +15,12 @@ consistent +β sign the JAX package documents::
 The arithmetic keeps the JAX package's dtypes and order: Δ and the group
 means in the parameters' dtype (``mean = 0.5·(a + b)`` rounded there), the
 momentum update in fp32 cast back.  Asynchronous rounds discount a stale
-Δ on the wire (:func:`stale_discount`); streaming and the sharded steps
-come with ROADMAP Queue 1 items 10b and 9.
+Δ on the wire (:func:`stale_discount`).  Streaming outer steps sync one
+parameter-group stream at a time on staggered round offsets
+(:class:`StreamSchedule`, :func:`outer_step_stacked_stream`), with the
+§3.2 φ-prefetch: a stream's φ′ is pre-sent along its next pairing, so its
+next sync blocks on Δ alone.  The sharded steps come with the multi-GPU
+runtime (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -31,14 +35,14 @@ from repro_torch.comm import CommConfig
 from repro_torch.comm import exchange as exchange_lib
 from repro_torch.core import pairing
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
 __all__ = [
     "OuterConfig", "OuterState", "gamma_band", "default_gamma", "init_outer_state",
     "outer_gradient", "stale_discount", "noloco_momentum_update", "diloco_momentum_update",
-    "outer_step", "outer_step_stacked",
+    "outer_step", "outer_step_stacked", "StreamSchedule", "outer_step_stacked_stream",
 ]
 
 
@@ -112,6 +116,56 @@ def init_outer_state(params: PyTree) -> OuterState:
         delta=tree_map(torch.zeros_like, params),
         step=0,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamSchedule:
+    """When each payload stream syncs (Streaming DiLoCo round offsets).
+
+    Stream ``k`` of ``S`` has the round offset ``o_k = ⌊k·m/S⌋`` and syncs at
+    inner steps ``t = r·m + o_k`` for rounds ``r ≥ 1``; the offsets are
+    distinct (``S ≤ m``), so at most one stream syncs at an inner step.
+    Stream 0 keeps offset 0: with ``S = 1`` this is the one sync point
+    ``t % m == 0``.  The global sync index of stream ``k``'s round-``r``
+    sync is ``(r−1)·S + k``, the gossip pairing key (``OuterState.step``
+    advances once per stream sync); stream ``k``'s next sync after index
+    ``i`` is ``i + S``, the key its φ′ pre-send travels on."""
+
+    inner_steps: int
+    stream_count: int = 1
+
+    def __post_init__(self):
+        if self.stream_count < 1:
+            raise ValueError(f"stream_count must be >= 1, got {self.stream_count}")
+        if self.stream_count > self.inner_steps:
+            raise ValueError(
+                f"stream_count ({self.stream_count}) must not exceed "
+                f"inner_steps ({self.inner_steps}): round offsets ⌊k·m/S⌋ "
+                "must be distinct for the staggered schedule to exist"
+            )
+
+    @property
+    def offsets(self) -> tuple[int, ...]:
+        m, s = self.inner_steps, self.stream_count
+        return tuple((k * m) // s for k in range(s))
+
+    def due(self, inner_step: int) -> int | None:
+        """The stream syncing at ``inner_step`` (None if none is due)."""
+        m = self.inner_steps
+        off = inner_step % m
+        for k, o in enumerate(self.offsets):
+            if off == o and inner_step - o >= m:
+                return k
+        return None
+
+    def sync_index(self, stream: int, inner_step: int) -> int:
+        """Global sync index (the pairing key) of ``stream``'s sync at
+        ``inner_step``; the stream must be due there."""
+        o = self.offsets[stream]
+        r = (inner_step - o) // self.inner_steps
+        if inner_step != r * self.inner_steps + o or r < 1:
+            raise ValueError(f"stream {stream} is not due at inner step {inner_step}")
+        return (r - 1) * self.stream_count + stream
 
 
 def outer_gradient(theta: PyTree, phi: PyTree) -> PyTree:
@@ -198,21 +252,23 @@ def outer_step(state: OuterState, theta: PyTree, cfg: OuterConfig,
 
 
 def _noloco_leafwise(state: OuterState, theta: PyTree, cfg: OuterConfig,
-                     comm: exchange_lib.Communicator,
-                     discount=None) -> tuple[PyTree, PyTree]:
+                     comm: exchange_lib.Communicator, discount=None,
+                     phi_prefetched: PyTree | None = None) -> tuple[PyTree, PyTree]:
     """The NoLoCo step over a plain wire one leaf at a time: Δ, the
     partner's (Δ, φ), the means and the update of a leaf are formed and
     dropped before the next, so the step's temporaries are one leaf's,
     not the tree's (recurrentgemma-9b's stacked trees are 6.8 GB each in
     bf16).  Each value is the whole-tree path's, operation for operation;
     a packed wire (a codec) keeps that path.  ``discount`` (the stale
-    rule's) maps a Δ leaf onto the copy that goes on the wire."""
+    rule's) maps a Δ leaf onto the copy that goes on the wire;
+    ``phi_prefetched`` (a tree like ``theta``) holds the partner's φ that
+    arrived before the sync, and then only Δ is exchanged."""
     out = []
 
-    def one(t, phi, dmom):
+    def one(t, phi, dmom, pre=None):
         delta = outer_gradient(t, phi)
         wire = delta if discount is None else discount(delta)
-        delta_p, phi_p = comm.exchange((wire, phi))
+        delta_p, phi_p = exchange_lib.exchange_gossip(comm, wire, phi, phi_prefetched=pre)
         del wire
         mean_delta = 0.5 * (delta + delta_p)
         del delta, delta_p
@@ -222,8 +278,15 @@ def _noloco_leafwise(state: OuterState, theta: PyTree, cfg: OuterConfig,
                                           beta=cfg.beta, gamma=cfg.resolved_gamma()))
         return len(out) - 1
 
-    index = tree_map(one, theta, state.phi, state.delta)
+    trees = (theta, state.phi, state.delta) + (() if phi_prefetched is None else (phi_prefetched,))
+    index = tree_map(one, *trees)
     return tree_map(lambda i: out[i][0], index), tree_map(lambda i: out[i][1], index)
+
+
+def _select(active, device):
+    """``where(active row, new, old)`` over leaves with a leading replica axis."""
+    act = torch.as_tensor(active, dtype=torch.bool, device=device)
+    return lambda new, old: torch.where(act.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
 @torch.no_grad()
@@ -252,11 +315,7 @@ def outer_step_stacked(state: OuterState, theta: PyTree, cfg: OuterConfig, *,
         comm = exchange_lib.StackedGather(None, comm_cfg, active=act)
     new_state, new_theta = outer_step(state, theta, cfg, comm, staleness=staleness)
     if active is not None:
-        act = torch.as_tensor(active, dtype=torch.bool, device=device)
-
-        def _sel(new, old):
-            return torch.where(act.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
-
+        _sel = _select(active, device)
         new_theta = tree_map(_sel, new_theta, theta)
         new_state = OuterState(
             phi=tree_map(_sel, new_state.phi, state.phi),
@@ -264,3 +323,84 @@ def outer_step_stacked(state: OuterState, theta: PyTree, cfg: OuterConfig, *,
             step=new_state.step,
         )
     return new_state, new_theta
+
+
+@torch.no_grad()
+def outer_step_stacked_stream(state: OuterState, theta: PyTree, cfg: OuterConfig, *,
+                              stream: int, partition, partner, active=None,
+                              phi_pre: PyTree | None = None, consume_prefetch: bool = False,
+                              partner_next=None, comm_cfg: CommConfig | None = None,
+                              ) -> tuple[OuterState, PyTree, PyTree | None]:
+    """One stream's outer sync with replicas stacked on axis 0 (NoLoCo only).
+
+    Exchanges and updates only the leaves ``partition`` (a
+    :class:`~repro_torch.comm.payload.StreamPartition` over the stacked
+    parameter tree) assigns to ``stream``; every other leaf of (φ, δ, θ)
+    passes through as the same tensor.  The per-leaf math is
+    :func:`outer_step`'s restricted to the stream's leaves.  On the plain
+    wire the stream goes leaf by leaf; a codec packs the stream's (Δ_k, φ_k)
+    as one payload, or Δ_k alone when the prefetch is consumed, and the
+    pre-send φ′_k as a payload of its own, each fused by dtype.
+
+    ``consume_prefetch``: the partner's φ of this stream was pre-sent at the
+    stream's previous sync; it is read from ``phi_pre`` (a full tree like
+    φ; only the stream's leaves are read) and only Δ_k is exchanged.
+    ``partner_next``: pre-send φ′_k along that table for the stream's next
+    sync; the returned third element is ``phi_pre`` (or, before the first
+    pre-send, φ) with the stream's leaves replaced by the partner's φ′_k,
+    else None.  ``active`` freezes the other replicas over this stream's
+    leaves.  ``step`` advances by one, also for an empty stream."""
+    cfg.validate()
+    if cfg.method != "noloco":
+        raise ValueError("streamed outer sync is NoLoCo-only (gossip pairing)")
+    theta_leaves = tree_leaves(theta)
+    phi_leaves = tree_leaves(state.phi)
+    mom_leaves = tree_leaves(state.delta)
+    device = theta_leaves[0].device
+    idxs = partition.leaf_indices(stream)
+    theta_k = [theta_leaves[i] for i in idxs]
+    phi_k = [phi_leaves[i] for i in idxs]
+    mom_k = [mom_leaves[i] for i in idxs]
+    comm = exchange_lib.StackedGather(torch.as_tensor(partner, device=device), comm_cfg)
+    prefetched = None
+    if consume_prefetch:
+        if phi_pre is None:
+            raise ValueError("consume_prefetch=True requires phi_pre")
+        pre_leaves = tree_leaves(phi_pre)
+        prefetched = [pre_leaves[i] for i in idxs]
+    if comm.cfg.codec == "none":
+        phi_next_k, mom_next_k = _noloco_leafwise(
+            OuterState(phi=phi_k, delta=mom_k), theta_k, cfg, comm, phi_prefetched=prefetched)
+    else:
+        delta_k = outer_gradient(theta_k, phi_k)
+        delta_p, phi_p = exchange_lib.exchange_gossip(comm, delta_k, phi_k,
+                                                      phi_prefetched=prefetched)
+        mean_delta = tree_map(lambda a, b: 0.5 * (a + b), delta_k, delta_p)
+        del delta_k, delta_p
+        mean_phi = tree_map(lambda a, b: 0.5 * (a + b), phi_k, phi_p)
+        del phi_p
+        phi_next_k, mom_next_k = noloco_momentum_update(
+            phi_k, mom_k, mean_delta, mean_phi,
+            alpha=cfg.alpha, beta=cfg.beta, gamma=cfg.resolved_gamma(),
+        )
+    theta_next_k = phi_next_k
+    if active is not None:
+        _sel = _select(active, device)
+        phi_next_k = tree_map(_sel, phi_next_k, phi_k)
+        mom_next_k = tree_map(_sel, mom_next_k, mom_k)
+        theta_next_k = tree_map(_sel, theta_next_k, theta_k)
+    phi_pre_out = None
+    if partner_next is not None:
+        comm_next = exchange_lib.StackedGather(torch.as_tensor(partner_next, device=device),
+                                               comm_cfg)
+        pre_k = exchange_lib.presend(comm_next, phi_next_k)
+        pre_leaves = list(tree_leaves(phi_pre if phi_pre is not None else state.phi))
+        for i, leaf in zip(idxs, pre_k):
+            pre_leaves[i] = leaf
+        phi_pre_out = tree_unflatten(state.phi, pre_leaves)
+    new_phi, new_mom, new_theta = list(phi_leaves), list(mom_leaves), list(theta_leaves)
+    for i, p, d, t in zip(idxs, phi_next_k, mom_next_k, theta_next_k):
+        new_phi[i], new_mom[i], new_theta[i] = p, d, t
+    new_state = OuterState(phi=tree_unflatten(state.phi, new_phi),
+                           delta=tree_unflatten(state.delta, new_mom), step=state.step + 1)
+    return new_state, tree_unflatten(theta, new_theta), phi_pre_out

@@ -65,11 +65,14 @@ def noloco_update_pytree(phi, delta_mom, mean_delta, mean_phi, *, alpha: float, 
                          gamma: float):
     """Fused Eqs. 2–3 over whole trees, one launch per leaf (stacked leaves
     with a leading replica axis included); returns (φ′ tree, δ′ tree).  Not
-    differentiated: the outer step runs outside autograd."""
+    differentiated: the outer step runs outside autograd.  A zero-size
+    leaf launches nothing (an empty grid)."""
     results = []
 
     def one(p, d, md, mp):
-        if p.device.type == "cpu":
+        if p.numel() == 0:
+            results.append((torch.empty_like(p), torch.empty_like(d)))
+        elif p.device.type == "cpu":
             results.append(ref.torch_noloco_update(p, d, md, mp, alpha=alpha, beta=beta, gamma=gamma))
         else:
             results.append(noloco.noloco_update(
@@ -137,18 +140,27 @@ def paged_chunk_attention(
 def int8_quantize(x: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-chunk affine uint8 quantization of each row of ``x`` (R, N) fp32
     or bf16, every row edge-padded to whole chunks of its own; returns
-    (q (R, NC, chunk) uint8, scale (R, NC), lo (R, NC))."""
+    (q (R, NC, chunk) uint8, scale (R, NC), lo (R, NC)).  A zero-size ``x``
+    launches nothing."""
     if x.device.type == "cpu":
         return ref.torch_int8_quantize(x, chunk)
+    if x.numel() == 0:
+        rows, nc = x.shape[0], -(-x.shape[1] // chunk)
+        meta = torch.empty((rows, nc), dtype=torch.float32, device=x.device)
+        return (torch.empty((rows, nc, chunk), dtype=torch.uint8, device=x.device), meta,
+                meta.clone())
     return quantize.int8_quantize(x.contiguous(), chunk)
 
 
 def int8_dequantize(q: torch.Tensor, scale: torch.Tensor, lo: torch.Tensor, n: int,
                     dtype: torch.dtype) -> torch.Tensor:
     """Inverse of :func:`int8_quantize`: the first ``n`` values of each row,
-    q·scale + lo rounded once, in ``dtype``; returns (R, n)."""
+    q·scale + lo rounded once, in ``dtype``; returns (R, n).  A zero-size
+    result launches nothing."""
     if q.device.type == "cpu":
         return ref.torch_int8_dequantize(q, scale, lo, n, dtype)
+    if q.shape[0] == 0 or n == 0:
+        return torch.empty((q.shape[0], n), dtype=dtype, device=q.device)
     return quantize.int8_dequantize(q, scale.contiguous(), lo.contiguous(), n, dtype)
 
 

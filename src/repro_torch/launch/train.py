@@ -153,9 +153,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-fuse", action="store_true",
                     help="per-leaf exchange instead of one fused buffer per dtype")
     ap.add_argument("--stream-count", type=int, default=1,
-                    help="streaming outer steps (not ported yet)")
+                    help="streaming outer steps: partition the payload into N "
+                         "streams synced on staggered round offsets")
     ap.add_argument("--overlap", action="store_true",
-                    help="§3.2 φ-prefetch overlap (not ported yet)")
+                    help="§3.2 φ-prefetch overlap (auto-enabled by "
+                         "--stream-count > 1)")
     ap.add_argument("--eval-every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)

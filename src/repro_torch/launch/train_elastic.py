@@ -19,7 +19,9 @@ the synchronous run); ``--stale`` picks the stale-Δ rule.  Without
 ``--fault-plan`` this is a healthy run of the same program.  ``--device``
 defaults to ``cuda`` and raises without a GPU; on the card every inner
 step runs the flash pair and every round the NoLoCo update kernel.
-``--stream-count`` above 1 raises (streaming is ROADMAP Queue 1 item 10b).
+``--stream-count`` above 1 syncs the payload in that many staggered streams
+with the §3.2 φ-prefetch, which composes with churn through the
+membership-epoch fallback.
 The last stdout line is the JAX CLI's summary JSON plus ``device``.
 """
 
@@ -79,8 +81,11 @@ def run_elastic_training(
     ``reassign_data`` redistributes dropped replicas' loader streams over
     survivors; ``async_clock`` gives each replica its own round clock (on
     whenever the plan has rate events), ``stale`` the stale-Δ rule
-    (``"naive"`` / ``"momentum"``).  ``stream_count`` above 1 and
-    ``overlap`` raise NotImplementedError (ROADMAP Queue 1 item 10b)."""
+    (``"naive"`` / ``"momentum"``).  ``stream_count`` partitions the outer
+    payload into staggered streams; ``overlap`` adds the §3.2 φ-prefetch
+    (on by default when ``stream_count > 1``) and composes with churn
+    through the membership-epoch fallback: a stream whose pre-send pairing
+    went stale blocks once, the others stay overlapped."""
     dev = resolve_device(device)
     if overlap is None:
         overlap = stream_count > 1
@@ -129,7 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--inner-steps", type=int, default=5)
     ap.add_argument("--codec", default="none", choices=["none", "fp16", "bf16", "int8"])
     ap.add_argument("--stream-count", type=int, default=1,
-                    help="streaming outer steps (not ported yet: above 1 raises)")
+                    help="streaming outer steps: partition the payload into N "
+                         "streams synced on staggered round offsets "
+                         "(implies the §3.2 overlap when > 1)")
     ap.add_argument("--eval-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reassign-data", action="store_true",

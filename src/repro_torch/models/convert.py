@@ -16,7 +16,9 @@ the cross-attention blocks (``ln_cross``, ``cross_attn``) and the vision
 whole state (θ, AdamW μ/ν/count, φ, δ and the two step counters), given as
 the JAX ``GossipProgram.state_pytree`` tree with numpy leaves, so both
 packages can continue training from one point; ``train_state_to_numpy`` is
-its inverse, the tree a checkpoint holds.  Host leaves are numpy arrays,
+its inverse, the tree a checkpoint holds, with the streaming runtime's
+in-flight ``stream`` subtree (the prefetched φ loads through
+``stacked_params_from_jax_numpy``).  Host leaves are numpy arrays,
 except bfloat16 ones, which numpy holds only through ``ml_dtypes`` (a JAX
 dependency the port does without): those are CPU tensors.  Both loaders
 take either.
@@ -34,7 +36,7 @@ from repro_torch.models.common import torch_dtype
 from repro_torch.models.model import encoder_cfg
 from repro_torch.models.rglru import CONV_WIDTH, lru_width
 from repro_torch.models.ssd import d_inner, num_heads_ssm
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -163,6 +165,15 @@ def _load(tree: PyTree, cfg, device, dtype: torch.dtype, lead: tuple[int, ...] =
     return walk(tree, expected_shapes(cfg), "")
 
 
+def stacked_params_from_jax_numpy(tree: PyTree, cfg, device="cpu",
+                                  dtype: torch.dtype | None = None) -> PyTree:
+    """A replica-stacked parameter tree (θ's layout: a leading replica
+    axis, norm leaves fp32, the rest ``dtype``, default ``cfg.dtype``) from
+    the JAX layout with host leaves."""
+    lead = (int(tree_leaves(tree)[0].shape[0]),)
+    return _load(tree, cfg, device, dtype or torch_dtype(cfg.dtype), lead)
+
+
 def train_state_from_jax_numpy(tree: dict, cfg, device="cpu", dtype: torch.dtype | None = None):
     """The port's :class:`~repro_torch.core.noloco.TrainState` from the JAX
     stacked trainer's state, as ``jax.tree.map(np.asarray,
@@ -205,7 +216,8 @@ def to_host(t: torch.Tensor):
     return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
-def train_state_to_numpy(state, membership: dict | None = None) -> dict:
+def train_state_to_numpy(state, membership: dict | None = None,
+                         stream: dict | None = None) -> dict:
     """The JAX ``GossipProgram.state_pytree`` tree of a port
     :class:`~repro_torch.core.noloco.TrainState`, with host leaves (see the
     module docstring): ``{"theta", "opt": {"mu", "nu", "count"}, "outer":
@@ -213,13 +225,17 @@ def train_state_to_numpy(state, membership: dict | None = None) -> dict:
     "partition"}}``, parameter dicts in sorted key order, the step counters
     int32 scalars as JAX writes them.  ``membership`` is the program's
     :meth:`~repro_torch.core.elastic.ElasticContext.state_dict`; None gives
-    the full membership (every replica active, epoch 0, no partition)."""
+    the full membership (every replica active, epoch 0, no partition).
+    ``stream`` (a streaming program's in-flight state: ``pre_partner``
+    (S, R) and ``pre_epoch`` (S,) int64, and ``phi_pre``, a stacked
+    parameter tree, once a φ′ was pre-sent) becomes the ``stream``
+    subtree."""
     params = lambda t: tree_map(to_host, t)
     world = int(state.opt.count.shape[0])
     if membership is None:
         membership = {"mask": np.ones((world,), dtype=bool), "epoch": np.int64(0),
                       "partition": np.full((world,), -1, dtype=np.int64)}
-    return {
+    tree = {
         "theta": params(state.theta),
         "opt": {"mu": params(state.opt.mu), "nu": params(state.opt.nu),
                 "count": state.opt.count.detach().cpu().to(torch.int32).numpy()},
@@ -228,3 +244,9 @@ def train_state_to_numpy(state, membership: dict | None = None) -> dict:
         "inner_step": np.int32(state.inner_step),
         "membership": membership,
     }
+    if stream is not None:
+        tree["stream"] = {"pre_partner": np.asarray(stream["pre_partner"], dtype=np.int64),
+                          "pre_epoch": np.asarray(stream["pre_epoch"], dtype=np.int64)}
+        if stream.get("phi_pre") is not None:
+            tree["stream"]["phi_pre"] = params(stream["phi_pre"])
+    return tree

@@ -156,6 +156,13 @@ class SimCluster:
         if async_clock:
             if not hasattr(program, "outer_step_async"):
                 raise ValueError("asynchronous clock needs a program exposing outer_step_async")
+            ccfg = program.tcfg.comm
+            if ccfg.streams > 1 or ccfg.overlap:
+                raise ValueError(
+                    "the asynchronous replica clock does not compose with "
+                    "streaming outer steps / φ-prefetch yet — run with "
+                    "streams=1, overlap=False"
+                )
             self.clock = ReplicaClock(self.replicas, self._inner_steps())
 
     @property
@@ -339,6 +346,14 @@ class SimCluster:
 
     def comm_cost(self):
         return self.program.comm_cost()
+
+    def drain_stream_events(self) -> list[dict]:
+        """The program's ``stream_sync`` records.  A streaming program syncs
+        one stream per due step, so a straggle debt is spent per stream
+        sync, not per full cycle: a one-round straggle misses one stream's
+        exchange."""
+        drain = getattr(self.program, "drain_stream_events", None)
+        return [] if drain is None else drain()
 
     def drain_async_events(self) -> list[dict]:
         """Per-sync participation and staleness records since the last

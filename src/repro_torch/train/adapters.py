@@ -15,12 +15,18 @@ round's pairing comes from :func:`~repro_torch.core.pairing.
 elastic_partner_table` through ``ElasticContext.plan_round``: dropped
 replicas are frozen in inner and outer steps, a replica whose partner
 misses the round pairs with itself, and eval, weight std and the reported
-loss cover the active replicas only.  Streaming and the φ-prefetch overlap
-come with ROADMAP Queue 1 item 10b and raise until then.  The checkpoint
-view of the state is the JAX ``GossipProgram.state_pytree`` layout,
-membership included (:func:`repro_torch.models.convert.
-train_state_to_numpy`), so a JAX checkpoint resumes here and this
-program's restore in JAX.
+loss cover the active replicas only.
+
+Streaming outer steps (``streams > 1``, or the §3.2 φ-prefetch overlap,
+which is one stream): each stream syncs on its own round offset
+(:class:`~repro_torch.core.outer.StreamSchedule`) at the pairing key of its
+global sync index, and pre-sends its φ′ along its next pairing; the
+prefetch is consumed only under the same membership epoch and partner
+table, else that stream alone falls back to the blocking exchange.  The
+checkpoint view of the state is the JAX ``GossipProgram.state_pytree``
+layout, membership and the in-flight ``stream`` state included
+(:func:`repro_torch.models.convert.train_state_to_numpy`), so a JAX
+checkpoint resumes here and this program's restore in JAX.
 """
 
 from __future__ import annotations
@@ -31,34 +37,27 @@ import numpy as np
 import torch
 
 from repro_torch.comm import bytes_model
+from repro_torch.comm import payload as payload_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import pairing as pairing_lib
 from repro_torch.core.elastic import ElasticContext
 from repro_torch.core.noloco import GossipTrainer, TrainerConfig, TrainState
-from repro_torch.core.outer import OuterState
+from repro_torch.core.outer import OuterState, StreamSchedule
 from repro_torch.core.pairing import Membership
 from repro_torch.device import resolve_device
 from repro_torch.models import convert
 from repro_torch.models import model as model_api
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWState
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
 __all__ = ["GossipProgram"]
 
-_LATER = "ROADMAP Queue 1 item 10b"
-
 
 def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.data_ptr() == b.data_ptr() and a.shape == b.shape and a.stride() == b.stride()
-
-
-def _unflatten(like: PyTree, leaves: list) -> PyTree:
-    """``leaves`` (in flatten order) in the structure of ``like``."""
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
 
 
 class GossipProgram:
@@ -71,10 +70,8 @@ class GossipProgram:
                  membership: Membership | None = None, elastic: ElasticContext | None = None,
                  device: torch.device | str = "cuda"):
         tcfg.comm.validate()
-        if tcfg.comm.streams > 1 or tcfg.comm.overlap:
-            raise NotImplementedError(
-                f"streaming outer steps and the φ-prefetch overlap are not ported yet ({_LATER})"
-            )
+        if tcfg.comm.streams > 1 and tcfg.outer.method != "noloco":
+            raise ValueError("streams > 1 is a noloco-only feature (gossip pairing)")
         if elastic is None:
             elastic = ElasticContext(membership or Membership.full(replicas))
         elif membership is not None:
@@ -91,6 +88,20 @@ class GossipProgram:
         self.trainer = GossipTrainer(
             tcfg, lambda params, batch: model_api.stacked_loss(params, cfg, batch)
         )
+        # streaming outer steps: staggered per-stream syncs, for streams > 1
+        # or the φ-prefetch overlap (one stream)
+        self._streaming = tcfg.outer.method == "noloco" and (
+            tcfg.comm.streams > 1 or tcfg.comm.overlap)
+        self._schedule = self._partition = self._stream_cost = None
+        self._stream_events: list[dict] = []
+        self._phi_pre = self._pre_partner = self._pre_epoch = None
+        if self._streaming:
+            s = tcfg.comm.streams
+            self._schedule = StreamSchedule(tcfg.outer.inner_steps, s)
+            stacked = tree_map(lambda x: payload_lib.LeafShape((replicas,) + x.shape, x.dtype),
+                               bytes_model.abstract_params(cfg))
+            self._partition = payload_lib.stream_partition(stacked, s, fuse=tcfg.comm.fuse)
+            self._reset_stream_state()
 
     def initial_params(self) -> PyTree:
         """One replica's starting weights, on the CPU."""
@@ -143,7 +154,16 @@ class GossipProgram:
         return int(state.outer.step)
 
     def sync_due(self, state: TrainState) -> bool:
+        if self._streaming:
+            return self._schedule.due(int(state.inner_step)) is not None
         return self.trainer.should_sync(state)
+
+    def _reset_stream_state(self) -> None:
+        """Nothing pre-sent: every stream's next sync blocks."""
+        s = self._schedule.stream_count
+        self._phi_pre = None
+        self._pre_partner = np.full((s, self.replicas), -1, dtype=np.int64)
+        self._pre_epoch = np.full((s,), -1, dtype=np.int64)
 
     @torch.no_grad()
     def warm_start(self, state: TrainState, replica: int, source: int) -> TrainState:
@@ -167,9 +187,9 @@ class GossipProgram:
         count[replica] = 0
         row = torch.tensor([replica], device=self.device)
         return TrainState(
-            theta=_unflatten(state.theta, thetas),
+            theta=tree_unflatten(state.theta, thetas),
             opt=AdamWState(mu=state.opt.mu, nu=state.opt.nu, count=count),
-            outer=OuterState(phi=_unflatten(state.outer.phi, phis),
+            outer=OuterState(phi=tree_unflatten(state.outer.phi, phis),
                              delta=tree_map(lambda d: d.index_fill(0, row, 0), state.outer.delta),
                              step=state.outer.step),
             inner_step=state.inner_step,
@@ -209,6 +229,8 @@ class GossipProgram:
                                        staleness=to_dev(staleness))
 
     def maybe_outer_step(self, state: TrainState) -> tuple[TrainState, bool]:
+        if self._streaming:
+            return self._maybe_stream_sync(state)
         if not self.trainer.should_sync(state):
             return state, False
         noloco = self.tcfg.outer.method == "noloco"
@@ -239,6 +261,67 @@ class GossipProgram:
             stale = tau.astype(np.float32)
         return self._outer(state, plan.partner, update, stale), True
 
+    def _maybe_stream_sync(self, state: TrainState) -> tuple[TrainState, bool]:
+        """One stream's staggered sync.  The global sync index ``i`` (the
+        stream syncs so far, which ``OuterState.step`` counts) is the
+        pairing key; the stream's next sync is ``i + streams``, the key its
+        φ′ pre-send travels on, drawn over the membership.  The prefetch is
+        consumed only when it was sent under this membership epoch along
+        this round's actual table; otherwise this stream alone blocks on
+        (Δ, φ) (an epoch fallback)."""
+        t = int(state.inner_step)
+        k = self._schedule.due(t)
+        if k is None:
+            return state, False
+        i = self._schedule.sync_index(k, t)
+        seed = self.tcfg.outer.seed
+        overlap = self.tcfg.comm.overlap
+        plan = self.elastic.plan_round(self._partner_fn(i))
+        had_prefetch = self._pre_epoch[k] >= 0
+        consume = bool(overlap and self._phi_pre is not None
+                       and self._pre_epoch[k] == self.elastic.epoch
+                       and np.array_equal(self._pre_partner[k], np.asarray(plan.partner)))
+        next_table = None
+        if overlap:
+            next_table = pairing_lib.elastic_partner_table(
+                i + self._schedule.stream_count, self.elastic.membership, seed=seed,
+                groups=self.elastic.partition)
+        self.partners.append(plan.partner)
+        active = None if plan.active is None else torch.from_numpy(
+            np.asarray(plan.active, dtype=bool)).to(self.device)
+        state, phi_pre_out = self.trainer.outer_step_stream(
+            state, stream=k, partition=self._partition, partner=plan.partner, active=active,
+            phi_pre=self._phi_pre, consume_prefetch=consume, partner_next=next_table)
+        if phi_pre_out is not None:
+            self._phi_pre = phi_pre_out
+            self._pre_partner[k] = np.asarray(next_table)
+            self._pre_epoch[k] = self.elastic.epoch
+        cost = self._cost_for_streams()
+        sc = cost.per_stream[k] if cost else None
+        payload = sc.payload_bytes if sc else 0
+        blocking = sc.blocking_bytes if (sc and consume) else payload
+        self._stream_events.append({
+            "stream": k,
+            "offset": self._schedule.offsets[k],
+            "sync_index": i,
+            "payload_bytes": payload,
+            "blocking_bytes": blocking,
+            "overlapped_bytes": payload - blocking,
+            "blocked": not consume,
+            "epoch_fallback": bool(overlap and not consume and had_prefetch),
+        })
+        return state, True
+
+    def _cost_for_streams(self):
+        if self._stream_cost is None:
+            self._stream_cost = self.comm_cost()
+        return self._stream_cost
+
+    def drain_stream_events(self) -> list[dict]:
+        """The ``stream_sync`` records since the last drain."""
+        events, self._stream_events = self._stream_events, []
+        return events
+
     def eval_step(self, state: TrainState, batch: dict) -> float:
         losses = self.trainer.eval_loss(state.theta, self._batch(batch))
         return float(losses.index_select(0, self._ids()).mean())
@@ -255,23 +338,37 @@ class GossipProgram:
         return float(metrics_lib.replica_weight_std(theta))
 
     def state_pytree(self, state: TrainState) -> dict:
-        return convert.train_state_to_numpy(state, membership=self.elastic.state_dict())
+        stream = None
+        if self._streaming:
+            # the prefetched φ and the (pairing, epoch) it was pre-sent along,
+            # so a resumed run makes the same consume-or-fall-back decisions
+            stream = {"pre_partner": self._pre_partner.copy(),
+                      "pre_epoch": self._pre_epoch.copy()}
+            if self._phi_pre is not None:
+                stream["phi_pre"] = self._phi_pre
+        return convert.train_state_to_numpy(state, membership=self.elastic.state_dict(),
+                                            stream=stream)
 
     def load_state_pytree(self, state: TrainState, tree: dict) -> TrainState:
         """The state of a checkpoint in the JAX layout, its membership and
-        partition restored into the elastic context.  In-flight streaming
-        state raises."""
-        if "stream" in tree:
-            raise NotImplementedError(
-                f"the checkpoint holds streaming outer-step state; streaming is not ported "
-                f"yet ({_LATER})"
-            )
+        partition restored into the elastic context and, when streaming,
+        its in-flight ``stream`` state (a checkpoint without one: nothing
+        pre-sent, so every stream's next sync blocks)."""
         mem = tree.get("membership")
         if mem is not None:
             mask = np.asarray(mem["mask"], dtype=bool)
             if mask.shape != (self.replicas,):
                 raise ValueError(f"checkpoint holds {mask.shape[0]} replicas, this run {self.replicas}")
             self.elastic.load_state_dict(mem)
+        if self._streaming:
+            self._reset_stream_state()
+            st = tree.get("stream")
+            if st is not None:
+                self._pre_partner = np.asarray(st["pre_partner"]).astype(np.int64)
+                self._pre_epoch = np.asarray(st["pre_epoch"]).astype(np.int64)
+                if st.get("phi_pre") is not None:
+                    self._phi_pre = convert.stacked_params_from_jax_numpy(
+                        st["phi_pre"], self.cfg, device=self.device)
         return convert.train_state_from_jax_numpy(tree, self.cfg, device=self.device)
 
     def comm_cost(self):

@@ -5,8 +5,9 @@ cadence, wall-clock and tokens/s accounting, comm-bytes accounting from
 :mod:`repro_torch.comm.bytes_model` (per outer sync: payload and blocking
 bytes), the JSONL telemetry stream with the JAX package's schema
 (``run_start`` / ``step`` / ``outer`` / ``eval`` / ``ckpt`` / ``run_end``,
-and ``membership`` / ``outer_async`` for elastic programs; one JSON object
-per line) and the same run summary, and periodic
+``membership`` / ``outer_async`` for elastic programs and ``stream_sync``
+for streaming ones, whose ``outer`` bytes are then the synced streams';
+one JSON object per line) and the same run summary, and periodic
 checkpoints with full resume: the program's state (``TrainProgram.
 state_pytree``) and the loop's step cursor, in the JAX package's layout, the
 data loader fast-forwarded with ``make_loader(start_step)``.  A resumed run
@@ -126,6 +127,7 @@ class TrainLoop:
         outer_syncs = comm_bytes = blocking_bytes = total_tokens = 0
         max_staleness = blocked_syncs = 0
         drain_async = getattr(self.program, "drain_async_events", None)
+        drain_stream = getattr(self.program, "drain_stream_events", None)
         # elastic programs expose an epoch-stamped membership: a `membership`
         # event whenever the view changes (drop / rejoin)
         last_epoch = getattr(self.program, "membership_epoch", None)
@@ -157,8 +159,17 @@ class TrainLoop:
             )
             if synced:
                 outer_syncs += 1
-                payload = cost.payload_bytes if cost else 0
-                blocking = cost.blocking_bytes if cost else 0
+                # a streaming program reports which stream synced and whether
+                # it consumed its prefetch: the bytes follow those events
+                sevents = drain_stream() if drain_stream is not None else []
+                if sevents:
+                    payload = sum(ev["payload_bytes"] for ev in sevents)
+                    blocking = sum(ev["blocking_bytes"] for ev in sevents)
+                    for ev in sevents:
+                        self._emit("stream_sync", step=t + 1, **ev)
+                else:
+                    payload = cost.payload_bytes if cost else 0
+                    blocking = cost.blocking_bytes if cost else 0
                 comm_bytes += payload
                 blocking_bytes += blocking
                 self._emit("outer", step=t + 1, sync_index=outer_syncs,

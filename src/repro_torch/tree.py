@@ -12,7 +12,7 @@ from typing import Any, Callable
 
 PyTree = Any
 
-__all__ = ["tree_map", "tree_leaves"]
+__all__ = ["tree_map", "tree_leaves", "tree_unflatten"]
 
 
 def tree_map(fn: Callable[..., Any], tree: PyTree, *rest: PyTree) -> PyTree:
@@ -35,3 +35,9 @@ def tree_leaves(tree: PyTree) -> list:
     if isinstance(tree, (list, tuple)):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [] if tree is None else [tree]
+
+
+def tree_unflatten(like: PyTree, leaves: list) -> PyTree:
+    """``leaves`` (in flatten order) in the structure of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)

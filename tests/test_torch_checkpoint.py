@@ -26,6 +26,7 @@ from repro.models import model as JM
 from repro.models.common import values_of
 from repro.models.config import ModelConfig as JModelConfig
 from repro_torch.checkpoint import ckpt, msgpack_subset
+from repro_torch.comm import CommConfig
 from repro_torch.launch import train as train_cli
 from repro_torch.models import convert
 from repro_torch.models.config import ModelConfig
@@ -244,23 +245,54 @@ def test_state_pytree_is_the_jax_layout(jax_weights):
 
 @pytest.mark.parametrize("change", ["dropped", "partition", "stream"])
 def test_loading_elastic_or_streaming_state_raises(jax_weights, change):
-    """Streaming state still raises (ROADMAP Queue 1 item 10b).  A dropped
-    replica or a partition loads since elastic membership was ported: the
-    restored membership and partition are what the JAX package's
-    ``ElasticContext.load_state_dict`` makes of the same tree."""
+    """Each loads since its feature was ported: a dropped replica and a
+    partition restore what the JAX package's ``ElasticContext.
+    load_state_dict`` makes of the same tree; a ``stream`` subtree (the
+    pre-send tables and the prefetched φ) restores into a streaming
+    program what JAX's ``GossipProgram.load_state_pytree`` makes of it,
+    ``state_pytree`` writes it back, and a tree without one resets it."""
+    from repro.comm import CommConfig as JCommConfig
     from repro.core.elastic import ElasticContext as JElasticContext
+    from repro.launch.train import method_config as jmethod_config
+    from repro.train.adapters import GossipProgram as JGossipProgram
 
     cfg = jax_weights
+    if change == "stream":
+        comm = dict(streams=2, overlap=True)
+        kw = dict(inner_lr=1e-3, total_steps=4, inner_steps=2)
+        program = adapters.GossipProgram(
+            cfg, train_cli.method_config("noloco", comm=CommConfig(**comm), **kw), replicas=3,
+            device="cpu")
+        jprogram = JGossipProgram(JModelConfig(**TINY), jmethod_config(
+            "noloco", comm=JCommConfig(**comm), **kw), replicas=3)
+        state = program.init_state(None)
+        tree = program.state_pytree(state)
+        assert tree["stream"]["pre_epoch"].tolist() == [-1, -1] and "phi_pre" not in tree["stream"]
+        phi_pre = jax.tree.map(lambda x: x + np.float32(0.5), tree["outer"]["phi"])
+        tree["stream"] = {"pre_partner": np.array([[1, 0, 2], [2, 1, 0]], np.int64),
+                          "pre_epoch": np.array([0, -1], np.int64), "phi_pre": phi_pre}
+        restored = program.load_state_pytree(state, tree)
+        jprogram.load_state_pytree(None, tree)
+        np.testing.assert_array_equal(program._pre_partner, jprogram._pre_partner)
+        np.testing.assert_array_equal(program._pre_epoch, jprogram._pre_epoch)
+        got = program.state_pytree(restored)["stream"]
+        assert jax.tree.structure(got) == jax.tree.structure(
+            {**tree["stream"], "phi_pre": jprogram._phi_pre})
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves({**tree["stream"],
+                                                               "phi_pre": jprogram._phi_pre})):
+            np.testing.assert_array_equal(a, np.asarray(b))
+        del tree["stream"]
+        program.load_state_pytree(state, tree)
+        jprogram.load_state_pytree(None, tree)
+        assert program._phi_pre is None and jprogram._phi_pre is None
+        np.testing.assert_array_equal(program._pre_epoch, jprogram._pre_epoch)
+        assert program._pre_epoch.tolist() == [-1, -1]
+        return
     program = adapters.GossipProgram(cfg, train_cli.method_config("noloco", inner_lr=1e-3,
                                                                   total_steps=4), replicas=3,
                                      device="cpu")
     state = program.init_state(None)
     tree = program.state_pytree(state)
-    if change == "stream":
-        tree["stream"] = {"pre_partner": np.zeros((1, 3), np.int64)}
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            program.load_state_pytree(state, tree)
-        return
     if change == "dropped":
         tree["membership"]["mask"] = np.array([True, False, True])
         tree["membership"]["epoch"] = np.int64(1)

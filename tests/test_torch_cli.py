@@ -112,5 +112,14 @@ def test_train_elastic_cli_runs_a_fault_plan_on_the_cpu(tmp_path, capsys):
     assert len([e for e in events if e["event"] == "outer_async"]) == 4
     rounds = json.loads(out.read_text())["rounds"]
     assert [r["absent"] for r in rounds] == [[], [], [0], []]
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        elastic_cli.main(["--device", "cpu", "--reduced", "--steps", "1", "--stream-count", "2"])
+    # streaming outer steps, which raised until they were ported: two streams
+    # with the overlap, m 2, every step from 2 a stream sync
+    streamed_log = tmp_path / "streamed.jsonl"
+    streamed = elastic_cli.main(["--device", "cpu", "--reduced", "--replicas", "4", "--batch", "1",
+                                 "--seq", "16", "--steps", "6", "--inner-steps", "2",
+                                 "--stream-count", "2", "--log-jsonl", str(streamed_log)])
+    assert streamed["stream_count"] == 2 and streamed["outer_syncs"] == 5
+    assert 0.0 < streamed["blocking_fraction"] < 1.0
+    syncs = [e for e in map(json.loads, open(streamed_log)) if e["event"] == "stream_sync"]
+    assert [e["stream"] for e in syncs] == [0, 1, 0, 1, 0]
+    assert [e["blocked"] for e in syncs] == [True, True, False, False, False]

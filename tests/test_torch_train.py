@@ -410,12 +410,29 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         train_cli.run_training(ModelConfig(**TINY), steps=1)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(streams=2), "not ported"), (dict(overlap=True), "not ported"),
-])
-def test_unported_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.run_training(ModelConfig(**TINY), steps=1, device="cpu", **kwargs)
+@pytest.mark.parametrize("kwargs,syncs", [
+    (dict(streams=2, overlap=True), 3), (dict(overlap=True), 2),
+], ids=["streams", "overlap"])
+def test_unported_options_raise(kwargs, syncs):
+    """The two options that raised until streaming outer steps were ported:
+    a short run on the CPU now trains through them (m 2, 4 steps: two
+    streams sync at steps 2, 3 and 4; one stream at 2 and 4), and what the
+    reference refuses raises its ``ValueError``: DiLoCo with streams, and
+    the asynchronous replica clock with streams or the overlap."""
+    from repro_torch.launch.train_elastic import run_elastic_training
+    from repro_torch.sim import FaultPlan
+
+    small = dict(steps=4, inner_steps=2, replicas=2, per_replica_batch=1, seq_len=8,
+                 eval_every=0, device="cpu")
+    res = train_cli.run_training(ModelConfig(**TINY), **small, **kwargs)
+    assert res["outer_syncs"] == syncs and all(np.isfinite(res["losses"]))
+    assert res["stream_count"] == kwargs.get("streams", 1) and res["blocking_fraction"] < 1.0
+    with pytest.raises(ValueError, match="noloco-only"):
+        train_cli.run_training(ModelConfig(**TINY), method="diloco", streams=2, overlap=True,
+                               **small)
+    with pytest.raises(ValueError, match="asynchronous replica clock does not compose"):
+        run_elastic_training(ModelConfig(**TINY), FaultPlan(), async_clock=True,
+                             stream_count=kwargs.get("streams", 1), overlap=True, **small)
 
 
 @pytest.mark.parametrize("kwargs", [dict(codec="int8"), dict(ckpt_dir="ck")], ids=["int8", "ckpt"])
