@@ -282,13 +282,38 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     with a 2× slow replica (trajectories within THEORY_RTOL; on the card
     every outer step launches ``noloco_update``), and a resume mid-stream
     on the card (step 7, the prefetch in the checkpoint), bit-identical to
-    the uninterrupted run.
+    the uninterrupted run;
+36. the routed pipeline (§3.1 random routing between stage replicas, the
+    per-stage gossip outer step): paper-small-125m at full width in bf16,
+    2 stages × 4 replicas, 4 × 1024 a replica, NoLoCo m 5, 15 steps through
+    ``make_loop(PipelineProgram(...))``, on the plain and the int8 wire:
+    launches as designed (``PIPE_DESIGN``: the flash pair 360 / 180, 24
+    updates a sync, on int8 a quantize and a dequantize per float buffer of
+    each stage's payload, 4 a sync), ``comm_bytes`` the byte model's
+    (1,126,477,824 B a sync; int8 567,561,816), routes permutations that
+    vary, losses finite and falling; inner step p50/p99 and each outer step
+    in the run (``PipeProbe``, synchronised), one outer step alone, peak
+    memory, and one profiled inner step: busy share, the top device ops,
+    the route gathers' forward (``index_select``) and backward
+    (``index_add_``) in the step and alone;
+37. 4 stages of 3 layers, the plain wire, 10 steps: 44 updates a sync, the
+    flash pair's launches per step as phase 36's, stages 1 and 2 holding
+    neither the embedding nor the unembedding; the same times;
+38. card against CPU on ``reduced()`` in fp32 from the same initial weights:
+    NoLoCo on both wires and ``method="none"`` with fixed routing
+    (identical routes and partner tables, losses within LOSS_RTOL, weight
+    std within WSTD_RTOL on the plain wire), the elastic drop of replica 2
+    (``tests/test_elastic.py``'s scenario; the dropped replica's rows on
+    the card bit-identical from the drop on), a resume at step 6 on the
+    card bit-identical to the uninterrupted run, and one loss and gradient
+    of recurrentgemma-9b's ``reduced()`` in 2 stages (``rglru_scan`` and
+    its backward launched; within LOSS_RTOL and GRAD_NORM_RTOL).
 
 ``time rglru_decode`` also carries ``launch_floor_ms``: an empty kernel
 (``torch.cuda._sleep(0)``) timed by the kernel table's own method.
 
 The line before the last is the ``kernels`` JSON record (launches: the
-serve and train phases', phase 33's and 34's added); the last line is
+serve and train phases', phases 33, 34, 36 and 37's added); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -319,6 +344,8 @@ from repro_torch.configs import (  # noqa: E402
 )
 from repro_torch.core import metrics as metrics_lib  # noqa: E402
 from repro_torch.core import pairing  # noqa: E402
+from repro_torch.core.elastic import ElasticContext  # noqa: E402
+from repro_torch.core.outer import OuterConfig  # noqa: E402
 from repro_torch.data import LoaderConfig, shard_iterator  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     build, dispatch, flash_attention, ops, paged_attention, quantize, ref, rglru_scan, ssd_scan,
@@ -334,7 +361,9 @@ from repro_torch.models.attention import PagedView  # noqa: E402
 from repro_torch.models.layers import logits_sharded  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.sim import FaultPlan  # noqa: E402
-from repro_torch.train import adapters  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.pipeline import PipelineTrainer, split_stages  # noqa: E402
+from repro_torch.train import LoopConfig, adapters, make_loop  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and per-type compute.
@@ -3812,6 +3841,400 @@ def stream_parity_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 36–38: the routed pipeline
+# ---------------------------------------------------------------------------
+
+# Phase 36: 2 stages × 4 replicas of paper-small-125m at full width, 4 ×
+# 1024 a replica, NoLoCo m 5, 15 steps (syncs after steps 5, 10 and 15).
+PIPE_RUN = dict(stages=2, replicas=4, per_replica_batch=4, seq_len=1024, steps=15,
+                inner_steps=5, lr=3e-3, seed=0)
+# Phase 37: 4 stages of 3 layers, the plain wire, 10 steps.
+PIPE4_RUN = dict(PIPE_RUN, stages=4, steps=10)
+# One replica's (Δ, φ) payload of all its stages, either split.
+PIPE_BYTES = {"none": 1_126_477_824, "int8": 567_561_816}
+# Phase 38: card against CPU on reduced() in fp32.
+PIPE_SMALL = dict(PIPE_RUN, per_replica_batch=2, seq_len=64, steps=12)
+PIPE_MID = 6
+# The launches the design gives, written out: 12 layers a step whatever the
+# split, two flash forwards a layer under remat and one backward; one update
+# per leaf of every stage a sync (24 leaves in 2 stages, 44 in 4); on the
+# int8 wire a bf16 and an fp32 buffer in each stage's payload.
+PIPE_DESIGN = {
+    "none": {"flash_attention": 360, "flash_attention_bwd": 180, "noloco_update": 72,
+             "int8_quantize": 0, "int8_dequantize": 0},
+    "int8": {"flash_attention": 360, "flash_attention_bwd": 180, "noloco_update": 72,
+             "int8_quantize": 12, "int8_dequantize": 12},
+    "4x4": {"flash_attention": 240, "flash_attention_bwd": 120, "noloco_update": 88,
+            "int8_quantize": 0, "int8_dequantize": 0},
+}
+
+
+class PipeProbe:
+    """While entered, times each inner and each outer step of
+    ``PipelineProgram`` on the host clock, synchronised before and after."""
+
+    def __enter__(self):
+        self.inner_ms, self.outer_ms = [], []
+        self._real = (adapters.PipelineProgram.inner_step, adapters.PipelineProgram.maybe_outer_step)
+        inner, outer = self._real
+        probe = self
+
+        def spy_inner(program, state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(program, state, batch)
+            torch.cuda.synchronize()
+            probe.inner_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def spy_outer(program, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, synced = outer(program, state)
+            torch.cuda.synchronize()
+            if synced:
+                probe.outer_ms.append((time.perf_counter() - t0) * 1e3)
+            return state, synced
+
+        adapters.PipelineProgram.inner_step = spy_inner
+        adapters.PipelineProgram.maybe_outer_step = spy_outer
+        return self
+
+    def __exit__(self, *exc):
+        adapters.PipelineProgram.inner_step, adapters.PipelineProgram.maybe_outer_step = self._real
+
+
+def pipe_trainer(cfg, dev, run, codec="none", method="noloco", routing="random", elastic=None):
+    outer = None if method == "none" else OuterConfig(method=method,
+                                                      inner_steps=run["inner_steps"],
+                                                      seed=run["seed"])
+    return PipelineTrainer(cfg, num_stages=run["stages"], replicas=run["replicas"],
+                           inner=AdamWConfig(lr=run["lr"], weight_decay=0.0), routing=routing,
+                           outer=outer, comm=CommConfig(codec=codec), device=dev,
+                           seed=run["seed"], elastic=elastic)
+
+
+def pipe_loop(trainer, cfg, run, **loop_kw):
+    loader = LoaderConfig(vocab_size=cfg.vocab_size, seq_len=run["seq_len"],
+                          per_replica_batch=run["per_replica_batch"], replicas=run["replicas"],
+                          seed=run["seed"])
+    loop_kw.setdefault("steps", run["steps"])
+    return make_loop(adapters.PipelineProgram(trainer), loader,
+                     LoopConfig(seed=run["seed"], **loop_kw)).run()
+
+
+def pipe_launches(cfg, run, syncs: int, codec: str) -> dict[str, int]:
+    """Launches the design implies: each stage's flash pair as its own
+    stack's (remat: two forwards a layer), one update per leaf of every
+    stage a sync and, on the int8 wire, one quantize and one dequantize per
+    float buffer of each stage's (Δ, φ) payload."""
+    out = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for scfg in split_stages(cfg, run["stages"]):
+        per_stage = expected_launches(scfg, run, 0)
+        for k in out:
+            out[k] += per_stage[k]
+    trees = [bytes_model.abstract_stage_params(cfg, s, run["stages"]) for s in range(run["stages"])]
+    buffers = sum(len(payload.make_spec((t, t)).buffers) for t in trees) if codec == "int8" else 0
+    out["noloco_update"] = syncs * sum(len(tree_leaves(t)) for t in trees)
+    out["int8_quantize"] = out["int8_dequantize"] = syncs * buffers
+    return out
+
+
+def _op_device_ms(events, name: str, shape: list[int]) -> tuple[float, int]:
+    """Device ms and count of the profiled host ops ``name`` whose first
+    input has ``shape`` (the profiler's attribution of kernels to ops)."""
+    total, n = 0.0, 0
+    for e in events:
+        if e.name == name and e.input_shapes and list(e.input_shapes[0]) == shape:
+            us = getattr(e, "device_time_total", None)
+            total += (us if us is not None else e.cuda_time_total) / 1e3
+            n += 1
+    return total, n
+
+
+def profile_pipe_step(trainer, state, batch, dev) -> dict:
+    """One more inner step under torch.profiler on the trained state: busy
+    share, the top device ops, and the route gathers (``index_select`` of
+    the (R, B, S, d) activations) forward and backward (``index_add_``);
+    each gather also timed alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = trainer.train_step(state, batch)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        state, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3
+    by_name: dict[str, float] = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    r, b, s, d = (trainer.replicas, batch["tokens"].shape[1], batch["tokens"].shape[2],
+                  trainer.cfg.d_model)
+    shape = [r, b, s, d]
+    fwd_ms, fwd_n = _op_device_ms(events, "aten::index_select", shape)
+    bwd_ms, bwd_n = _op_device_ms(events, "aten::index_add_", shape)
+    x = torch.randn(shape, device=dev).to(torch.bfloat16)
+    idx = torch.tensor(trainer.routes(0)[0], device=dev)
+    zeros = torch.zeros_like(x)
+    alone_fwd = cuda_ms(lambda: x.index_select(0, idx), reps=20)[0]
+    alone_bwd = cuda_ms(lambda: zeros.zero_().index_add_(0, idx, x), reps=20)[0]
+    return {
+        "profiled_step_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if on_card else "not measured",
+        "device_busy_share": busy_ms / wall_ms if on_card else "not measured",
+        "device_ops": len(on_card),
+        "top_device_ops_ms": [[n[:60], t] for n, t in top],
+        "route_gather_fwd_ms_in_step": fwd_ms if fwd_n else "not measured",
+        "route_gather_bwd_ms_in_step": bwd_ms if bwd_n else "not measured",
+        "route_gathers_in_step": [fwd_n, bwd_n],
+        "route_gather_fwd_ms_alone": alone_fwd,
+        "route_gather_bwd_ms_alone": alone_bwd,
+        "route_gather_mb": x.numel() * x.element_size() / 1e6,
+    }
+
+
+def time_pipe_outer(trainer, state, reps: int = 3) -> dict:
+    """The outer step alone on the trained state (synchronised before and
+    after, median of ``reps``): round k - 1 again, due at this step."""
+    again = dict(state, outer=dict(state["outer"], step=state["outer"]["step"] - 1))
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.maybe_outer_step(again)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"outer_step_ms_alone": statistics.median(times), "outer_step_samples_ms": times}
+
+
+def pipe_train_phase(dev, design: str, codec: str = "none", run=PIPE_RUN,
+                     phase6: dict | None = None) -> tuple[dict, dict]:
+    """Phases 36 and 37: paper-small-125m at full width in bf16 through
+    ``make_loop(PipelineProgram(...))``: launch counts as designed, comm
+    bytes the byte model's, routes permutations that vary, losses finite
+    and falling; inner and outer step times, peak memory, a profiled
+    inner step."""
+    cfg = paper_llama.SMALL
+    label = f"pipe {run['stages']}x{run['replicas']} {codec}"
+    log(f"{label}: {cfg.name} {cfg.num_layers}L d{cfg.d_model} {cfg.dtype} remat={cfg.remat}: "
+        + json.dumps({**run, "codec": codec}))
+    jsonl = _jsonl(f"chip_smoke_{label.replace(' ', '_')}.jsonl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = pipe_trainer(cfg, dev, run, codec=codec)
+    dispatch.reset_launches()
+    with PipeProbe() as probe:
+        res = pipe_loop(trainer, cfg, run, log_jsonl=jsonl)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    syncs = res["outer_syncs"]
+    want = pipe_launches(cfg, run, syncs, codec)
+    log(f"{label} launches: " + json.dumps({k: launches[k] for k in want})
+        + " expected " + json.dumps(want) + " design " + json.dumps(PIPE_DESIGN[design]))
+    losses = res["losses"]
+    log(f"{label} losses: " + json.dumps(losses))
+    routes = [[r.tolist() for r in trainer.routes(t)] for t in range(run["steps"])]
+    state = res.pop("state")
+    stage_keys = [sorted(p) for p in state["params"]]
+    checks = {
+        "syncs": syncs == run["steps"] // run["inner_steps"],
+        "launches_as_designed": all(launches[k] == n for k, n in want.items())
+        and want == PIPE_DESIGN[design],
+        "comm_bytes": res["comm_bytes"] == syncs * PIPE_BYTES[codec]
+        and res["comm"]["payload_bytes"] == PIPE_BYTES[codec],
+        "losses_finite_falling": all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+        "routes_permutations": all(sorted(r) == list(range(run["replicas"]))
+                                   for step in routes for r in step),
+        # the reference's draw may repeat a route on consecutive steps (steps
+        # 2-4 of seed 0 at 4 replicas do, as in JAX): held over the run
+        "routes_vary": len({json.dumps(step) for step in routes}) > run["steps"] // 2,
+        "stage_keys": stage_keys[0] == ["embed", "stack"]
+        and stage_keys[-1] == ["final_norm", "stack", "unembed"]
+        and all(k == ["stack"] for k in stage_keys[1:-1]),
+    }
+    inner = sorted(probe.inner_ms[1:])
+    outer = time_pipe_outer(trainer, state)
+    batch = next(shard_iterator(LoaderConfig(
+        vocab_size=cfg.vocab_size, seq_len=run["seq_len"], per_replica_batch=run["per_replica_batch"],
+        replicas=run["replicas"]), start_step=run["steps"]))
+    prof = profile_pipe_step(trainer, state, batch, dev)
+    params = sum(t.numel() for t in tree_leaves(state["params"]))
+    del state
+    tokens = run["replicas"] * run["per_replica_batch"] * run["seq_len"]
+    p50 = statistics.median(inner)
+    summary = {
+        "inner_step_p50_ms": p50,
+        "inner_step_p99_ms": inner[min(len(inner) - 1, int(0.99 * len(inner)))],
+        "inner_step_samples": len(inner),
+        "tokens_per_s_steady": tokens / (p50 / 1e3),
+        "outer_step_ms_in_run": probe.outer_ms, **outer,
+        "peak_memory_gb": peak_gb, "stacked_params": params,
+        "comm_bytes": res["comm_bytes"], "outer_syncs": syncs,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "final_weight_std": res["final_weight_std"], "wall_s": res["wall_s"],
+        "routes_first_steps": routes[:4],
+        "routes_distinct": len({json.dumps(step) for step in routes}), **prof, "checks": checks,
+    }
+    if phase6 is not None:
+        summary["inner_step_p50_ms_phase6"] = phase6["inner_step_p50_ms"]
+        summary["peak_memory_gb_phase6"] = phase6["peak_memory_gb"]
+    log(f"{label} summary: " + json.dumps(summary))
+    del res, trainer
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"{label} failed its checks: {checks}")
+    return summary, launches
+
+
+def _pipe_state_leaves(state) -> list[torch.Tensor]:
+    return (tree_leaves(state["params"])
+            + [t for o in state["opt"] for t in tree_leaves(o.mu) + tree_leaves(o.nu) + [o.count]]
+            + tree_leaves(state["outer"]["phi"]) + tree_leaves(state["outer"]["delta"]))
+
+
+def _pipe_elastic(cfg, device, batches):
+    """``tests/test_elastic.py``'s pipeline scenario: m 2, replica 2
+    dropped after two batches; routes, losses, tables, replica 2's rows at
+    the drop and at the end."""
+    ctx = ElasticContext(world=PIPE_SMALL["replicas"])
+    tr = pipe_trainer(cfg, device, dict(PIPE_SMALL, inner_steps=2), elastic=ctx)
+    state, routes, losses, snap = tr.init(), [], [], None
+    for i, b in enumerate(batches):
+        if i == 2:
+            ctx.set_membership(ctx.membership.drop([2]))
+            snap = [t[2].clone() for t in _pipe_state_leaves(state)]
+        routes.append([r.tolist() for r in tr.routes(state["step"])])
+        state, loss = tr.train_step(state, b)
+        losses.append(loss)
+        state, _ = tr.maybe_outer_step(state)
+    frozen = all(torch.equal(a, t[2]) for a, t in zip(snap, _pipe_state_leaves(state)))
+    return {"routes": routes, "losses": losses, "tables": [[t.tolist() for t in r]
+                                                          for r in tr.partners],
+            "frozen_rows_bit_identical": frozen, "weight_std": tr.weight_std(state)}
+
+
+def pipe_parity_phase(dev) -> dict:
+    """Phase 38: card against CPU on ``reduced()`` in fp32, the same initial
+    weights (drawn on the CPU, then moved): NoLoCo on the plain and the int8
+    wire, ``method="none"`` with fixed routing, the elastic drop of replica
+    2 (identical routes and tables, losses within LOSS_RTOL, weight std
+    within WSTD_RTOL on the plain wire; replica 2's rows on the card
+    bit-identical from the drop on), a resume at step 6 on the card
+    bit-identical to the uninterrupted card run, and one loss and gradient
+    of recurrentgemma-9b's ``reduced()`` in 2 stages (the RG-LRU scan and
+    its backward launched)."""
+    cfg = paper_llama.SMALL.reduced(dtype="float32", remat=False)
+    out, card_runs = {}, {}
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_pipe")
+    shutil.rmtree(d, ignore_errors=True)
+    for name, codec, method, routing in (("noloco", "none", "noloco", "random"),
+                                         ("int8", "int8", "noloco", "random"),
+                                         ("none-fixed", "none", "none", "fixed")):
+        runs, tables = {}, {}
+        for where in ("cuda", "cpu"):
+            tr = pipe_trainer(cfg, where, PIPE_SMALL, codec=codec, method=method, routing=routing)
+            kw = {"ckpt_dir": d, "ckpt_every": PIPE_MID} if (where, name) == ("cuda", "noloco") else {}
+            if where == "cuda":
+                dispatch.reset_launches()
+            runs[where] = pipe_loop(tr, cfg, PIPE_SMALL, **kw)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                launches = dispatch.launch_counts()
+            tables[where] = [[t.tolist() for t in r] for r in tr.partners]
+            routes = [[r.tolist() for r in tr.routes(t)] for t in range(PIPE_SMALL["steps"])]
+            runs[where]["routes"] = routes
+        card, cpu = runs["cuda"], runs["cpu"]
+        kernels = TRAIN_KERNELS if method != "none" else TRAIN_KERNELS[:2]
+        out[name] = {
+            "routes_identical": card["routes"] == cpu["routes"],
+            "partner_tables_identical": tables["cuda"] == tables["cpu"]
+            and len(tables["cuda"]) == (0 if method == "none" else 2),
+            "loss_max_rel_diff": _rel(card["losses"], cpu["losses"]),
+            "weight_std_rel_diff": _rel([card["final_weight_std"]], [cpu["final_weight_std"]]),
+            "launches": {k: launches[k] for k in kernels + (INT8 if codec == "int8" else ())}}
+        card_runs[name] = card
+        del cpu
+    it = shard_iterator(LoaderConfig(vocab_size=cfg.vocab_size, seq_len=PIPE_SMALL["seq_len"],
+                                     per_replica_batch=2, replicas=PIPE_SMALL["replicas"]))
+    batches = [next(it) for _ in range(8)]
+    dispatch.reset_launches()
+    card = _pipe_elastic(cfg, dev, batches)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    cpu = _pipe_elastic(cfg, "cpu", batches)
+    out["elastic"] = {
+        "routes_identical": card["routes"] == cpu["routes"],
+        "dropped_routed_to_itself": all(step[0][2] == 2 for step in card["routes"][2:]),
+        "partner_tables_identical": card["tables"] == cpu["tables"] and len(card["tables"]) == 4,
+        "loss_max_rel_diff": _rel(card["losses"], cpu["losses"]),
+        "weight_std_rel_diff": _rel([card["weight_std"]], [cpu["weight_std"]]),
+        "frozen_rows_bit_identical": card["frozen_rows_bit_identical"],
+        "launches": {k: launches[k] for k in TRAIN_KERNELS}}
+    full = card_runs["noloco"]
+    mid = d + "_mid"   # the step-6 checkpoint alone (the run also saved step 12)
+    shutil.rmtree(mid, ignore_errors=True)
+    name = f"step_{PIPE_MID:08d}"
+    shutil.copytree(os.path.join(d, name), os.path.join(mid, name))
+    cont = pipe_loop(pipe_trainer(cfg, dev, PIPE_SMALL), cfg, PIPE_SMALL, ckpt_dir=mid,
+                     resume=True)
+    out["resume"] = {"start_step": cont["start_step"],
+                     "losses_identical": cont["losses"] == full["losses"][PIPE_MID:],
+                     "bit_identical": all(torch.equal(a, b) for a, b in zip(
+                         _pipe_state_leaves(cont["state"]), _pipe_state_leaves(full["state"])))}
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(mid, ignore_errors=True)
+    # recurrentgemma-9b's reduced() in 2 stages: one loss and gradient
+    rg = registry.get_config("recurrentgemma-9b").reduced(dtype="float32", remat=False)
+    batch = next(shard_iterator(LoaderConfig(vocab_size=rg.vocab_size, seq_len=64,
+                                             per_replica_batch=2, replicas=4)))
+    route = [np.array([2, 3, 0, 1])]
+    res = {}
+    for where in ("cuda", "cpu"):
+        tr = pipe_trainer(rg, where, PIPE_SMALL)
+        params = [tree_map(lambda t: t.detach().requires_grad_(), p) for p in tr.init()["params"]]
+        dispatch.reset_launches()
+        loss = tr.loss(params, batch, route)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            rg_launches = {k: dispatch.launch_counts()[k] for k in ("rglru_scan", "rglru_scan_bwd")}
+        res[where] = (loss.item(), [g.cpu() for g in grads])
+    (gl, gg), (cl, cg) = res["cuda"], res["cpu"]
+    out["recurrentgemma"] = {
+        "loss_card": gl, "loss_cpu": cl, "loss_rel_diff": abs(gl - cl) / abs(cl),
+        "grad_max_normwise_diff": max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                                      for a, b in zip(gg, cg)),
+        "launches": rg_launches}
+    log("pipe fp32 card vs cpu and resume: " + json.dumps(out))
+    for name in ("noloco", "int8", "none-fixed", "elastic"):
+        row = out[name]
+        plain = name != "int8"
+        if not (row["routes_identical"] and row["partner_tables_identical"]
+                and row["loss_max_rel_diff"] <= LOSS_RTOL
+                and (not plain or row["weight_std_rel_diff"] <= WSTD_RTOL)
+                and min(row["launches"].values()) > 0):
+            raise AssertionError(f"pipe {name}: card and CPU runs differ: {row}")
+    if not (out["elastic"]["frozen_rows_bit_identical"] and out["elastic"]["dropped_routed_to_itself"]):
+        raise AssertionError(f"pipe elastic: the dropped replica moved: {out['elastic']}")
+    row = out["resume"]
+    if not (row["start_step"] == PIPE_MID and row["losses_identical"] and row["bit_identical"]):
+        raise AssertionError(f"pipe resume differs from the uninterrupted run: {row}")
+    row = out["recurrentgemma"]
+    if not (row["loss_rel_diff"] <= LOSS_RTOL and row["grad_max_normwise_diff"] <= GRAD_NORM_RTOL
+            and min(row["launches"].values()) > 0):
+        raise AssertionError(f"pipe recurrentgemma-9b: card and CPU differ: {row}")
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -3898,13 +4321,20 @@ def main() -> None:
     stream1 = stream1_overlap_phase(dev, train_summary["losses"])
     stream_churn, churn_launches = stream_churn_phase(dev)
     stream_parity = stream_parity_phase(dev)
+    piped, piped_launches = {}, {}
+    for design, codec, run in (("none", "none", PIPE_RUN), ("int8", "int8", PIPE_RUN),
+                               ("4x4", "none", PIPE4_RUN)):
+        piped[design], piped_launches[design] = pipe_train_phase(dev, design, codec, run,
+                                                                 train_summary)
+    pipe_parity = pipe_parity_phase(dev)
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: int8_launches[k] for k in INT8})
     launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
     launches.update({k: family["recurrentgemma-9b"][1][k] for k in ("rglru_scan", "rglru_decode")})
     launches["ssd_chunk_bwd"] = rec_train["mamba2-370m"][1]["ssd_chunk_bwd"]
     launches["rglru_scan_bwd"] = rec_train["recurrentgemma-9b"][1]["rglru_scan_bwd"]
-    for counts in (*streamed_launches.values(), churn_launches):   # the streamed paths
+    for counts in (*streamed_launches.values(), churn_launches,   # the streamed paths
+                   *piped_launches.values()):                      # and the routed pipeline
         for k in TRAIN_KERNELS + INT8:
             launches[k] += counts[k]
 
@@ -3981,6 +4411,10 @@ def main() -> None:
         "stream1_overlap": {k: v for k, v in stream1.items() if k != "losses"},
         "stream_churn": {k: v for k, v in stream_churn.items() if k != "losses"},
         "stream_card_vs_cpu": stream_parity,
+        "pipe": {design: {k: v for k, v in row.items() if k not in (
+            "outer_step_samples_ms", "routes_first_steps", "top_device_ops_ms")}
+            for design, row in piped.items()},
+        "pipe_card_vs_cpu": pipe_parity,
         "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -20,7 +20,8 @@ from repro_torch.tree import tree_leaves
 
 PyTree = Any
 
-__all__ = ["CommCost", "StreamCost", "spec_cost", "outer_step_cost", "abstract_params"]
+__all__ = ["CommCost", "StreamCost", "spec_cost", "outer_step_cost", "abstract_params",
+           "abstract_stage_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,11 +127,9 @@ def outer_step_cost(
     )
 
 
-def abstract_params(cfg) -> PyTree:
-    """:class:`~repro_torch.comm.payload.LeafShape` tree of one replica's
-    parameters for a model config (nothing allocated): norm scales and
-    biases fp32, every other weight in ``cfg.dtype``, as ``init_params``
-    makes them."""
+def _abstract(shapes: PyTree, cfg) -> PyTree:
+    """The :class:`~repro_torch.comm.payload.LeafShape` tree of a shape
+    tree: norm scales and biases fp32, every other weight in ``cfg.dtype``."""
     from repro_torch.models import convert
 
     def leaf(path, shape):
@@ -144,4 +143,22 @@ def abstract_params(cfg) -> PyTree:
             return [walk(v, name) for v in tree]
         return None if tree is None else leaf(name, tree)
 
-    return walk(convert.expected_shapes(cfg))
+    return walk(shapes)
+
+
+def abstract_params(cfg) -> PyTree:
+    """:class:`~repro_torch.comm.payload.LeafShape` tree of one replica's
+    parameters for a model config (nothing allocated), dtypes as
+    ``init_params`` makes them."""
+    from repro_torch.models import convert
+
+    return _abstract(convert.expected_shapes(cfg), cfg)
+
+
+def abstract_stage_params(cfg, stage: int, num_stages: int) -> PyTree:
+    """:class:`~repro_torch.comm.payload.LeafShape` tree of one replica's
+    parameters of a routed-pipeline stage (``pipeline.runner.
+    init_stage_params``), nothing allocated."""
+    from repro_torch.models import convert
+
+    return _abstract(convert.stage_shapes(cfg, stage, num_stages), cfg)

@@ -18,7 +18,10 @@ the JAX ``GossipProgram.state_pytree`` tree with numpy leaves, so both
 packages can continue training from one point; ``train_state_to_numpy`` is
 its inverse, the tree a checkpoint holds, with the streaming runtime's
 in-flight ``stream`` subtree (the prefetched φ loads through
-``stacked_params_from_jax_numpy``).  Host leaves are numpy arrays,
+``stacked_params_from_jax_numpy``).  ``pipeline_state_from_jax_numpy`` /
+``pipeline_state_to_numpy`` carry the routed pipeline's state (per-stage
+lists, each stage checked against :func:`stage_shapes`) in the layout of
+JAX's ``PipelineProgram.state_pytree``.  Host leaves are numpy arrays,
 except bfloat16 ones, which numpy holds only through ``ml_dtypes`` (a JAX
 dependency the port does without): those are CPU tensors.  Both loaders
 take either.
@@ -55,8 +58,9 @@ def _to_tensor(arr, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def expected_shapes(cfg) -> PyTree:
-    """The shape tree the port's ``init_params`` makes for ``cfg``."""
+def _shape_builders(cfg):
+    """(norm, stack, embed) shape builders at ``cfg``'s widths: ``norm()``,
+    ``stack(c, cross)`` for a stack config ``c`` and the embedding dict."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
     def norm():
@@ -112,6 +116,13 @@ def expected_shapes(cfg) -> PyTree:
     embed = {"table": (cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
         embed["unembed"] = (d, cfg.vocab_size)
+    return norm, stack, embed
+
+
+def expected_shapes(cfg) -> PyTree:
+    """The shape tree the port's ``init_params`` makes for ``cfg``."""
+    norm, stack, embed = _shape_builders(cfg)
+    d = cfg.d_model
     out = {"embed": embed, "stack": stack(cfg, cross=cfg.is_encoder_decoder),
            "final_norm": norm()}
     if cfg.is_encoder_decoder:
@@ -120,6 +131,23 @@ def expected_shapes(cfg) -> PyTree:
             out["enc_proj"] = (cfg.frontend_dim, d)
     if cfg.frontend == "vision":
         out["projector"] = (cfg.frontend_dim, d)
+    return out
+
+
+def stage_shapes(cfg, stage: int, num_stages: int) -> PyTree:
+    """The shape tree of one replica's parameters of pipeline stage
+    ``stage`` (``pipeline.runner.init_stage_params``): the stage's stack;
+    ``embed`` in stage 0; ``final_norm`` and ``unembed`` (a whole embedding
+    dict) in the last stage."""
+    from repro_torch.pipeline.runner import split_stages
+
+    norm, stack, embed = _shape_builders(cfg)
+    out = {"stack": stack(split_stages(cfg, num_stages)[stage])}
+    if stage == 0:
+        out["embed"] = embed
+    if stage == num_stages - 1:
+        out["final_norm"] = norm()
+        out["unembed"] = dict(embed)
     return out
 
 
@@ -133,14 +161,14 @@ def params_from_jax_numpy(
     tree: PyTree, cfg, device="cpu", dtype: torch.dtype | None = None
 ) -> PyTree:
     """The port's parameters from the JAX value tree (numpy leaves)."""
-    return _load(tree, cfg, device, dtype or torch_dtype(cfg.dtype))
+    return _load(tree, expected_shapes(cfg), device, dtype or torch_dtype(cfg.dtype))
 
 
-def _load(tree: PyTree, cfg, device, dtype: torch.dtype, lead: tuple[int, ...] = (),
-          fp32: bool = False) -> PyTree:
-    """``tree`` checked against the shapes of ``cfg``'s parameters with
-    ``lead`` prepended, as tensors on ``device``: fp32 where ``fp32`` or for
-    norm leaves, ``dtype`` otherwise."""
+def _load(tree: PyTree, shapes: PyTree, device, dtype: torch.dtype,
+          lead: tuple[int, ...] = (), fp32: bool = False) -> PyTree:
+    """``tree`` checked against the shape tree ``shapes`` with ``lead``
+    prepended, as tensors on ``device``: fp32 where ``fp32`` or for norm
+    leaves, ``dtype`` otherwise."""
     def walk(src, shape, path):
         if isinstance(shape, dict):
             if not isinstance(src, dict) or set(src) != set(shape):
@@ -162,7 +190,7 @@ def _load(tree: PyTree, cfg, device, dtype: torch.dtype, lead: tuple[int, ...] =
         leaf = path.rsplit("/", 1)[-1]
         return _to_tensor(src, device, torch.float32 if fp32 or leaf in FP32_LEAVES else dtype)
 
-    return walk(tree, expected_shapes(cfg), "")
+    return walk(tree, shapes, "")
 
 
 def stacked_params_from_jax_numpy(tree: PyTree, cfg, device="cpu",
@@ -171,7 +199,7 @@ def stacked_params_from_jax_numpy(tree: PyTree, cfg, device="cpu",
     axis, norm leaves fp32, the rest ``dtype``, default ``cfg.dtype``) from
     the JAX layout with host leaves."""
     lead = (int(tree_leaves(tree)[0].shape[0]),)
-    return _load(tree, cfg, device, dtype or torch_dtype(cfg.dtype), lead)
+    return _load(tree, expected_shapes(cfg), device, dtype or torch_dtype(cfg.dtype), lead)
 
 
 def train_state_from_jax_numpy(tree: dict, cfg, device="cpu", dtype: torch.dtype | None = None):
@@ -188,7 +216,8 @@ def train_state_from_jax_numpy(tree: dict, cfg, device="cpu", dtype: torch.dtype
     dtype = dtype or torch_dtype(cfg.dtype)
     count = _host(tree["opt"]["count"])
     lead = (count.shape[0],)
-    params = lambda t, fp32=False: _load(t, cfg, device, dtype, lead, fp32)
+    shapes = expected_shapes(cfg)
+    params = lambda t, fp32=False: _load(t, shapes, device, dtype, lead, fp32)
     return TrainState(
         theta=params(tree["theta"]),
         opt=AdamWState(
@@ -249,4 +278,70 @@ def train_state_to_numpy(state, membership: dict | None = None,
                           "pre_epoch": np.asarray(stream["pre_epoch"], dtype=np.int64)}
         if stream.get("phi_pre") is not None:
             tree["stream"]["phi_pre"] = params(stream["phi_pre"])
+    return tree
+
+
+def stage_params_from_jax_numpy(tree: PyTree, cfg, stage: int, num_stages: int,
+                                device="cpu", dtype: torch.dtype | None = None) -> PyTree:
+    """One replica's parameters of pipeline stage ``stage`` from the JAX
+    value tree of ``init_stage_params`` (numpy leaves)."""
+    return _load(tree, stage_shapes(cfg, stage, num_stages), device,
+                 dtype or torch_dtype(cfg.dtype))
+
+
+def pipeline_state_from_jax_numpy(tree: dict, cfg, num_stages: int, device="cpu",
+                                  dtype: torch.dtype | None = None) -> dict:
+    """The port's :class:`~repro_torch.pipeline.PipelineTrainer` state from
+    the JAX ``PipelineProgram.state_pytree`` tree with host leaves:
+    ``{"params": [stage trees], "opt": [{"mu", "nu", "count"}], "step"}``
+    and, with an outer step, ``"outer": {"phi", "delta", "step"}``.  Every
+    stage tree is checked against :func:`stage_shapes` with a leading
+    replica axis; parameters, φ and δ take ``dtype`` (default
+    ``cfg.dtype``; norm leaves fp32), μ and ν stay fp32."""
+    from repro_torch.optim import AdamWState
+
+    if len(tree["params"]) != num_stages or len(tree["opt"]) != num_stages:
+        raise ValueError(f"checkpoint holds {len(tree['params'])} stages, this run {num_stages}")
+    dtype = dtype or torch_dtype(cfg.dtype)
+    lead = (int(_host(tree["opt"][0]["count"]).shape[0]),)
+    shapes = [stage_shapes(cfg, s, num_stages) for s in range(num_stages)]
+
+    def stages(trees, fp32=False):
+        return [_load(t, sh, device, dtype, lead, fp32) for t, sh in zip(trees, shapes)]
+
+    state = {
+        "params": stages(tree["params"]),
+        "opt": [AdamWState(mu=m, nu=v, count=torch.from_numpy(
+                    _host(o["count"]).astype(np.int32)).to(device))
+                for m, v, o in zip(stages([o["mu"] for o in tree["opt"]], fp32=True),
+                                   stages([o["nu"] for o in tree["opt"]], fp32=True),
+                                   tree["opt"])],
+        "step": int(tree["step"]),
+    }
+    if "outer" in tree:
+        state["outer"] = {"phi": stages(tree["outer"]["phi"]),
+                          "delta": stages(tree["outer"]["delta"]),
+                          "step": int(tree["outer"]["step"])}
+    return state
+
+
+def pipeline_state_to_numpy(state: dict, membership: dict | None = None) -> dict:
+    """The JAX ``PipelineProgram.state_pytree`` tree of a pipeline state,
+    with host leaves: per-stage lists, ``opt`` as ``{"mu", "nu", "count"}``
+    dicts (``count`` int32, as JAX's AdamW holds it), ``step`` and the
+    outer ``step`` int64, and ``membership`` when given (an elastic
+    context's ``state_dict``)."""
+    params = lambda t: tree_map(to_host, t)
+    tree = {
+        "params": [params(p) for p in state["params"]],
+        "opt": [{"mu": params(o.mu), "nu": params(o.nu),
+                 "count": o.count.detach().cpu().to(torch.int32).numpy()} for o in state["opt"]],
+        "step": np.int64(state["step"]),
+    }
+    if "outer" in state:
+        tree["outer"] = {"phi": [params(p) for p in state["outer"]["phi"]],
+                         "delta": [params(d) for d in state["outer"]["delta"]],
+                         "step": np.int64(state["outer"]["step"])}
+    if membership is not None:
+        tree["membership"] = membership
     return tree

@@ -1,5 +1,6 @@
-"""The stacked-simulation runtime as a :class:`TrainProgram` (the port of
-``repro/train/adapters.py::GossipProgram``).
+"""The stacked-simulation and routed-pipeline runtimes as
+:class:`TrainProgram` implementations (the port of
+``repro/train/adapters.py``'s ``GossipProgram`` and ``PipelineProgram``).
 
 Replicas sit on a leading axis of every state leaf, on one device: the
 card, or the CPU when asked.  Every replica starts from the same weights,
@@ -10,8 +11,9 @@ from the same point.
 Elasticity is owned by one :class:`~repro_torch.core.elastic.
 ElasticContext` (membership epoch, partition view, per-round stragglers,
 the last partner table), which :class:`~repro_torch.sim.SimCluster` and the
-loop's telemetry drive through this program's elastic surface.  Every
-round's pairing comes from :func:`~repro_torch.core.pairing.
+loop's telemetry drive through the shared elastic surface
+(:class:`_ElasticSurface`).  In the stacked simulation every round's
+pairing comes from :func:`~repro_torch.core.pairing.
 elastic_partner_table` through ``ElasticContext.plan_round``: dropped
 replicas are frozen in inner and outer steps, a replica whose partner
 misses the round pairs with itself, and eval, weight std and the reported
@@ -27,6 +29,11 @@ checkpoint view of the state is the JAX ``GossipProgram.state_pytree``
 layout, membership and the in-flight ``stream`` state included
 (:func:`repro_torch.models.convert.train_state_to_numpy`), so a JAX
 checkpoint resumes here and this program's restore in JAX.
+
+The routed pipeline (:class:`PipelineProgram` over :class:`~repro_torch.
+pipeline.PipelineTrainer`): §3.1 random routing between stage replicas and
+the per-stage gossip outer step, its checkpoint in the layout of JAX's
+``PipelineProgram.state_pytree``.
 """
 
 from __future__ import annotations
@@ -49,18 +56,64 @@ from repro_torch.models import convert
 from repro_torch.models import model as model_api
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWState
+from repro_torch.pipeline import PipelineTrainer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
-__all__ = ["GossipProgram"]
+__all__ = ["GossipProgram", "PipelineProgram"]
 
 
 def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.data_ptr() == b.data_ptr() and a.shape == b.shape and a.stride() == b.stride()
 
 
-class GossipProgram:
+class _ElasticSurface:
+    """The elastic surface over ``self.elastic`` (an :class:`~repro_torch.
+    core.elastic.ElasticContext`, or None for a fixed world, where
+    ``membership_epoch`` is None and the loop's telemetry stays silent)."""
+
+    elastic: ElasticContext | None
+
+    @property
+    def membership(self) -> Membership | None:
+        return None if self.elastic is None else self.elastic.membership
+
+    @property
+    def membership_epoch(self) -> int | None:
+        return None if self.elastic is None else self.elastic.epoch
+
+    @property
+    def partition(self):
+        return None if self.elastic is None else self.elastic.partition
+
+    @property
+    def round_absent(self) -> frozenset[int]:
+        return frozenset() if self.elastic is None else self.elastic.round_absent
+
+    @round_absent.setter
+    def round_absent(self, value) -> None:
+        self._require_elastic().round_absent = frozenset(value)
+
+    @property
+    def last_partner(self) -> np.ndarray | None:
+        return None if self.elastic is None else self.elastic.last_partner
+
+    def set_membership(self, membership: Membership) -> None:
+        self._require_elastic().set_membership(membership)
+
+    def set_partition(self, groups) -> None:
+        """Restrict pairings to partition components (None heals)."""
+        self._require_elastic().set_partition(groups)
+
+    def _require_elastic(self) -> ElasticContext:
+        if self.elastic is None:
+            raise ValueError(f"{type(self).__name__} has no ElasticContext attached; "
+                             "construct it with one to drive membership changes")
+        return self.elastic
+
+
+class GossipProgram(_ElasticSurface):
     """Stacked-simulation runtime over :class:`GossipTrainer`.
 
     ``partners`` records the partner table of every NoLoCo outer step, in
@@ -114,38 +167,7 @@ class GossipProgram:
     def _ids(self) -> torch.Tensor:
         return torch.as_tensor(self.elastic.active_ids(), dtype=torch.int64, device=self.device)
 
-    # -- the elastic surface (SimCluster and the loop's telemetry) ----------
-
-    @property
-    def membership(self) -> Membership:
-        return self.elastic.membership
-
-    @property
-    def membership_epoch(self) -> int:
-        return self.elastic.epoch
-
-    @property
-    def partition(self):
-        return self.elastic.partition
-
-    @property
-    def round_absent(self) -> frozenset[int]:
-        return self.elastic.round_absent
-
-    @round_absent.setter
-    def round_absent(self, value) -> None:
-        self.elastic.round_absent = frozenset(value)
-
-    @property
-    def last_partner(self) -> np.ndarray | None:
-        return self.elastic.last_partner
-
-    def set_membership(self, membership: Membership) -> None:
-        self.elastic.set_membership(membership)
-
-    def set_partition(self, groups) -> None:
-        """Restrict pairings to partition components (None heals)."""
-        self.elastic.set_partition(groups)
+    # -- SimCluster's hooks ---------------------------------------------------
 
     def inner_step_index(self, state: TrainState) -> int:
         return int(state.inner_step)
@@ -379,3 +401,61 @@ class GossipProgram:
             bytes_model.abstract_params(self.cfg), self.tcfg.comm, method=method,
             world=self.replicas,
         )
+
+
+class PipelineProgram(_ElasticSurface):
+    """Routed-pipeline runtime: §3.1 routing and the per-stage §3.2 gossip
+    over :class:`~repro_torch.pipeline.PipelineTrainer`.  With an elastic
+    context, routes and every stage's pairing cover the active replicas
+    only; the others are frozen and carry no routed traffic."""
+
+    def __init__(self, trainer: PipelineTrainer):
+        self.trainer = trainer
+        self.replicas = trainer.replicas
+        self.elastic = trainer.elastic
+
+    def init_state(self, example_batch: dict) -> dict:
+        return self.trainer.init()
+
+    def inner_step(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        state, loss = self.trainer.train_step(state, batch)
+        return state, {"loss": torch.tensor(loss)}
+
+    def maybe_outer_step(self, state: dict) -> tuple[dict, bool]:
+        return self.trainer.maybe_outer_step(state)
+
+    def eval_step(self, state: dict, batch: dict) -> float:
+        return float(self.trainer.eval_loss(state["params"], batch))
+
+    def weight_std(self, state: dict) -> float:
+        return self.trainer.weight_std(state)
+
+    def state_pytree(self, state: dict) -> dict:
+        return convert.pipeline_state_to_numpy(
+            state, membership=None if self.elastic is None else self.elastic.state_dict())
+
+    def load_state_pytree(self, state: dict, tree: dict) -> dict:
+        """The state of a checkpoint in the JAX layout.  Resuming gossip
+        from a ``method="none"`` checkpoint warm-starts the outer state:
+        φ is the restored θ, δ zero, and the outer counter ``step // m``,
+        so the next sync fires at the next multiple of m."""
+        tr = self.trainer
+        if "membership" in tree and self.elastic is not None:
+            self.elastic.load_state_dict(tree["membership"])
+        new = convert.pipeline_state_from_jax_numpy(tree, tr.cfg, tr.num_stages,
+                                                    device=tr.device)
+        if "outer" not in new and "outer" in state:
+            new["outer"] = {"phi": [tree_map(lambda t: t.clone(), p) for p in new["params"]],
+                            "delta": [tree_map(torch.zeros_like, p) for p in new["params"]],
+                            "step": new["step"] // tr.outer.inner_steps}
+        return new
+
+    def comm_cost(self):
+        """One replica's payload is all of its stages' parameters."""
+        tr = self.trainer
+        if not tr.outer_enabled:
+            return None
+        one = {f"stage{s}": bytes_model.abstract_stage_params(tr.cfg, s, tr.num_stages)
+               for s in range(tr.num_stages)}
+        return bytes_model.outer_step_cost(one, tr.comm, method=tr.outer.method,
+                                           world=tr.replicas)

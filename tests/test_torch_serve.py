@@ -365,6 +365,31 @@ def test_promote_rejects_what_cannot_be_served(tmp_path):
     assert resolve_replica(None, 3, 4) == 3
 
 
+def test_promote_rejects_a_pipeline_program_checkpoint(tmp_path):
+    """A checkpoint the port's routed pipeline wrote (TINY, 2 stages, 2
+    steps) is refused with the reference's message."""
+    from repro.serve.promote import promote as jax_promote
+    from repro_torch.core.outer import OuterConfig
+    from repro_torch.data import LoaderConfig
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.pipeline import PipelineTrainer
+    from repro_torch.serve import promote
+    from repro_torch.train import LoopConfig, PipelineProgram, make_loop
+
+    cfg = ModelConfig(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                      vocab_size=128, dtype="float32", remat=False)
+    tr = PipelineTrainer(cfg, num_stages=2, replicas=4, device="cpu",
+                         outer=OuterConfig(method="noloco", inner_steps=2))
+    make_loop(PipelineProgram(tr), LoaderConfig(vocab_size=128, seq_len=16, per_replica_batch=2,
+                                                replicas=4),
+              LoopConfig(steps=2, ckpt_dir=str(tmp_path))).run()
+    with pytest.raises(ValueError, match="pipeline") as want:
+        jax_promote(str(tmp_path))
+    with pytest.raises(ValueError, match="pipeline") as got:
+        promote(str(tmp_path), cfg, device="cpu")
+    assert str(got.value) == str(want.value)
+
+
 def test_serve_cli_promoted_tokens_match_jax_cli(tmp_path, monkeypatch, capsys):
     """``--ckpt D --replica 1 --weights phi`` on the reduced model: the port's
     CLI on the CPU gives the JAX serve CLI's greedy tokens; a checkpoint
