@@ -309,11 +309,40 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     of recurrentgemma-9b's ``reduced()`` in 2 stages (``rglru_scan`` and
     its backward launched; within LOSS_RTOL and GRAD_NORM_RTOL).
 
+39. single-shot prefill (``prefill_chunk=0``): qwen3-0.6b and mamba2-370m
+    at full width in bf16 with the phase-4 mix, then in fp32 with its first
+    four requests, chunked and single-shot on the same weights: the same
+    tokens (fp32: no flip; a bf16 flip printed with its request, index and
+    the chunked run's top-two margin, which must be a near tie), the
+    single-shot launches as the design's (``flash_attention`` 28 × 8 for
+    qwen3-0.6b in bf16, ``ssd_chunk`` 48 × 8 for mamba2-370m, no
+    ``paged_chunk_attention``), TTFT p50/p99 beside the chunked run's;
+40. speculative decode at full width in bf16, spec_k 4, the phase-4 mix's
+    first four requests, against the plain engine on the same weights: qwen3-0.6b with itself as the draft
+    (``accept_rate`` 1.0 unless a flip shows) and with its first 14 of 28
+    layers, greedy and at temperatures 0.0/0.7; mamba2-370m with 24 of 48
+    layers; recurrentgemma-9b at full depth with 18 of 38 (``rglru_decode``
+    and the local paged path).  Launches as the design's (a round: spec_k
+    decode-kernel launches per layer of the draft and of the target's
+    verify; a prefill chunk: one chunk call per layer of both), tokens/s,
+    rounds, ``accept_rate`` and peak memory beside the plain run's; every
+    bf16 flip printed as in phase 39; then each family's truncated draft in
+    fp32 at full width (no flip);
+41. ``launch.serve --ckpt <phase 11's checkpoint> --replica 1 --spec-decode
+    --draft-replica 2 --verify`` on the card and on the CPU: no mismatch
+    against the plain engine, card tokens equal CPU tokens;
+42. the router: two qwen3-0.6b engines on seed-0 and seed-1 weights on one
+    card, both policies: placement as the policy's rule, each request's
+    tokens those of its engine alone;
+43. card against CPU on the three families' ``reduced()`` configs in fp32:
+    speculative tokens, rounds and ``accept_rate`` equal (and equal to the
+    card's plain engine), single-shot tokens equal.
+
 ``time rglru_decode`` also carries ``launch_floor_ms``: an empty kernel
 (``torch.cuda._sleep(0)``) timed by the kernel table's own method.
 
 The line before the last is the ``kernels`` JSON record (launches: the
-serve and train phases', phases 33, 34, 36 and 37's added); the last line is
+serve and train phases', phases 33, 34, 36, 37, 39 and 40's added); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -359,7 +388,9 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.attention import PagedView  # noqa: E402
 from repro_torch.models.layers import logits_sharded  # noqa: E402
-from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    ReplicaRouter, ServeConfig, ServeEngine, SpecServeEngine, truncate_layers,
+)
 from repro_torch.sim import FaultPlan  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.pipeline import PipelineTrainer, split_stages  # noqa: E402
@@ -4235,6 +4266,380 @@ def pipe_parity_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 39–43: the rest of serving
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# the truncated drafts at full width: half the layers, recurrentgemma-9b's
+# cut to a whole number of its (rglru, rglru, local) periods
+SPEC_DRAFT_LAYERS = {"qwen3-0.6b": 14, "mamba2-370m": 24, "recurrentgemma-9b": 18}
+SERVE_KERNELS = ("paged_attention", "paged_chunk_attention", "flash_attention",
+                 "rglru_scan", "rglru_decode", "ssd_chunk", "ssd_decode")
+DECODE_KERNEL = {"global": "paged_attention", "local": "paged_attention",
+                 "rglru": "rglru_decode", "ssd": "ssd_decode"}
+CHUNK_KERNEL = {"global": "paged_chunk_attention", "local": "paged_chunk_attention",
+                "rglru": "rglru_scan", "ssd": "ssd_chunk"}
+WHOLE_KERNEL = dict(CHUNK_KERNEL, **{"global": "flash_attention", "local": "flash_attention"})
+# a bf16 token flip must be a near tie in the reference run: at most four
+# bf16 ulps of a logit in [8, 16) between its top two logits
+BF16_FLIP_MARGIN = 0.25
+# the speculative runs and the fp32 single-shot runs take the phase-4 mix's
+# first four requests (prompts 24/80/200/24, 16/32 new)
+HALF_MIX = dict(SERVE_MIX, n=4)
+SPEC_PARITY_MIX = dict(n=4, prompt_lens=[80, 200], gen_lens=[16, 12], temps=[0.0, 0.7])
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def design_launches(cfgs, per_layer: dict[str, str], n: int, into=None) -> dict[str, int]:
+    """Every serving kernel's launches when each layer of each config in
+    ``cfgs`` launches its kernel of ``per_layer`` ``n`` times."""
+    out = dict.fromkeys(SERVE_KERNELS, 0) if into is None else into
+    for cfg in cfgs:
+        for kind in cfg.layer_types:
+            out[per_layer[kind]] += n
+    return out
+
+
+def counted_run(params, cfg, scfg, requests, draft=None) -> tuple[dict, dict, dict]:
+    """One ``serve_run`` with the launch counts zeroed just before and read
+    just after: (tokens by rid, summary with peak memory, launches)."""
+    finished = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    summary = serve_run(
+        params, cfg, scfg, [dataclasses.replace(r) for r in requests], draft=draft,
+        spec_k=SPEC_K,
+        log=lambda ev: finished.update({ev["rid"]: ev["tokens"]}) if ev["event"] == "finish" else None,
+    )
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for r in requests:
+        if len(finished.get(r.rid, [])) != r.max_new:
+            raise AssertionError(f"{cfg.name} request {r.rid}: "
+                                 f"{len(finished.get(r.rid, []))} of {r.max_new} tokens")
+    return finished, summary, launches
+
+
+def reference_margin(params, cfg, scfg, request, index: int) -> float:
+    """The reference engine's own margin between its top two logits (noisy,
+    at the request's temperature) where it sampled token ``index`` of
+    ``request``, read from a run of the request alone (batched == solo)."""
+    from repro_torch.serve import engine as serve_engine
+
+    seen = {}
+    real = serve_engine._sample
+
+    def recording(logits, draws):
+        for row, d in enumerate(draws):
+            if d is not None and d[1] == request.rid and d[2] == index:
+                top = serve_engine._perturb(logits[row:row + 1], [d])[0].topk(2).values
+                seen["margin"] = float(top[0] - top[1])
+        return real(logits, draws)
+
+    serve_engine._sample = recording
+    try:
+        ServeEngine(params, cfg, scfg).run([dataclasses.replace(request)])
+    finally:
+        serve_engine._sample = real
+    return seen["margin"]
+
+
+def token_flips(params, cfg, scfg, requests, got: dict, want: dict) -> list[dict]:
+    """Each request whose tokens differ from ``want`` (the plain engine's
+    under ``scfg``): the first index where they part, both tokens, and the
+    plain engine's margin between its top two logits there."""
+    flips = []
+    for r in requests:
+        a, b = got[r.rid], want[r.rid]
+        if a == b:
+            continue
+        i = next(j for j in range(len(b)) if a[j] != b[j])
+        flips.append({"rid": r.rid, "index": i, "temperature": r.temperature, "got": a[i],
+                      "want": b[i], "top2_margin": reference_margin(params, cfg, scfg, r, i)})
+    return flips
+
+
+def check_flips(what: str, cfg, flips: list[dict]) -> None:
+    """fp32 allows no flip; a bf16 flip is printed with its margin and must
+    be a near tie (BF16_FLIP_MARGIN): two computations of one function (the
+    flash op against the paged chunk kernel, a GEMM over 16 rows against
+    one over 4) round differently in bf16, and 24–48 layers carry the
+    difference to the logits."""
+    if flips:
+        log(f"{what}: tokens part on {len(flips)} request(s): " + json.dumps(flips))
+    if flips and cfg.dtype != "bfloat16":
+        raise AssertionError(f"{what}: {cfg.dtype} tokens differ: {flips}")
+    wide = [f for f in flips if f["top2_margin"] > BF16_FLIP_MARGIN]
+    if wide:
+        raise AssertionError(f"{what}: bf16 flips past a near tie: {wide}")
+
+
+def serve_mix(cfg, temps, mix=SERVE_MIX):
+    return synth_requests(mix["n"], cfg.vocab_size, mix["prompt_lens"], mix["gen_lens"],
+                          list(temps), seed=0)
+
+
+def single_shot_phase(dev) -> tuple[dict, dict]:
+    """qwen3-0.6b and mamba2-370m at full width in bf16, then in fp32, with
+    the phase-4 mix, chunked and single-shot (``prefill_chunk=0``) on the
+    same weights: the same tokens (fp32: no flip; a bf16 flip printed with
+    its margin), the single-shot run's launches as the design's (one flash
+    forward per attention layer or one SSD chunk call per SSD layer per
+    request, no paged chunk call; the decode kernels per step), TTFT
+    p50/p99 of both."""
+    out, launches_all = {}, dict.fromkeys(SERVE_KERNELS, 0)
+    for base in (qwen3_0_6b.CONFIG, mamba2_370m.CONFIG,
+                 *(dataclasses.replace(c, dtype="float32")
+                   for c in (qwen3_0_6b.CONFIG, mamba2_370m.CONFIG))):
+        t0 = time.perf_counter()
+        params = M.init_params(torch.Generator(device=dev).manual_seed(0), base)
+        requests = serve_mix(base, [0.0], SERVE_MIX if base.dtype == "bfloat16" else HALF_MIX)
+        scfg = ServeConfig(**SERVE_CFG)
+        whole_cfg = dataclasses.replace(scfg, prefill_chunk=0)
+        for c in (scfg, whole_cfg):
+            ServeEngine(params, base, c).run([dataclasses.replace(requests[0], max_new=2)])
+        chunked, c_sum, _ = counted_run(params, base, scfg, requests)
+        whole, w_sum, launches = counted_run(params, base, whole_cfg, requests)
+        want = design_launches([base], WHOLE_KERNEL, len(requests))
+        design_launches([base], DECODE_KERNEL, w_sum["decode_steps"], into=want)
+        flips = token_flips(params, base, scfg, requests, whole, chunked)
+        label = f"{base.name} {base.dtype}"
+        row = {"card": card(), "dtype": base.dtype, "requests": len(requests),
+               "launches": {k: launches[k] for k in SERVE_KERNELS}, "launches_design": want,
+               "tokens_equal": not flips, "flips": flips,
+               **{f"{k}_single_shot": w_sum[k] for k in (
+                   "ttft_p50_s", "ttft_p99_s", "tokens_per_s", "step_p50_s", "wall_s",
+                   "peak_memory_gb")},
+               **{f"{k}_chunked": c_sum[k] for k in (
+                   "ttft_p50_s", "ttft_p99_s", "tokens_per_s", "step_p50_s", "wall_s",
+                   "peak_memory_gb")},
+               "phase_seconds": time.perf_counter() - t0}
+        log(f"single-shot {label}: " + json.dumps(row))
+        check_flips(f"single-shot {label}", base, flips)
+        if row["launches"] != want:
+            raise AssertionError(f"single-shot {label}: launches {row['launches']} "
+                                 f"differ from the design's {want}")
+        for k in SERVE_KERNELS:
+            launches_all[k] += launches[k]
+        out[label] = row
+        del params
+        torch.cuda.empty_cache()
+    return out, launches_all
+
+
+def spec_phase(dev, base, variants) -> tuple[dict, dict]:
+    """Speculative decode of ``base`` at full width in its dtype, spec_k 4,
+    on seed-0 weights with the phase-4 mix's first four requests, against
+    the plain engine on the same weights: for each variant (label, draft layers or None for the
+    target itself, temperatures) the tokens (a flip printed with its
+    request, index and margin), launches as the design's (per round
+    spec_k decode-kernel launches per layer of the draft and of the
+    target's verify; per prefill chunk one chunk call per layer of both),
+    tokens/s, rounds, accept_rate and peak memory beside the plain run's."""
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), base)
+    scfg = ServeConfig(**SERVE_CFG)
+    warm = serve_mix(base, [0.0], HALF_MIX)[0]
+    SpecServeEngine(params, base, scfg, *truncate_layers(params, base, 1), spec_k=SPEC_K).run(
+        [dataclasses.replace(warm, max_new=3)])
+    plain: dict = {}
+    out, launches_all = {}, dict.fromkeys(SERVE_KERNELS, 0)
+    for label, layers, temps in variants:
+        requests = serve_mix(base, temps, HALF_MIX)
+        if tuple(temps) not in plain:
+            plain[tuple(temps)] = counted_run(params, base, scfg, requests)
+        p_tokens, p_sum, _ = plain[tuple(temps)]
+        draft = (params, base) if layers is None else truncate_layers(params, base, layers)
+        tokens, summ, launches = counted_run(params, base, scfg, requests, draft=draft)
+        chunk_calls = sum(-(-len(r.prompt) // scfg.prefill_chunk) for r in requests)
+        want = design_launches([base, draft[1]], DECODE_KERNEL, SPEC_K * summ["spec_rounds"])
+        design_launches([base, draft[1]], CHUNK_KERNEL, chunk_calls, into=want)
+        flips = token_flips(params, base, scfg, requests, tokens, p_tokens)
+        row = {"card": card(), "dtype": base.dtype, "draft_layers": draft[1].num_layers, "temps": list(temps),
+               "tokens_equal": not flips, "flips": flips, "spec_rounds": summ["spec_rounds"],
+               "accept_rate": summ["accept_rate"], "launches": {k: launches[k] for k in SERVE_KERNELS},
+               "launches_design": want,
+               **{f"{k}_spec": summ[k] for k in ("tokens_per_s", "wall_s", "step_p50_s",
+                                                 "step_p99_s", "ttft_p50_s", "peak_memory_gb")},
+               **{f"{k}_plain": p_sum[k] for k in ("tokens_per_s", "wall_s", "decode_steps",
+                                                  "step_p50_s", "ttft_p50_s", "peak_memory_gb")},
+               "phase_seconds": time.perf_counter() - t0}
+        label = f"{label} {base.dtype}"
+        log(f"spec {base.name} {label}: " + json.dumps(row))
+        check_flips(f"spec {base.name} {label}", base, flips)
+        if layers is None and not flips and summ["accept_rate"] != 1.0:
+            raise AssertionError(f"spec {base.name} self-draft: accept_rate {summ['accept_rate']}")
+        if row["launches"] != want:
+            raise AssertionError(f"spec {base.name} {label}: launches {row['launches']} "
+                                 f"differ from the design's {want}")
+        for k in SERVE_KERNELS:
+            launches_all[k] += launches[k]
+        out[label] = row
+    del params, draft
+    torch.cuda.empty_cache()
+    return out, launches_all
+
+
+def spec_runs():
+    """Phase 40's runs: (config, [(label, draft layers or None, temperatures)]),
+    each family in bf16 and then, with its truncated draft, in fp32."""
+    runs = []
+    for base in (qwen3_0_6b.CONFIG, mamba2_370m.CONFIG, recurrentgemma_9b.CONFIG):
+        layers = SPEC_DRAFT_LAYERS[base.name]
+        variants = [("truncated", layers, [0.0])]
+        if base is qwen3_0_6b.CONFIG:
+            variants = [("self", None, [0.0]), *variants, ("truncated sampled", layers, [0.0, 0.7])]
+        runs.append((base, variants))
+    for base, _ in list(runs):
+        runs.append((dataclasses.replace(base, dtype="float32"),
+                     [("truncated", SPEC_DRAFT_LAYERS[base.name], [0.0])]))
+    return runs
+
+
+def spec_cli_phase(dev, ckpt_dir: str) -> dict:
+    """``repro_torch.launch.serve --ckpt <phase 11's checkpoint> --replica 1
+    --spec-decode --draft-replica 2 --verify`` on the card and on the CPU
+    (paper-small-125m reduced, fp32): no mismatch against the plain engine
+    on either, card tokens equal CPU tokens."""
+    args = ["--arch", "paper-small-125m", "--ckpt", ckpt_dir, "--replica", "1", "--spec-decode",
+            "--draft-replica", "2", "--verify", "--requests", "4", "--max-batch", "4",
+            "--prompt-lens", "24,80", "--gen-lens", "16,12", "--temps", "0.0,0.7"]
+    t0 = time.perf_counter()
+    logs = {d: os.path.join(ckpt_dir, f"spec_{d}.jsonl") for d in ("cuda", "cpu")}
+    runs = {d: serve_cli.main([*args, "--device", d, "--log-jsonl", logs[d]]) for d in logs}
+    tokens = {d: {e["rid"]: e["tokens"] for e in map(json.loads, open(p)) if e["event"] == "finish"}
+              for d, p in logs.items()}
+    out = {"card": card(), "tokens_identical": tokens["cuda"] == tokens["cpu"],
+           **{f"{k}_{d}": runs[d][k] for d in runs for k in (
+               "verify_mismatches", "accept_rate", "spec_rounds", "tokens_per_s")},
+           "draft": runs["cuda"]["draft"], "phase_seconds": time.perf_counter() - t0}
+    log("spec CLI ensemble draft card vs cpu: " + json.dumps(out))
+    if out["verify_mismatches_cuda"] or out["verify_mismatches_cpu"] or not out["tokens_identical"]:
+        raise AssertionError(f"spec CLI: {out}")
+    if len(tokens["cuda"]) != 4 or out["accept_rate_cuda"] != out["accept_rate_cpu"]:
+        raise AssertionError(f"spec CLI: card and CPU runs differ: {out}")
+    return out
+
+
+def plain_least_loaded(requests, n: int) -> list[int]:
+    """The replica of each request under least-loaded routing of a batch
+    submitted at once: the smallest pending prompt + budget, ties to the
+    lowest index."""
+    load, out = [0] * n, []
+    for r in requests:
+        i = load.index(min(load))
+        load[i] += len(r.prompt) + r.max_new
+        out.append(i)
+    return out
+
+
+def router_phase(dev) -> dict:
+    """Two engines of qwen3-0.6b at full width in bf16 on one card, on seed-0
+    and seed-1 weights, the phase-4 mix at temperatures 0.0/0.7 under both
+    policies: each request lands where the policy's rule puts it, and its
+    tokens equal those of its engine serving it alone."""
+    t0 = time.perf_counter()
+    cfg = qwen3_0_6b.CONFIG
+    params = [M.init_params(torch.Generator(device=dev).manual_seed(s), cfg) for s in (0, 1)]
+    scfg = ServeConfig(**SERVE_CFG)
+    requests = serve_mix(cfg, [0.0, 0.7])
+    alone: dict = {}
+    out = {"card": card()}
+    for policy in ("round_robin", "least_loaded"):
+        router = ReplicaRouter([ServeEngine(p, cfg, scfg) for p in params], policy=policy)
+        t0 = time.perf_counter()
+        finished = router.run([dataclasses.replace(r) for r in requests])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        placed = {f.rid: i for i, f in finished}
+        rule = ([i % 2 for i in range(len(requests))] if policy == "round_robin"
+                else plain_least_loaded(requests, 2))
+        same = True
+        for i, f in finished:
+            key = (i, f.rid)
+            if key not in alone:
+                [alone[key]] = ServeEngine(params[i], cfg, scfg).run(
+                    [dataclasses.replace(requests[f.rid])])
+            same &= alone[key].tokens == f.tokens
+        out[policy] = {"routed": router.routed, "placed": [placed[r.rid] for r in requests],
+                       "rule": rule, "tokens_equal_alone": same, "wall_s": wall,
+                       "tokens_per_s": sum(len(f.tokens) for _, f in finished) / wall}
+        log(f"router {policy}: " + json.dumps(out[policy]))
+        if out[policy]["placed"] != rule or router.routed != [rule.count(0), rule.count(1)]:
+            raise AssertionError(f"router {policy}: placement {out[policy]} is not the rule's")
+        if not same:
+            raise AssertionError(f"router {policy}: a request's tokens differ from its engine alone")
+    out["phase_seconds"] = time.perf_counter() - t0
+    log("router: " + json.dumps({"card": out["card"], "phase_seconds": out["phase_seconds"]}))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_parity_phase(dev) -> dict:
+    """The three families' ``reduced()`` configs in fp32 on the card and on
+    the CPU from the same weights: speculative decode with the truncated
+    one-layer draft (tokens, spec_rounds and accept_rate equal; card tokens
+    equal the card's plain engine's, no flip), and single-shot prefill
+    (tokens equal; on the card the flash op ran, its local mode on
+    recurrentgemma-9b's window)."""
+    out = {}
+    mix = SPEC_PARITY_MIX
+    for base in (qwen3_0_6b.CONFIG, mamba2_370m.CONFIG, recurrentgemma_9b.CONFIG):
+        t0 = time.perf_counter()
+        cfg = base.reduced(dtype="float32", remat=False)
+        cpu_params = M.init_params(torch.Generator().manual_seed(0), cfg)
+        gpu_params = _tree_to(cpu_params, dev)
+        requests = synth_requests(mix["n"], cfg.vocab_size, mix["prompt_lens"],
+                                  mix["gen_lens"], mix["temps"], seed=0)
+        scfg = ServeConfig(**SERVE_CFG)
+        row = {"card": card()}
+        runs = {}
+        for name, p, d in (("card", gpu_params, dev), ("cpu", cpu_params, torch.device("cpu"))):
+            draft = truncate_layers(p, cfg, 1)
+            engine = SpecServeEngine(p, cfg, scfg, *draft, spec_k=SPEC_K)
+            dispatch.reset_launches()
+            done = engine.run([dataclasses.replace(r) for r in requests])
+            whole = ServeEngine(p, cfg, dataclasses.replace(scfg, prefill_chunk=0)).run(
+                [dataclasses.replace(r) for r in requests])
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                row["launches"] = {k: v for k, v in dispatch.launch_counts().items() if v}
+            runs[name] = {"tokens": {f.rid: f.tokens for f in done},
+                          "whole": {f.rid: f.tokens for f in whole},
+                          "spec_rounds": engine.spec_rounds, "accept_rate": engine.accept_rate}
+        plain = {f.rid: f.tokens for f in ServeEngine(gpu_params, cfg, scfg).run(
+            [dataclasses.replace(r) for r in requests])}
+        row.update({
+            "spec_tokens_identical": runs["card"]["tokens"] == runs["cpu"]["tokens"],
+            "single_shot_tokens_identical": runs["card"]["whole"] == runs["cpu"]["whole"],
+            "spec_equals_plain_on_card": runs["card"]["tokens"] == plain,
+            **{f"{k}_{d}": runs[d][k] for d in runs for k in ("spec_rounds", "accept_rate")},
+            "phase_seconds": time.perf_counter() - t0})
+        log(f"spec fp32 card vs cpu {cfg.name} reduced: " + json.dumps(row))
+        if not (row["spec_tokens_identical"] and row["single_shot_tokens_identical"]
+                and row["spec_equals_plain_on_card"]):
+            raise AssertionError(f"{cfg.name}: card and CPU serving differ: {row}")
+        if runs["card"]["accept_rate"] != runs["cpu"]["accept_rate"] or \
+                runs["card"]["spec_rounds"] != runs["cpu"]["spec_rounds"]:
+            raise AssertionError(f"{cfg.name}: card and CPU acceptance differ: {row}")
+        if row["launches"].get("flash_attention", 0) <= 0 and cfg.num_layers > sum(
+                k in ("rglru", "ssd") for k in cfg.layer_types):
+            raise AssertionError(f"{cfg.name}: single-shot prefill skipped the flash kernel")
+        out[base.name] = row
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -4327,6 +4732,15 @@ def main() -> None:
         piped[design], piped_launches[design] = pipe_train_phase(dev, design, codec, run,
                                                                  train_summary)
     pipe_parity = pipe_parity_phase(dev)
+    single_shot, single_shot_launches = single_shot_phase(dev)
+    spec, spec_launches = {}, []
+    for base, variants in spec_runs():
+        rows, counts = spec_phase(dev, base, variants)
+        spec.setdefault(base.name, {}).update(rows)
+        spec_launches.append(counts)
+    spec_cli = spec_cli_phase(dev, resume["dir"])
+    router = router_phase(dev)
+    spec_parity = spec_parity_phase(dev)
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: int8_launches[k] for k in INT8})
     launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
@@ -4336,6 +4750,9 @@ def main() -> None:
     for counts in (*streamed_launches.values(), churn_launches,   # the streamed paths
                    *piped_launches.values()):                      # and the routed pipeline
         for k in TRAIN_KERNELS + INT8:
+            launches[k] += counts[k]
+    for counts in (single_shot_launches, *spec_launches):   # single-shot and speculative serving
+        for k in SERVE_KERNELS:
             launches[k] += counts[k]
 
     kernels = []
@@ -4415,6 +4832,11 @@ def main() -> None:
             "outer_step_samples_ms", "routes_first_steps", "top_device_ops_ms")}
             for design, row in piped.items()},
         "pipe_card_vs_cpu": pipe_parity,
+        "single_shot": {name: {k: v for k, v in row.items() if k != "launches_design"}
+                        for name, row in single_shot.items()},
+        "spec": {name: {label: {k: v for k, v in row.items() if k != "launches_design"}
+                        for label, row in rows.items()} for name, rows in spec.items()},
+        "spec_cli": spec_cli, "router": router, "spec_card_vs_cpu": spec_parity,
         "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

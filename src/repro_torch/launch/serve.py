@@ -22,13 +22,24 @@ Runs on CUDA unless ``--device cpu`` is given; with no GPU it raises.
     # small config on the CPU (the plain versions of the kernels):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu [--arch mamba2-370m]
 
+    # single-shot prefill (the flash op over each whole prompt):
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --prefill-chunk 0
+
+    # ensemble speculative decode: replica 2 drafts for replica 1, and
+    # --verify re-decodes on a plain engine (target-only tokens):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-small-125m \
+        --ckpt D --replica 1 --spec-decode --draft-replica 2 --verify
+    # or a draft of the target's first N layers (default: half of them):
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --spec-decode --draft-layers 14
+
 Without ``--full`` (or with the JAX CLI's ``--reduced``, the default) the
 architecture is cut by ``ModelConfig.reduced()`` to a two-layer fp32 smoke
 model; with ``--full`` the published config is served in its own dtype; a
 promoted checkpoint must have that config's shapes.  The last
 stdout line is the run_end summary JSON, with the same keys as the JAX
 package's ``repro.launch.serve`` (``promoted``: the resolved step, replica,
-source and world of a promoted checkpoint).
+source and world of a promoted checkpoint; with ``--spec-decode`` also
+``spec_k``, ``spec_rounds``, ``accept_rate`` and ``draft``).
 """
 
 from __future__ import annotations
@@ -44,7 +55,14 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.serve import Request, ServeConfig, ServeEngine, promote
+from repro_torch.serve import (
+    Request,
+    ServeConfig,
+    ServeEngine,
+    SpecServeEngine,
+    promote,
+    truncate_layers,
+)
 
 
 def synth_requests(
@@ -68,11 +86,18 @@ def synth_requests(
 
 def serve_run(
     params, cfg, scfg: ServeConfig, requests: list[Request],
-    *, verify: bool = False, log=None, stream_every: int = 0,
+    *, verify: bool = False, log=None, draft=None, spec_k: int = 4,
+    stream_every: int = 0,
 ) -> dict:
-    """Run one serving load; returns the run_end summary dict.  ``verify``
-    re-decodes every request solo and counts token mismatches."""
-    engine = ServeEngine(params, cfg, scfg)
+    """Run one serving load; returns the run_end summary dict.
+    ``draft=(draft_params, draft_cfg)`` switches on speculative decode.
+    ``verify`` re-decodes every request solo on a plain engine and counts
+    token mismatches, so with a draft it holds speculative output against
+    target-only output."""
+    if draft is not None:
+        engine = SpecServeEngine(params, cfg, scfg, draft[0], draft[1], spec_k=spec_k)
+    else:
+        engine = ServeEngine(params, cfg, scfg)
     token_cb = None
     if log and stream_every:
         def token_cb(rid, index, token, t):
@@ -98,6 +123,10 @@ def serve_run(
         "ttft_p50_s": round(float(np.percentile(ttfts, 50)), 4),
         "ttft_p99_s": round(float(np.percentile(ttfts, 99)), 4),
     }
+    if draft is not None:
+        summary["spec_k"] = spec_k
+        summary["spec_rounds"] = engine.spec_rounds
+        summary["accept_rate"] = round(engine.accept_rate, 4)
     if engine.decode_step_times:
         st = np.asarray(engine.decode_step_times)
         summary["step_p50_s"] = round(float(np.percentile(st, 50)), 5)
@@ -106,7 +135,7 @@ def serve_run(
         for f in sorted(finished, key=lambda f: f.rid):
             log({"event": "finish", "rid": f.rid, "prompt_len": len(f.prompt),
                  "gen_len": len(f.tokens), "ttft_s": round(f.ttft_s, 4),
-                 "tokens": f.tokens})
+                 "tokens": f.tokens, **f.stats})
     if verify:
         batched = {f.rid: f.tokens for f in finished}
         mismatches = 0
@@ -155,9 +184,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sync-each-step", action="store_true",
                     help="block per decode step for per-token latency stats")
     ap.add_argument("--prefill-chunk", type=int, default=32,
-                    help="chunked-prefill width")
+                    help="chunked-prefill width; 0 = single-shot prefill")
     ap.add_argument("--prefill-budget", type=int, default=0,
                     help="max prefill tokens per tick (0 = unlimited)")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="ensemble speculative decode (draft replica or truncated slice)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculative round width (draft steps per round)")
+    ap.add_argument("--draft-replica", type=int, default=None,
+                    help="promote this replica as the draft (needs --ckpt)")
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="draft with the target's first N layers "
+                         "(default: half, when no --draft-replica)")
     ap.add_argument("--stream-every", type=int, default=0,
                     help="drain streamed `token` JSONL events every N ticks "
                          "(0 = tokens only surface at request finish)")
@@ -174,7 +212,10 @@ def resolve_config(args: argparse.Namespace):
 
 
 def main(argv: list[str] | None = None) -> dict:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.spec_decode and args.draft_replica is not None and not args.ckpt:
+        ap.error("--draft-replica needs --ckpt")
     device = resolve_device(args.device)
     cfg = resolve_config(args)
     promo_info = None
@@ -200,18 +241,31 @@ def main(argv: list[str] | None = None) -> dict:
             sync_each_step=args.sync_each_step,
             prefill_chunk=args.prefill_chunk, prefill_budget=args.prefill_budget,
         )
+        draft = draft_info = None
+        if args.spec_decode:
+            if args.draft_replica is not None:
+                dparams, dinfo = promote(args.ckpt, cfg, step=args.step,
+                                         replica=args.draft_replica, source=args.weights,
+                                         device=device)
+                draft, draft_info = (dparams, cfg), {"kind": "replica", **dinfo}
+            else:
+                n = args.draft_layers or max(1, cfg.num_layers // 2)
+                draft = truncate_layers(params, cfg, n)
+                draft_info = {"kind": "truncated", "layers": n}
         requests = synth_requests(
             args.requests, cfg.vocab_size, prompt_lens, gen_lens, temps, args.seed
         )
         log({"event": "run_start", "arch": cfg.name, "policy": args.policy,
              "requests": args.requests, "max_batch": args.max_batch,
              "pages": args.pages, "page_size": args.page_size,
-             "prefill_chunk": args.prefill_chunk, "device": str(device),
-             "promoted": promo_info})
+             "prefill_chunk": args.prefill_chunk, "spec_decode": bool(args.spec_decode),
+             "draft": draft_info, "device": str(device), "promoted": promo_info})
         summary = serve_run(
             params, cfg, scfg, requests, verify=args.verify, log=log,
-            stream_every=args.stream_every,
+            draft=draft, spec_k=args.spec_k, stream_every=args.stream_every,
         )
+        if draft_info:
+            summary["draft"] = draft_info
         summary["arch"] = cfg.name
         if promo_info:
             summary["promoted"] = promo_info

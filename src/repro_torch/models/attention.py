@@ -17,9 +17,12 @@ Pallas kernel).  Cross-attention with a cache reads the encoder K/V that
 in prefill as in decode, as the reference does.  Chunked prefill and
 decode over the paged cache scatter the new tokens' K/V into the page
 pools (masked tokens to the trash page) and then run the paged-attention
-ops.  On the card the flash and paged ops launch the CUDA kernels.  The
-reference's sequence-sharded dense cache (``ctx.kv_shard_seq``, tensor
-parallel heads) is multi-device and comes with ROADMAP Queue 1 item 9.
+ops; the speculative verify (``chunk_exact``) runs the decode op once per
+chunk column.  Single-shot paged prefill of one slot runs the flash op over
+the fresh K/V and then scatters them into the slot's pages.  On the card
+the flash and paged ops launch the CUDA kernels.  The reference's
+sequence-sharded dense cache (``ctx.kv_shard_seq``, tensor parallel heads)
+is multi-device and comes with ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -306,6 +309,7 @@ def apply_attention(
     paged: PagedView | None = None,
     decode: bool = False,                     # paged phase selector
     chunk_lengths: torch.Tensor | None = None,  # (R,) valid tokens per chunk row
+    chunk_exact: bool = False,                # paged chunk as per-token decode steps
 ) -> tuple[torch.Tensor, AttnCache | PagedAttnCache | None]:
     """Attention block.  With no cache: the training (or encoder) forward
     over canonical positions, p's leaves and x stacked over replicas
@@ -314,8 +318,10 @@ def apply_attention(
     ``positions`` (S,)): dense prefill (S > 1) or decode (S = 1); in
     ``"full"`` mode the cache holds the encoder K/V of
     :func:`build_cross_cache` and is only read.  Over the paged cache:
-    chunked prefill (``decode`` False, ``chunk_lengths`` given) or one
-    decode token per slot (``decode`` True).
+    single-shot prefill of one slot (``decode`` False, no ``chunk_lengths``:
+    x (1, S, d) at canonical positions), chunked prefill (``chunk_lengths``
+    given; with ``chunk_exact`` the chunk runs as C decode steps, the
+    speculative verify) or one decode token per slot (``decode`` True).
 
     Caches are written in place (``index_put_``/``copy_``) where the JAX
     package returned new ones; the cache returned is the one passed in."""
@@ -353,11 +359,6 @@ def apply_attention(
         raise ValueError("paged attention needs a PagedAttnCache and a PagedView")
     if mode not in ("causal", "local"):
         raise ValueError(f"paged attention mode must be causal or local, got {mode!r}")
-    if not decode and chunk_lengths is None:
-        raise NotImplementedError(
-            "single-shot paged prefill needs flash attention (ROADMAP Queue 1 item 12); "
-            "use chunked prefill"
-        )
     k, v = _project_kv(p, cfg, x, "bsd,dhk->bshk")
     if cfg.use_rope:
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -367,7 +368,18 @@ def apply_attention(
     page_size = cache.k_pages.shape[1]
     mb = paged.block_tables.shape[1]
     tables = paged.block_tables
-    if decode:
+    if not decode and chunk_lengths is None:
+        # Single-shot prefill of one slot (B 1, canonical positions): the
+        # flash op over the fresh K/V, as the dense prefill, then every
+        # prompt token's K/V scattered into the slot's pages.
+        out = kernel_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         mode=mode, window=window if mode == "local" else 0)
+        tok = torch.arange(s, device=x.device)
+        pages_idx = tables[0, tok // page_size].long()
+        offs = tok % page_size
+        cache.k_pages[pages_idx, offs] = k[0]
+        cache.v_pages[pages_idx, offs] = v[0]
+    elif decode:
         pos = paged.positions.long()
         blk = (pos // page_size).clamp(0, mb - 1)
         pages_idx = tables.gather(1, blk[:, None])[:, 0].long()
@@ -393,9 +405,19 @@ def apply_attention(
         offs = tok_pos % page_size
         cache.k_pages[pages_idx, offs] = k
         cache.v_pages[pages_idx, offs] = v
-        out = kernel_ops.paged_chunk_attention(
-            q.contiguous(), cache.k_pages, cache.v_pages, tables, paged.positions,
-            mode=mode, window=window,
-        )
+        if chunk_exact:
+            # Speculative verify: the paged decode op once per column c at
+            # positions + c, so row c is the decode step's own computation
+            # (keys past base + c are masked by position).
+            out = torch.stack([
+                kernel_ops.paged_attention(
+                    q[:, c].contiguous(), cache.k_pages, cache.v_pages, tables,
+                    tok_pos[:, c].to(torch.int32).contiguous(), mode=mode, window=window,
+                ) for c in range(s)], dim=1)
+        else:
+            out = kernel_ops.paged_chunk_attention(
+                q.contiguous(), cache.k_pages, cache.v_pages, tables, paged.positions,
+                mode=mode, window=window,
+            )
     y = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
     return y, cache

@@ -4,7 +4,8 @@ serving functions and the paged serving steps.
 The port of ``repro/models/model.py``: ``init_params``, ``encode``,
 ``embed_input``, ``loss_fn`` (with the chunked LM loss),
 ``init_cache_tree``, ``prefill`` and ``decode_step`` (the dense cache),
-``init_paged_cache_tree``, ``paged_prefill_chunk`` and
+``init_paged_cache_tree``, ``paged_prefill`` (single-shot),
+``paged_prefill_chunk`` (with the speculative verify's ``collect``) and
 ``paged_decode_step``.  Parameters are a plain dict tree with the JAX value
 tree's structure and layouts (``{"embed", "stack": {"scan", "rem"},
 "final_norm"}``, plus ``"encoder"``, ``"enc_norm"`` and ``"enc_proj"`` for
@@ -341,6 +342,25 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, index,
     return logits_sharded(params["embed"], cfg, x), caches
 
 
+def paged_prefill(
+    params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, caches: PyTree,
+    view: PagedView,
+) -> tuple[torch.Tensor, PyTree]:
+    """Prefill ONE request, tokens (1, S), into the paged caches in one
+    call: every attention layer runs the flash op over the fresh K/V at
+    canonical positions and scatters the prompt's K/V into the pages of
+    ``view.block_tables`` (its single (1, MB) row).  The recurrent entries
+    of ``caches`` must be batch-1 scratch states, advanced in place (the
+    engine writes them into the slot's rows afterwards).  Returns (logits
+    of the last prompt position (1, 1, V) fp32, caches)."""
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed(params, cfg, tokens, positions)
+    x, caches, _ = tfm.apply_stack(params["stack"], cfg, x, positions=positions,
+                                   caches=caches, paged=view)
+    x = apply_norm(params["final_norm"], x)
+    return logits_sharded(params["embed"], cfg, x[:, -1:]), caches
+
+
 def paged_prefill_chunk(
     params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, caches: PyTree,
     view: PagedView, *, lengths: torch.Tensor, collect: bool = False,
@@ -348,19 +368,25 @@ def paged_prefill_chunk(
     """One CHUNK of prefill for all R slots at once: tokens (R, C), slot r's
     chunk starting at position ``view.positions[r]`` with only its first
     ``lengths[r]`` tokens real.  Returns (logits of each slot's last valid
-    position (R, 1, V) fp32, caches written in place)."""
-    if collect:
-        raise NotImplementedError(
-            "per-token verify logits serve speculative decode (ROADMAP Queue 1)"
-        )
+    position (R, 1, V) fp32, caches written in place).
+
+    ``collect=True`` is the speculative verify: attention and the recurrent
+    mixers run as C decode steps, so position c is computed as a decode
+    step at ``positions + c`` would; returns (logits of all C positions
+    (R, C, V) fp32, a new cache tree: the page pools, written, and per
+    recurrent layer its per-token trajectory (R, C, ...), stacked over
+    layers as the params are).  The recurrent caches passed in are not
+    written."""
     c = tokens.shape[1]
     positions = view.positions.long()[:, None] + torch.arange(c, device=tokens.device)[None]
     x = _embed(params, cfg, tokens, positions)
     x, caches, _ = tfm.apply_stack(
         params["stack"], cfg, x, positions=positions, caches=caches, paged=view,
-        chunk_lengths=lengths,
+        chunk_lengths=lengths, chunk_exact=collect,
     )
     x = apply_norm(params["final_norm"], x)
+    if collect:
+        return logits_sharded(params["embed"], cfg, x), caches
     sel = (lengths.long() - 1).clamp(0, c - 1)
     x_last = x[torch.arange(x.shape[0], device=x.device), sel][:, None]
     return logits_sharded(params["embed"], cfg, x_last), caches

@@ -12,9 +12,11 @@ The recurrence runs through :func:`repro_torch.kernels.ops.rglru_scan` over
 a sequence (the CUDA scan kernel on the card) and
 :func:`~repro_torch.kernels.ops.rglru_decode` for one token (the CUDA decode
 kernel).  Three branches, as in the JAX package: the forward with no cache,
-chunk-resumable serving prefill (``chunk_lengths``) and the decode step.  A
+chunk-resumable serving prefill (``chunk_lengths``; with ``chunk_exact``
+the speculative verify's per-token decode steps) and the decode step.  A
 cache is updated in place and returned, as the port's paged attention does
-with its page pools.  The forward with no cache also takes replica-stacked
+with its page pools; the verify alone writes no cache and returns the
+per-token trajectory.  The forward with no cache also takes replica-stacked
 parameters (every leaf with a leading R) against x (R, B, S, d): the
 projections are one batched product each and the scan runs once over the
 R·B rows, where the JAX package vmaps the block over R.
@@ -111,11 +113,11 @@ def apply_rglru(
     """The block's output (B, S, d) and its cache (the one given, written in
     place).  With ``cache`` and ``chunk_lengths``: one chunk of serving
     prefill, row b real for its first ``chunk_lengths[b]`` tokens; with
+    ``chunk_exact`` as well, the speculative verify: S decode steps, the
+    cache left as it was and a new cache returned whose leaves carry the
+    state after each token (h (B, S, W), conv tails (B, S, 3, W)); with
     ``cache`` and S = 1: a decode step; with no cache: the forward from a
     zero state, also on stacked ``p`` and x (R, B, S, d)."""
-    if chunk_exact:
-        raise NotImplementedError(
-            "per-token verify states serve speculative decode (ROADMAP Queue 1)")
     u_in = matmul(x, p["w_x"])
     gate = F.gelu(matmul(x, p["w_gate"]).float(), approximate="tanh")
     u, new_conv = causal_conv(u_in, p["conv"], cache.conv if cache is not None else None)
@@ -125,7 +127,20 @@ def apply_rglru(
     a = torch.exp(C_EXP * r * over_replicas(-F.softplus(-p["lam"]), r))
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u.float())
 
-    if cache is not None and chunk_lengths is not None:
+    if cache is not None and chunk_lengths is not None and chunk_exact:
+        # The decode kernel once per token from the cache's state, which
+        # stays unwritten: a rejected proposal must leave the slot's row
+        # as it was.  Tail c is the conv inputs that end at token c.
+        s, k1 = x.shape[1], p["conv"].shape[0] - 1
+        ext = torch.cat([cache.conv.to(u_in.dtype), u_in], dim=1)
+        h = torch.empty(a.shape, dtype=torch.float32, device=x.device)
+        h_prev = cache.h
+        for c in range(s):
+            h_prev = kernel_ops.rglru_decode(h_prev, a[:, c], b[:, c])
+            h[:, c] = h_prev
+        win = torch.arange(s, device=x.device)[:, None] + 1 + torch.arange(k1, device=x.device)
+        cache = RGLRUCache(conv=ext[:, win], h=h)
+    elif cache is not None and chunk_lengths is not None:
         s, k1 = x.shape[1], p["conv"].shape[0] - 1
         ext = torch.cat([cache.conv.to(u_in.dtype), u_in], dim=1)
         lengths = chunk_lengths.long()

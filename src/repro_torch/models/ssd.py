@@ -11,8 +11,10 @@ ssd_chunk`: the CUDA intra-chunk kernel on the card, the inter-chunk
 recurrence in plain PyTorch); for one token it is
 :func:`~repro_torch.kernels.ops.ssd_decode` (the CUDA decode kernel).  Three
 branches, as in the JAX package: the forward with no cache, chunk-resumable
-serving prefill (``chunk_lengths``) and the decode step.  A cache is updated
-in place and returned.  Caches hold the state as (B, H, P, N); the chunk
+serving prefill (``chunk_lengths``; with ``chunk_exact`` the speculative
+verify's per-token decode steps, which write no cache and return the
+per-token trajectory) and the decode step.  A cache is updated in place and
+returned.  Caches hold the state as (B, H, P, N); the chunk
 kernel's states are (B, H, N, P), and ``ops.ssd_chunk`` turns them.  The
 forward with no cache also takes replica-stacked parameters against x
 (R, B, S, d): batched projections, and one chunked scan over the R·B rows
@@ -100,10 +102,9 @@ def apply_ssd(
     chunk_exact: bool = False,
 ) -> tuple[torch.Tensor, SSDCache | None]:
     """The block's output (B, S, d) and its cache (the one given, written in
-    place); branches as :func:`repro_torch.models.rglru.apply_rglru`'s."""
-    if chunk_exact:
-        raise NotImplementedError(
-            "per-token verify states serve speculative decode (ROADMAP Queue 1)")
+    place); branches as :func:`repro_torch.models.rglru.apply_rglru`'s (the
+    verify's trajectory: state (B, S, H, P, N), conv tails (B, S, K−1,
+    d_inner))."""
     lead, s = x.shape[:-2], x.shape[-2]
     hd = cfg.ssm_head_dim
     z = matmul(x, p["w_z"])
@@ -118,7 +119,22 @@ def apply_ssd(
     heads = u.shape[-1] // hd
     u_heads = u.reshape(lead + (s, heads, hd))
 
-    if cache is not None and chunk_lengths is not None:
+    if cache is not None and chunk_lengths is not None and chunk_exact:
+        # The decode kernel once per token from the cache's state, which
+        # stays unwritten; the new cache carries the state after each token.
+        k1 = p["conv"].shape[0] - 1
+        ext = torch.cat([cache.conv.to(u_in.dtype), u_in], dim=1)
+        states = torch.empty((x.shape[0], s) + cache.state.shape[1:], dtype=torch.float32,
+                             device=x.device)
+        y = torch.empty(u_heads.shape, dtype=torch.float32, device=x.device)
+        state = cache.state
+        for c in range(s):
+            state, y[:, c] = kernel_ops.ssd_decode(state, dt[:, c], a, b_mat[:, c], c_mat[:, c],
+                                                   u_heads[:, c])
+            states[:, c] = state
+        win = torch.arange(s, device=x.device)[:, None] + 1 + torch.arange(k1, device=x.device)
+        cache = SSDCache(conv=ext[:, win], state=states)
+    elif cache is not None and chunk_lengths is not None:
         # Row c of slot b is real iff c < chunk_lengths[b].  dt is masked to
         # exactly 0 on the ragged tail, which makes each pad token a no-op on
         # the recurrence (decay exp(0) = 1, input 0): the carried state is

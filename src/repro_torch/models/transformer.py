@@ -84,6 +84,7 @@ def apply_block(
     decode: bool = False,
     paged: attn_lib.PagedView | None = None,
     chunk_lengths: torch.Tensor | None = None,
+    chunk_exact: bool = False,
 ) -> tuple[torch.Tensor, tuple[Any, Any], torch.Tensor | None]:
     """Pre-norm block.  Returns (x, (cache, cross_cache), aux): aux is an
     MoE block's load-balance loss, None for the others.  With no cache and
@@ -92,18 +93,21 @@ def apply_block(
     scan once over the R·B rows, an MoE block routes each replica's B·S
     tokens on their own.  The cross block builds its cache from
     ``enc_out`` when both are given (prefill) and reads it when ``enc_out``
-    is None (decode)."""
+    is None (decode).  ``chunk_exact`` (the speculative verify) runs a paged
+    chunk as per-token decode steps; a recurrent mixer then returns a new
+    cache holding its per-token trajectory and leaves ``cache`` unwritten."""
     check_kind(kind)
     h = apply_norm(p["ln1"], x)
     if kind in _MIXERS:
-        y, cache = _MIXERS[kind][1](p["mixer"], cfg, h, cache=cache, chunk_lengths=chunk_lengths)
+        y, cache = _MIXERS[kind][1](p["mixer"], cfg, h, cache=cache, chunk_lengths=chunk_lengths,
+                                    chunk_exact=chunk_exact)
     elif kind == "encoder":   # bidirectional self-attention (whisper encoder)
         y, cache = attn_lib.apply_attention(p["attn"], cfg, h, mode="full", positions=positions)
     else:
         y, cache = attn_lib.apply_attention(
             p["attn"], cfg, h, mode="local" if kind == "local" else "causal",
             positions=positions, cache=cache, paged=paged, decode=decode,
-            chunk_lengths=chunk_lengths,
+            chunk_lengths=chunk_lengths, chunk_exact=chunk_exact,
         )
     x = x + y
     if "cross_attn" in p:
@@ -198,26 +202,39 @@ def apply_stack(
     decode: bool = False,
     paged: attn_lib.PagedView | None = None,
     chunk_lengths: torch.Tensor | None = None,
+    chunk_exact: bool = False,
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor | None]:
     """Run all layers in the JAX package's order: every full period, then
     the remainder.  With ``caches`` None this is the training forward over
     replica-stacked parameters; otherwise ``caches`` mirrors the params
     structure with ``(mixer cache, cross cache)`` pairs, the caches are
-    written in place and the same tree is returned.  The third result is
-    the MoE blocks' auxiliary loss summed over layers, (R,) in training
-    (None without MoE blocks)."""
+    written in place and the same tree is returned.  With ``chunk_exact``
+    (the speculative verify) the recurrent caches are left as they were
+    and the tree returned is a new one: the page pools as given (written),
+    every recurrent entry its per-token trajectory, stacked over layers as
+    the params are.  The third result is the MoE blocks' auxiliary loss
+    summed over layers, (R,) in training (None without MoE blocks)."""
     period, n_full, rem = layer_plan(cfg)
     training = caches is None
     layer_axis = 1 if training else 0
     kw = dict(positions=positions, enc_out=enc_out, decode=decode, paged=paged,
-              chunk_lengths=chunk_lengths)
+              chunk_lengths=chunk_lengths, chunk_exact=chunk_exact)
+    # chunk_exact: the trajectories of the recurrent layers, per period
+    # position (a list over the stacked layers) and per remainder layer
+    traj: dict = {"scan": [[] for _ in period], "rem": [None] * rem}
 
     def add(total, aux):
         return aux if total is None else (total if aux is None else total + aux)
 
-    def run(p, x, kind, entry):
+    def run(p, x, kind, entry, slot):
         c, cc = entry if entry is not None else (None, None)
-        x, _, aux = apply_block(p, cfg, x, kind, cache=c, cross_cache=cc, **kw)
+        x, new, aux = apply_block(p, cfg, x, kind, cache=c, cross_cache=cc, **kw)
+        if chunk_exact and kind in _MIXERS:
+            part, i = slot
+            if part == "scan":
+                traj["scan"][i].append(new)
+            else:
+                traj["rem"][i] = new
         return x, aux
 
     aux_total = None
@@ -233,7 +250,8 @@ def apply_stack(
             def period_body(x, i=i):
                 period_aux = None
                 for pos, kind in enumerate(period):
-                    x, aux = run(layer_params[pos][i], x, kind, layer_caches[pos][i])
+                    x, aux = run(layer_params[pos][i], x, kind, layer_caches[pos][i],
+                                 ("scan", pos))
                     period_aux = add(period_aux, aux)
                 return x, period_aux
 
@@ -244,6 +262,11 @@ def apply_stack(
             aux_total = add(aux_total, aux)
     for j in range(rem):
         x, aux = run(params["rem"][j], x, period[j % len(period)],
-                     None if training else caches["rem"][j])
+                     None if training else caches["rem"][j], ("rem", j))
         aux_total = add(aux_total, aux)
+    if chunk_exact:
+        caches = {
+            "scan": [stack_trees(t) if t else e for t, e in zip(traj["scan"], caches["scan"])],
+            "rem": [t if t is not None else e for t, e in zip(traj["rem"], caches["rem"])],
+        }
     return x, caches, aux_total

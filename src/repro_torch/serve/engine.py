@@ -16,9 +16,15 @@ Each :meth:`ServeEngine.step`:
      ``policy="static"`` admits only into an all-idle engine (the baseline).
   3. PREFILL — admitted prompts advance ``prefill_chunk`` tokens per call
      (ragged last chunk masked by position), at most ``prefill_budget``
-     tokens per tick, so long prompts interleave with decode.
-  4. DECODE — one batched step advances every active slot; sampled tokens
-     land in a device-side output buffer.
+     tokens per tick, so long prompts interleave with decode.  With
+     ``prefill_chunk=0`` a prompt is prefilled whole at admission instead
+     (single-shot: batch 1, the flash op over the prompt's fresh K/V, which
+     are then scattered into the slot's pages; :func:`repro_torch.models.
+     model.paged_prefill`), the JAX engine's baseline.
+  4. DECODE — one batched step (:func:`_decode_core`) advances every active
+     slot; sampled tokens land in a device-side output buffer.
+     :class:`repro_torch.serve.spec.SpecServeEngine` runs the same step
+     for its draft on the draft's caches.
 
 The engine state lives on the device and is updated in place.  Recurrent
 layers (RG-LRU, SSD) keep one state row per slot in the caches, which every
@@ -40,9 +46,6 @@ capacity is shared by the rows routed together (a prefill chunk with its
 pad rows, a decode step's R rows with the idle slots'), so a request's
 tokens can depend on what else is in the batch.  They serve fine, and give
 the JAX engine's tokens for the same load.
-
-Single-shot prefill (``prefill_chunk=0``) needs flash attention and comes
-with that slice.
 """
 
 from __future__ import annotations
@@ -151,7 +154,7 @@ class ServeConfig:
     max_new_cap: int = 128      # on-device output buffer width
     policy: str = "continuous"  # "continuous" | "static" (baseline)
     sync_each_step: bool = False  # block per decode step (per-token timing)
-    prefill_chunk: int = 32     # chunked-prefill width
+    prefill_chunk: int = 32     # chunked-prefill width; 0 = single-shot
     prefill_budget: int = 0     # max prefill tokens per tick; 0 = unlimited
 
     def validate(self) -> None:
@@ -161,24 +164,81 @@ class ServeConfig:
             raise ValueError("need at least one slot")
         if self.prefill_chunk < 0 or self.prefill_budget < 0:
             raise ValueError("prefill_chunk/prefill_budget must be >= 0")
-        if self.prefill_chunk == 0:
-            raise NotImplementedError(
-                "single-shot prefill (prefill_chunk=0) needs flash attention, "
-                "which the port does not have yet (ROADMAP Queue 1)"
-            )
+        if self.prefill_budget and not self.prefill_chunk:
+            raise ValueError("prefill_budget requires chunked prefill")
 
 
 @dataclasses.dataclass
 class EngineState:
     """Everything the decode step touches, on the device, updated in place."""
 
-    caches: Any                 # paged attention pools
+    caches: Any                 # paged attention pools + per-slot recurrent states
     block_tables: torch.Tensor  # (R, MB) int32
     tokens: torch.Tensor        # (R,) int32 — token being fed this step
     positions: torch.Tensor     # (R,) int32 — its position
     active: torch.Tensor        # (R,) bool
-    out_buf: torch.Tensor       # (R, CAP) int32 — generated tokens
+    out_buf: torch.Tensor | None  # (R, CAP) int32 — generated tokens (None: not kept)
     out_len: torch.Tensor       # (R,) int32
+
+
+def _zero_scratch(caches: dict) -> dict:
+    """Batch-1 zero copies of the recurrent cache entries of ``caches``
+    (None for page pools): the state a prompt starts from."""
+    def zero(entry, ax):
+        if not _recurrent(entry):
+            return None
+        cache = entry[0]
+        return (type(cache)(**{
+            k: torch.zeros(t.shape[:ax] + (1,) + t.shape[ax + 1:], dtype=t.dtype, device=t.device)
+            for k, t in _tensors(cache).items()}), None)
+
+    return {"scan": [zero(e, 1) for e in caches["scan"]],
+            "rem": [zero(e, 0) for e in caches["rem"]]}
+
+
+def _prefill_caches(caches: dict, scratch: dict) -> dict:
+    """The caches a prefill runs on: the page pools of ``caches`` and the
+    slot's batch-1 recurrent scratch, which the prefill advances in place."""
+    return {part: [s if s is not None else e for e, s in zip(caches[part], scratch[part])]
+            for part in ("scan", "rem")}
+
+
+def _commit_scratch(caches: dict, scratch: dict, slot: int) -> None:
+    """Write a prompt's final recurrent states into the slot's rows."""
+    for part, stacked in (("scan", True), ("rem", False)):
+        for entry, one in zip(caches[part], scratch[part]):
+            if one is None:
+                continue
+            full = _tensors(entry[0])
+            for k, t in _tensors(one[0]).items():
+                if stacked:
+                    full[k][:, slot] = t[:, 0]
+                else:
+                    full[k][slot] = t[0]
+
+
+def _decode_core(params: Any, cfg: ModelConfig, st: EngineState,
+                 draws: list[tuple[float, int, int] | None]) -> torch.Tensor:
+    """One batched decode step over every slot of ``st``, in place: the
+    caches advance, each active slot's sampled token becomes its next
+    input and (when ``st.out_buf`` is kept) lands at index ``out_len``,
+    and active positions and lengths move by one.  ``draws[r]`` keys row
+    r's noise, (temperature, rid, token index), as :func:`_sample`.  The
+    speculative engine runs its draft through this same step, on the
+    draft's caches and on copies of tokens, positions and lengths.
+    Returns the sampled tokens (R,) int32."""
+    view = PagedView(st.block_tables, st.positions, st.active)
+    logits, _ = M.paged_decode_step(params, cfg, st.tokens[:, None], st.caches, view)
+    nxt = _sample(logits[:, 0], draws)
+    if st.out_buf is not None:
+        row = torch.arange(st.out_buf.shape[0], device=nxt.device)
+        idx = st.out_len.long().clamp(0, st.out_buf.shape[1] - 1)
+        st.out_buf[row, idx] = torch.where(st.active, nxt, st.out_buf[row, idx])
+    st.tokens.copy_(torch.where(st.active, nxt, st.tokens))
+    act = st.active.to(torch.int32)
+    st.positions += act
+    st.out_len += act
+    return nxt
 
 
 class ServeEngine:
@@ -216,45 +276,6 @@ class ServeEngine:
         self._token_cb = None
         self.decode_steps = 0
         self.decode_step_times: list[float] = []
-
-    # -- recurrent scratch of a prefilling slot -----------------------------
-
-    def _zero_scratch(self) -> dict:
-        """Batch-1 zero copies of the recurrent cache entries (None for page
-        pools): the state a prompt starts from."""
-        def zero(entry, ax):
-            if not _recurrent(entry):
-                return None
-            cache = entry[0]
-            return (type(cache)(**{
-                k: torch.zeros(t.shape[:ax] + (1,) + t.shape[ax + 1:], dtype=t.dtype, device=t.device)
-                for k, t in _tensors(cache).items()}), None)
-
-        caches = self.state.caches
-        return {"scan": [zero(e, 1) for e in caches["scan"]],
-                "rem": [zero(e, 0) for e in caches["rem"]]}
-
-    def _prefill_caches(self, scratch: dict) -> dict:
-        """The caches a prefill chunk runs on: the engine's page pools and
-        the slot's batch-1 recurrent scratch, which the chunk advances in
-        place."""
-        caches = self.state.caches
-        return {part: [s if s is not None else e for e, s in zip(caches[part], scratch[part])]
-                for part in ("scan", "rem")}
-
-    def _commit_scratch(self, scratch: dict, slot: int) -> None:
-        """Write a prompt's final recurrent states into the slot's rows."""
-        caches = self.state.caches
-        for part, stacked in (("scan", True), ("rem", False)):
-            for entry, one in zip(caches[part], scratch[part]):
-                if one is None:
-                    continue
-                full = _tensors(entry[0])
-                for k, t in _tensors(one[0]).items():
-                    if stacked:
-                        full[k][:, slot] = t[:, 0]
-                    else:
-                        full[k][slot] = t[0]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -330,6 +351,7 @@ class ServeEngine:
                     rid=req.rid, prompt=req.prompt, tokens=toks,
                     submit_t=req.submit_t, admit_t=occ["admit_t"],
                     finish_t=time.perf_counter(),
+                    stats=self._finish_stats(occ),
                 )
             )
             self.alloc.free(occ["blocks"])
@@ -351,18 +373,75 @@ class ServeEngine:
                 break  # head-of-line blocks until pages free up (no preempt)
             self.queue.pop(0)
             slot = free.pop(0)
+            if not self.scfg.prefill_chunk:
+                self._prefill_whole(slot, req, self.alloc.alloc(need))
+                continue
             # pages leave the free list under a lease (committed when the
             # last chunk lands); the slot parks in "prefill" phase
             lease = self.alloc.reserve(need)
-            row = np.full((self._mb,), self.alloc.trash_page, np.int32)
-            row[: len(lease.blocks)] = lease.blocks
-            row_dev = torch.from_numpy(row).to(self.device)
+            row_dev = self._table_row(lease.blocks)
             self.state.block_tables[slot] = row_dev
             self._slots[slot] = {
-                "req": req, "lease": lease, "row": row_dev, "rec": self._zero_scratch(),
+                "req": req, "lease": lease, "row": row_dev,
+                "rec": _zero_scratch(self.state.caches),
                 "phase": "prefill", "cursor": 0,
                 "admit_t": 0.0, "steps": 0, "t_toks": [], "emitted": 0,
             }
+
+    def _table_row(self, blocks: list[int]) -> torch.Tensor:
+        """A slot's block-table row on the device: its pages, then trash."""
+        row = np.full((self._mb,), self.alloc.trash_page, np.int32)
+        row[: len(blocks)] = blocks
+        return torch.from_numpy(row).to(self.device)
+
+    def _start_decode(self, slot: int, req: Request, tok0: torch.Tensor) -> None:
+        """Move a prefilled slot into the decode batch with token 0."""
+        st = self.state
+        st.tokens[slot] = tok0
+        st.positions[slot] = len(req.prompt)
+        st.active[slot] = True
+        st.out_buf[slot, 0] = tok0
+        st.out_len[slot] = 1
+
+    def _prefill_whole(self, slot: int, req: Request, blocks: list[int]) -> None:
+        """Single-shot admission (``prefill_chunk=0``): the whole prompt in
+        one batch-1 call on zero recurrent scratch, its pages owned at once,
+        token 0 sampled with key (rid, 0); the slot goes straight into the
+        decode batch."""
+        dev = self.device
+        row_dev = self._table_row(blocks)
+        st = self.state
+        st.block_tables[slot] = row_dev
+        scratch = _zero_scratch(st.caches)
+        view = PagedView(row_dev[None], torch.zeros((1,), dtype=torch.int32, device=dev),
+                         torch.ones((1,), dtype=torch.bool, device=dev))
+        toks = torch.tensor([req.prompt], dtype=torch.int32).to(dev)
+        logits, _ = M.paged_prefill(self.params, self.cfg, toks,
+                                    _prefill_caches(st.caches, scratch), view)
+        _commit_scratch(st.caches, scratch, slot)
+        self._start_decode(slot, req, _sample(logits[:, 0], [(req.temperature, req.rid, 0)])[0])
+        now = time.perf_counter()
+        self._slots[slot] = {"req": req, "blocks": blocks, "phase": "decode", "admit_t": now,
+                             "steps": 1, "t_toks": [now], "emitted": 0}
+
+    def _chunk_logits(self, params: Any, cfg: ModelConfig, caches: dict, scratch: dict,
+                      occ: dict, cur: int, n: int) -> torch.Tensor:
+        """One prefill chunk of a slot's prompt, tokens [cur, cur + n), on
+        ``caches``' page pools and the slot's batch-1 ``scratch``; returns
+        the logits of its last valid position (1, 1, V)."""
+        dev = self.device
+        c = self.scfg.prefill_chunk
+        toks = torch.tensor([occ["req"].prompt[cur: cur + n] + [0] * (c - n)], dtype=torch.int32)
+        view = PagedView(
+            occ["row"][None],
+            torch.tensor([cur], dtype=torch.int32).to(dev),
+            torch.ones((1,), dtype=torch.bool, device=dev),
+        )
+        logits, _ = M.paged_prefill_chunk(
+            params, cfg, toks.to(dev), _prefill_caches(caches, scratch), view,
+            lengths=torch.tensor([n], dtype=torch.int32).to(dev),
+        )
+        return logits
 
     def _prefill_chunk_step(self, slot: int) -> None:
         """Advance one prefill-phase slot by one fixed-width chunk; on the
@@ -370,32 +449,16 @@ class ServeEngine:
         batch."""
         occ = self._slots[slot]
         req: Request = occ["req"]
-        c = self.scfg.prefill_chunk
         cur = occ["cursor"]
-        n = min(c, len(req.prompt) - cur)
-        dev = self.device
-        toks = torch.tensor([req.prompt[cur: cur + n] + [0] * (c - n)], dtype=torch.int32)
-        view = PagedView(
-            occ["row"][None],
-            torch.tensor([cur], dtype=torch.int32).to(dev),
-            torch.ones((1,), dtype=torch.bool, device=dev),
-        )
-        logits, _ = M.paged_prefill_chunk(
-            self.params, self.cfg, toks.to(dev), self._prefill_caches(occ["rec"]), view,
-            lengths=torch.tensor([n], dtype=torch.int32).to(dev),
-        )
+        n = min(self.scfg.prefill_chunk, len(req.prompt) - cur)
+        logits = self._chunk_logits(self.params, self.cfg, self.state.caches, occ["rec"],
+                                    occ, cur, n)
         occ["cursor"] = cur + n
         if occ["cursor"] < len(req.prompt):
             return
-        self._commit_scratch(occ.pop("rec"), slot)
-        tok0 = _sample(logits[:, 0], [(req.temperature, req.rid, 0)])[0]
+        _commit_scratch(self.state.caches, occ.pop("rec"), slot)
         occ["blocks"] = self.alloc.commit(occ.pop("lease"))
-        st = self.state
-        st.tokens[slot] = tok0
-        st.positions[slot] = len(req.prompt)
-        st.active[slot] = True
-        st.out_buf[slot, 0] = tok0
-        st.out_len[slot] = 1
+        self._start_decode(slot, req, _sample(logits[:, 0], [(req.temperature, req.rid, 0)])[0])
         now = time.perf_counter()
         occ.update({"phase": "decode", "admit_t": now, "steps": 1})
         occ["t_toks"].append(now)
@@ -403,6 +466,8 @@ class ServeEngine:
     def _advance_prefills(self) -> None:
         """Spend up to ``prefill_budget`` prompt tokens (0 = all pending) on
         chunk steps, round-robin over prefill-phase slots."""
+        if not self.scfg.prefill_chunk:
+            return
         budget = self.scfg.prefill_budget or (1 << 30)
         while budget > 0:
             pending = [
@@ -419,24 +484,17 @@ class ServeEngine:
 
     def _decode(self) -> None:
         """One batched decode step over every slot, in place."""
-        st = self.state
-        view = PagedView(st.block_tables, st.positions, st.active)
-        logits, _ = M.paged_decode_step(
-            self.params, self.cfg, st.tokens[:, None], st.caches, view
-        )
         draws = [
             (occ["req"].temperature, occ["req"].rid, occ["steps"])
             if occ is not None and occ["phase"] == "decode" else None
             for occ in self._slots
         ]
-        nxt = _sample(logits[:, 0], draws)
-        row = torch.arange(st.out_buf.shape[0], device=self.device)
-        idx = st.out_len.long().clamp(0, st.out_buf.shape[1] - 1)
-        st.out_buf[row, idx] = torch.where(st.active, nxt, st.out_buf[row, idx])
-        st.tokens.copy_(torch.where(st.active, nxt, st.tokens))
-        act = st.active.to(torch.int32)
-        st.positions += act
-        st.out_len += act
+        _decode_core(self.params, self.cfg, self.state, draws)
+
+    def _finish_stats(self, occ: dict) -> dict:
+        """Per-request stats attached at eviction; the speculative engine
+        adds its own."""
+        return {}
 
     def step(self) -> list[FinishedRequest]:
         """One scheduler tick: evict → admit → prefill chunks → batched decode."""

@@ -15,12 +15,13 @@ one, as in the JAX package.  Layouts (either package's checkpoints):
 gossip ``{"theta", "outer": {"phi", ...}, "membership", ...}`` and
 distributed ``{"theta", "phi", "delta", ...}``; a pipeline checkpoint
 (``{"params": [per stage], ...}``) cannot be served as one model and
-raises.  Depth-truncated drafts (``truncate_layers``) come with speculative
-decode.
+raises.  :func:`truncate_layers` cuts a promoted tree to its first layers,
+the depth-sliced draft of speculative decode.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Any
 
@@ -30,9 +31,10 @@ import torch
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.device import resolve_device
 from repro_torch.models import convert
+from repro_torch.models import transformer as tfm
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["promote", "resolve_replica"]
+__all__ = ["promote", "resolve_replica", "truncate_layers"]
 
 
 def resolve_replica(membership: dict | None, replica: int, world: int) -> int:
@@ -128,3 +130,40 @@ def promote(
         ) from e
     info = {"step": int(step), "replica": int(replica), "source": source, "world": world}
     return params, info
+
+
+def truncate_layers(params: Any, cfg, num_layers: int) -> tuple[Any, Any]:
+    """Depth-truncated draft model: the FIRST ``num_layers`` blocks of a
+    promoted parameter tree, sharing the embedding and final norm (the
+    unembedding, where tied).  The layer cycle is kept: whole periods of
+    ``cfg.attn_pattern`` slice the stacks' depth axis, and the layers of a
+    last partial period are taken out of the stacks (depth ``n_full2`` of
+    stack j) or, when the target has no such period, from its remainder.
+
+    Every leaf of the draft is a view of the target's tensors (a slice or
+    an index of the layer axis), so the draft costs no weight memory and
+    sees any in-place change of the target's weights.  Returns
+    ``(draft_params, draft_cfg)`` for :class:`repro_torch.serve.spec.
+    SpecServeEngine`."""
+    if not 1 <= num_layers <= cfg.num_layers:
+        raise ValueError(
+            f"num_layers must be in [1, {cfg.num_layers}], got {num_layers}"
+        )
+    period, n_full, _rem = tfm.layer_plan(cfg)
+    p = len(period)
+    n_full2, rem2 = num_layers // p, num_layers % p
+    stack = params["stack"]
+    scan2 = [
+        tree_map(lambda x: x[:n_full2], s) if n_full2 and s is not None else None
+        for s in stack["scan"]
+    ]
+    rem_list = []
+    for j in range(rem2):
+        if n_full2 < n_full:
+            # layer n_full2·p + j lives at depth n_full2 of scan stack j
+            rem_list.append(tree_map(lambda x: x[n_full2], stack["scan"][j]))
+        else:
+            rem_list.append(stack["rem"][j])
+    draft_params = dict(params)
+    draft_params["stack"] = {"scan": scan2, "rem": rem_list}
+    return draft_params, dataclasses.replace(cfg, num_layers=num_layers)

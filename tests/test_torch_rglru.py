@@ -197,9 +197,25 @@ def test_init_rglru_keeps_lambda_in_fp32():
 
 
 def test_apply_rglru_speculative_verify_raises():
-    _, cfg, _, p = _block()
-    cache = rglru.RGLRUCache(*map(torch.from_numpy, _cache(cfg, 1, 0)))
-    with pytest.raises(NotImplementedError, match="speculative"):
-        rglru.apply_rglru(p, cfg, torch.zeros(1, 2, cfg.d_model), cache=cache,
-                          chunk_lengths=torch.tensor([2]), chunk_exact=True)
+    """The speculative verify branch (``chunk_exact``) against JAX's: the
+    output, the per-token trajectory (h (B, S, W), conv tails (B, S, 3, W)),
+    and the cache passed in left unwritten."""
+    jcfg, cfg, jp, p = _block()
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 4, cfg.d_model)).astype(np.float32)
+    cache = _cache(cfg, 2, 6)
+    lengths = np.array([4, 2], np.int32)
+    wy, wc = jrglru.apply_rglru(jax.tree.map(jnp.asarray, jp), jcfg, jnp.asarray(x), CTX,
+                                cache=jrglru.RGLRUCache(*map(jnp.asarray, cache)),
+                                chunk_lengths=jnp.asarray(lengths), chunk_exact=True)
+    tcache = rglru.RGLRUCache(*map(torch.from_numpy, cache))
+    y, c = rglru.apply_rglru(p, cfg, torch.from_numpy(x), cache=tcache,
+                             chunk_lengths=torch.from_numpy(lengths), chunk_exact=True)
+    assert c is not tcache and c.h.shape == (2, 4, rglru.lru_width(cfg))
+    assert c.conv.shape == (2, 4, 3, rglru.lru_width(cfg))
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(c.h.numpy(), np.asarray(wc.h), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(c.conv.numpy(), np.asarray(wc.conv), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(tcache.conv.numpy(), cache[0])
+    np.testing.assert_array_equal(tcache.h.numpy(), cache[1])
 

@@ -253,9 +253,32 @@ def test_continuous_needs_fewer_decode_steps_than_static():
     assert steps["continuous"] < steps["static"], steps
 
 
-def test_single_shot_prefill_waits_for_flash_attention():
-    with pytest.raises(NotImplementedError, match="flash"):
-        ServeConfig(prefill_chunk=0).validate()
+def test_single_shot_prefill_waits_for_flash_attention(monkeypatch):
+    """``prefill_chunk=0`` admits each prompt whole through the flash op
+    (one call per attention layer per request, no paged chunk op) and
+    gives the chunked engine's tokens, greedy and sampled."""
+    from repro_torch.models import attention
+
+    _, cfg = _configs("qwen3-0.6b")
+    params = M.init_params(torch.Generator().manual_seed(4), cfg)
+    requests = _requests(cfg.vocab_size, [(3, 4, 0.0), (9, 3, 0.7), (1, 5, 0.0)])
+    scfg = ServeConfig(max_slots=2, num_pages=24, page_size=4, max_new_cap=8)
+    chunked = {f.rid: f.tokens for f in ServeEngine(params, cfg, scfg).run(
+        [dataclasses.replace(r) for r in requests])}
+    calls = {"flash_attention": 0, "paged_chunk_attention": 0}
+    for name in calls:
+        real = getattr(attention.kernel_ops, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(attention.kernel_ops, name, counted)
+    engine = ServeEngine(params, cfg, dataclasses.replace(scfg, prefill_chunk=0))
+    whole = {f.rid: f.tokens for f in engine.run([dataclasses.replace(r) for r in requests])}
+    assert whole == chunked
+    assert calls == {"flash_attention": cfg.num_layers * len(requests), "paged_chunk_attention": 0}
+    engine.alloc.check_leaks()
 
 
 # ---------------------------------------------------------------------------

@@ -310,8 +310,24 @@ def test_apply_ssd_keeps_its_rates_in_fp32():
 
 
 def test_apply_ssd_speculative_verify_raises():
-    _, cfg, _, p = _block()
-    cache = ssd.SSDCache(*_t(*_cache(cfg, 1, 0)))
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ssd.apply_ssd(p, cfg, torch.zeros(1, 2, cfg.d_model), cache=cache,
-                      chunk_lengths=torch.tensor([2]), chunk_exact=True)
+    """The speculative verify branch (``chunk_exact``) against JAX's: the
+    output, the per-token trajectory (state (B, S, H, P, N), conv tails
+    (B, S, K−1, d_inner)), and the cache passed in left unwritten."""
+    jcfg, cfg, jp, p = _block()
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 4, cfg.d_model)).astype(np.float32)
+    cache = _cache(cfg, 2, 6)
+    lengths = np.array([4, 2], np.int32)
+    wy, wc = jssd.apply_ssd(jax.tree.map(jnp.asarray, jp), jcfg, jnp.asarray(x), CTX,
+                            cache=jssd.SSDCache(*map(jnp.asarray, cache)),
+                            chunk_lengths=jnp.asarray(lengths), chunk_exact=True)
+    tcache = ssd.SSDCache(*_t(*cache))
+    y, c = ssd.apply_ssd(p, cfg, torch.from_numpy(x), cache=tcache,
+                         chunk_lengths=torch.from_numpy(lengths), chunk_exact=True)
+    assert c is not tcache and c.state.shape == (2, 4) + cache[1].shape[1:]
+    assert c.conv.shape == (2, 4) + cache[0].shape[1:]
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(c.state.numpy(), np.asarray(wc.state), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(c.conv.numpy(), np.asarray(wc.conv), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(tcache.conv.numpy(), cache[0])
+    np.testing.assert_array_equal(tcache.state.numpy(), cache[1])
