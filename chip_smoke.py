@@ -338,11 +338,40 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     speculative tokens, rounds and ``accept_rate`` equal (and equal to the
     card's plain engine), single-shot tokens equal.
 
+44. the replica group (``launch/train_distributed.py``, one rank per
+    replica over ``torch.distributed``): paper-small-125m at full width in
+    bf16 on 4 ranks spawned on this card over gloo (the payload staged
+    through pinned host memory), each rank through ``run_rank``, the CLI's
+    per-rank body: 4 × 1024 a rank, m 5, 10 steps, NoLoCo on the plain and
+    the int8 wire, and DiLoCo.  Every rank's launches (zeroed just before
+    its run, read just after, sent back to this process) equal phase 6's
+    design for one replica (DiLoCo: no ``noloco_update``); losses finite and
+    falling; the ranks agree on the partners.  Per rank: inner step
+    p50/p99, the outer step alone (three times on the final state, split by
+    a synchronising clock into encode, D2H, wire, H2D, decode and update),
+    peak memory, and the card's use with all four ranks resident;
+45. fp32 ``reduced()`` on the ranks on the card and on the CPU (a CPU view
+    of the same group): identical partner tables, losses within LOSS_RTOL,
+    weight std within WSTD_RTOL, the training kernels launched;
+46. a resume on the card (``reduced()``, int8 wire): 5 steps saved by rank 0,
+    resumed to 10, bit-identical to 10 straight steps on every rank;
+47. the counted outer step (from phase 44's runs): a NoLoCo sync is one
+    batched send/receive carrying exactly the byte model's payload and no
+    ``all_reduce``; a DiLoCo sync one ``all_reduce`` per buffer of Δ, each
+    in its dtype, handing over exactly the bytes of Δ (the byte model's
+    ring bytes are 2(w-1)/w of them); inner steps make no cross-rank call;
+48. the plain run with one rank a card, over NCCL and over gloo, where the
+    machine shows two cards or more (else a line says why it did not run;
+    ``dist_cards_phase`` runs it alone); then the CLI,
+    ``python -m repro_torch.launch.train_distributed --reduced``, on the
+    card: its summary names the card and the backend.
+
 ``time rglru_decode`` also carries ``launch_floor_ms``: an empty kernel
 (``torch.cuda._sleep(0)``) timed by the kernel table's own method.
 
 The line before the last is the ``kernels`` JSON record (launches: the
-serve and train phases', phases 33, 34, 36, 37, 39 and 40's added); the last line is
+serve and train phases', phases 33, 34, 36, 37, 39, 40 and every rank's of
+phase 44 added); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -4640,6 +4669,322 @@ def spec_parity_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 44–48: the replica group (one rank per replica over torch.distributed)
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 4
+# the full-width runs: 4 ranks × batch 4 × seq 1024, m 5, 10 steps (two syncs)
+DIST_FULL = ["--data", str(DIST_WORLD), "--batch-per-replica", "4", "--seq", "1024",
+             "--steps", "10", "--inner-steps", "5", "--pairing-pool", "16"]
+DIST_RUNS = (("noloco", ["--method", "noloco"]), ("int8", ["--method", "noloco", "--codec", "int8"]),
+             ("diloco", ["--method", "diloco"]))
+# fp32 reduced on the card against the same ranks on the CPU (phase 7's run)
+DIST_SMALL = ["--data", str(DIST_WORLD), "--reduced", "--batch-per-replica", "2", "--seq", "64",
+              "--steps", "10", "--inner-steps", "5"]
+DIST_MID = 5
+DIST_PHASES = ("encode", "d2h", "wire", "h2d", "decode", "update")
+
+
+def _dist_args(argv, device, backend):
+    from repro_torch.launch import train_distributed
+
+    return train_distributed.build_parser().parse_args(
+        [*argv, "--device", device, "--backend", backend])
+
+
+def _pct(samples, q):
+    s = sorted(samples)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def _dist_counted(trainer, group, syncs: list, inner_calls: dict):
+    """Wrap the trainer's steps: the cross-rank calls made inside inner steps
+    (summed into ``inner_calls``), and each sync's calls and the bytes this
+    rank handed to them (``syncs``)."""
+    inner_step, outer_step = trainer.inner_step, trainer.maybe_outer_step
+
+    def delta(before: dict) -> dict:
+        return {k: v - before.get(k, 0) for k, v in group.calls.items() if v - before.get(k, 0)}
+
+    def inner(state, batch):
+        before = dict(group.calls)
+        out = inner_step(state, batch)
+        for k, v in delta(before).items():
+            inner_calls[k] = inner_calls.get(k, 0) + v
+        return out
+
+    def outer(state, **kw):
+        before, sent = dict(group.calls), sum(group.sent_bytes.values())
+        state, synced = outer_step(state, **kw)
+        if synced:
+            syncs.append({"calls": delta(before), "bytes": sum(group.sent_bytes.values()) - sent})
+        return state, synced
+
+    trainer.inner_step, trainer.maybe_outer_step = inner, outer
+
+
+def dist_full_run(group, argv) -> dict:
+    """One full-width run on this rank through ``run_rank`` (the CLI's
+    per-rank body), launch counts zeroed just before and read just after;
+    then the outer step alone, three times on the final state, each split
+    into its phases by a synchronising clock."""
+    from repro_torch.launch import mesh as mesh_lib, train_distributed
+
+    dev = group.device
+    args = _dist_args(DIST_FULL + argv, "cuda", group.backend)
+    trainer = train_distributed.make_trainer(args, group)
+    syncs: list = []
+    inner_calls: dict = {}
+    _dist_counted(trainer, group, syncs, inner_calls)
+    torch.cuda.reset_peak_memory_stats(dev)
+    group.barrier()
+    dispatch.reset_launches()
+    out = train_distributed.run_rank(group, args, trainer=trainer)
+    torch.cuda.synchronize(dev)
+    launches = dispatch.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    group.barrier()   # every rank holds its state: the card's use now
+    free, total = torch.cuda.mem_get_info(dev)
+    res, state = out["result"], out["result"]["state"]
+    m = args.inner_steps
+    inner = [dt * 1e3 for t, dt in enumerate(res["step_dt_s"]) if t and (t + 1) % m]
+    split = {k: [] for k in DIST_PHASES}
+    total_ms = []
+    for _ in range(3):
+        clock = mesh_lib.PhaseClock(dev)
+        group.barrier()
+        t0 = time.perf_counter()
+        group.clock = clock
+        clock.start()
+        trainer.maybe_outer_step(state)
+        clock.mark("update")
+        group.clock = None
+        total_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in DIST_PHASES:
+            split[k].append(clock.ms.get(k, 0.0))
+    syncs_in_run = syncs[:res["outer_syncs"]]
+    row = {
+        "rank": group.rank, "losses": res["losses"], "launches": launches,
+        "inner_step_p50_ms": statistics.median(inner), "inner_step_p99_ms": _pct(inner, 0.99),
+        "inner_step_samples": len(inner),
+        "outer_step_alone_ms": statistics.median(total_ms),
+        "outer_split_ms": {k: statistics.median(v) for k, v in split.items()},
+        "sync_calls": [s["calls"] for s in syncs_in_run],
+        "sync_bytes": [s["bytes"] for s in syncs_in_run],
+        "payload_bytes": res["comm"]["payload_bytes"] if res["comm"] else 0,
+        "comm_bytes": res["comm_bytes"], "outer_syncs": res["outer_syncs"],
+        "inner_calls": inner_calls,
+        "peak_memory_gb": peak_gb, "card_used_gb": (total - free) / 1e9,
+        "card_total_gb": total / 1e9,
+        "partners": [p.tolist() for p in trainer.partners[:res["outer_syncs"]]],
+        "final_weight_std": res["final_weight_std"], "summary": out["summary"],
+        "staged": group.staged,
+    }
+    del out, res, state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def dist_small_run(group, argv, device, **kw):
+    """A ``reduced()`` run on this rank; returns the loop's result and the
+    trainer."""
+    from repro_torch.launch import train_distributed
+
+    sub = group if device == "cuda" else dataclasses.replace(
+        group, device=torch.device("cpu"), calls=type(group.calls)(),
+        sent_bytes=type(group.sent_bytes)(), _pinned={})
+    args = _dist_args(argv, device, group.backend)
+    for k, v in kw.items():
+        setattr(args, k, v)
+    out = train_distributed.run_rank(sub, args)
+    return out["result"], out["trainer"]
+
+
+def _dist_rows(state) -> dict:
+    return {"theta": state["theta"], "phi": state["phi"], "delta": state["delta"],
+            "mu": state["opt"].mu, "nu": state["opt"].nu}
+
+
+def dist_rank(group, ckpt_root: str) -> dict:
+    """Phases 44–47 on one rank: the full-width runs, fp32 card against
+    CPU, and a resume on the card."""
+    out = {"full": {name: dist_full_run(group, argv) for name, argv in DIST_RUNS}}
+    # phase 45: fp32 reduced() on the card and on the CPU, same ranks
+    dispatch.reset_launches()
+    card, card_tr = dist_small_run(group, DIST_SMALL, "cuda")
+    torch.cuda.synchronize(group.device)
+    launches = dispatch.launch_counts()
+    cpu, cpu_tr = dist_small_run(group, DIST_SMALL, "cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    out["parity"] = {
+        "loss_max_rel_diff": rel,
+        "partners_identical": [p.tolist() for p in card_tr.partners]
+        == [p.tolist() for p in cpu_tr.partners] and len(card_tr.partners) == 2,
+        "weight_std_rel_diff": abs(card["final_weight_std"] - cpu["final_weight_std"])
+        / cpu["final_weight_std"],
+        "launches": {k: launches[k] for k in TRAIN_KERNELS}}
+    # phase 46: on the card, 5 steps saved, resumed to 10, against 10 straight
+    whole = os.path.join(ckpt_root, "whole")
+    half = os.path.join(ckpt_root, "half")
+    a, _ = dist_small_run(group, DIST_SMALL + ["--codec", "int8"], "cuda", ckpt_dir=whole,
+                          ckpt_every=DIST_MID)
+    dist_small_run(group, DIST_SMALL + ["--codec", "int8"], "cuda", ckpt_dir=half,
+                   steps=DIST_MID)
+    t0 = time.perf_counter()
+    b, _ = dist_small_run(group, DIST_SMALL + ["--codec", "int8"], "cuda", ckpt_dir=half,
+                          resume=True)
+    same = all(torch.equal(x, y) for k in ("theta", "phi", "delta", "mu", "nu")
+               for x, y in zip(tree_leaves(_dist_rows(a["state"])[k]),
+                               tree_leaves(_dist_rows(b["state"])[k])))
+    out["resume"] = {"start_step": b["start_step"], "losses_identical": b["losses"] == a["losses"][DIST_MID:],
+                     "bit_identical": bool(same), "resumed_run_s": time.perf_counter() - t0}
+    return out
+
+
+def dist_expected(cfg, name: str, syncs: int) -> dict[str, int]:
+    """A rank's launches: phase 6's design for one replica (one forward and
+    one backward per layer and step; NoLoCo: one update per leaf a sync;
+    int8: one quantize and one dequantize per float buffer of (Δ, φ) a
+    sync; DiLoCo's mean and update are eager: no kernel)."""
+    codec = "int8" if name == "int8" else "none"
+    want = expected_launches(cfg, {"steps": 10}, syncs, codec)
+    if name == "diloco":
+        want["noloco_update"] = 0
+    return {k: want[k] for k in TRAIN_KERNELS + INT8}
+
+
+def dist_phase(dev) -> tuple[dict, dict]:
+    """Phases 44–48: paper-small-125m at full width on 4 ranks sharing the
+    card over gloo, the payload staged through pinned host memory; NoLoCo
+    on the plain and the int8 wire, DiLoCo; then fp32 card vs CPU, a resume
+    on the card, the counted outer step; NCCL where the machine shows two
+    cards or more; and the CLI itself."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = paper_llama.SMALL
+    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             "chip_smoke_dist_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    os.makedirs(ckpt_root)
+    ranks = mesh_lib.spawn(dist_rank, DIST_WORLD, (ckpt_root,), backend="gloo", device="cuda")
+    out, launches = {"card": card(), "world": DIST_WORLD, "backend": "gloo"}, {}
+    for name, _ in DIST_RUNS:
+        rows = [r["full"][name] for r in ranks]
+        want = dist_expected(cfg, name, 2)
+        for row in rows:
+            got = {k: row["launches"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"dist {name} rank {row['rank']}: launches {got} != {want}")
+            if not all(math.isfinite(x) for x in row["losses"]) or not row["losses"][-1] < row["losses"][0]:
+                raise AssertionError(f"dist {name} rank {row['rank']}: losses {row['losses']}")
+            if name == "diloco":   # one all_reduce per buffer of the fused Δ (bf16, fp32),
+                # each in its dtype: the byte model's ring bytes are 2(w-1)/w of them
+                spec = payload.make_spec(bytes_model.abstract_params(cfg))
+                ok = all(c == {"all_reduce": len(spec.buffers)} for c in row["sync_calls"])
+                ok &= all(b == spec.nbytes for b in row["sync_bytes"])
+                ok &= row["payload_bytes"] == round(spec.nbytes * 2 * (DIST_WORLD - 1) / DIST_WORLD)
+            else:
+                ok = all(c == {"p2p": 1} for c in row["sync_calls"])
+                ok &= all(b == row["payload_bytes"] for b in row["sync_bytes"])
+            if not ok or row["outer_syncs"] != 2 or any(row["inner_calls"].values()):
+                raise AssertionError(f"dist {name} rank {row['rank']}: calls {row['sync_calls']} "
+                                     f"bytes {row['sync_bytes']} inner {row['inner_calls']}")
+        if len({json.dumps(r["partners"]) for r in rows}) != 1:
+            raise AssertionError(f"dist {name}: ranks disagree on the partners")
+        summary = rows[0]["summary"]
+        launches[name] = {k: sum(r["launches"][k] for r in rows) for k in TRAIN_KERNELS + INT8}
+        out[name] = {
+            "summary": summary,
+            "partners": rows[0]["partners"],
+            "launches_per_rank": [{k: r["launches"][k] for k in want} for r in rows],
+            "launches_design": want,
+            "inner_step_p50_ms": [r["inner_step_p50_ms"] for r in rows],
+            "inner_step_p99_ms": [r["inner_step_p99_ms"] for r in rows],
+            "outer_step_alone_ms": [r["outer_step_alone_ms"] for r in rows],
+            "outer_split_ms": [r["outer_split_ms"] for r in rows],
+            "sync_calls": rows[0]["sync_calls"], "sync_bytes": rows[0]["sync_bytes"],
+            "payload_bytes": rows[0]["payload_bytes"],
+            "peak_memory_gb": [r["peak_memory_gb"] for r in rows],
+            "card_used_gb": max(r["card_used_gb"] for r in rows),
+            "card_total_gb": rows[0]["card_total_gb"],
+            "loss_first_last": [[r["losses"][0], r["losses"][-1]] for r in rows],
+            "final_weight_std": rows[0]["final_weight_std"],
+        }
+        log(f"dist {name} (4 ranks, gloo, staged={rows[0]['staged']}): " + json.dumps(out[name]))
+    for r in ranks:
+        par = r["parity"]
+        if not (par["partners_identical"] and par["loss_max_rel_diff"] <= LOSS_RTOL
+                and par["weight_std_rel_diff"] <= WSTD_RTOL and min(par["launches"].values()) > 0):
+            raise AssertionError(f"dist fp32 card vs cpu: {par}")
+        res = r["resume"]
+        if not (res["start_step"] == DIST_MID and res["losses_identical"] and res["bit_identical"]):
+            raise AssertionError(f"dist resume on card: {res}")
+    out["card_vs_cpu"] = [r["parity"] for r in ranks]
+    out["resume"] = [r["resume"] for r in ranks]
+    log("dist fp32 card vs cpu (4 ranks): " + json.dumps(out["card_vs_cpu"]))
+    log("dist resume on card (int8 wire): " + json.dumps(out["resume"]))
+    out["one_rank_a_card"] = dist_cards_phase()
+    # the CLI through its own entry point, on the card
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train_distributed", *DIST_SMALL[:-4],
+         "--steps", "4", "--inner-steps", "2"],
+        capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                     "src")), timeout=300)
+    if cli.returncode != 0:
+        raise AssertionError(f"train_distributed CLI failed:\n{cli.stdout}\n{cli.stderr}")
+    out["cli"] = json.loads(cli.stdout.strip().splitlines()[-1])
+    if out["cli"]["device"] != torch.cuda.get_device_name(0) or out["cli"]["backend"] != "gloo":
+        raise AssertionError(f"CLI summary: {out['cli']}")
+    log("dist CLI: " + json.dumps(out["cli"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"dist phases: {out['seconds']:.1f} s")
+    return out, launches
+
+
+def dist_card_rank(group) -> dict:
+    """Phase 48's rank: the plain full-width run, one card each."""
+    row = dist_full_run(group, DIST_RUNS[0][1])
+    return {k: row[k] for k in ("rank", "inner_step_p50_ms", "inner_step_p99_ms",
+                                "outer_step_alone_ms", "outer_split_ms", "sync_calls",
+                                "sync_bytes", "payload_bytes", "peak_memory_gb", "staged")}
+
+
+def dist_cards_phase() -> dict:
+    """Phase 48, where the machine shows two cards or more: the plain
+    full-width run with one rank a card, over NCCL (card to card) and over
+    gloo (staged through pinned host memory), each rank's row; otherwise a
+    line that says why it did not run.  Alone on a machine with several
+    cards: ``python3 -c "import chip_smoke; chip_smoke.dist_cards_phase()"``."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        out = f"not run: NCCL puts one rank on each card and this machine shows {cards}"
+        log("dist one rank a card: " + out)
+        return out
+    world = min(DIST_WORLD, cards)
+    out = {"cards": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines(), "world": world}
+    log(f"dist one rank a card on {world} of: " + json.dumps(out["cards"]))
+    for backend in ("nccl", "gloo"):
+        rows = mesh_lib.spawn(dist_card_rank, world, (), backend=backend, device="cuda")
+        for row in rows:
+            if not (all(c == {"p2p": 1} for c in row["sync_calls"])
+                    and all(b == row["payload_bytes"] for b in row["sync_bytes"])
+                    and row["staged"] == (backend == "gloo")):
+                raise AssertionError(f"dist {backend} one rank a card: {row}")
+        out[backend] = rows
+        log(f"dist {backend} ({world} ranks, one card each): " + json.dumps(rows))
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -4741,6 +5086,7 @@ def main() -> None:
     spec_cli = spec_cli_phase(dev, resume["dir"])
     router = router_phase(dev)
     spec_parity = spec_parity_phase(dev)
+    dist, dist_launches = dist_phase(dev)
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: int8_launches[k] for k in INT8})
     launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
@@ -4749,6 +5095,9 @@ def main() -> None:
     launches["rglru_scan_bwd"] = rec_train["recurrentgemma-9b"][1]["rglru_scan_bwd"]
     for counts in (*streamed_launches.values(), churn_launches,   # the streamed paths
                    *piped_launches.values()):                      # and the routed pipeline
+        for k in TRAIN_KERNELS + INT8:
+            launches[k] += counts[k]
+    for counts in dist_launches.values():   # the replica group: every rank's launches
         for k in TRAIN_KERNELS + INT8:
             launches[k] += counts[k]
     for counts in (single_shot_launches, *spec_launches):   # single-shot and speculative serving
@@ -4837,7 +5186,12 @@ def main() -> None:
         "spec": {name: {label: {k: v for k, v in row.items() if k != "launches_design"}
                         for label, row in rows.items()} for name, rows in spec.items()},
         "spec_cli": spec_cli, "router": router, "spec_card_vs_cpu": spec_parity,
+        "dist": {k: v for k, v in dist.items() if k not in ("noloco", "int8", "diloco")}
+        | {name: {k: dist[name][k] for k in ("inner_step_p50_ms", "outer_step_alone_ms",
+                                             "payload_bytes", "peak_memory_gb", "card_used_gb")}
+           for name in ("noloco", "int8", "diloco")},
         "seconds": time.perf_counter() - t0}))
+    log(f"chip_smoke: all 48 phases in {time.perf_counter() - t0:.1f} s (the build included)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
-"""Communicators for the outer step of the stacked simulation.
+"""Communicators for the outer step: the stacked simulation's and the
+replica group's.
 
-The port of :class:`StackedGather` and :func:`exchange_gossip` from
-``repro/comm/exchange.py``.  Replicas sit on a leading axis of every leaf;
+The port of ``repro/comm/exchange.py``.  In :class:`StackedGather`
+replicas sit on a leading axis of every leaf;
 a replica's partner values come from an index gather with the partner table
 of :mod:`repro_torch.core.pairing`, and the DiLoCo mean is a mean over that
 axis (masked to the active replicas when a mask is given).  A lossy codec
@@ -11,7 +12,16 @@ own, so the simulation sees the values a compressed wire would deliver.
 :func:`exchange_gossip` expresses the paper's §3.2 overlap: when the
 partner's φ was pre-sent (:func:`presend`) during the previous inner phase
 (φ does not change during inner steps), only Δ crosses the wire at the
-sync.  The multi-GPU communicators come with the multi-GPU runtime.
+sync.
+
+Over the replica group (:mod:`repro_torch.launch.mesh`, one rank per
+replica), :class:`ShardedPermute` packs this rank's tree, encodes each
+buffer, moves every buffer to and from the round's partner in one batched
+send/receive, then decodes and unpacks: the pairwise exchange, with no
+collective.  :class:`AllReduce` is DiLoCo's group mean (an ``all_reduce``
+of each packed buffer in its own dtype, divided by the world).  The elastic
+weighted mean and the φ′ pre-send over the group come with ROADMAP Queue 1
+item 9b.
 """
 
 from __future__ import annotations
@@ -26,7 +36,8 @@ from repro_torch.tree import tree_map
 
 PyTree = Any
 
-__all__ = ["Communicator", "StackedGather", "wire_roundtrip", "exchange_gossip", "presend"]
+__all__ = ["Communicator", "StackedGather", "ShardedPermute", "AllReduce", "wire_roundtrip",
+           "exchange_gossip", "presend"]
 
 
 def wire_roundtrip(tree: PyTree, cfg: CommConfig, *, lead: int = 0) -> PyTree:
@@ -43,9 +54,16 @@ def wire_roundtrip(tree: PyTree, cfg: CommConfig, *, lead: int = 0) -> PyTree:
 
 
 class Communicator:
-    """Pairwise gossip exchange and group mean over the replica dimension."""
+    """Pairwise gossip exchange and group mean over the replica dimension:
+    :class:`StackedGather` in the stacked simulation, :class:`ShardedPermute`
+    and :class:`AllReduce` over the replica group.  The elastic weighted
+    mean and the pre-send over the group come with ROADMAP Queue 1 item 9b,
+    a model axis within a replica with item 9c."""
 
     cfg: CommConfig
+    #: the plain wire may go leaf by leaf (a gather costs no message); a
+    #: communicator that sends messages takes the whole tree at once
+    per_leaf: bool = False
 
     def exchange(self, tree: PyTree) -> PyTree:
         """Return the PARTNER's copy of ``tree`` (this replica's view)."""
@@ -62,6 +80,8 @@ class StackedGather(Communicator):
     ``active`` (optional (world,) bool mask) restricts :meth:`allreduce_mean`
     to the active replicas: a dropped replica contributes nothing to the
     mean, and every replica still receives it."""
+
+    per_leaf = True
 
     def __init__(self, partner: torch.Tensor | None, cfg: CommConfig | None = None, *,
                  active: torch.Tensor | None = None):
@@ -92,6 +112,64 @@ class StackedGather(Communicator):
             return (x * wx).float().sum(0, keepdim=True).to(x.dtype).expand_as(x)
 
         return tree_map(_masked, tree)
+
+
+class ShardedPermute(Communicator):
+    """One rank's replica: its partner's copy comes over the group.
+
+    ``pairs`` is the round's (source, destination) list over ranks (an
+    involution for the gossip schedules); this rank sends to its
+    destination and receives from the rank whose destination it is, every
+    packed buffer in one batched send/receive.  A rank paired with itself
+    moves nothing: it decodes its own wire, as the reference's
+    ``ppermute`` over a self-pair gives it.  The group's clock, when one is
+    set, splits the call into encode (pack and code), D2H, wire, H2D and
+    decode (decode and unpack), and puts the time before it under update."""
+
+    def __init__(self, group, pairs, cfg: CommConfig | None = None):
+        self.group = group
+        self.pairs = [(int(s), int(d)) for s, d in pairs]
+        dst = dict(self.pairs)
+        src = {d: s for s, d in self.pairs}
+        if len(dst) != group.world or len(src) != group.world:
+            raise ValueError(f"pairs {self.pairs} are no permutation of {group.world} ranks")
+        self.dst, self.src = dst[group.rank], src[group.rank]
+        self.cfg = cfg or CommConfig()
+        self.cfg.validate()
+
+    def exchange(self, tree: PyTree) -> PyTree:
+        codec = get_codec(self.cfg)
+        self.group.mark("update")   # the outer step's own math before the exchange (Δ)
+        buffers, spec = payload_lib.pack(tree, fuse=self.cfg.fuse)
+        wires = [codec.encode(buf) for buf in buffers]
+        del buffers
+        self.group.mark("encode")
+        if self.dst != self.group.rank or self.src != self.group.rank:
+            wires = self.group.exchange(wires, self.dst, self.src)
+        out = [codec.decode(w, bs.dtype, bs.size) for w, bs in zip(wires, spec.buffers)]
+        tree = payload_lib.unpack(out, spec)
+        self.group.mark("decode")
+        return tree
+
+
+class AllReduce(Communicator):
+    """DiLoCo's group mean over the replica group: each packed buffer is
+    summed over the ranks in its own dtype by one ``all_reduce`` and divided
+    by the world, as the reference's ``lax.pmean``, so the wire carries the
+    buffers' bytes and no more."""
+
+    def __init__(self, group, cfg: CommConfig | None = None):
+        self.group = group
+        self.cfg = cfg or CommConfig()
+
+    def allreduce_mean(self, tree: PyTree) -> PyTree:
+        self.group.mark("update")
+        buffers, spec = payload_lib.pack(tree, fuse=self.cfg.fuse)
+        self.group.mark("encode")
+        out = [self.group.all_reduce_sum(buf) / self.group.world for buf in buffers]
+        tree = payload_lib.unpack(out, spec)
+        self.group.mark("decode")
+        return tree
 
 
 def exchange_gossip(comm: Communicator, delta: PyTree, phi: PyTree, *,

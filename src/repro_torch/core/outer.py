@@ -19,8 +19,10 @@ momentum update in fp32 cast back.  Asynchronous rounds discount a stale
 parameter-group stream at a time on staggered round offsets
 (:class:`StreamSchedule`, :func:`outer_step_stacked_stream`), with the
 §3.2 φ-prefetch: a stream's φ′ is pre-sent along its next pairing, so its
-next sync blocks on Δ alone.  The sharded steps come with the multi-GPU
-runtime (ROADMAP Queue 1 item 9).
+next sync blocks on Δ alone.  Over the replica group (one rank per
+replica, :mod:`repro_torch.launch.mesh`) :func:`outer_step_sharded` runs
+the same step on the rank's row, the partner's (Δ, φ) from one batched
+send/receive; its streamed twin comes with ROADMAP Queue 1 item 9b.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ __all__ = [
     "OuterConfig", "OuterState", "gamma_band", "default_gamma", "init_outer_state",
     "outer_gradient", "stale_discount", "noloco_momentum_update", "diloco_momentum_update",
     "outer_step", "outer_step_stacked", "StreamSchedule", "outer_step_stacked_stream",
+    "outer_step_sharded",
 ]
 
 
@@ -229,7 +232,7 @@ def outer_step(state: OuterState, theta: PyTree, cfg: OuterConfig,
         discount = _wire_discount(staleness)
     if cfg.method == "none":
         return OuterState(phi=theta, delta=state.delta, step=state.step + 1), theta
-    if cfg.method == "noloco" and comm.cfg.codec == "none":
+    if cfg.method == "noloco" and comm.cfg.codec == "none" and comm.per_leaf:
         phi_next, delta_next = _noloco_leafwise(state, theta, cfg, comm, discount)
         return OuterState(phi=phi_next, delta=delta_next, step=state.step + 1), phi_next
     delta = outer_gradient(theta, state.phi)
@@ -281,6 +284,28 @@ def _noloco_leafwise(state: OuterState, theta: PyTree, cfg: OuterConfig,
     trees = (theta, state.phi, state.delta) + (() if phi_prefetched is None else (phi_prefetched,))
     index = tree_map(one, *trees)
     return tree_map(lambda i: out[i][0], index), tree_map(lambda i: out[i][1], index)
+
+
+@torch.no_grad()
+def outer_step_sharded(state: OuterState, theta: PyTree, cfg: OuterConfig, *, group,
+                       pairs=None, comm_cfg: CommConfig | None = None) -> tuple[OuterState, PyTree]:
+    """One outer step on one rank of the replica group: ``theta``, φ and δ
+    are this rank's replica (a leading axis of 1).  NoLoCo: a
+    :class:`~repro_torch.comm.exchange.ShardedPermute` over ``pairs``
+    moves the packed (Δ, φ) payload to the partner and back, the only
+    cross-rank call, and no collective.  DiLoCo: an
+    :class:`~repro_torch.comm.exchange.AllReduce`.  The arithmetic is
+    :func:`outer_step`'s, so each rank's row equals the stacked step's
+    row.  Returns (new_state, new_theta)."""
+    cfg.validate()
+    comm = None
+    if cfg.method == "noloco":
+        if pairs is None:
+            raise ValueError("the sharded NoLoCo step needs the round's pairs")
+        comm = exchange_lib.ShardedPermute(group, pairs, comm_cfg)
+    elif cfg.method == "diloco":
+        comm = exchange_lib.AllReduce(group, comm_cfg)
+    return outer_step(state, theta, cfg, comm)
 
 
 def _select(active, device):

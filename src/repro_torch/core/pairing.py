@@ -41,8 +41,10 @@ __all__ = [
     "random_bits_torch",
     "pairing_permutation",
     "partner_table",
+    "ppermute_pairs",
     "hypercube_dim",
     "hypercube_partner_table",
+    "hypercube_ppermute_pairs",
     "all_pairs_seen",
     "Membership",
     "elastic_partner_table",
@@ -150,6 +152,15 @@ def partner_table(step: int, world: int, *, seed: int = 0) -> np.ndarray:
     return partner
 
 
+def ppermute_pairs(step: int, world: int, *, seed: int = 0) -> list[tuple[int, int]]:
+    """(source, destination) pairs of outer step ``step``'s exchange: each
+    replica sends its payload to its partner and receives the partner's,
+    so the list is an involution (the odd one out of an odd world addresses
+    itself and moves nothing)."""
+    partner = partner_table(step, world, seed=seed)
+    return [(int(src), int(partner[src])) for src in range(world)]
+
+
 def hypercube_dim(step: int, world: int, *, seed: int = 0) -> int:
     """The hypercube dimension ``j`` used at outer step ``step``: a random
     cyclic order over the log2(world) dimensions, refreshed every log2(world)
@@ -172,6 +183,12 @@ def hypercube_partner_table(step: int, world: int, *, seed: int = 0) -> np.ndarr
     if world == 1:
         return ids
     return ids ^ (1 << j)
+
+
+def hypercube_ppermute_pairs(step: int, world: int, *, seed: int = 0) -> list[tuple[int, int]]:
+    """(source, destination) pairs of :func:`hypercube_partner_table`."""
+    partner = hypercube_partner_table(step, world, seed=seed)
+    return [(int(src), int(partner[src])) for src in range(world)]
 
 
 def all_pairs_seen(steps: int, world: int, *, seed: int = 0) -> np.ndarray:

@@ -1,0 +1,280 @@
+"""The replica group: one process per NoLoCo replica over ``torch.distributed``.
+
+The port of ``repro/launch/mesh.py`` for the replica axis.  Where the JAX
+package lays its replicas on the ``data`` axis of a device mesh and moves
+the outer payload with ``ppermute`` inside ``shard_map``, the port runs
+one process (a rank) per replica, each holding its replica on its own
+device, and moves the payload with ``torch.distributed``.
+
+:func:`init_replica_group` joins the process group and returns a
+:class:`ReplicaGroup`: the rank, the world, the rank's device and the
+backend, and the only calls the runtime makes across ranks, each counted
+in ``calls``.  The backend is the caller's choice and nothing switches it:
+
+  * ``nccl`` moves CUDA tensors between cards, one rank per card: more
+    ranks than cards raises, naming ``--backend gloo``;
+  * ``gloo`` moves host tensors.  On CUDA every payload is staged through
+    pinned host buffers (the slow link of the paper's setting), so ranks
+    can share one card.
+
+:func:`spawn` starts ``world`` ranks with ``torch.multiprocessing`` (start
+method ``spawn``) and a ``file://`` rendezvous in a temporary directory,
+so no network port is needed, runs ``fn(group, *args)`` on each and
+returns their results in rank order.  On CUDA the parent builds every
+kernel first, so the ranks load the libraries instead of each running
+``nvcc``.  Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) a process
+joins with :func:`init_replica_group` and ``init_method="env://"``
+instead.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import pickle
+import tempfile
+import time
+from typing import Any, Callable, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+__all__ = ["BACKENDS", "ReplicaGroup", "PhaseClock", "init_replica_group", "check_backend",
+           "spawn", "from_env"]
+
+BACKENDS = ("gloo", "nccl")
+
+
+class PhaseClock:
+    """Wall time by phase of one call, each phase ended by :meth:`mark`
+    after the device has finished its work (a synchronize on CUDA): the
+    outer step's encode / D2H / wire / H2D / decode / update split.  Set
+    as :attr:`ReplicaGroup.clock` by a caller that times a step; without
+    one the runtime's path never synchronizes."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.ms: dict[str, float] = collections.defaultdict(float)
+        self._last = None
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def start(self) -> None:
+        self._last = self._now()
+
+    def mark(self, phase: str) -> None:
+        now = self._now()
+        self.ms[phase] += (now - self._last) * 1e3
+        self._last = now
+
+
+@dataclasses.dataclass
+class ReplicaGroup:
+    """One rank's view of the replica group and its cross-rank calls.
+
+    ``calls`` counts each call by kind (``p2p``: one batched send/receive,
+    ``all_reduce``, ``gather``, ``broadcast``, ``barrier``) and ``sent_bytes``
+    the bytes this rank handed to ``p2p`` sends and ``all_reduce``.
+    ``clock``, when a caller sets one, splits the exchanges that follow
+    into their phases (:meth:`mark`)."""
+
+    rank: int
+    world: int
+    device: torch.device
+    backend: str
+    calls: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    sent_bytes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    clock: PhaseClock | None = None
+    _pinned: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def staged(self) -> bool:
+        """Whether payloads cross through host buffers (gloo with CUDA)."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def mark(self, phase: str) -> None:
+        """End ``phase`` on :attr:`clock`, if one is set."""
+        if self.clock is not None:
+            self.clock.mark(phase)
+
+    def _host(self, key, like: torch.Tensor) -> torch.Tensor:
+        """A pinned host buffer shaped like ``like``, kept per ``key``."""
+        buf = self._pinned.get(key)
+        if buf is None or buf.shape != like.shape or buf.dtype != like.dtype:
+            buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+            self._pinned[key] = buf
+        return buf
+
+    def exchange(self, tensors: Sequence[torch.Tensor], dst: int, src: int) -> list[torch.Tensor]:
+        """Send ``tensors`` to rank ``dst`` and receive the same shapes from
+        rank ``src``, all in one ``batch_isend_irecv``.  Staged: each
+        tensor is copied into a pinned host buffer first (D2H) and each
+        received one back to the device (H2D)."""
+        self.calls["p2p"] += 1
+        self.sent_bytes["p2p"] += sum(t.numel() * t.element_size() for t in tensors)
+        if self.staged:
+            send = []
+            for i, t in enumerate(tensors):
+                host = self._host(("send", i), t)
+                host.copy_(t)
+                send.append(host)
+            recv = [self._host(("recv", i), t) for i, t in enumerate(tensors)]
+            self.mark("d2h")
+        else:
+            send = list(tensors)
+            recv = [torch.empty_like(t) for t in tensors]
+        ops = [dist.P2POp(dist.isend, t, dst, tag=i) for i, t in enumerate(send)]
+        ops += [dist.P2POp(dist.irecv, t, src, tag=i) for i, t in enumerate(recv)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        self.mark("wire")
+        if self.staged:
+            recv = [h.to(self.device, copy=True) for h in recv]
+            self.mark("h2d")
+        return recv
+
+    def all_reduce_sum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The sum of ``tensor`` over the ranks (a new tensor on this
+        rank's device; staged through a pinned host buffer)."""
+        self.calls["all_reduce"] += 1
+        self.sent_bytes["all_reduce"] += tensor.numel() * tensor.element_size()
+        if self.staged:
+            host = self._host(("reduce", 0), tensor)
+            host.copy_(tensor)
+            self.mark("d2h")
+            dist.all_reduce(host)
+            self.mark("wire")
+            out = host.to(self.device, copy=True)
+            self.mark("h2d")
+            return out
+        out = tensor.clone()
+        dist.all_reduce(out)
+        self.mark("wire")
+        return out
+
+    def gather_rows(self, tensor: torch.Tensor) -> torch.Tensor | None:
+        """Rank 0: every rank's ``tensor`` stacked along a new leading axis
+        in rank order, on the CPU; the other ranks: None."""
+        self.calls["gather"] += 1
+        t = tensor.detach().contiguous()
+        t = t.cpu() if self.backend == "gloo" else t.to(self.device)
+        parts = [torch.empty_like(t) for _ in range(self.world)] if self.rank == 0 else None
+        dist.gather(t, parts, dst=0)
+        return torch.stack([p.cpu() for p in parts]) if self.rank == 0 else None
+
+    def gather_object(self, obj: Any) -> list | None:
+        """Rank 0: every rank's ``obj`` in rank order; the others: None."""
+        self.calls["gather"] += 1
+        out = [None] * self.world if self.rank == 0 else None
+        dist.gather_object(obj, out, dst=0)
+        return out
+
+    def broadcast_object(self, obj: Any) -> Any:
+        """Rank 0's ``obj`` on every rank."""
+        self.calls["broadcast"] += 1
+        box = [obj]
+        dist.broadcast_object_list(box, src=0,
+                                   device=self.device if self.backend == "nccl" else None)
+        return box[0]
+
+    def barrier(self) -> None:
+        self.calls["barrier"] += 1
+        dist.barrier()
+
+
+def check_backend(backend: str, world: int, device: str | torch.device) -> torch.device:
+    """The device type the ranks run on, after checking that ``backend``
+    serves ``world`` ranks there: ``nccl`` needs CUDA and one card per
+    rank; ``gloo`` runs anywhere."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; options: {list(BACKENDS)}")
+    dev = resolve_device(device)
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError("--backend nccl moves CUDA tensors: use --device cuda, or "
+                             "--backend gloo on the CPU")
+        cards = torch.cuda.device_count()
+        if world > cards:
+            raise ValueError(
+                f"--backend nccl puts one rank on each card, and {world} ranks need {world} "
+                f"cards where {cards} are visible; run with --backend gloo, which stages "
+                "the payload through host memory so that ranks can share a card")
+    return dev
+
+
+def init_replica_group(world: int, backend: str, device: str | torch.device, *,
+                       rank: int | None = None, init_method: str = "env://") -> ReplicaGroup:
+    """Join the process group as ``rank`` (default: ``$RANK``) of ``world``
+    over ``backend`` and return the :class:`ReplicaGroup`.  The rank's
+    device is ``cuda:{rank % device_count}`` for ``device="cuda"``, or the
+    CPU when the caller asks for it.  A barrier, which every rank joins,
+    is the group's first call: torch leaves a first ``batch_isend_irecv``
+    that some rank sits out (a rank paired with itself in an odd world)
+    undefined over NCCL."""
+    dev = check_backend(backend, world, device)
+    if rank is None:
+        rank = int(os.environ["RANK"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+    dist.barrier(**({"device_ids": [dev.index]} if backend == "nccl" else {}))
+    return ReplicaGroup(rank=rank, world=world, device=dev, backend=backend)
+
+
+def from_env() -> tuple[int, int] | None:
+    """(rank, world) when started by ``torchrun``, else None."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    return None
+
+
+def _entry(rank: int, fn: Callable, world: int, backend: str, device: str, init_method: str,
+           out_dir: str, threads: int | None) -> None:
+    if threads:
+        torch.set_num_threads(threads)
+    with open(os.path.join(out_dir, "args.pkl"), "rb") as f:
+        args = pickle.load(f)
+    group = init_replica_group(world, backend, device, rank=rank, init_method=init_method)
+    try:
+        result = fn(group, *args)
+        with open(os.path.join(out_dir, f"result-{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world: int, args: tuple = (), *, backend: str = "gloo",
+          device: str = "cuda", threads: int | None = None) -> list:
+    """Run ``fn(group, *args)`` on ``world`` spawned ranks; returns their
+    results (picklable) in rank order.  ``fn`` must be a module-level
+    function.  ``threads`` sets each rank's intra-op thread count (default:
+    the host's cores shared out between the ranks)."""
+    import torch.multiprocessing as mp
+
+    dev = check_backend(backend, world, device)
+    threads = threads or max(1, torch.get_num_threads() // world)
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+
+        build.build_all()
+    with tempfile.TemporaryDirectory(prefix="replicas-") as tmp:
+        # the arguments go through a file: a spawned child reads what its
+        # parent pipes to it only after importing the main module, so large
+        # piped arguments would start the ranks one after another
+        with open(os.path.join(tmp, "args.pkl"), "wb") as f:
+            pickle.dump(tuple(args), f)
+        init_method = "file://" + os.path.join(tmp, "rendezvous")
+        mp.start_processes(_entry, args=(fn, world, backend, dev.type, init_method, tmp, threads),
+                           nprocs=world, join=True, start_method="spawn")
+        results = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"result-{rank}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+    return results

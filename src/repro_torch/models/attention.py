@@ -22,7 +22,7 @@ chunk column.  Single-shot paged prefill of one slot runs the flash op over
 the fresh K/V and then scatters them into the slot's pages.  On the card
 the flash and paged ops launch the CUDA kernels.  The reference's
 sequence-sharded dense cache (``ctx.kv_shard_seq``, tensor parallel heads)
-is multi-device and comes with ROADMAP Queue 1 item 9.
+is multi-device and comes with the model axis, ROADMAP Queue 1 item 9c.
 """
 
 from __future__ import annotations

@@ -18,7 +18,9 @@ the JAX ``GossipProgram.state_pytree`` tree with numpy leaves, so both
 packages can continue training from one point; ``train_state_to_numpy`` is
 its inverse, the tree a checkpoint holds, with the streaming runtime's
 in-flight ``stream`` subtree (the prefetched φ loads through
-``stacked_params_from_jax_numpy``).  ``pipeline_state_from_jax_numpy`` /
+``stacked_params_from_jax_numpy``).  ``gossip_tree_from_distributed``
+rearranges the distributed runtime's checkpoint (JAX's
+``DistributedProgram`` layout) into that one.  ``pipeline_state_from_jax_numpy`` /
 ``pipeline_state_to_numpy`` carry the routed pipeline's state (per-stage
 lists, each stage checked against :func:`stage_shapes`) in the layout of
 JAX's ``PipelineProgram.state_pytree``.  Host leaves are numpy arrays,
@@ -232,6 +234,25 @@ def train_state_from_jax_numpy(tree: dict, cfg, device="cpu", dtype: torch.dtype
         ),
         inner_step=int(tree["inner_step"]),
     )
+
+
+def gossip_tree_from_distributed(tree: dict) -> dict:
+    """The JAX ``GossipProgram.state_pytree`` layout of a distributed
+    runtime's checkpoint tree (``{"theta", "opt", "phi", "delta",
+    "outer_step", "inner_step"}``, the layout of JAX's
+    ``DistributedProgram.state_pytree``): φ, δ and the outer counter move
+    under ``outer``.  Every replica's outer counter must agree."""
+    counters = np.unique(_host(tree["outer_step"]))
+    if counters.size != 1:
+        raise ValueError(f"replicas at different outer steps {counters.tolist()} do not make "
+                         "one stacked state")
+    out = {"theta": tree["theta"], "opt": tree["opt"],
+           "outer": {"phi": tree["phi"], "delta": tree["delta"],
+                     "step": np.int32(counters[0])},
+           "inner_step": np.int32(int(tree["inner_step"]))}
+    if "membership" in tree:
+        out["membership"] = tree["membership"]
+    return out
 
 
 def _host(leaf) -> np.ndarray:

@@ -65,20 +65,28 @@ def adamw_init(params: PyTree) -> AdamWState:
 
 
 def _square_sum(x: torch.Tensor) -> torch.Tensor:
-    """(R,) fp32 Σ x² of each replica's slice; a leaf of more than 2^30
-    elements (recurrentgemma-9b's stacked embedding) in slices of SLICE
-    elements per replica, so its fp32 square is never whole."""
+    """(R,) fp32 Σ x² of each replica's slice, each slice reduced on its
+    own in parts of at most SLICE elements: a replica's sum does not depend
+    on how many replicas are stacked beside it (a rank of the replica group
+    holds one), and no fp32 square of more than SLICE elements exists
+    (recurrentgemma-9b's embedding row is 1.05 B values)."""
     flat = x.flatten(1)
-    if flat.numel() <= 1 << 30:
-        return flat.float().square().sum(1)
-    parts = [flat[:, i:i + SLICE].float().square().sum(1) for i in range(0, flat.shape[1], SLICE)]
-    return torch.stack(parts).sum(0)
+    n = flat.shape[1]
+
+    def one(row: torch.Tensor) -> torch.Tensor:
+        if n <= SLICE:
+            return row.float().square().sum()
+        return torch.stack([row[i:i + SLICE].float().square().sum()
+                            for i in range(0, n, SLICE)]).sum()
+
+    return torch.stack([one(row) for row in flat])
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
-    """(R,) fp32 norm of each replica's slice of the tree."""
-    sums = [_square_sum(x) for x in tree_leaves(tree)]
-    return torch.stack(sums).sum(0).sqrt()
+    """(R,) fp32 norm of each replica's slice of the tree, each replica's
+    leaf sums added on their own."""
+    sums = torch.stack([_square_sum(x) for x in tree_leaves(tree)], dim=1)   # (R, leaves)
+    return torch.stack([row.sum() for row in sums]).sqrt()
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

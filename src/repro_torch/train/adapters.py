@@ -1,6 +1,7 @@
-"""The stacked-simulation and routed-pipeline runtimes as
+"""The stacked-simulation, replica-group and routed-pipeline runtimes as
 :class:`TrainProgram` implementations (the port of
-``repro/train/adapters.py``'s ``GossipProgram`` and ``PipelineProgram``).
+``repro/train/adapters.py``'s ``GossipProgram``, ``DistributedProgram``
+and ``PipelineProgram``).
 
 Replicas sit on a leading axis of every state leaf, on one device: the
 card, or the CPU when asked.  Every replica starts from the same weights,
@@ -30,6 +31,13 @@ layout, membership and the in-flight ``stream`` state included
 (:func:`repro_torch.models.convert.train_state_to_numpy`), so a JAX
 checkpoint resumes here and this program's restore in JAX.
 
+The replica group (:class:`DistributedProgram` over :class:`~repro_torch.
+launch.train_distributed.DistributedTrainer`, one rank per replica, fixed
+world): each rank takes its replica's rows of the loader's stacked
+batch; eval, the weight std and checkpoints gather across the ranks
+outside the outer step, and the checkpoint is JAX's
+``DistributedProgram.state_pytree`` tree, written by rank 0.
+
 The routed pipeline (:class:`PipelineProgram` over :class:`~repro_torch.
 pipeline.PipelineTrainer`): §3.1 random routing between stage replicas and
 the per-stage gossip outer step, its checkpoint in the layout of JAX's
@@ -56,12 +64,13 @@ from repro_torch.models import convert
 from repro_torch.models import model as model_api
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWState
+from repro_torch.parallel.steps import ELASTIC_ITEM
 from repro_torch.pipeline import PipelineTrainer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
-__all__ = ["GossipProgram", "PipelineProgram"]
+__all__ = ["GossipProgram", "DistributedProgram", "PipelineProgram"]
 
 
 def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -372,10 +381,14 @@ class GossipProgram(_ElasticSurface):
                                             stream=stream)
 
     def load_state_pytree(self, state: TrainState, tree: dict) -> TrainState:
-        """The state of a checkpoint in the JAX layout, its membership and
+        """The state of a checkpoint in the JAX layout (the stacked
+        runtime's, or the distributed runtime's, whose replicas' rows make
+        the stacked state), its membership and
         partition restored into the elastic context and, when streaming,
         its in-flight ``stream`` state (a checkpoint without one: nothing
         pre-sent, so every stream's next sync blocks)."""
+        if "outer" not in tree and "phi" in tree:   # the distributed runtime's layout
+            tree = convert.gossip_tree_from_distributed(tree)
         mem = tree.get("membership")
         if mem is not None:
             mask = np.asarray(mem["mask"], dtype=bool)
@@ -401,6 +414,119 @@ class GossipProgram(_ElasticSurface):
             bytes_model.abstract_params(self.cfg), self.tcfg.comm, method=method,
             world=self.replicas,
         )
+
+
+class DistributedProgram(_ElasticSurface):
+    """Replica-group runtime over a configured ``DistributedTrainer``: this
+    rank's replica, fixed world (``elastic`` is None; elastic rounds come
+    with ROADMAP Queue 1 item 9b).
+
+    Every rank runs the loop; only rank 0 writes telemetry and checkpoints
+    (the loop reads ``rank`` and calls ``barrier`` after a save).  The
+    per-step loss the loop sees is this rank's replica's; eval and the
+    weight std are over all replicas."""
+
+    elastic = None
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.group = trainer.group
+        self.rank = trainer.group.rank
+        self.replicas = trainer.plan.replicas
+        self.replica = trainer.plan.replica_of(self.rank)
+
+    def _rows(self, batch: dict) -> dict:
+        """This replica's rows of a stacked (R, B, S) batch: the rows the
+        reference's ``_to_global`` gives replica r."""
+        r = self.replica
+        return {k: torch.from_numpy(np.ascontiguousarray(v[r:r + 1])).to(self.group.device)
+                for k, v in batch.items()}
+
+    def barrier(self) -> None:
+        self.group.barrier()
+
+    def init_state(self, example_batch: dict) -> dict:
+        return self.trainer.init_state(self._rows(example_batch))
+
+    def inner_step(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        return self.trainer.inner_step(state, self._rows(batch))
+
+    def maybe_outer_step(self, state: dict) -> tuple[dict, bool]:
+        return self.trainer.maybe_outer_step(state)
+
+    def eval_step(self, state: dict, batch: dict) -> float:
+        """Mean over the replicas of their grad-free losses: rank 0 gathers
+        the (R,) losses, means them and broadcasts the mean."""
+        rows = self.group.gather_rows(self.trainer.eval_loss(state, self._rows(batch)).float())
+        mean = None if rows is None else float(rows.reshape(-1).mean())
+        return self.group.broadcast_object(mean)
+
+    def _gather_tree(self, tree: PyTree) -> PyTree | None:
+        """Rank 0: the replicas' rows of a (1, ...)-leaved tree as one
+        stacked (R, ...) tree on the CPU, gathered one packed buffer per
+        dtype; the other ranks: None."""
+        buffers, spec = payload_lib.pack(tree, lead=1)
+        rows = [self.group.gather_rows(b[0]) for b in buffers]
+        return None if self.rank else payload_lib.unpack(rows, spec)
+
+    def weight_std(self, state: dict) -> float:
+        stacked = self._gather_tree(state["theta"])
+        std = None
+        if stacked is not None:
+            stacked = tree_map(lambda x: x.to(self.group.device), stacked)
+            std = float(metrics_lib.replica_weight_std(stacked))
+        return self.group.broadcast_object(std)
+
+    def state_pytree(self, state: dict) -> dict | None:
+        """Rank 0: JAX's ``DistributedProgram.state_pytree`` tree with host
+        leaves, every replica's rows gathered; the other ranks: None."""
+        trees = {k: self._gather_tree(v) for k, v in (
+            ("theta", state["theta"]), ("mu", state["opt"].mu), ("nu", state["opt"].nu),
+            ("phi", state["phi"]), ("delta", state["delta"]))}
+        count = self.group.gather_rows(state["opt"].count.to(torch.int32))
+        step = self.group.gather_rows(torch.tensor([state["outer_step"]], dtype=torch.int32))
+        if self.rank:
+            return None
+        host = lambda t: tree_map(convert.to_host, t)
+        return {"theta": host(trees["theta"]),
+                "opt": {"mu": host(trees["mu"]), "nu": host(trees["nu"]),
+                        "count": count.reshape(-1).numpy()},
+                "phi": host(trees["phi"]), "delta": host(trees["delta"]),
+                "outer_step": step.reshape(-1).numpy(),
+                "inner_step": np.int64(state["inner_step"])}
+
+    def load_state_pytree(self, state: dict, tree: dict) -> dict:
+        """This replica's row of a checkpoint in JAX's ``DistributedProgram``
+        layout (a stacked runtime's checkpoint is not one: its counters
+        differ in shape)."""
+        if "membership" in tree and not np.asarray(tree["membership"]["mask"], bool).all():
+            raise NotImplementedError(f"resuming a partial membership comes with {ELASTIC_ITEM}")
+        r, cfg, dev = self.replica, self.trainer.cfg, self.group.device
+        row = lambda t: tree_map(lambda a: a[r:r + 1], t)
+        counts = np.asarray(tree["opt"]["count"]).astype(np.int32)
+        world = counts.shape[0]
+        if world != self.replicas:
+            raise ValueError(f"checkpoint holds {world} replicas, this run {self.replicas}")
+        params = lambda t, dtype=None: convert.stacked_params_from_jax_numpy(
+            row(t), cfg, device=dev, dtype=dtype)
+        return dict(
+            state,
+            theta=params(tree["theta"]),
+            opt=AdamWState(mu=params(tree["opt"]["mu"], torch.float32),
+                           nu=params(tree["opt"]["nu"], torch.float32),
+                           count=torch.from_numpy(counts[r:r + 1].copy()).to(dev)),
+            phi=params(tree["phi"]), delta=params(tree["delta"]),
+            outer_step=int(np.asarray(tree["outer_step"]).reshape(-1)[r]),
+            inner_step=int(tree["inner_step"]),
+        )
+
+    def comm_cost(self):
+        method = self.trainer.outer_cfg.method
+        if method == "none":
+            return None
+        return bytes_model.outer_step_cost(
+            bytes_model.abstract_params(self.trainer.cfg), self.trainer.comm_cfg,
+            method=method, world=self.replicas)
 
 
 class PipelineProgram(_ElasticSurface):

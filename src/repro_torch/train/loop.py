@@ -12,6 +12,12 @@ checkpoints with full resume: the program's state (``TrainProgram.
 state_pytree``) and the loop's step cursor, in the JAX package's layout, the
 data loader fast-forwarded with ``make_loader(start_step)``.  A resumed run
 continues the uninterrupted trajectory exactly.
+
+A program of several ranks (``rank``, ``barrier``: the replica group's
+:class:`~repro_torch.train.adapters.DistributedProgram`) runs the loop on
+every rank: each builds the checkpoint tree (a gather), rank 0 alone
+writes it and the telemetry, and the ranks meet at a barrier after every
+save, so none reads a checkpoint that is still being written.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ class TrainLoop:
         self.cfg = cfg
         self.eval_set = eval_set or []
         self._jsonl = None
+        self._writer = getattr(program, "rank", 0) == 0
 
     def _emit(self, event: str, **fields) -> None:
         if self._jsonl is None:
@@ -78,8 +85,13 @@ class TrainLoop:
         t0 = time.time()
         tree = {"program": self.program.state_pytree(state),
                 "loop": {"step": np.int64(step), **keys}}
-        path = ckpt_lib.save(self.cfg.ckpt_dir, step, tree, keep=self.cfg.ckpt_keep)
-        self._emit("ckpt", step=step, path=path, seconds=round(time.time() - t0, 6))
+        path = None
+        if self._writer:
+            path = ckpt_lib.save(self.cfg.ckpt_dir, step, tree, keep=self.cfg.ckpt_keep)
+            self._emit("ckpt", step=step, path=path, seconds=round(time.time() - t0, 6))
+        barrier = getattr(self.program, "barrier", None)
+        if barrier is not None:
+            barrier()
         return path
 
     def _try_resume(self, state):
@@ -99,7 +111,7 @@ class TrainLoop:
 
     def run(self) -> dict[str, Any]:
         cfg = self.cfg
-        if cfg.log_jsonl:
+        if cfg.log_jsonl and self._writer:
             self._jsonl = open(cfg.log_jsonl, "a")
         try:
             return self._run()
@@ -122,6 +134,7 @@ class TrainLoop:
             comm=cost.as_dict() if cost else None,
         )
         losses: list[float] = []
+        step_dts: list[float] = []
         evals: list[tuple[int, float]] = []
         weight_stds: list[tuple[int, float]] = []
         outer_syncs = comm_bytes = blocking_bytes = total_tokens = 0
@@ -153,6 +166,7 @@ class TrainLoop:
                 self._emit("membership", step=t + 1, epoch=epoch,
                            num_active=mem.num_active, active=list(mem.active_ids))
             dt = time.time() - step_t0
+            step_dts.append(dt)
             self._emit(
                 "step", step=t + 1, loss=loss, dt_s=round(dt, 6),
                 tokens_per_s=round(total_tokens / max(time.time() - t0, 1e-9), 1),
@@ -180,7 +194,7 @@ class TrainLoop:
                 evals.append((t + 1, ev))
                 weight_stds.append((t + 1, wstd))
                 self._emit("eval", step=t + 1, eval_loss=ev, weight_std=wstd)
-                if cfg.log:
+                if cfg.log and self._writer:
                     print(f"step {t+1}: train={loss:.4f} eval={ev:.4f} "
                           f"wstd={wstd:.6f} ({time.time()-t0:.0f}s)", flush=True)
             if cfg.ckpt_dir and cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
@@ -209,6 +223,7 @@ class TrainLoop:
         self._emit("run_end", **summary)
         return {
             "losses": losses,
+            "step_dt_s": step_dts,
             "evals": evals,
             "weight_stds": weight_stds,
             "state": state,

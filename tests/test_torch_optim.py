@@ -87,3 +87,25 @@ def test_schedules_match_jax(name, make):
         assert got[3].item() == np.float32(np.float32(50 / 100) * np.float32(1e-3))
     if name == "warmup0":   # max(warmup_steps, 1): step 0 is 0, every later step the peak
         assert got[0].item() == 0.0 and bool((got[1:] == np.float32(1e-3)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_global_norm_rows_alone_in_parts(monkeypatch, dtype):
+    """Each replica's norm is its slice reduced alone, so a row of the
+    stacked tree equals the same replica held alone bit for bit; a slice
+    longer than ``SLICE`` is squared in parts of at most ``SLICE``
+    elements (the memory guard for recurrentgemma-9b's embedding row)."""
+    from repro_torch.optim import adamw
+
+    monkeypatch.setattr(adamw, "SLICE", 8)
+    sizes = []
+    square = torch.Tensor.square
+    monkeypatch.setattr(torch.Tensor, "square", lambda t: sizes.append(t.numel()) or square(t))
+    tree = _to_torch(_tree(3), dtype)
+    stacked = optim.global_norm(tree)
+    assert sizes and max(sizes) <= 8
+    for r in range(R):
+        alone = optim.global_norm({k: v[r:r + 1] for k, v in tree.items()})
+        assert torch.equal(alone, stacked[r:r + 1])
+    want = _norms({k: v.float().numpy() for k, v in tree.items()})
+    np.testing.assert_allclose(stacked.numpy(), want, rtol=1e-6)

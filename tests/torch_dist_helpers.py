@@ -1,0 +1,302 @@
+"""Shared pieces of the replica-group tests (``tests/test_torch_distributed*.py``):
+the TINY run both packages make, the JAX reference run in a subprocess on
+four forced host devices, and the port's rank function that the tests
+spawn on four ``gloo`` CPU ranks.
+
+The rank function counts every ``torch.distributed`` call the runtime makes,
+split into those made inside inner steps and inside outer steps, by
+wrapping the module's functions in the rank's process.  It imports no JAX:
+the spawned ranks run the port alone.
+"""
+import argparse
+import collections
+import functools
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import torch
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+WORLD = 4
+# tests/test_multidevice.py's config
+TINY = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+            dtype="float32", remat=False)
+# 8 steps of m = 2: four rounds, so a pairing pool of 2 cycles its slots
+RUN = dict(steps=8, inner_steps=2, batch_per_replica=2, seq=16, lr=2e-3, pairing_pool=2)
+MID = 4
+LOSS_RTOL = 1e-4
+PHI_ATOL = 1e-5
+# the int8 wire couples every value of a 1024-value chunk through its min and
+# max, so a last-bit difference of the two packages may move a code of the
+# partner's φ, which the γ term carries into φ′ and the next inner steps
+# into every weight: the losses are held to the stacked int8 tests' 1e-4,
+# φ to INT8_NEAR except for at most a share INT8_MOVED of its values, each
+# within INT8_PHI_ATOL (two code steps of a chunk of range 0.25).  On TINY
+# 20 of 361,728 values lie beyond 1e-4, the largest 1.005e-3 off.
+INT8_NEAR = 1e-4
+INT8_PHI_ATOL = 2e-3
+INT8_MOVED = 1e-3
+
+JAX_SCRIPT = textwrap.dedent('''
+    import pickle, sys
+    import numpy as np
+    import jax
+    from repro.comm import CommConfig
+    from repro.core.outer import OuterConfig
+    from repro.data import LoaderConfig
+    from repro.launch.mesh import make_test_mesh
+    from repro.launch.train_distributed import DistributedTrainer
+    from repro.models import model as M
+    from repro.models.common import values_of
+    from repro.models.config import ModelConfig
+    from repro.optim import AdamWConfig
+    from repro.parallel import plans as PL
+    from repro.parallel import steps as ST
+    from repro.train import DistributedProgram, LoopConfig, make_loop
+
+    spec = pickle.load(open(sys.argv[1], "rb"))
+    tiny, run = spec["tiny"], spec["run"]
+    cfg = ModelConfig(**tiny)
+    mesh = make_test_mesh(4, 1)
+    plan = PL.make_plan("gossip_dp", mesh, shape_kind="train")
+
+    # every case starts from the same weights and compiles the same train
+    # step: draw the one and build the other once.  A run that resumes
+    # draws its weights in a jit (their values are replaced)
+    if spec.get("resumed_only"):
+        init = jax.jit(M.init_params, static_argnums=1)(jax.random.PRNGKey(0), cfg)
+    else:
+        init = M.init_params(jax.random.PRNGKey(0), cfg)
+    M.init_params = lambda key, c: init
+    _build = ST.build_train_step
+    _bundles = {}
+    def build_once(*a, **k):
+        if "b" not in _bundles:
+            _bundles["b"] = _build(*a, **k)
+        return _bundles["b"]
+    ST.build_train_step = build_once
+
+    class Recorded(DistributedProgram):
+        """Keeps every inner step's per-replica losses."""
+        def __init__(self, trainer):
+            super().__init__(trainer)
+            self.rec = []
+        def inner_step(self, state, batch, rng):
+            state, m = super().inner_step(state, batch, rng)
+            self.rec.append(np.asarray(m["loss"]))
+            return state, m
+
+    out = {"params": jax.tree.map(np.asarray, values_of(init))}
+    for name, case in spec["cases"]:
+        method = case.get("method", "noloco")
+        tr = DistributedTrainer(
+            cfg=cfg, mesh=mesh, plan=plan,
+            outer_cfg=OuterConfig(method=method, alpha=0.3 if method == "diloco" else 0.5,
+                                  beta=0.7, inner_steps=run["inner_steps"]),
+            inner_cfg=AdamWConfig(lr=run["lr"], weight_decay=0.0),
+            comm_cfg=CommConfig(codec=case.get("codec", "none")),
+            schedule=case.get("schedule", "random"), pairing_pool=run["pairing_pool"], seed=0)
+        prog = Recorded(tr)
+        loop = make_loop(
+            prog, LoaderConfig(vocab_size=tiny["vocab_size"], seq_len=run["seq"],
+                               per_replica_batch=run["batch_per_replica"], replicas=4, seed=0),
+            LoopConfig(steps=run["steps"], seed=0, ckpt_dir=case.get("ckpt_dir"),
+                       ckpt_every=case.get("ckpt_every", 0), resume=case.get("resume", False)))
+        res = loop.run()
+        st = res["state"]
+        rounds = run["steps"] // run["inner_steps"]
+        out[name] = {
+            "losses": np.stack(prog.rec), "start_step": res["start_step"],
+            "partners": [np.asarray([d for _, d in tr.pool.pairs_for(i)[1]])
+                         for i in range(rounds)] if method == "noloco" else [],
+            "phi": jax.tree.map(np.asarray, st["phi"]),
+            "theta": jax.tree.map(np.asarray, st["theta"]),
+            "wstd": res["final_weight_std"], "pool": tr.pool.stats()}
+    pickle.dump(out, open(sys.argv[2], "wb"))
+''')
+
+
+def jax_reference(tmp, cases, *, resumed_only=False) -> dict:
+    """``cases`` [(name, {method, codec, schedule, ckpt_dir, ckpt_every,
+    resume})] through JAX's ``DistributedTrainer`` on ``make_test_mesh(4, 1)``
+    in one subprocess (XLA at its lowest optimisation level: the run is
+    short and compiles dominate it).  Its threading stays XLA's default:
+    with one intra-op thread its reductions sum in another order and a few
+    φ values that AdamW amplifies move by up to 4.2e-5, past PHI_ATOL.
+    Returns per case the (steps, 4) losses, partner tables, final φ and θ,
+    weight std and pool stats, and the initial ``params``.  ``resumed_only``: every case resumes a
+    checkpoint, so the initial weights are drawn in a jit (faster; they
+    are replaced)."""
+    spec, out = os.path.join(tmp, "spec.pkl"), os.path.join(tmp, "jax.pkl")
+    with open(spec, "wb") as f:
+        pickle.dump({"tiny": TINY, "run": RUN, "cases": cases, "resumed_only": resumed_only}, f)
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
+                         "--xla_backend_optimization_level=0 "
+                         "--xla_llvm_disable_expensive_passes=true")
+    proc = subprocess.run([sys.executable, "-c", JAX_SCRIPT, spec, out], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def delta_nbytes() -> int:
+    """Bytes of one replica's Δ on TINY (fp32 throughout), counted from the
+    parameter shapes."""
+    from repro_torch.comm import bytes_model
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.tree import tree_leaves
+
+    return sum(4 * int(np.prod(x.shape))
+               for x in tree_leaves(bytes_model.abstract_params(ModelConfig(**TINY))))
+
+
+def port_args(**case) -> argparse.Namespace:
+    """The port CLI's flags for one TINY case on the CPU."""
+    from repro_torch.launch import train_distributed
+
+    argv = ["--device", "cpu", "--backend", "gloo", "--data", str(WORLD),
+            "--steps", str(case.get("steps", RUN["steps"])),
+            "--inner-steps", str(RUN["inner_steps"]),
+            "--batch-per-replica", str(RUN["batch_per_replica"]), "--seq", str(RUN["seq"]),
+            "--lr", str(RUN["lr"]), "--pairing-pool", str(case.get("pairing_pool",
+                                                                      RUN["pairing_pool"])),
+            "--method", case.get("method", "noloco"), "--codec", case.get("codec", "none"),
+            "--schedule", case.get("schedule", "random")]
+    if case.get("ckpt_dir"):
+        argv += ["--ckpt-dir", case["ckpt_dir"], "--ckpt-every", str(case.get("ckpt_every", 0))]
+    if case.get("resume"):
+        argv.append("--resume")
+    return train_distributed.build_parser().parse_args(argv)
+
+
+# every cross-rank function but isend / irecv, which P2POp must receive
+# unwrapped (a batch_isend_irecv counts once)
+DIST_CALLS = ("batch_isend_irecv", "send", "recv", "all_reduce", "reduce", "all_gather",
+              "all_gather_object", "gather", "gather_object", "scatter", "broadcast",
+              "broadcast_object_list", "reduce_scatter", "all_to_all", "barrier")
+
+
+def _count_dist_calls(counter: collections.Counter) -> None:
+    """Wrap the cross-rank functions of ``torch.distributed`` in this
+    process so that each call adds one to ``counter``."""
+    import torch.distributed as dist
+
+    for name in DIST_CALLS:
+        fn = getattr(dist, name)
+
+        @functools.wraps(fn)
+        def counted(*a, __fn=fn, __name=name, **k):
+            counter[__name] += 1
+            return __fn(*a, **k)
+
+        setattr(dist, name, counted)
+
+
+def rank_runs(group, cases, params, root) -> dict:
+    """Each case [(name, case dict)] on this rank, in turn, from the JAX
+    initial weights ``params`` (None: the port's own, drawn from the seed):
+    this rank's per-step losses, the partner
+    tables, its final θ and φ rows, the weight std, pool stats and the
+    ``torch.distributed`` calls made inside inner steps and inside outer
+    steps (``calls``)."""
+    from repro_torch.launch import train_distributed
+    from repro_torch.models import convert
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.tree import tree_map
+
+    counter = collections.Counter()
+    _count_dist_calls(counter)
+    cfg = ModelConfig(**TINY)
+    out = {}
+    for name, case in cases:
+        case = dict(case)
+        for key in ("ckpt_dir",):
+            if case.get(key):
+                case[key] = os.path.join(root, case[key])
+        args = port_args(**case)
+        trainer = train_distributed.make_trainer(args, group, cfg)
+        if params is not None:
+            trainer.initial_params = lambda: convert.params_from_jax_numpy(params, cfg)
+        calls = {"inner": collections.Counter(), "outer": collections.Counter(),
+                 "outer_steps": 0}
+
+        def counted(kind, fn):
+            def run(*a, **k):
+                before = collections.Counter(counter)
+                res = fn(*a, **k)
+                calls[kind].update(counter - before)
+                if kind == "outer" and res[1]:
+                    calls["outer_steps"] += 1
+                return res
+            return run
+
+        trainer.inner_step = counted("inner", trainer.inner_step)
+        trainer.maybe_outer_step = counted("outer", trainer.maybe_outer_step)
+        res = train_distributed.run_rank(group, args, trainer=trainer)["result"]
+        state = res["state"]
+        host = lambda t: tree_map(lambda x: x[0].detach().numpy().copy(), t)
+        out[name] = {"losses": res["losses"], "start_step": res["start_step"],
+                     "partners": [p.tolist() for p in trainer.partners],
+                     "theta": host(state["theta"]), "phi": host(state["phi"]),
+                     "delta": host(state["delta"]), "mu": host(state["opt"].mu),
+                     "nu": host(state["opt"].nu),
+                     "count": state["opt"].count.tolist(), "outer_step": state["outer_step"],
+                     "wstd": res["final_weight_std"], "pool": trainer.pool.stats(),
+                     "calls": calls, "sent_bytes": dict(group.sent_bytes),
+                     "comm_bytes": res["comm_bytes"], "comm": res["comm"]}
+        group.sent_bytes.clear()
+    return out
+
+
+def spawn_port(cases, params, root) -> list[dict]:
+    """:func:`rank_runs` on four gloo CPU ranks, one intra-op thread each."""
+    from repro_torch.launch import mesh
+
+    return mesh.spawn(rank_runs, WORLD, (cases, params, root), backend="gloo", device="cpu",
+                      threads=1)
+
+
+def rows(ranks, name, key):
+    """Stack the ranks' ``key`` of case ``name`` along a leading axis: the
+    stacked (R, ...) view of per-rank leaves."""
+    from repro_torch.tree import tree_map
+
+    parts = [r[name][key] for r in ranks]
+    return tree_map(lambda *xs: np.stack(xs), *parts)
+
+
+def losses(ranks, name) -> np.ndarray:
+    """(steps, R) per-step losses of every replica."""
+    return np.stack([np.asarray(r[name]["losses"]) for r in ranks], axis=1)
+
+
+def leaves(tree) -> list:
+    from repro_torch.tree import tree_leaves
+
+    return [np.asarray(x) for x in tree_leaves(tree)]
+
+
+def assert_phi_close(got, want, codec="none"):
+    """φ leaves within PHI_ATOL; on the int8 wire within INT8_NEAR but for
+    a share INT8_MOVED of the values, each within INT8_PHI_ATOL."""
+    got, want = leaves(got), leaves(want)
+    assert len(got) == len(want)
+    if codec != "int8":
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=PHI_ATOL, rtol=0)
+        return
+    diff = np.concatenate([np.abs(g - w).reshape(-1) for g, w in zip(got, want)])
+    assert diff.max() <= INT8_PHI_ATOL, diff.max()
+    assert (diff > INT8_NEAR).mean() <= INT8_MOVED, (diff > INT8_NEAR).sum()
+
+
+def torch_threads_one():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    return n
