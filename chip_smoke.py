@@ -362,16 +362,54 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     ring bytes are 2(w-1)/w of them); inner steps make no cross-rank call;
 48. the plain run with one rank a card, over NCCL and over gloo, where the
     machine shows two cards or more (else a line says why it did not run;
-    ``dist_cards_phase`` runs it alone); then the CLI,
+    ``dist_cards_phase`` runs it alone), and with four cards phase 51's
+    plain streamed run over NCCL (else a line says why not); then the CLI,
     ``python -m repro_torch.launch.train_distributed --reduced``, on the
-    card: its summary names the card and the backend.
+    card: its summary names the card and the backend;
+49. elastic rounds on the replica group (one more spawn of 4 ranks on this
+    card over gloo runs 49–52, each rank under its own ``SimCluster`` from
+    the same plan): paper-small-125m at full width in bf16, 4 × 1024 a
+    rank, m 5, 35 steps; drop [3] at round 1, rejoin [3] at round 3 from
+    replica 0, straggle [1] one round at round 4, partition [[0, 1], [2,
+    3]] at round 5, heal at round 6.  The ranks agree on the rounds and
+    they are the plan's; rank 3's rows (checksums of every leaf and the
+    count) are the same at its drop and before its rejoin; its θ and φ
+    after the warm start are the source's φ bit for bit, δ and the moments
+    zero; the warm start is one send on rank 0 and one receive on rank 3
+    and no call elsewhere; each step a rank takes launches the design's
+    flash pair and a step it sits out nothing, each sync one update per
+    leaf on a rank that takes part and none otherwise, and no sync
+    all-reduces; losses finite.  Per rank: inner p50/p99, each round's
+    outer step, the warm start's time and bytes, peak memory;
+50. the 2× straggler (rank 1 at rate 0.5, ``stale="momentum"``, m 4, 24
+    steps): ``max_staleness`` 1, ``blocked_syncs`` 0, rank 1 sits half the
+    steps out, launches as in 49; a rate-1 world (8 steps of ``reduced()``
+    in fp32) equals the synchronous run bit for bit (losses, every rank's
+    rows);
+51. 4 streams with the overlap, each stream's φ′ pre-send posted without a
+    wait and waited at its next sync: phase 33's schedule (4 × 1024, m 5,
+    15 steps) on the plain and the int8 wire.  Each stream's first sync
+    blocks and the later ones consume; each sync's blocking part and each
+    pre-send move the byte model's bytes; launches as designed.  Every
+    sync is split by a synchronising clock: the blocking exchange (encode,
+    D2H, wire, H2D, decode), the update, the pre-send's post and the wait
+    on the φ′ pre-sent at the stream's last sync; then on the final state
+    phase 44's full outer step and cycles of four stream syncs, the same
+    wire.  Then the streamed churn (m 4, 28 steps, rank 3 out over steps
+    9–17): at most one fallback per stream per membership change;
+52. the plans of 49, 50 and 51's churn on ``reduced()`` in fp32, on the card
+    and on a CPU view of the same ranks: identical rounds, partner tables
+    and ``stream_sync`` events, losses within LOSS_RTOL, weight std within
+    WSTD_RTOL; on the card a resume mid-straggle (step 13) and one
+    mid-stream (step 11, every pre-send in flight), each bit-identical to
+    its uninterrupted run.
 
 ``time rglru_decode`` also carries ``launch_floor_ms``: an empty kernel
 (``torch.cuda._sleep(0)``) timed by the kernel table's own method.
 
 The line before the last is the ``kernels`` JSON record (launches: the
 serve and train phases', phases 33, 34, 36, 37, 39, 40 and every rank's of
-phase 44 added); the last line is
+phases 44 and 49–51 added); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -4955,6 +4993,21 @@ def dist_card_rank(group) -> dict:
                                 "sync_bytes", "payload_bytes", "peak_memory_gb", "staged")}
 
 
+def dist_card_stream_rank(group) -> dict:
+    """Phase 48's streamed rank: phase 51's plain streamed run, one card
+    each, each sync split by the clock."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_dist_nccl")
+    os.makedirs(root, exist_ok=True)
+    run = dist_plan_run(group, root, "stream-nccl", DIST_WIDTH + DIST_STREAM, None, clock=True)
+    syncs = run["probe"].syncs
+    return {"rank": group.rank, "staged": group.staged,
+            "checks": _stream_checks(paper_llama.SMALL, run, "none"),
+            "inner_ms": run["probe"].inner_ms(),
+            "consuming": _summary_ms([s for s in syncs if not s["event"]["blocked"] and s["bytes"]]),
+            "blocking": _summary_ms([s for s in syncs if s["event"]["blocked"] and s["bytes"]])}
+
+
 def dist_cards_phase() -> dict:
     """Phase 48, where the machine shows two cards or more: the plain
     full-width run with one rank a card, over NCCL (card to card) and over
@@ -4967,12 +5020,25 @@ def dist_cards_phase() -> dict:
     if cards < 2:
         out = f"not run: NCCL puts one rank on each card and this machine shows {cards}"
         log("dist one rank a card: " + out)
+        log(f"dist nccl streamed: not run: phase 51's streamed run over NCCL takes {DIST_WORLD} "
+            f"cards and this machine shows {cards}")
         return out
     world = min(DIST_WORLD, cards)
     out = {"cards": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines(), "world": world}
     log(f"dist one rank a card on {world} of: " + json.dumps(out["cards"]))
+    if cards >= DIST_WORLD:   # phase 51's plain streamed run, one rank a card, over NCCL
+        rows = mesh_lib.spawn(dist_card_stream_rank, world, (), backend="nccl", device="cuda")
+        for row in rows:
+            if not all(row["checks"].values()):
+                raise AssertionError(f"dist nccl streamed, one rank a card: {row}")
+        out["nccl_stream"] = rows
+        log(f"dist nccl streamed ({world} ranks, one card each): " + json.dumps(rows))
+    else:
+        out["nccl_stream"] = (f"not run: phase 51's streamed run over NCCL takes {DIST_WORLD} "
+                              f"cards and this machine shows {cards}")
+        log("dist nccl streamed: " + out["nccl_stream"])
     for backend in ("nccl", "gloo"):
         rows = mesh_lib.spawn(dist_card_rank, world, (), backend=backend, device="cuda")
         for row in rows:
@@ -4985,6 +5051,657 @@ def dist_cards_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 49–52: elastic, asynchronous and streamed rounds on the replica group
+# ---------------------------------------------------------------------------
+
+# phase 49: paper-small-125m at full width in bf16, 4 × 1024 a rank, m 5, 35
+# steps (7 rounds) through the elastic plan
+DIST_EL_PLAN = [{"kind": "drop", "round": 1, "replicas": [3]},
+                {"kind": "rejoin", "round": 3, "replicas": [3], "source": 0},
+                {"kind": "straggle", "round": 4, "replicas": [1], "rounds": 1},
+                {"kind": "partition", "round": 5, "groups": [[0, 1], [2, 3]]},
+                {"kind": "heal", "round": 6}]
+DIST_EL = ["--steps", "35", "--inner-steps", "5"]
+# phase 50: the 2× straggler, its stale Δ discounted; a rate-1 world against
+# the synchronous run of DIST_RATE1 steps (reduced(), in fp32)
+DIST_ASYNC_PLAN = [{"kind": "rate", "round": 0, "replicas": [1], "rate": 0.5}]
+DIST_RATE1_PLAN = [{"kind": "rate", "round": 0, "replicas": [1], "rate": 1.0}]
+DIST_ASYNC = ["--steps", "24", "--inner-steps", "4", "--stale", "momentum"]
+DIST_RATE1 = ["--steps", "8", "--inner-steps", "4", "--stale", "momentum"]
+# phase 51: phase 33's schedule (m 5, 15 steps, 4 streams with the overlap)
+# and tests/test_streaming.py's churn (m 4, 28 steps, rank 3 out over 9–17)
+DIST_STREAM = ["--steps", "15", "--inner-steps", "5", "--stream-count", str(STREAMS)]
+DIST_CHURN_PLAN = [{"kind": "drop", "step": 9, "replicas": [3]},
+                   {"kind": "rejoin", "step": 17, "replicas": [3]}]
+DIST_CHURN = ["--steps", "28", "--inner-steps", "4", "--stream-count", str(STREAMS)]
+DIST_WIDTH = ["--data", str(DIST_WORLD), "--batch-per-replica", "4", "--seq", "1024",
+              "--pairing-pool", "16"]
+# phase 52: the same plans on reduced() in fp32, and the resumes
+DIST_SMALL_WIDTH = ["--data", str(DIST_WORLD), "--reduced", "--batch-per-replica", "2",
+                    "--seq", "64", "--pairing-pool", "16"]
+DIST_ASYNC_MID, DIST_STREAM_MID = 13, 11
+BLOCKING = ("encode", "d2h", "wire", "h2d", "decode")
+PRESEND_WAIT = ("pre_wire", "pre_h2d", "pre_decode")
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _launch_counts(dev) -> dict:
+    return dispatch.launch_counts() if dev.type == "cuda" else {}
+
+
+def _minus(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def dist_rows(state) -> dict:
+    """This rank's checksum of every leaf of θ, φ, δ and both moments, and
+    its step count."""
+    out = {k: [bits_checksum(x[0]) for x in tree_leaves(t)]
+           for k, t in _dist_rows(state).items()}
+    out["count"] = int(state["opt"].count[0])
+    return out
+
+
+class DistProbe:
+    """On one rank, while entered: each inner step's launches, cross-rank
+    calls, time and whether the rank stepped; each sync's launches, calls,
+    bytes by kind, time and (``clock``) its phases on a synchronising
+    :class:`~repro_torch.launch.mesh.PhaseClock`; the warm start's calls,
+    bytes and time, and the rows around it: ``rows["at_drop"]`` when the
+    rank first sits a step out of the membership, ``rows["before_rejoin"]``
+    and ``rows["after_rejoin"]`` around its warm start, ``rows["source"]``
+    (φ alone) on the source."""
+
+    def __init__(self, trainer, group, clock: bool = False):
+        self.tr, self.group, self.clock = trainer, group, clock
+        self.steps, self.syncs, self.warm, self.rows = [], [], [], {}
+
+    def __enter__(self):
+        from repro_torch.launch import mesh as mesh_lib
+
+        tr, group, dev, probe = self.tr, self.group, self.group.device, self
+        inner, outer, outer_async, warm = (tr.inner_step, tr.maybe_outer_step,
+                                           tr.outer_step_async, tr.warm_start)
+
+        def spy_inner(state, batch):
+            active = tr.active()
+            if not tr.member() and "at_drop" not in probe.rows:
+                probe.rows["at_drop"] = dist_rows(state)
+            launches, calls = _launch_counts(dev), dict(group.calls)
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = inner(state, batch)
+            _sync(dev)
+            probe.steps.append({"active": active, "ms": (time.perf_counter() - t0) * 1e3,
+                                "launches": _minus(_launch_counts(dev), launches),
+                                "calls": _minus(dict(group.calls), calls)})
+            return out
+
+        def spy_outer(fn):
+            def run(state, **kw):
+                launches, calls, sent = _launch_counts(dev), dict(group.calls), dict(group.sent_bytes)
+                events = len(tr.stream_events)
+                clock = mesh_lib.PhaseClock(dev) if probe.clock else None
+                _sync(dev)
+                group.clock = clock
+                t0 = time.perf_counter()
+                if clock is not None:
+                    clock.start()
+                state, synced = fn(state, **kw)
+                if clock is not None:
+                    clock.mark("update")
+                group.clock = None
+                _sync(dev)
+                if synced:
+                    probe.syncs.append({
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "phases": {} if clock is None else dict(clock.ms),
+                        "launches": _minus(_launch_counts(dev), launches),
+                        "calls": _minus(dict(group.calls), calls),
+                        "bytes": _minus(dict(group.sent_bytes), sent),
+                        "event": dict(tr.stream_events[-1]) if len(tr.stream_events) > events
+                        else None,
+                        "partner": tr.partners[-1].tolist() if tr.partners else None,
+                        "pre_partner": tr.pre_partner(tr.stream_events[-1]["stream"]).tolist()
+                        if len(tr.stream_events) > events and tr.comm_cfg.overlap else None})
+                return state, synced
+            return run
+
+        def spy_warm(state, replica, source):
+            if tr.replica == replica:
+                probe.rows["before_rejoin"] = dist_rows(state)
+            if tr.replica == source:
+                probe.rows["source"] = [bits_checksum(x[0]) for x in tree_leaves(state["phi"])]
+            calls, sent = dict(group.calls), dict(group.sent_bytes)
+            _sync(dev)
+            t0 = time.perf_counter()
+            new = warm(state, replica, source)
+            _sync(dev)
+            probe.warm.append({"ms": (time.perf_counter() - t0) * 1e3,
+                               "calls": _minus(dict(group.calls), calls),
+                               "bytes": _minus(dict(group.sent_bytes), sent)})
+            if tr.replica == replica:
+                probe.rows["after_rejoin"] = dist_rows(new)
+            return new
+
+        tr.inner_step, tr.maybe_outer_step = spy_inner, spy_outer(outer)
+        tr.outer_step_async, tr.warm_start = spy_outer(outer_async), spy_warm
+        self._real = (inner, outer, outer_async, warm)
+        return self
+
+    def __exit__(self, *exc):
+        (self.tr.inner_step, self.tr.maybe_outer_step, self.tr.outer_step_async,
+         self.tr.warm_start) = self._real
+
+    def inner_ms(self) -> dict:
+        """Inner-step p50 / p99 ms over the steps this rank took (its first
+        step, the warm-up, left out)."""
+        ms = sorted(s["ms"] for s in self.steps[1:] if s["active"])
+        return {"p50": statistics.median(ms), "p99": _pct(ms, 0.99), "n": len(ms)} if ms else {}
+
+
+def _dist_plan_file(root: str, name: str, events: list, rank: int) -> str:
+    path = os.path.join(root, f"plan-{name}-{rank}.json")
+    with open(path, "w") as f:
+        json.dump({"events": events}, f)
+    return path
+
+
+_INITIAL: dict = {}
+_RUN_SECONDS: list = []   # (run, seconds in all, the loop's wall seconds) of this rank's runs
+
+
+def dist_trainer(args, group):
+    """The CLI's trainer for ``args`` on ``group``; on the card its initial
+    weights are drawn on the host once per config and seed in this process
+    and copied to the card by each run (a full-width draw takes seconds)."""
+    from repro_torch.launch import train_distributed
+
+    trainer = train_distributed.make_trainer(args, group)
+    if group.device.type == "cuda":
+        key = (trainer.cfg, trainer.seed)
+        if key not in _INITIAL:
+            _INITIAL[key] = trainer.initial_params()
+        trainer.initial_params = lambda: _INITIAL[key]
+    return trainer
+
+
+def dist_plan_run(group, root: str, name: str, argv: list, events, *, device=None,
+                  clock: bool = False, **kw) -> dict:
+    """One run of the CLI's rank body on this rank (``device``: ``"cpu"``
+    runs the same ranks on the CPU) under the plan ``events`` (None: no
+    plan), probed; the loop's result, the rounds, the probe and the launch
+    counts of the run."""
+    from repro_torch.launch import train_distributed
+
+    device = device or group.device.type
+    sub = group if device == group.device.type else dataclasses.replace(
+        group, device=torch.device(device), calls=type(group.calls)(),
+        sent_bytes=type(group.sent_bytes)(), _pinned={})
+    argv = list(argv)
+    if events is not None:
+        argv += ["--fault-plan", _dist_plan_file(root, name, events, group.rank)]
+    args = _dist_args(argv, device, group.backend)
+    for k, v in kw.items():
+        setattr(args, k, v)
+    t0 = time.perf_counter()
+    trainer = dist_trainer(args, sub)
+    dev = sub.device
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    group.barrier()
+    dispatch.reset_launches()
+    with DistProbe(trainer, sub, clock=clock) as probe:
+        out = train_distributed.run_rank(sub, args, trainer=trainer)
+    _sync(dev)
+    launches = _launch_counts(dev)
+    res = out["result"]
+    _RUN_SECONDS.append((name, time.perf_counter() - t0, res["wall_s"]))
+    return {"res": res, "trainer": trainer, "probe": probe, "launches": launches,
+            "rounds": None if out["sim"] is None else out["sim"].rounds(),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0,
+            "summary": out["summary"]}
+
+
+def _dist_step_design(cfg) -> dict:
+    """One inner step's launches on one rank: the flash pair per layer."""
+    one = expected_launches(cfg, {"steps": 1}, 0)
+    return {k: one[k] for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def _check_launches(cfg, run: dict, takes_part) -> bool:
+    """Every step this rank took launched the design's flash pair and every
+    step it sat out launched nothing; each sync launched one update per
+    leaf when the rank took part in its round (``takes_part(record)``),
+    else none."""
+    step = _dist_step_design(cfg)
+    leaves = len(tree_leaves(bytes_model.abstract_params(cfg)))
+    ok = all(s["launches"] == (step if s["active"] else {}) for s in run["probe"].steps)
+    ok &= len(run["probe"].syncs) == len(run["rounds"])
+    for sync, rec in zip(run["probe"].syncs, run["rounds"]):
+        ok &= sync["launches"].get("noloco_update", 0) == (leaves if takes_part(rec) else 0)
+    return ok
+
+
+def _summary_ms(syncs: list[dict], phases=DIST_PHASES + ("pre_encode", "pre_d2h", "pre_post")
+                + PRESEND_WAIT) -> dict:
+    """Median ms of each sync phase over ``syncs`` and of the whole sync,
+    with the blocking exchange (encode, D2H, wire, H2D, decode) and the
+    wait on the pre-send (its wire, H2D, decode) summed."""
+    if not syncs:
+        return {}
+    med = lambda xs: statistics.median(xs)
+    out = {"n": len(syncs), "ms": med([s["ms"] for s in syncs])}
+    for p in phases:
+        out[p] = med([s["phases"].get(p, 0.0) for s in syncs])
+    out["blocking_exchange_ms"] = med([sum(s["phases"].get(p, 0.0) for p in BLOCKING)
+                                       for s in syncs])
+    out["presend_wait_ms"] = med([sum(s["phases"].get(p, 0.0) for p in PRESEND_WAIT)
+                                  for s in syncs])
+    return out
+
+
+def dist_elastic_run(group, root: str) -> dict:
+    """Phase 49 on this rank."""
+    cfg = paper_llama.SMALL
+    run = dist_plan_run(group, root, "elastic", DIST_WIDTH + DIST_EL, DIST_EL_PLAN)
+    res, probe, rounds = run["res"], run["probe"], run["rounds"]
+    r = group.rank
+    losses = [x for x in res["losses"] if not math.isnan(x)]
+    return {
+        "rank": r, "rounds": _compact(rounds), "launches": run["launches"],
+        "launches_as_designed": _check_launches(
+            cfg, run, lambda rec: r in rec["active"] and r not in rec["absent"]),
+        "sat_out_steps": sum(not s["active"] for s in probe.steps),
+        "inner_calls": sum(sum(s["calls"].values()) for s in probe.steps),
+        "sync_calls": [s["calls"] for s in probe.syncs],
+        "warm": probe.warm, "rows": probe.rows,
+        "losses_finite": bool(losses) and all(map(math.isfinite, losses)),
+        "loss_first_last": [losses[0], losses[-1]],
+        "inner_ms": probe.inner_ms(), "outer_ms": [s["ms"] for s in probe.syncs],
+        "peak_gb": run["peak_gb"], "summary": run["summary"],
+    }
+
+
+def dist_async_run(group, root: str) -> dict:
+    """Phase 50 on this rank: the 2× straggler, then a rate-1 world against
+    the synchronous run."""
+    cfg = paper_llama.SMALL
+    run = dist_plan_run(group, root, "async", DIST_WIDTH + DIST_ASYNC, DIST_ASYNC_PLAN)
+    res, probe, rounds = run["res"], run["probe"], run["rounds"]
+    r = group.rank
+    out = {
+        "rank": r, "rounds": _compact(rounds), "launches": run["launches"],
+        "launches_as_designed": _check_launches(cfg, run, lambda rec: r in rec["due"]),
+        "max_staleness": res["max_staleness"], "blocked_syncs": res["blocked_syncs"],
+        "sat_out_steps": sum(not s["active"] for s in probe.steps),
+        "sync_calls": [s["calls"] for s in probe.syncs],
+        "losses_finite": all(math.isfinite(x) for x in res["losses"] if not math.isnan(x)),
+        "inner_ms": probe.inner_ms(), "tick_ms": [s["ms"] for s in probe.syncs],
+        "peak_gb": run["peak_gb"],
+    }
+    del run, res
+    plain = dist_plan_run(group, root, "sync", DIST_SMALL_WIDTH + DIST_RATE1, None)
+    rate1 = dist_plan_run(group, root, "rate1", DIST_SMALL_WIDTH + DIST_RATE1, DIST_RATE1_PLAN)
+    out["rate1_vs_sync"] = {
+        "losses_identical": rate1["res"]["losses"] == plain["res"]["losses"],
+        "rows_identical": dist_rows(rate1["res"]["state"]) == dist_rows(plain["res"]["state"]),
+        "max_staleness": rate1["res"]["max_staleness"]}
+    return out
+
+
+def _stream_checks(cfg, run: dict, codec: str) -> dict:
+    """A streamed run's syncs on this rank: each stream's first blocks and
+    the later ones consume (a healthy run); the blocking part and the
+    pre-send of a paired rank move the byte model's bytes (the fused
+    (Δ_k, φ_k) pair when blocking; a rank paired with itself moves none)
+    and no sync all-reduces; launches as designed: the flash pair in each
+    step the rank took and nothing in one it sat out, one update per leaf
+    of the stream when the rank takes part, and on the int8 wire one
+    quantize per buffer it encodes (the sync's, when it takes part or is
+    paired, and the pre-send's) and one dequantize per buffer it decodes
+    (the sync's, and the pre-send that the stream's last sync posted and
+    this one waits)."""
+    r = run["trainer"].replica
+    per = run["trainer"].stream_cost().per_stream
+    _, subs = _stream_subs(cfg)
+    rounds = {rec["round"]: rec for rec in run["rounds"] or []}
+    seen, ok_order, ok_bytes, ok_launch = set(), True, True, True
+    posted = set()   # streams with a pre-send in flight: decoded when their next sync waits it
+    buffers = lambda tree: len(payload.make_spec(tree).buffers)
+    for sync in run["probe"].syncs:
+        ev = sync["event"]
+        k, sub = ev["stream"], subs[ev["stream"]]
+        if not rounds:
+            ok_order &= ev["blocked"] == (k not in seen) and not ev["epoch_fallback"]
+        seen.add(k)
+        rec = rounds.get(ev["sync_index"])
+        takes_part = rec is None or (r in rec["active"] and r not in rec["absent"])
+        paired = sync["partner"][r] != r
+        blocking = per[k].payload_bytes if ev["blocked"] else per[k].blocking_bytes
+        if codec != "none" and ev["blocked"]:
+            blocking = bytes_model.spec_cost(payload.make_spec((sub, sub)),
+                                             CommConfig(codec=codec))[0]
+        ok_bytes &= sync["bytes"].get("p2p", 0) == (blocking if paired else 0)
+        ok_bytes &= sync["bytes"].get("presend", 0) == (
+            per[k].payload_bytes - per[k].blocking_bytes if sync["pre_partner"][r] != r else 0)
+        ok_bytes &= "all_reduce" not in sync["calls"]
+        want = {"noloco_update": len(sub) if takes_part else 0}
+        if codec == "int8":
+            moved = buffers((sub, sub) if ev["blocked"] else sub) if takes_part or paired else 0
+            want.update(int8_quantize=moved + buffers(sub),
+                        int8_dequantize=moved + (buffers(sub) if k in posted else 0))
+        ok_launch &= all(sync["launches"].get(name, 0) == n for name, n in want.items())
+        posted.add(k)
+    step = _dist_step_design(cfg)
+    ok_launch &= all(s["launches"] == (step if s["active"] else {}) for s in run["probe"].steps)
+    return {"first_blocks_later_consume": ok_order, "bytes_as_byte_model": ok_bytes,
+            "launches_as_designed": ok_launch}
+
+
+def time_dist_stream_cycle(group, root: str, state, codec: str, reps: int = 3) -> dict:
+    """On one state and one wire: phase 44's full outer step alone (a
+    trainer without streams), then cycles of four stream syncs on a
+    streamed trainer, the first cycle blocking and pre-sending, the later
+    ones consuming; each sync split by a synchronising clock."""
+    from repro_torch.launch import train_distributed
+
+    dev = group.device
+    out = {}
+    for name, extra in (("full", []), ("streams", ["--stream-count", str(STREAMS)])):
+        args = _dist_args(DIST_WIDTH + ["--steps", "15", "--inner-steps", "5", "--codec", codec]
+                          + extra, dev.type, group.backend)
+        tr = dist_trainer(args, group)
+        tr.init_state(None)
+        st = dict(state, inner_step=15, outer_step=0)
+        if name == "streams":
+            st["phi_pre"] = tree_map(torch.clone, state["phi"])
+        syncs = []
+        with DistProbe(tr, group, clock=True) as probe:
+            for rep in range(reps):
+                for k in range(1 if name == "full" else STREAMS):
+                    t = 20 + 5 * rep + (k * 5) // STREAMS
+                    group.barrier()
+                    new, _ = tr.maybe_outer_step(dict(st, inner_step=t))
+                    if name == "streams":
+                        st = dict(st, phi=new["phi"], delta=new["delta"], theta=new["theta"],
+                                  phi_pre=new.get("phi_pre"), outer_step=new["outer_step"])
+                    del new
+            st = tr.finish(st)
+            syncs = probe.syncs
+        del tr, st
+        if name == "full":
+            out["full_outer_step"] = _summary_ms(syncs)
+        else:
+            cycles = [sum(s["ms"] for s in syncs[i:i + STREAMS])
+                      for i in range(0, len(syncs), STREAMS)]
+            out["cycle_ms_blocking"] = cycles[0]
+            out["cycle_ms_consuming"] = statistics.median(cycles[1:])
+            out["sync_by_stream"] = {k: _summary_ms(syncs[k::STREAMS][1:]) for k in range(STREAMS)}
+    return out
+
+
+def dist_stream_run(group, root: str) -> dict:
+    """Phase 51 on this rank: 4 streams on the plain and the int8 wire, each
+    sync split by the clock, a cycle against the full outer step; then the
+    streamed churn."""
+    cfg = paper_llama.SMALL
+    out = {"rank": group.rank}
+    for codec in ("none", "int8"):
+        run = dist_plan_run(group, root, f"stream-{codec}",
+                            DIST_WIDTH + DIST_STREAM + ["--codec", codec], None, clock=True)
+        probe = run["probe"]
+        checks = _stream_checks(cfg, run, codec)
+        losses = run["res"]["losses"]
+        consuming = [s for s in probe.syncs if not s["event"]["blocked"] and s["bytes"]]
+        blocking = [s for s in probe.syncs if s["event"]["blocked"] and s["bytes"]]
+        row = {"checks": checks, "launches": run["launches"],
+               "events": [{k: s["event"][k] for k in ("stream", "sync_index", "blocked",
+                                                      "payload_bytes", "blocking_bytes")}
+                          for s in probe.syncs],
+               "losses_finite_falling": all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+               "inner_ms": probe.inner_ms(), "consuming": _summary_ms(consuming),
+               "blocking": _summary_ms(blocking), "peak_gb": run["peak_gb"],
+               "blocking_fraction": run["res"]["blocking_fraction"],
+               "warm_presend_wait_ms_in_run": [sum(s["phases"].get(p, 0.0) for p in PRESEND_WAIT)
+                                               for s in probe.syncs]}
+        state = run["trainer"].finish(run["res"]["state"])
+        del run
+        row.update(time_dist_stream_cycle(group, root, state, codec))
+        del state
+        out[codec] = row
+    churn = dist_plan_run(group, root, "stream-churn", DIST_WIDTH + DIST_CHURN, DIST_CHURN_PLAN)
+    events = [s["event"] for s in churn["probe"].syncs]
+    epochs = {}
+    for rec, ev in zip(churn["rounds"], events):
+        key = (tuple(rec["active"]), ev["stream"])
+        epochs[key] = epochs.get(key, 0) + ev["epoch_fallback"]
+    out["churn"] = {"launches": churn["launches"],
+                    "fallbacks": sum(ev["epoch_fallback"] for ev in events),
+                    "at_most_one_per_stream_per_change": max(epochs.values()) <= 1,
+                    "checks": _stream_checks(cfg, churn, "none"),
+                    "losses_finite": all(math.isfinite(x) for x in churn["res"]["losses"]
+                                         if not math.isnan(x))}
+    return out
+
+
+def _small_compare(card: dict, cpu: dict) -> dict:
+    lc = np.asarray(card["res"]["losses"], dtype=np.float64)
+    lp = np.asarray(cpu["res"]["losses"], dtype=np.float64)
+    same_nan = bool(np.array_equal(np.isnan(lc), np.isnan(lp)))
+    keep = ~np.isnan(lp)
+    ev = lambda run: [s["event"] for s in run["probe"].syncs]
+    return {
+        "rounds_identical": card["rounds"] == cpu["rounds"],
+        "partners_identical": [p.tolist() for p in card["trainer"].partners]
+        == [p.tolist() for p in cpu["trainer"].partners],
+        "stream_events_identical": ev(card) == ev(cpu),
+        "loss_max_rel_diff": float(np.max(np.abs(lc[keep] - lp[keep]) / np.abs(lp[keep])))
+        if same_nan else float("inf"),
+        "weight_std_rel_diff": abs(card["res"]["final_weight_std"] - cpu["res"]["final_weight_std"])
+        / max(cpu["res"]["final_weight_std"], 1e-30),
+    }
+
+
+def dist_parity_run(group, root: str) -> dict:
+    """Phase 52 on this rank: reduced() in fp32, the plans of 49, 50 and 51's
+    churn on the card and on the CPU; then on the card a resume mid-straggle
+    and one mid-stream, each against the card's uninterrupted run of its
+    plan above."""
+    out, whole = {"rank": group.rank}, {}
+    for name, argv, events in (("elastic", DIST_EL, DIST_EL_PLAN),
+                               ("async", DIST_ASYNC, DIST_ASYNC_PLAN),
+                               ("stream_churn", DIST_CHURN, DIST_CHURN_PLAN)):
+        card = dist_plan_run(group, root, f"small-{name}", DIST_SMALL_WIDTH + argv, events)
+        cpu = dist_plan_run(group, root, f"small-{name}-cpu", DIST_SMALL_WIDTH + argv, events,
+                            device="cpu")
+        out[name] = _small_compare(card, cpu)
+        whole[name] = {"losses": card["res"]["losses"], "rows": dist_rows(card["res"]["state"])}
+        del card, cpu
+    for name, argv, events, mid in (("async", DIST_ASYNC, DIST_ASYNC_PLAN, DIST_ASYNC_MID),
+                                    ("stream", DIST_CHURN, DIST_CHURN_PLAN, DIST_STREAM_MID)):
+        ckpt = os.path.join(root, f"resume-{name}")
+        dist_plan_run(group, root, f"half-{name}", DIST_SMALL_WIDTH + argv, events,
+                      ckpt_dir=ckpt, steps=mid)
+        resumed = dist_plan_run(group, root, f"resumed-{name}", DIST_SMALL_WIDTH + argv, events,
+                                ckpt_dir=ckpt, resume=True)
+        w, r = whole["stream_churn" if name == "stream" else name], resumed["res"]
+        out[f"resume_{name}"] = {
+            "start_step": r["start_step"],
+            "losses_identical": np.array_equal(np.asarray(r["losses"]),
+                                               np.asarray(w["losses"][mid:]), equal_nan=True),
+            "bit_identical": dist_rows(r["state"]) == w["rows"]}
+    return out
+
+
+def dist_elastic_rank(group, root: str) -> dict:
+    """Phases 49–52 on one rank (one spawn)."""
+    out = {}
+    for name, fn in (("elastic", dist_elastic_run), ("async", dist_async_run),
+                     ("stream", dist_stream_run), ("parity", dist_parity_run)):
+        t0 = time.perf_counter()
+        out[name] = fn(group, root)
+        out[name]["seconds"] = time.perf_counter() - t0
+        out[name]["runs_s"], _RUN_SECONDS[:] = list(_RUN_SECONDS), []
+        gc.collect()
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def dist_elastic_phase(dev) -> tuple[dict, dict]:
+    """Phases 49–52: elastic, asynchronous and streamed rounds on 4 ranks
+    sharing the card over gloo (one spawn): paper-small-125m at full width
+    through the elastic plan (49), the 2× straggler (50), 4 streams with
+    the non-blocking φ′ pre-send on the plain and the int8 wire and the
+    streamed churn (51); then reduced() in fp32, card against CPU, and
+    resumes mid-straggle and mid-stream (52)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_dist_elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ranks = mesh_lib.spawn(dist_elastic_rank, DIST_WORLD, (root,), backend="gloo", device="cuda")
+    out, launches = dist_elastic_checks(ranks)
+    shutil.rmtree(root, ignore_errors=True)
+    out["card"] = card()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"dist elastic phases 49–52: {out['seconds']:.1f} s")
+    return out, launches
+
+
+def dist_elastic_checks(ranks: list[dict]) -> tuple[dict, dict]:
+    """Phases 49–52's checks over the ranks' results; raises on the first
+    phase that fails.  Returns the phases' records and every rank's
+    launches of 49–51 by phase."""
+    out = {"world": DIST_WORLD, "backend": "gloo"}
+    launches = {}
+
+    # phase 49
+    el = [r["elastic"] for r in ranks]
+    rounds = el[0]["rounds"]
+    rows3, rows0 = el[3]["rows"], el[0]["rows"]
+    zero = lambda rows, k: all(c == 0 for c in rows[k])
+    checks = {
+        "ranks_agree_on_rounds": all(r["rounds"] == rounds for r in el),
+        "rounds_as_planned": len(rounds) == 7 and rounds[0]["active"] == [0, 1, 2, 3]
+        and all(rec["active"] == [0, 1, 2] and rec["partner"][3] == 3 for rec in rounds[1:3])
+        and rounds[3]["active"] == [0, 1, 2, 3] and rounds[4]["absent"] == [1]
+        and rounds[4]["partner"][1] == 1 and rounds[5]["partition"] == [[0, 1], [2, 3]]
+        and all(p // 2 == i // 2 for i, p in enumerate(rounds[5]["partner"]))
+        and rounds[6]["partition"] is None,
+        "rank3_rows_frozen_from_drop_to_rejoin": rows3.get("at_drop") is not None
+        and rows3["at_drop"] == rows3.get("before_rejoin"),
+        "rejoined_theta_phi_are_the_source_phi": rows3["after_rejoin"]["theta"]
+        == rows3["after_rejoin"]["phi"] == rows0["source"]
+        and all(zero(rows3["after_rejoin"], k) for k in ("delta", "mu", "nu"))
+        and rows3["after_rejoin"]["count"] == 0,
+        "warm_start_one_send": [r["warm"][0]["calls"] for r in el]
+        == [{"send": 1}, {}, {}, {"recv": 1}],
+        "sat_out_steps": [r["sat_out_steps"] for r in el] == [0, 0, 0, 10],
+        "launches_as_designed": all(r["launches_as_designed"] for r in el),
+        "no_call_in_inner_steps": all(r["inner_calls"] == 0 for r in el),
+        "syncs_p2p_only": all(set(c) <= {"p2p"} for r in el for c in r["sync_calls"]),
+        "losses_finite": all(r["losses_finite"] for r in el),
+    }
+    out["elastic"] = {
+        "rounds": rounds, "checks": checks,
+        "inner_ms": [r["inner_ms"] for r in el], "outer_ms": [r["outer_ms"] for r in el],
+        "warm_start": [{k: r["warm"][0][k] for k in ("ms", "bytes")} for r in el],
+        "peak_gb": [r["peak_gb"] for r in el], "loss_first_last": [r["loss_first_last"] for r in el],
+        "summary": el[0]["summary"], "seconds": max(r["seconds"] for r in el)}
+    log("dist elastic (phase 49): " + json.dumps(out["elastic"]))
+    if not all(checks.values()):
+        raise AssertionError(f"dist elastic failed its checks: {checks}")
+    launches["elastic"] = {k: sum(r["launches"].get(k, 0) for r in el) for k in TRAIN_KERNELS + INT8}
+
+    # phase 50
+    asy = [r["async"] for r in ranks]
+    checks = {
+        "ranks_agree_on_rounds": all(r["rounds"] == asy[0]["rounds"] for r in asy),
+        "max_staleness_1_blocked_0": all((r["max_staleness"], r["blocked_syncs"]) == (1, 0)
+                                         for r in asy),
+        "straggler_sits_half_out": [r["sat_out_steps"] for r in asy] == [0, 12, 0, 0],
+        "launches_as_designed": all(r["launches_as_designed"] for r in asy),
+        "syncs_p2p_only": all(set(c) <= {"p2p"} for r in asy for c in r["sync_calls"]),
+        "losses_finite": all(r["losses_finite"] for r in asy),
+        "rate1_bit_identical": all(r["rate1_vs_sync"]["losses_identical"]
+                                   and r["rate1_vs_sync"]["rows_identical"]
+                                   and r["rate1_vs_sync"]["max_staleness"] == 0 for r in asy),
+    }
+    out["async"] = {"rounds": asy[0]["rounds"], "checks": checks,
+                    "inner_ms": [r["inner_ms"] for r in asy], "tick_ms": [r["tick_ms"] for r in asy],
+                    "peak_gb": [r["peak_gb"] for r in asy], "seconds": max(r["seconds"] for r in asy)}
+    log("dist async (phase 50): " + json.dumps(out["async"]))
+    if not all(checks.values()):
+        raise AssertionError(f"dist async failed its checks: {checks}")
+    launches["async"] = {k: sum(r["launches"].get(k, 0) for r in asy) for k in TRAIN_KERNELS + INT8}
+
+    # phase 51
+    st = [r["stream"] for r in ranks]
+    checks = {}
+    for codec in ("none", "int8"):
+        for name in ("first_blocks_later_consume", "bytes_as_byte_model", "launches_as_designed"):
+            checks[f"{codec}_{name}"] = all(r[codec]["checks"][name] for r in st)
+        checks[f"{codec}_losses_finite_falling"] = all(r[codec]["losses_finite_falling"] for r in st)
+        checks[f"{codec}_ranks_agree_on_events"] = all(r[codec]["events"] == st[0][codec]["events"]
+                                                       for r in st)
+    checks["churn_fallbacks_at_most_one_per_stream_per_change"] = all(
+        r["churn"]["at_most_one_per_stream_per_change"] and r["churn"]["fallbacks"] > 0
+        for r in st)
+    checks["churn_bytes_and_launches"] = all(
+        r["churn"]["checks"]["bytes_as_byte_model"] and r["churn"]["checks"]["launches_as_designed"]
+        for r in st)
+    checks["churn_losses_finite"] = all(r["churn"]["losses_finite"] for r in st)
+    out["stream"] = {"checks": checks, "seconds": max(r["seconds"] for r in st)}
+    for codec in ("none", "int8"):
+        out["stream"][codec] = {k: [r[codec][k] for r in st] for k in (
+            "inner_ms", "consuming", "blocking", "full_outer_step", "cycle_ms_blocking",
+            "cycle_ms_consuming", "sync_by_stream", "peak_gb", "blocking_fraction",
+            "warm_presend_wait_ms_in_run")}
+        out["stream"][codec]["events"] = st[0][codec]["events"]
+    out["stream"]["churn_fallbacks"] = st[0]["churn"]["fallbacks"]
+    log("dist stream (phase 51): " + json.dumps(out["stream"]))
+    if not all(checks.values()):
+        raise AssertionError(f"dist stream failed its checks: {checks}")
+    launches["stream"] = {k: sum(r[c]["launches"].get(k, 0) for r in st for c in ("none", "int8"))
+                          + sum(r["churn"]["launches"].get(k, 0) for r in st)
+                          for k in TRAIN_KERNELS + INT8}
+
+    # phase 52
+    par = [r["parity"] for r in ranks]
+    checks = {}
+    for name in ("elastic", "async", "stream_churn"):
+        rows = [r[name] for r in par]
+        checks[name] = all(row["rounds_identical"] and row["partners_identical"]
+                           and row["stream_events_identical"]
+                           and row["loss_max_rel_diff"] <= LOSS_RTOL
+                           and row["weight_std_rel_diff"] <= WSTD_RTOL for row in rows)
+    for name, mid in (("resume_async", DIST_ASYNC_MID), ("resume_stream", DIST_STREAM_MID)):
+        checks[name] = all(r[name]["start_step"] == mid and r[name]["losses_identical"]
+                           and r[name]["bit_identical"] for r in par)
+    out["card_vs_cpu"] = {"checks": checks, "ranks": par, "seconds": max(r["seconds"] for r in par)}
+    out["runs_s_rank0"] = {name: ranks[0][name]["runs_s"] for name in ("elastic", "async", "stream",
+                                                                       "parity")}
+    log("dist elastic phases' runs on rank 0 (run, s in all, the loop's wall s): "
+        + json.dumps(out["runs_s_rank0"]))
+    log("dist elastic card vs cpu and resumes (phase 52): " + json.dumps(out["card_vs_cpu"]))
+    if not all(checks.values()):
+        raise AssertionError(f"dist card vs cpu (phase 52) failed its checks: {checks}")
+    return out, launches
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -4994,6 +5711,23 @@ def _tree_to(tree, device):
 
 
 # ---------------------------------------------------------------------------
+
+
+def _time_phases() -> None:
+    """Log each phase function's seconds when it returns (``phase <name>:
+    <s> s``), so that the script's time limit can be kept by cutting where
+    the time goes."""
+    def timed(fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            log(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
+            return out
+        return run
+
+    for name, fn in list(globals().items()):
+        if callable(fn) and re.search(r"(_phase|_kernels|_parity|^time_moe_block)$", name):
+            globals()[name] = timed(fn)
 
 
 def main() -> None:
@@ -5011,6 +5745,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
+    _time_phases()
     build.build_all()
     for name, (secs, report) in build.BUILD_LOG.items():
         log(f"build {name}.cu: {secs:.1f} s\n{report.strip()}")
@@ -5087,6 +5822,7 @@ def main() -> None:
     router = router_phase(dev)
     spec_parity = spec_parity_phase(dev)
     dist, dist_launches = dist_phase(dev)
+    dist_el, dist_el_launches = dist_elastic_phase(dev)
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     launches.update({k: int8_launches[k] for k in INT8})
     launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
@@ -5097,8 +5833,8 @@ def main() -> None:
                    *piped_launches.values()):                      # and the routed pipeline
         for k in TRAIN_KERNELS + INT8:
             launches[k] += counts[k]
-    for counts in dist_launches.values():   # the replica group: every rank's launches
-        for k in TRAIN_KERNELS + INT8:
+    for counts in (*dist_launches.values(), *dist_el_launches.values()):
+        for k in TRAIN_KERNELS + INT8:   # the replica group: every rank's launches
             launches[k] += counts[k]
     for counts in (single_shot_launches, *spec_launches):   # single-shot and speculative serving
         for k in SERVE_KERNELS:
@@ -5190,8 +5926,15 @@ def main() -> None:
         | {name: {k: dist[name][k] for k in ("inner_step_p50_ms", "outer_step_alone_ms",
                                              "payload_bytes", "peak_memory_gb", "card_used_gb")}
            for name in ("noloco", "int8", "diloco")},
+        "dist_elastic": {"elastic": {k: dist_el["elastic"][k] for k in (
+            "inner_ms", "warm_start", "peak_gb", "seconds")},
+            "async": {k: dist_el["async"][k] for k in ("inner_ms", "peak_gb", "seconds")},
+            "stream": {codec: {k: dist_el["stream"][codec][k] for k in (
+                "consuming", "blocking", "full_outer_step", "cycle_ms_blocking",
+                "cycle_ms_consuming")} for codec in ("none", "int8")},
+            "card_vs_cpu": dist_el["card_vs_cpu"]["checks"], "seconds": dist_el["seconds"]},
         "seconds": time.perf_counter() - t0}))
-    log(f"chip_smoke: all 48 phases in {time.perf_counter() - t0:.1f} s (the build included)")
+    log(f"chip_smoke: all 52 phases in {time.perf_counter() - t0:.1f} s (the build included)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -18,10 +18,13 @@ Over the replica group (:mod:`repro_torch.launch.mesh`, one rank per
 replica), :class:`ShardedPermute` packs this rank's tree, encodes each
 buffer, moves every buffer to and from the round's partner in one batched
 send/receive, then decodes and unpacks: the pairwise exchange, with no
-collective.  :class:`AllReduce` is DiLoCo's group mean (an ``all_reduce``
-of each packed buffer in its own dtype, divided by the world).  The elastic
-weighted mean and the φ′ pre-send over the group come with ROADMAP Queue 1
-item 9b.
+collective.  :meth:`ShardedPermute.exchange_start` splits that call: it
+posts the transfer and returns a :class:`PendingTree` whose ``wait()``
+decodes the tree, which is how :func:`presend` puts a stream's φ′ in
+flight during the next inner steps.  :class:`AllReduce` is DiLoCo's group
+mean (an ``all_reduce`` of each packed buffer in its own dtype, divided by
+the world), or with a participation ``weight`` the elastic mean
+sum(w·Δ)/sum(w) over the round's participants.
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ from repro_torch.tree import tree_map
 
 PyTree = Any
 
-__all__ = ["Communicator", "StackedGather", "ShardedPermute", "AllReduce", "wire_roundtrip",
-           "exchange_gossip", "presend"]
+__all__ = ["Communicator", "StackedGather", "ShardedPermute", "PendingTree", "AllReduce",
+           "wire_roundtrip", "exchange_gossip", "presend"]
 
 
 def wire_roundtrip(tree: PyTree, cfg: CommConfig, *, lead: int = 0) -> PyTree:
@@ -56,9 +59,8 @@ def wire_roundtrip(tree: PyTree, cfg: CommConfig, *, lead: int = 0) -> PyTree:
 class Communicator:
     """Pairwise gossip exchange and group mean over the replica dimension:
     :class:`StackedGather` in the stacked simulation, :class:`ShardedPermute`
-    and :class:`AllReduce` over the replica group.  The elastic weighted
-    mean and the pre-send over the group come with ROADMAP Queue 1 item 9b,
-    a model axis within a replica with item 9c."""
+    and :class:`AllReduce` over the replica group.  A model axis within a
+    replica comes with ROADMAP Queue 1 item 9c."""
 
     cfg: CommConfig
     #: the plain wire may go leaf by leaf (a gather costs no message); a
@@ -137,36 +139,91 @@ class ShardedPermute(Communicator):
         self.cfg = cfg or CommConfig()
         self.cfg.validate()
 
-    def exchange(self, tree: PyTree) -> PyTree:
-        codec = get_codec(self.cfg)
-        self.group.mark("update")   # the outer step's own math before the exchange (Δ)
+    @property
+    def paired(self) -> bool:
+        """Whether this rank's payload crosses to another rank."""
+        return self.dst != self.group.rank or self.src != self.group.rank
+
+    def _encode(self, tree: PyTree, prefix: str = ""):
         buffers, spec = payload_lib.pack(tree, fuse=self.cfg.fuse)
-        wires = [codec.encode(buf) for buf in buffers]
+        wires = [get_codec(self.cfg).encode(buf) for buf in buffers]
         del buffers
-        self.group.mark("encode")
-        if self.dst != self.group.rank or self.src != self.group.rank:
-            wires = self.group.exchange(wires, self.dst, self.src)
+        self.group.mark(prefix + "encode")
+        return wires, spec
+
+    def _decode(self, wires, spec, prefix: str = "") -> PyTree:
+        codec = get_codec(self.cfg)
         out = [codec.decode(w, bs.dtype, bs.size) for w, bs in zip(wires, spec.buffers)]
         tree = payload_lib.unpack(out, spec)
-        self.group.mark("decode")
+        self.group.mark(prefix + "decode")
         return tree
+
+    def exchange(self, tree: PyTree) -> PyTree:
+        self.group.mark("update")   # the outer step's own math before the exchange (Δ)
+        wires, spec = self._encode(tree)
+        if self.paired:
+            wires = self.group.exchange(wires, self.dst, self.src)
+        return self._decode(wires, spec)
+
+    def exchange_start(self, tree: PyTree, *, stream: int = 0) -> "PendingTree":
+        """Post :meth:`exchange`'s transfer (stream ``stream``'s channel)
+        and return at once; ``wait()`` on the result gives the partner's
+        tree.  A rank paired with itself posts nothing."""
+        wires, spec = self._encode(tree, "pre_")
+        pending = (self.group.exchange_start(wires, self.dst, self.src, stream=stream)
+                   if self.paired else wires)
+        return PendingTree(self, pending, spec)
+
+
+class PendingTree:
+    """A tree in flight from :meth:`ShardedPermute.exchange_start`:
+    :meth:`wait` completes the transfer once (the phases ``pre_wire``,
+    ``pre_h2d``, ``pre_decode``) and returns the decoded tree."""
+
+    def __init__(self, comm: ShardedPermute, pending, spec):
+        self._comm, self._pending, self._spec = comm, pending, spec
+        self._tree = None
+
+    def wait(self) -> PyTree:
+        if self._tree is None:
+            wires = self._pending if isinstance(self._pending, list) else self._pending.wait()
+            self._tree = self._comm._decode(wires, self._spec, "pre_")
+            self._pending = None
+        return self._tree
 
 
 class AllReduce(Communicator):
     """DiLoCo's group mean over the replica group: each packed buffer is
     summed over the ranks in its own dtype by one ``all_reduce`` and divided
     by the world, as the reference's ``lax.pmean``, so the wire carries the
-    buffers' bytes and no more."""
+    buffers' bytes and no more.
 
-    def __init__(self, group, cfg: CommConfig | None = None):
+    ``weight`` (this rank's participation, 0 or 1) with ``participants``
+    (the sum of the ranks' weights, which every rank knows from the shared
+    membership) gives the elastic mean sum(w·x) / max(sum(w), 1) over the
+    round's participants, the reference's ``psum(w·x) / psum(w)``: a rank
+    of weight 0 adds zeros but still makes the call, so no rank waits on
+    one that skipped it."""
+
+    def __init__(self, group, cfg: CommConfig | None = None, *, weight: float | None = None,
+                 participants: int | None = None):
+        if (weight is None) != (participants is None):
+            raise ValueError("the elastic mean needs both weight and participants")
         self.group = group
         self.cfg = cfg or CommConfig()
+        self.weight = weight
+        self.participants = participants
 
     def allreduce_mean(self, tree: PyTree) -> PyTree:
         self.group.mark("update")
         buffers, spec = payload_lib.pack(tree, fuse=self.cfg.fuse)
+        if self.weight is None:
+            denom = self.group.world
+        else:
+            buffers = [buf * float(self.weight) for buf in buffers]
+            denom = max(float(self.participants), 1.0)
         self.group.mark("encode")
-        out = [self.group.all_reduce_sum(buf) / self.group.world for buf in buffers]
+        out = [self.group.all_reduce_sum(buf) / denom for buf in buffers]
         tree = payload_lib.unpack(out, spec)
         self.group.mark("decode")
         return tree
@@ -183,7 +240,11 @@ def exchange_gossip(comm: Communicator, delta: PyTree, phi: PyTree, *,
     return comm.exchange((delta, phi))
 
 
-def presend(comm_next: Communicator, phi_next: PyTree) -> PyTree:
+def presend(comm_next: Communicator, phi_next: PyTree, *, stream: int = 0):
     """The φ′ transfer along the NEXT pairing, a payload of its own; on a
-    wire it overlaps the next m inner steps."""
+    wire it overlaps the next m inner steps.  A communicator that sends
+    messages posts it and returns a :class:`PendingTree` (its ``wait()``
+    gives the partner's φ′); the stacked simulation returns the tree."""
+    if isinstance(comm_next, ShardedPermute):
+        return comm_next.exchange_start(phi_next, stream=stream)
     return comm_next.exchange(phi_next)

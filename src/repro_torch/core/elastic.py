@@ -30,7 +30,11 @@ import numpy as np
 
 from repro_torch.core.pairing import Membership
 
-__all__ = ["ElasticContext", "RoundPlan", "stream_assignment"]
+__all__ = ["ELASTIC_METHODS", "ElasticContext", "RoundPlan", "stream_assignment"]
+
+# the outer methods an elastic run takes: a dropped or waiting replica sits
+# its rounds out, which a per-step gradient all-reduce (fsdp) cannot
+ELASTIC_METHODS = ("noloco", "diloco")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,7 +22,11 @@ parameter-group stream at a time on staggered round offsets
 next sync blocks on Δ alone.  Over the replica group (one rank per
 replica, :mod:`repro_torch.launch.mesh`) :func:`outer_step_sharded` runs
 the same step on the rank's row, the partner's (Δ, φ) from one batched
-send/receive; its streamed twin comes with ROADMAP Queue 1 item 9b.
+send/receive, and :func:`outer_step_sharded_stream` one stream's sync,
+whose φ′ pre-send is posted without a wait and stays in flight during the
+next inner steps.  A rank that sits a round out decides so on the host and
+skips the update: its (θ, φ, δ) stay the same tensors, which is bitwise
+what the reference's select gives.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ __all__ = [
     "OuterConfig", "OuterState", "gamma_band", "default_gamma", "init_outer_state",
     "outer_gradient", "stale_discount", "noloco_momentum_update", "diloco_momentum_update",
     "outer_step", "outer_step_stacked", "StreamSchedule", "outer_step_stacked_stream",
-    "outer_step_sharded",
+    "outer_step_sharded", "outer_step_sharded_stream",
 ]
 
 
@@ -288,7 +292,9 @@ def _noloco_leafwise(state: OuterState, theta: PyTree, cfg: OuterConfig,
 
 @torch.no_grad()
 def outer_step_sharded(state: OuterState, theta: PyTree, cfg: OuterConfig, *, group,
-                       pairs=None, comm_cfg: CommConfig | None = None) -> tuple[OuterState, PyTree]:
+                       pairs=None, comm_cfg: CommConfig | None = None,
+                       active_flag: bool | None = None, participants: int | None = None,
+                       staleness: float | None = None) -> tuple[OuterState, PyTree]:
     """One outer step on one rank of the replica group: ``theta``, φ and δ
     are this rank's replica (a leading axis of 1).  NoLoCo: a
     :class:`~repro_torch.comm.exchange.ShardedPermute` over ``pairs``
@@ -296,7 +302,16 @@ def outer_step_sharded(state: OuterState, theta: PyTree, cfg: OuterConfig, *, gr
     cross-rank call, and no collective.  DiLoCo: an
     :class:`~repro_torch.comm.exchange.AllReduce`.  The arithmetic is
     :func:`outer_step`'s, so each rank's row equals the stacked step's
-    row.  Returns (new_state, new_theta)."""
+    row.  Returns (new_state, new_theta).
+
+    ``active_flag`` (does this rank's replica update this round?) is
+    DiLoCo's participation weight, over ``participants`` ranks; a rank
+    whose flag is False runs no update and keeps (θ, φ, δ) as the same
+    tensors, only its counter advancing, but still makes the round's call:
+    DiLoCo's all-reduce with weight 0, or, paired with another rank (a
+    passive source of an asynchronous tick), the exchange of its (Δ, φ).
+    ``staleness`` (this rank's τ) discounts its Δ on the wire under
+    ``stale="momentum"`` (:func:`stale_discount`)."""
     cfg.validate()
     comm = None
     if cfg.method == "noloco":
@@ -304,8 +319,109 @@ def outer_step_sharded(state: OuterState, theta: PyTree, cfg: OuterConfig, *, gr
             raise ValueError("the sharded NoLoCo step needs the round's pairs")
         comm = exchange_lib.ShardedPermute(group, pairs, comm_cfg)
     elif cfg.method == "diloco":
-        comm = exchange_lib.AllReduce(group, comm_cfg)
-    return outer_step(state, theta, cfg, comm)
+        weight = None if active_flag is None else float(bool(active_flag))
+        comm = exchange_lib.AllReduce(group, comm_cfg, weight=weight,
+                                      participants=None if weight is None else participants)
+    stale = None if staleness is None else torch.tensor(float(staleness))
+    if active_flag is None or active_flag:
+        return outer_step(state, theta, cfg, comm, staleness=stale)
+    if cfg.method == "noloco" and comm.paired:
+        delta = outer_gradient(theta, state.phi)
+        if stale is not None and cfg.stale == "momentum":
+            delta = stale_discount(delta, stale)
+        comm.exchange((delta, state.phi))
+    elif cfg.method == "diloco" and participants:
+        comm.allreduce_mean(outer_gradient(theta, state.phi))
+    return OuterState(phi=state.phi, delta=state.delta, step=state.step + 1), theta
+
+
+@torch.no_grad()
+def outer_step_sharded_stream(state: OuterState, theta: PyTree, cfg: OuterConfig, *, group,
+                              stream: int, partition, pairs, phi_pre: PyTree | None = None,
+                              consume_prefetch: bool = False, pairs_next=None,
+                              comm_cfg: CommConfig | None = None,
+                              active_flag: bool | None = None):
+    """One stream's outer sync on one rank of the replica group (NoLoCo
+    only): :func:`outer_step_stacked_stream`'s sync over a
+    :class:`~repro_torch.comm.exchange.ShardedPermute` along ``pairs``.
+
+    ``pairs_next`` posts the φ′ pre-send of the stream's leaves along the
+    next pairing, after the freeze, so a rank that sat the sync out
+    pre-sends its true φ; the transfer is not waited here.
+    ``active_flag`` False: the rank runs no update and keeps its leaves; it
+    is a non-participant, which ``pairs`` pairs with itself, so it moves
+    nothing.  Returns (new_state, new_theta, pending): ``pending`` is None
+    without ``pairs_next``, else a
+    :class:`~repro_torch.comm.exchange.PendingTree` whose ``wait()`` gives
+    the partner's φ′ of the stream's leaves, in order."""
+    presend = None
+    if pairs_next is not None:
+        def presend(phi_next_k, idxs):
+            group.mark("update")   # the sync's own update, before the pre-send's encode
+            comm_next = exchange_lib.ShardedPermute(group, pairs_next, comm_cfg)
+            return exchange_lib.presend(comm_next, list(phi_next_k), stream=stream)
+    return _stream_sync(state, theta, cfg, exchange_lib.ShardedPermute(group, pairs, comm_cfg),
+                        stream=stream, partition=partition, phi_pre=phi_pre,
+                        consume_prefetch=consume_prefetch,
+                        update=active_flag is None or bool(active_flag), presend=presend)
+
+
+def _stream_sync(state: OuterState, theta: PyTree, cfg: OuterConfig,
+                 comm: exchange_lib.Communicator, *, stream: int, partition,
+                 phi_pre: PyTree | None, consume_prefetch: bool, update: bool = True,
+                 freeze=None, presend=None):
+    """The streamed sync both layouts share: pick the stream's leaves,
+    exchange (Δ_k, φ_k) or Δ_k alone against the prefetched φ, run the
+    update (``update`` False: none, the leaves kept), ``freeze(new, old)``
+    the rows that sit the sync out, call ``presend(φ′_k, leaf indices)``
+    and write the stream's leaves back; every other leaf passes through as
+    the same tensor.  Returns (new_state, new_theta, what ``presend``
+    returned or None)."""
+    cfg.validate()
+    if cfg.method != "noloco":
+        raise ValueError("streamed outer sync is NoLoCo-only (gossip pairing)")
+    theta_leaves = tree_leaves(theta)
+    phi_leaves = tree_leaves(state.phi)
+    mom_leaves = tree_leaves(state.delta)
+    idxs = partition.leaf_indices(stream)
+    theta_k = [theta_leaves[i] for i in idxs]
+    phi_k = [phi_leaves[i] for i in idxs]
+    mom_k = [mom_leaves[i] for i in idxs]
+    prefetched = None
+    if consume_prefetch:
+        if phi_pre is None:
+            raise ValueError("consume_prefetch=True requires phi_pre")
+        pre_leaves = tree_leaves(phi_pre)
+        prefetched = [pre_leaves[i] for i in idxs]
+    phi_next_k, mom_next_k, theta_next_k = phi_k, mom_k, theta_k
+    if update and comm.cfg.codec == "none" and comm.per_leaf:
+        phi_next_k, mom_next_k = _noloco_leafwise(
+            OuterState(phi=phi_k, delta=mom_k), theta_k, cfg, comm, phi_prefetched=prefetched)
+        theta_next_k = phi_next_k
+    elif update:
+        delta_k = outer_gradient(theta_k, phi_k)
+        delta_p, phi_p = exchange_lib.exchange_gossip(comm, delta_k, phi_k,
+                                                      phi_prefetched=prefetched)
+        mean_delta = tree_map(lambda a, b: 0.5 * (a + b), delta_k, delta_p)
+        del delta_k, delta_p
+        mean_phi = tree_map(lambda a, b: 0.5 * (a + b), phi_k, phi_p)
+        del phi_p
+        phi_next_k, mom_next_k = noloco_momentum_update(
+            phi_k, mom_k, mean_delta, mean_phi,
+            alpha=cfg.alpha, beta=cfg.beta, gamma=cfg.resolved_gamma(),
+        )
+        theta_next_k = phi_next_k
+    if freeze is not None:
+        phi_next_k = tree_map(freeze, phi_next_k, phi_k)
+        mom_next_k = tree_map(freeze, mom_next_k, mom_k)
+        theta_next_k = tree_map(freeze, theta_next_k, theta_k)
+    sent = None if presend is None else presend(phi_next_k, idxs)
+    new_phi, new_mom, new_theta = list(phi_leaves), list(mom_leaves), list(theta_leaves)
+    for i, p, d, t in zip(idxs, phi_next_k, mom_next_k, theta_next_k):
+        new_phi[i], new_mom[i], new_theta[i] = p, d, t
+    new_state = OuterState(phi=tree_unflatten(state.phi, new_phi),
+                           delta=tree_unflatten(state.delta, new_mom), step=state.step + 1)
+    return new_state, tree_unflatten(theta, new_theta), sent
 
 
 def _select(active, device):
@@ -375,57 +491,19 @@ def outer_step_stacked_stream(state: OuterState, theta: PyTree, cfg: OuterConfig
     pre-send, φ) with the stream's leaves replaced by the partner's φ′_k,
     else None.  ``active`` freezes the other replicas over this stream's
     leaves.  ``step`` advances by one, also for an empty stream."""
-    cfg.validate()
-    if cfg.method != "noloco":
-        raise ValueError("streamed outer sync is NoLoCo-only (gossip pairing)")
-    theta_leaves = tree_leaves(theta)
-    phi_leaves = tree_leaves(state.phi)
-    mom_leaves = tree_leaves(state.delta)
-    device = theta_leaves[0].device
-    idxs = partition.leaf_indices(stream)
-    theta_k = [theta_leaves[i] for i in idxs]
-    phi_k = [phi_leaves[i] for i in idxs]
-    mom_k = [mom_leaves[i] for i in idxs]
-    comm = exchange_lib.StackedGather(torch.as_tensor(partner, device=device), comm_cfg)
-    prefetched = None
-    if consume_prefetch:
-        if phi_pre is None:
-            raise ValueError("consume_prefetch=True requires phi_pre")
-        pre_leaves = tree_leaves(phi_pre)
-        prefetched = [pre_leaves[i] for i in idxs]
-    if comm.cfg.codec == "none":
-        phi_next_k, mom_next_k = _noloco_leafwise(
-            OuterState(phi=phi_k, delta=mom_k), theta_k, cfg, comm, phi_prefetched=prefetched)
-    else:
-        delta_k = outer_gradient(theta_k, phi_k)
-        delta_p, phi_p = exchange_lib.exchange_gossip(comm, delta_k, phi_k,
-                                                      phi_prefetched=prefetched)
-        mean_delta = tree_map(lambda a, b: 0.5 * (a + b), delta_k, delta_p)
-        del delta_k, delta_p
-        mean_phi = tree_map(lambda a, b: 0.5 * (a + b), phi_k, phi_p)
-        del phi_p
-        phi_next_k, mom_next_k = noloco_momentum_update(
-            phi_k, mom_k, mean_delta, mean_phi,
-            alpha=cfg.alpha, beta=cfg.beta, gamma=cfg.resolved_gamma(),
-        )
-    theta_next_k = phi_next_k
-    if active is not None:
-        _sel = _select(active, device)
-        phi_next_k = tree_map(_sel, phi_next_k, phi_k)
-        mom_next_k = tree_map(_sel, mom_next_k, mom_k)
-        theta_next_k = tree_map(_sel, theta_next_k, theta_k)
-    phi_pre_out = None
+    device = tree_leaves(theta)[0].device
+    presend = None
     if partner_next is not None:
-        comm_next = exchange_lib.StackedGather(torch.as_tensor(partner_next, device=device),
-                                               comm_cfg)
-        pre_k = exchange_lib.presend(comm_next, phi_next_k)
-        pre_leaves = list(tree_leaves(phi_pre if phi_pre is not None else state.phi))
-        for i, leaf in zip(idxs, pre_k):
-            pre_leaves[i] = leaf
-        phi_pre_out = tree_unflatten(state.phi, pre_leaves)
-    new_phi, new_mom, new_theta = list(phi_leaves), list(mom_leaves), list(theta_leaves)
-    for i, p, d, t in zip(idxs, phi_next_k, mom_next_k, theta_next_k):
-        new_phi[i], new_mom[i], new_theta[i] = p, d, t
-    new_state = OuterState(phi=tree_unflatten(state.phi, new_phi),
-                           delta=tree_unflatten(state.delta, new_mom), step=state.step + 1)
-    return new_state, tree_unflatten(theta, new_theta), phi_pre_out
+        def presend(phi_next_k, idxs):
+            comm_next = exchange_lib.StackedGather(torch.as_tensor(partner_next, device=device),
+                                                   comm_cfg)
+            pre_k = exchange_lib.presend(comm_next, phi_next_k)
+            pre_leaves = list(tree_leaves(phi_pre if phi_pre is not None else state.phi))
+            for i, leaf in zip(idxs, pre_k):
+                pre_leaves[i] = leaf
+            return tree_unflatten(state.phi, pre_leaves)
+    comm = exchange_lib.StackedGather(torch.as_tensor(partner, device=device), comm_cfg)
+    return _stream_sync(state, theta, cfg, comm, stream=stream, partition=partition,
+                        phi_pre=phi_pre, consume_prefetch=consume_prefetch,
+                        freeze=None if active is None else _select(active, device),
+                        presend=presend)

@@ -50,6 +50,7 @@ __all__ = [
     "elastic_partner_table",
     "elastic_ppermute_pairs",
     "elastic_hypercube_partner_table",
+    "elastic_hypercube_ppermute_pairs",
     "elastic_route_permutation",
 ]
 
@@ -350,6 +351,15 @@ def elastic_hypercube_partner_table(step: int, membership: Membership, *, seed: 
     active = np.asarray(membership.mask, dtype=bool)
     ok = active & active[raw] & (comp == comp[raw]) & (comp >= 0)
     return np.where(ok, raw, ids)
+
+
+def elastic_hypercube_ppermute_pairs(step: int, membership: Membership, *, seed: int = 0,
+                                     groups: Sequence[Sequence[int]] | None = None
+                                     ) -> list[tuple[int, int]]:
+    """(source, destination) list of the elastic hypercube matching: sit-outs
+    and inactive replicas address themselves, so the permutation is total."""
+    table = elastic_hypercube_partner_table(step, membership, seed=seed, groups=groups)
+    return [(int(src), int(table[src])) for src in range(membership.world)]
 
 
 def elastic_route_permutation(step: int, membership: Membership, *, seed: int = 0) -> np.ndarray:

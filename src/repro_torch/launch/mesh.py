@@ -17,6 +17,13 @@ in ``calls``.  The backend is the caller's choice and nothing switches it:
     pinned host buffers (the slow link of the paper's setting), so ranks
     can share one card.
 
+Besides the blocking exchange, a stream's φ′ pre-send is posted without a
+wait (:meth:`ReplicaGroup.exchange_start`, a :class:`PendingExchange`
+whose ``wait()`` gives the received tensors), so that it is in flight
+during the inner steps that follow; each stream's pre-send has tags and
+pinned buffers of its own.  A rejoin's warm start is a one-way
+:meth:`~ReplicaGroup.send` / :meth:`~ReplicaGroup.recv`.
+
 :func:`spawn` starts ``world`` ranks with ``torch.multiprocessing`` (start
 method ``spawn``) and a ``file://`` rendezvous in a temporary directory,
 so no network port is needed, runs ``fn(group, *args)`` on each and
@@ -42,8 +49,8 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["BACKENDS", "ReplicaGroup", "PhaseClock", "init_replica_group", "check_backend",
-           "spawn", "from_env"]
+__all__ = ["BACKENDS", "ReplicaGroup", "PendingExchange", "PhaseClock", "init_replica_group",
+           "check_backend", "spawn", "from_env"]
 
 BACKENDS = ("gloo", "nccl")
 
@@ -74,13 +81,55 @@ class PhaseClock:
         self._last = now
 
 
+# message tags: each channel of a rank pair owns a range, its buffers counted up from the base
+_TAG_STRIDE = 1 << 12
+
+
+def _tag_base(channel) -> int:
+    """The first tag of ``channel``: the blocking exchange 0, the one-way
+    send 1, stream k's pre-send k + 2, each times the stride."""
+    if channel == "exchange":
+        return 0
+    if channel == "oneway":
+        return _TAG_STRIDE
+    return (channel[1] + 2) * _TAG_STRIDE
+
+
+class PendingExchange:
+    """A posted send/receive (:meth:`ReplicaGroup.exchange_start`).
+    :meth:`wait` completes it once and returns the received tensors on the
+    rank's device (staged: copied back from the pinned buffers, the H2D,
+    only after the wire is done); later calls return the same tensors.
+    The sent tensors are held until then."""
+
+    def __init__(self, group: "ReplicaGroup", works, send: list[torch.Tensor],
+                 recv: list[torch.Tensor], prefix: str):
+        self.group, self._works, self._prefix = group, works or [], prefix
+        self._send, self._recv = send, recv
+        self._out: list[torch.Tensor] | None = None
+
+    def wait(self) -> list[torch.Tensor]:
+        if self._out is None:
+            for work in self._works:
+                work.wait()
+            self._works = self._send = []
+            self.group.mark(self._prefix + "wire")
+            out = self._recv
+            if self.group.staged and out:
+                out = [h.to(self.group.device, copy=True) for h in out]
+                self.group.mark(self._prefix + "h2d")
+            self._out, self._recv = out, None
+        return self._out
+
+
 @dataclasses.dataclass
 class ReplicaGroup:
     """One rank's view of the replica group and its cross-rank calls.
 
     ``calls`` counts each call by kind (``p2p``: one batched send/receive,
+    ``presend``: one posted without a wait, ``send`` / ``recv``: one way,
     ``all_reduce``, ``gather``, ``broadcast``, ``barrier``) and ``sent_bytes``
-    the bytes this rank handed to ``p2p`` sends and ``all_reduce``.
+    the bytes this rank handed to sends (by the same kinds) and ``all_reduce``.
     ``clock``, when a caller sets one, splits the exchanges that follow
     into their phases (:meth:`mark`)."""
 
@@ -111,33 +160,68 @@ class ReplicaGroup:
             self._pinned[key] = buf
         return buf
 
+    def _post(self, send: Sequence[torch.Tensor], dst: int | None, like: Sequence[torch.Tensor],
+              src: int | None, channel, kind: str, prefix: str = "") -> "PendingExchange":
+        """Post one ``batch_isend_irecv``: ``send`` to ``dst`` and tensors
+        shaped like ``like`` from ``src`` (either side may be empty).  Each
+        message's tag is its channel's base plus its buffer index, and a
+        staged channel keeps pinned buffers of its own, so that a posted
+        exchange of one channel never shares a tag or a buffer with another
+        in flight.  Staged: the sends are copied to pinned host memory
+        (D2H, complete before the call returns) before they are posted."""
+        self.calls[kind] += 1
+        self.sent_bytes[kind] += sum(t.numel() * t.element_size() for t in send)
+        base = _tag_base(channel)
+        if self.staged:
+            host = []
+            for i, t in enumerate(send):
+                buf = self._host((channel, "send", i), t)
+                buf.copy_(t)
+                host.append(buf)
+            send = host
+            recv = [self._host((channel, "recv", i), t) for i, t in enumerate(like)]
+            self.mark(prefix + "d2h")
+        else:
+            send = list(send)
+            recv = [torch.empty_like(t) for t in like]
+        ops = [dist.P2POp(dist.isend, t, dst, tag=base + i) for i, t in enumerate(send)]
+        ops += [dist.P2POp(dist.irecv, t, src, tag=base + i) for i, t in enumerate(recv)]
+        return PendingExchange(self, dist.batch_isend_irecv(ops), send, recv, prefix)
+
     def exchange(self, tensors: Sequence[torch.Tensor], dst: int, src: int) -> list[torch.Tensor]:
         """Send ``tensors`` to rank ``dst`` and receive the same shapes from
         rank ``src``, all in one ``batch_isend_irecv``.  Staged: each
         tensor is copied into a pinned host buffer first (D2H) and each
-        received one back to the device (H2D)."""
-        self.calls["p2p"] += 1
-        self.sent_bytes["p2p"] += sum(t.numel() * t.element_size() for t in tensors)
-        if self.staged:
-            send = []
-            for i, t in enumerate(tensors):
-                host = self._host(("send", i), t)
-                host.copy_(t)
-                send.append(host)
-            recv = [self._host(("recv", i), t) for i, t in enumerate(tensors)]
-            self.mark("d2h")
-        else:
-            send = list(tensors)
-            recv = [torch.empty_like(t) for t in tensors]
-        ops = [dist.P2POp(dist.isend, t, dst, tag=i) for i, t in enumerate(send)]
-        ops += [dist.P2POp(dist.irecv, t, src, tag=i) for i, t in enumerate(recv)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        self.mark("wire")
-        if self.staged:
-            recv = [h.to(self.device, copy=True) for h in recv]
-            self.mark("h2d")
-        return recv
+        received one back to the device (H2D).  No tensors: no call."""
+        if not tensors:
+            return []
+        return self._post(tensors, dst, tensors, src, "exchange", "p2p").wait()
+
+    def exchange_start(self, tensors: Sequence[torch.Tensor], dst: int, src: int, *,
+                       stream: int = 0) -> "PendingExchange":
+        """:meth:`exchange` without the wait: posts the send/receive of
+        stream ``stream``'s pre-send (counted as ``presend``) and returns
+        at once; ``wait()`` on the result gives the received tensors.  The
+        caller keeps ``tensors`` unchanged until then.  Every rank must post
+        its pre-sends in the same order, which the shared schedule gives."""
+        if not tensors:
+            return PendingExchange(self, [], [], [], "pre_")
+        pending = self._post(tensors, dst, tensors, src, ("presend", stream), "presend", "pre_")
+        self.mark("pre_post")
+        return pending
+
+    def send(self, tensors: Sequence[torch.Tensor], dst: int) -> None:
+        """One-way: ``tensors`` to rank ``dst`` in one ``batch_isend_irecv``
+        (counted as ``send``), which :meth:`recv` on ``dst`` meets."""
+        if tensors:
+            self._post(tensors, dst, [], None, "oneway", "send").wait()
+
+    def recv(self, like: Sequence[torch.Tensor], src: int) -> list[torch.Tensor]:
+        """One-way: tensors shaped like ``like`` from rank ``src`` (counted
+        as ``recv``), on this rank's device."""
+        if not like:
+            return []
+        return self._post([], None, like, src, "oneway", "recv").wait()
 
     def all_reduce_sum(self, tensor: torch.Tensor) -> torch.Tensor:
         """The sum of ``tensor`` over the ranks (a new tensor on this

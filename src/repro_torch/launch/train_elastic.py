@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.comm import CommConfig
 from repro_torch.configs import registry
+from repro_torch.core.elastic import ELASTIC_METHODS
 from repro_torch.data import LoaderConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import method_config
@@ -120,7 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="paper-small-125m")
     ap.add_argument("--reduced", action="store_true",
                     help="train the reduced (smoke) variant of the arch")
-    ap.add_argument("--method", default="noloco", choices=["noloco", "diloco"])
+    ap.add_argument("--method", default="noloco", choices=list(ELASTIC_METHODS))
     ap.add_argument("--fault-plan", default=None,
                     help="JSON FaultPlan (repro_torch.sim.faults); omit for a healthy run")
     ap.add_argument("--replicas", type=int, default=8)

@@ -18,14 +18,17 @@ reference compiles one ``ppermute`` program per pairing, so its
 receive need no compiled permutation, but the port deals the same pool
 slots and hypercube dimensions, so a run's partners are the reference's.
 With nothing to compile, a pool entry is the round's pairs and outer-step
-function, and ``misses`` counts the first use of a slot.  The pool's
-elastic views and streamed entries come with ROADMAP Queue 1 item 9b;
-``build_decode_step`` / ``build_prefill_step`` with item 9c.
+function, keyed as the reference keys its programs: by membership view
+and slot, and for a streamed sync or an asynchronous tick by the variant
+too, so ``misses`` counts the first use of a key and ``stats()`` is the
+reference's for the same run.  ``build_decode_step`` /
+``build_prefill_step`` come with ROADMAP Queue 1 item 9c.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -46,9 +49,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 PyTree = Any
 
 __all__ = ["TrainStepBundle", "build_train_step", "init_opt_state", "build_outer_step",
-           "OuterProgramPool", "ELASTIC_ITEM"]
-
-ELASTIC_ITEM = "ROADMAP Queue 1 item 9b (elastic, async and streamed rounds on the replica group)"
+           "OuterProgramPool"]
 
 
 @dataclasses.dataclass
@@ -89,15 +90,52 @@ def init_opt_state(theta: PyTree) -> AdamWState:
 
 
 def build_outer_step(plan: Plan, outer_cfg: OuterConfig, pairs, *, group,
-                     comm_cfg: CommConfig | None = None) -> Callable:
-    """One outer step of the rank's replica: ``(theta, phi, delta, step) ->
-    (theta', phi', delta', step + 1)``.  NoLoCo exchanges with the partner
-    of ``pairs``, the (source, destination) list over ranks; DiLoCo
-    all-reduces; ``none`` moves nothing."""
+                     comm_cfg: CommConfig | None = None, active=None, staleness=None,
+                     stream: int | None = None, partition=None, consume_prefetch: bool = False,
+                     pairs_presend=None) -> Callable:
+    """One outer step of the rank's replica.  NoLoCo exchanges with the
+    partner of ``pairs``, the (source, destination) list over ranks;
+    DiLoCo all-reduces; ``none`` moves nothing.
+
+    ``active`` (host (world,) bool mask or None) is the round's update
+    set: a rank outside it runs no update and keeps (θ, φ, δ), and elastic
+    DiLoCo means over the set.  ``staleness`` (host (world,) τ of an
+    asynchronous tick) discounts each rank's Δ on the wire.
+
+    Without ``stream``: ``(theta, phi, delta, step) -> (theta', phi',
+    delta', step + 1)``.  With ``stream`` (one stream of ``partition``,
+    :func:`~repro_torch.core.outer.outer_step_sharded_stream`):
+    ``(theta, phi, delta, step, phi_pre) -> (theta', phi', delta', step + 1,
+    pending)``; ``consume_prefetch`` reads the partner's φ from ``phi_pre``,
+    ``pairs_presend`` posts the φ′ pre-send along that pairing and
+    ``pending`` is its :class:`~repro_torch.comm.exchange.PendingTree`."""
+    rank = group.rank if group is not None else 0
+    flag = None if active is None else bool(np.asarray(active, dtype=bool)[rank])
+    participants = None if active is None else int(np.asarray(active, dtype=bool).sum())
+    tau = None if staleness is None else float(np.asarray(staleness, dtype=np.float32)[rank])
+    if stream is not None:
+        if outer_cfg.method != "noloco":
+            raise ValueError("streamed outer programs are NoLoCo-only")
+        if staleness is not None:
+            raise ValueError("staleness (async rounds) does not compose with streaming")
+
+        def stream_fn(theta, phi, delta, step, phi_pre=None):
+            new_state, new_theta, pending = outer_lib.outer_step_sharded_stream(
+                OuterState(phi=phi, delta=delta, step=step), theta, outer_cfg, group=group,
+                stream=stream, partition=partition, pairs=pairs, phi_pre=phi_pre,
+                consume_prefetch=consume_prefetch, pairs_next=pairs_presend,
+                comm_cfg=comm_cfg, active_flag=flag)
+            return new_theta, new_state.phi, new_state.delta, new_state.step, pending
+
+        return stream_fn
+    if consume_prefetch or pairs_presend is not None:
+        raise ValueError("consume_prefetch/pairs_presend require a streamed program")
+
     def fn(theta, phi, delta, step):
         state = OuterState(phi=phi, delta=delta, step=step)
         new_state, new_theta = outer_lib.outer_step_sharded(
-            state, theta, outer_cfg, group=group, pairs=pairs, comm_cfg=comm_cfg)
+            state, theta, outer_cfg, group=group, pairs=pairs, comm_cfg=comm_cfg,
+            active_flag=flag, participants=participants, staleness=tau)
         return new_theta, new_state.phi, new_state.delta, new_state.step
 
     return fn
@@ -110,14 +148,20 @@ class OuterProgramPool:
     ``schedule="random"``: round k uses the matching of slot
     ``k % pairing_pool`` (the reference's cycling pool); ``"hypercube"``:
     partner = rank XOR 2^j with j = :func:`~repro_torch.core.pairing.
-    hypercube_dim`.  ``program`` returns the round's outer step; a slot's
-    first use counts as a miss.  Every round here runs on the full
-    membership: partial views (elastic rounds, :meth:`view_key`) wait for
-    ROADMAP Queue 1 item 9b."""
+    hypercube_dim`.  A partial membership view (dropped replicas,
+    stragglers sitting the round out, a partition) draws its pairs over
+    the view's members with every other rank paired with itself, and keys
+    entries of its own (:meth:`view_key`); two epochs with equal masks
+    share them.  A streamed pool (``partition``) keys each entry by
+    (stream, consume-or-block, pre-send slot and view), an asynchronous
+    tick by (update set, staleness).  ``program`` returns the entry and
+    ``info`` (``compiled`` marks a first use, a miss); ``events`` holds one
+    record per miss, the reference's fields (``build_s``: the time to
+    build the step function)."""
 
     def __init__(self, plan: Plan, outer_cfg: OuterConfig, *, group,
                  comm_cfg: CommConfig | None = None, schedule: str = "random",
-                 pairing_pool: int = 16, seed: int = 0):
+                 pairing_pool: int = 16, seed: int = 0, partition=None):
         if schedule not in ("random", "hypercube"):
             raise ValueError(f"unknown pairing schedule: {schedule!r}")
         self.plan = plan
@@ -127,18 +171,29 @@ class OuterProgramPool:
         self.schedule = schedule
         self.pairing_pool = pairing_pool
         self.seed = seed
+        self.partition = partition
         self._programs: dict[Any, Callable] = {}
         self.hits = 0
         self.misses = 0
+        self.events: list[dict] = []
 
     @property
     def max_programs_per_view(self) -> int:
-        """Entries per membership view: ``pairing_pool`` for the random
-        schedule, log2(world) for the hypercube (the reference's bound,
-        whose overlap and stream factors are 1 on this path)."""
+        """Entries per membership view, the reference's bound: the
+        random schedule's ``pairing_pool`` or the hypercube's log2(world)
+        dimensions (their square under the overlap, whose key pairs the
+        sync's slot with the pre-send's), times the streams and, under the
+        overlap, the consume-or-block variants."""
+        world = self.plan.replicas
+        noloco = self.outer_cfg.method == "noloco"
+        overlap = self.comm_cfg.overlap and noloco
+        streams = self.comm_cfg.streams if noloco else 1
         if self.schedule == "hypercube":
-            return max(int(np.log2(self.plan.replicas)), 1)
-        return self.pairing_pool
+            dims = max(int(np.log2(world)), 1)
+            base = dims * dims if overlap else dims
+        else:
+            base = self.pairing_pool
+        return base * streams * (2 if overlap else 1)
 
     def pool_slot(self, outer_index: int) -> int:
         """The pairing slot of outer round ``outer_index``."""
@@ -146,15 +201,24 @@ class OuterProgramPool:
             return pairing_lib.hypercube_dim(outer_index, self.plan.replicas, seed=self.seed)
         return outer_index % max(self.pairing_pool, 1)
 
-    def pairs_for(self, outer_index: int) -> tuple[int, list[tuple[int, int]]]:
-        """(pool slot, (source, destination) pairs) of one outer round of
-        the full membership: a pure function of (seed, slot), so every rank
+    def pairs_for(self, outer_index: int, membership: Membership | None = None,
+                  groups: Any | None = None) -> tuple[int, list[tuple[int, int]]]:
+        """(pool slot, (source, destination) pairs) of one outer round: a
+        pure function of (seed, slot, membership view), so every rank
         derives the same pairs with no message."""
         world = self.plan.replicas
         slot = self.pool_slot(outer_index)
+        full = membership is None or (membership.is_full and groups is None)
         if self.schedule == "hypercube":
-            return slot, pairing_lib.hypercube_ppermute_pairs(outer_index, world, seed=self.seed)
-        return slot, pairing_lib.ppermute_pairs(slot, world, seed=self.seed)
+            if full:
+                return slot, pairing_lib.hypercube_ppermute_pairs(outer_index, world,
+                                                                  seed=self.seed)
+            return slot, pairing_lib.elastic_hypercube_ppermute_pairs(
+                outer_index, membership, seed=self.seed, groups=groups)
+        if full:
+            return slot, pairing_lib.ppermute_pairs(slot, world, seed=self.seed)
+        return slot, pairing_lib.elastic_ppermute_pairs(slot, membership, seed=self.seed,
+                                                        groups=groups)
 
     @staticmethod
     def view_key(membership: Membership | None, groups: Any | None = None) -> Any:
@@ -165,17 +229,95 @@ class OuterProgramPool:
         gk = None if groups is None else tuple(tuple(int(r) for r in g) for g in groups)
         return (tuple(membership.mask), gk)
 
-    def program(self, outer_index: int) -> Callable:
-        """The outer step of round ``outer_index``."""
-        slot, pairs = self.pairs_for(outer_index)
-        key = (None, slot)
-        if key in self._programs:
-            self.hits += 1
-        else:
+    def program(self, outer_index: int, membership: Membership | None = None,
+                groups: Any | None = None, *, stream: int | None = None, consume: bool = False,
+                presend_index: int | None = None, presend_membership: Membership | None = None,
+                update_mask=None, staleness=None) -> tuple[Callable, dict]:
+        """The outer step of round ``outer_index`` under the given view and
+        its ``info`` (``key``, ``slot``, ``view``, ``compiled``,
+        ``build_s``, ``pool_size``).
+
+        ``stream`` selects one stream's sync (``outer_index`` is then the
+        global stream-sync index); ``consume`` reads the prefetched φ;
+        ``presend_index`` adds the φ′ pre-send along that future index's
+        pairing, drawn over ``presend_membership`` (the whole current
+        membership, stragglers included).  ``update_mask`` (the due set of
+        an asynchronous tick: the others are passive sources) and
+        ``staleness`` (τ per replica, for the ``momentum`` rule) key an
+        asynchronous entry; the all-due τ = 0 tick takes the ``(view,
+        slot)`` entry."""
+        slot, pairs = self.pairs_for(outer_index, membership, groups)
+        view = self.view_key(membership, groups)
+        key: Any = (view, slot)
+        pairs_presend = presend_key = None
+        if stream is None and (consume or presend_index is not None):
+            raise ValueError("consume/presend are stream-program options; pass stream=")
+        if presend_index is not None:
+            slot_p, pairs_presend = self.pairs_for(presend_index, presend_membership, groups)
+            presend_key = (slot_p, self.view_key(presend_membership, groups))
+        if stream is not None:
+            if self.partition is None:
+                raise ValueError("streamed programs need the pool constructed with a "
+                                 "StreamPartition (partition=...)")
+            key = (view, slot, "stream", stream, bool(consume), presend_key)
+        # the update set is the view's members; an active replica outside
+        # every partition component stays one (paired with itself)
+        active = None if view is None else np.asarray(membership.mask, dtype=bool)
+        stale_vec = None
+        if update_mask is not None or staleness is not None:
+            if stream is not None:
+                raise ValueError("async update_mask/staleness do not compose with streamed "
+                                 "programs (SimCluster forbids the pairing at init)")
+            um_key = st_key = None
+            if update_mask is not None:
+                due = np.asarray(update_mask, dtype=bool)
+                active = due if active is None else (active & due)
+                um_key = tuple(bool(x) for x in due)
+            if staleness is not None:
+                stale_vec = np.asarray(staleness, dtype=np.float32)
+                st_key = tuple(float(x) for x in stale_vec)
+            key = (view, slot, "async", um_key, st_key)
+        fn, info = self._lookup(key, lambda: build_outer_step(
+            self.plan, self.outer_cfg, pairs, group=self.group, comm_cfg=self.comm_cfg,
+            active=active, staleness=stale_vec, stream=stream, partition=self.partition,
+            consume_prefetch=consume, pairs_presend=pairs_presend), {
+                "slot": str(slot), "view": "full" if view is None else "elastic",
+                "epoch": None if membership is None else membership.epoch,
+                "stream": stream, "async": update_mask is not None or staleness is not None})
+        return fn, dict(info, slot=slot, view=view)
+
+    def all_absent(self) -> tuple[Callable, dict]:
+        """The round in which every live replica timed out: identity pairs,
+        nobody updates, every counter advances.  One entry, keyed
+        ``"all-absent"``, counted and telemetered like any other."""
+        world = self.plan.replicas
+        fn, info = self._lookup("all-absent", lambda: build_outer_step(
+            self.plan, self.outer_cfg, [(i, i) for i in range(world)], group=self.group,
+            comm_cfg=self.comm_cfg, active=np.zeros((world,), dtype=bool)),
+            {"slot": "all-absent", "view": "all-absent", "epoch": None})
+        return fn, dict(info, slot="all-absent", view="all-absent")
+
+    def _lookup(self, key: Any, build: Callable[[], Callable], event: dict
+                ) -> tuple[Callable, dict]:
+        """The entry under ``key``, built by ``build`` on its first use (a
+        miss, recorded with ``event``'s fields), else a hit."""
+        compiled = key not in self._programs
+        build_s = 0.0
+        if compiled:
             self.misses += 1
-            self._programs[key] = build_outer_step(self.plan, self.outer_cfg, pairs,
-                                                   group=self.group, comm_cfg=self.comm_cfg)
-        return self._programs[key]
+            t0 = time.time()
+            self._programs[key] = build()
+            build_s = time.time() - t0
+            self.events.append(dict(event, build_s=round(build_s, 4),
+                                    pool_size=len(self._programs)))
+        else:
+            self.hits += 1
+        return self._programs[key], {"key": key, "compiled": compiled, "build_s": build_s,
+                                     "pool_size": len(self._programs)}
+
+    def drain_events(self) -> list[dict]:
+        events, self.events = self.events, []
+        return events
 
     def stats(self) -> dict:
         return {"pool_size": len(self._programs), "hits": self.hits, "misses": self.misses,

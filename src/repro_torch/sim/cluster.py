@@ -29,6 +29,13 @@ sources), only due replicas update, and each contribution's staleness τ
 feeds the ``stale="momentum"`` discount.  A rate-1 world is bit-identical
 to the synchronous path.  The port's steps take no PRNG key, so
 ``inner_step`` takes ``(state, batch)``.
+
+It wraps either runtime: the stacked :class:`~repro_torch.train.adapters.
+GossipProgram` or a replica group's :class:`~repro_torch.train.adapters.
+DistributedProgram`, where every rank runs its own ``SimCluster`` from the
+same plan (the events, stragglers and clocks are host-side and
+deterministic, so the ranks agree on every round with no message) and
+only rank 0's checkpoint tree is written.
 """
 
 from __future__ import annotations
@@ -156,8 +163,8 @@ class SimCluster:
         if async_clock:
             if not hasattr(program, "outer_step_async"):
                 raise ValueError("asynchronous clock needs a program exposing outer_step_async")
-            ccfg = program.tcfg.comm
-            if ccfg.streams > 1 or ccfg.overlap:
+            ccfg = self._comm_cfg()
+            if ccfg is not None and (ccfg.streams > 1 or ccfg.overlap):
                 raise ValueError(
                     "the asynchronous replica clock does not compose with "
                     "streaming outer steps / φ-prefetch yet — run with "
@@ -173,8 +180,23 @@ class SimCluster:
     def membership_epoch(self) -> int:
         return self.program.membership_epoch
 
+    @property
+    def rank(self) -> int:
+        """The program's rank in a replica group (0 for the stacked one)."""
+        return getattr(self.program, "rank", 0)
+
     def _inner_steps(self) -> int:
-        return self.program.tcfg.outer.inner_steps
+        # both runtimes expose the cadence through their outer config
+        prog = self.program
+        if hasattr(prog, "tcfg"):
+            return prog.tcfg.outer.inner_steps
+        return prog.trainer.outer_cfg.inner_steps
+
+    def _comm_cfg(self):
+        prog = self.program
+        if hasattr(prog, "tcfg"):
+            return prog.tcfg.comm
+        return getattr(prog.trainer, "comm_cfg", None)
 
     def _apply(self, state, ev: FaultEvent, t: int):
         mem = self.program.membership
@@ -325,6 +347,8 @@ class SimCluster:
         """The program's tree plus ``sim``: the in-flight straggler debts
         (they may outlive a run's horizon) and the replica clocks."""
         tree = self.program.state_pytree(state)
+        if tree is None:   # a replica group's rank other than 0 writes nothing
+            return None
         straggle = np.zeros((self.replicas,), dtype=np.int64)
         for r, k in self._straggle.items():
             straggle[r] = k
@@ -346,6 +370,25 @@ class SimCluster:
 
     def comm_cost(self):
         return self.program.comm_cost()
+
+    # -- program passthrough (the loop's ranks, telemetry and end) ------------
+
+    def barrier(self) -> None:
+        barrier = getattr(self.program, "barrier", None)
+        if barrier is not None:
+            barrier()
+
+    def finish(self, state):
+        finish = getattr(self.program, "finish", None)
+        return state if finish is None else finish(state)
+
+    def drain_recompile_events(self) -> list[dict]:
+        drain = getattr(self.program, "drain_recompile_events", None)
+        return [] if drain is None else drain()
+
+    def pool_stats(self) -> dict | None:
+        stats = getattr(self.program, "pool_stats", None)
+        return None if stats is None else stats()
 
     def drain_stream_events(self) -> list[dict]:
         """The program's ``stream_sync`` records.  A streaming program syncs

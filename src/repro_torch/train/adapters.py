@@ -32,11 +32,12 @@ layout, membership and the in-flight ``stream`` state included
 checkpoint resumes here and this program's restore in JAX.
 
 The replica group (:class:`DistributedProgram` over :class:`~repro_torch.
-launch.train_distributed.DistributedTrainer`, one rank per replica, fixed
-world): each rank takes its replica's rows of the loader's stacked
-batch; eval, the weight std and checkpoints gather across the ranks
-outside the outer step, and the checkpoint is JAX's
-``DistributedProgram.state_pytree`` tree, written by rank 0.
+launch.train_distributed.DistributedTrainer`, one rank per replica, with
+the elastic surface when the trainer has an elastic context): each rank
+takes its replica's rows of the loader's stacked batch; eval, the weight
+std and checkpoints gather across the ranks outside the outer step, and
+the checkpoint is JAX's ``DistributedProgram.state_pytree`` tree, written
+by rank 0.
 
 The routed pipeline (:class:`PipelineProgram` over :class:`~repro_torch.
 pipeline.PipelineTrainer`): §3.1 random routing between stage replicas and
@@ -64,7 +65,6 @@ from repro_torch.models import convert
 from repro_torch.models import model as model_api
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWState
-from repro_torch.parallel.steps import ELASTIC_ITEM
 from repro_torch.pipeline import PipelineTrainer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -418,15 +418,20 @@ class GossipProgram(_ElasticSurface):
 
 class DistributedProgram(_ElasticSurface):
     """Replica-group runtime over a configured ``DistributedTrainer``: this
-    rank's replica, fixed world (``elastic`` is None; elastic rounds come
-    with ROADMAP Queue 1 item 9b).
+    rank's replica.
 
     Every rank runs the loop; only rank 0 writes telemetry and checkpoints
     (the loop reads ``rank`` and calls ``barrier`` after a save).  The
-    per-step loss the loop sees is this rank's replica's; eval and the
-    weight std are over all replicas."""
+    per-step loss the loop sees is this rank's replica's (NaN in a step it
+    sits out); eval and the weight std cover the active replicas.
 
-    elastic = None
+    Elasticity: the trainer's :class:`~repro_torch.core.elastic.
+    ElasticContext` (when attached) is surfaced as the stacked program's,
+    with the hooks :class:`~repro_torch.sim.SimCluster` drives; every rank
+    runs its own ``SimCluster`` from the same plan.  The checkpoint is
+    JAX's ``DistributedProgram.state_pytree`` tree, membership and the
+    streams' in-flight state included, so resuming after churn, mid-async
+    or mid-stream continues the trajectory exactly."""
 
     def __init__(self, trainer):
         self.trainer = trainer
@@ -434,6 +439,7 @@ class DistributedProgram(_ElasticSurface):
         self.rank = trainer.group.rank
         self.replicas = trainer.plan.replicas
         self.replica = trainer.plan.replica_of(self.rank)
+        self.elastic = trainer.elastic
 
     def _rows(self, batch: dict) -> dict:
         """This replica's rows of a stacked (R, B, S) batch: the rows the
@@ -445,6 +451,42 @@ class DistributedProgram(_ElasticSurface):
     def barrier(self) -> None:
         self.group.barrier()
 
+    # -- SimCluster's hooks ---------------------------------------------------
+
+    def inner_step_index(self, state: dict) -> int:
+        return int(state["inner_step"])
+
+    def outer_round_index(self, state: dict) -> int:
+        """The pairing key of the round due at this step: a stream's global
+        sync index when streaming, else the 0-indexed round."""
+        return self.trainer.round_index(int(state["inner_step"]))
+
+    def sync_due(self, state: dict) -> bool:
+        return self.trainer.sync_due(int(state["inner_step"]))
+
+    def warm_start(self, state: dict, replica: int, source: int) -> dict:
+        """Rejoin over the group: one send of the source's φ to the
+        rejoining rank, the only traffic a rejoin costs."""
+        return self.trainer.warm_start(state, replica, source)
+
+    def drain_recompile_events(self) -> list[dict]:
+        events, self.trainer.recompile_events = self.trainer.recompile_events, []
+        return events
+
+    def drain_stream_events(self) -> list[dict]:
+        events, self.trainer.stream_events = self.trainer.stream_events, []
+        return events
+
+    def pool_stats(self) -> dict:
+        return self.trainer.pool.stats()
+
+    def _active_ids(self) -> list[int] | None:
+        if self.elastic is None or self.elastic.is_full:
+            return None
+        return list(self.elastic.active_ids())
+
+    # -- TrainProgram -------------------------------------------------------
+
     def init_state(self, example_batch: dict) -> dict:
         return self.trainer.init_state(self._rows(example_batch))
 
@@ -454,11 +496,25 @@ class DistributedProgram(_ElasticSurface):
     def maybe_outer_step(self, state: dict) -> tuple[dict, bool]:
         return self.trainer.maybe_outer_step(state)
 
+    def outer_step_async(self, state: dict, *, sync_index: int, due, staleness):
+        return self.trainer.outer_step_async(state, sync_index=sync_index, due=due,
+                                             staleness=staleness)
+
+    def finish(self, state: dict) -> dict:
+        """The run's end: the pre-sends in flight are waited."""
+        return self.trainer.finish(state)
+
     def eval_step(self, state: dict, batch: dict) -> float:
-        """Mean over the replicas of their grad-free losses: rank 0 gathers
-        the (R,) losses, means them and broadcasts the mean."""
+        """Mean over the active replicas of their grad-free losses: rank 0
+        gathers the (R,) losses, means them and broadcasts the mean."""
         rows = self.group.gather_rows(self.trainer.eval_loss(state, self._rows(batch)).float())
-        mean = None if rows is None else float(rows.reshape(-1).mean())
+        mean = None
+        if rows is not None:
+            losses = rows.reshape(-1)
+            ids = self._active_ids()
+            if ids is not None:
+                losses = losses[ids]
+            mean = float(losses.mean())
         return self.group.broadcast_object(mean)
 
     def _gather_tree(self, tree: PyTree) -> PyTree | None:
@@ -470,38 +526,61 @@ class DistributedProgram(_ElasticSurface):
         return None if self.rank else payload_lib.unpack(rows, spec)
 
     def weight_std(self, state: dict) -> float:
+        """Cross-replica weight std over the active replicas; 0.0 below two
+        (every rank knows the membership, so none gathers then)."""
+        ids = self._active_ids()
+        if ids is not None and len(ids) < 2:
+            return 0.0
         stacked = self._gather_tree(state["theta"])
         std = None
         if stacked is not None:
+            if ids is not None:
+                stacked = tree_map(lambda x: x[ids], stacked)
             stacked = tree_map(lambda x: x.to(self.group.device), stacked)
             std = float(metrics_lib.replica_weight_std(stacked))
         return self.group.broadcast_object(std)
 
     def state_pytree(self, state: dict) -> dict | None:
         """Rank 0: JAX's ``DistributedProgram.state_pytree`` tree with host
-        leaves, every replica's rows gathered; the other ranks: None."""
-        trees = {k: self._gather_tree(v) for k, v in (
-            ("theta", state["theta"]), ("mu", state["opt"].mu), ("nu", state["opt"].nu),
-            ("phi", state["phi"]), ("delta", state["delta"]))}
+        leaves, every replica's rows gathered (``phi_pre`` after the
+        pre-sends in flight are waited), the streams' ``pre_partner`` /
+        ``pre_epoch`` and the membership; the other ranks: None."""
+        tr = self.trainer
+        keys = [("theta", state["theta"]), ("mu", state["opt"].mu), ("nu", state["opt"].nu),
+                ("phi", state["phi"]), ("delta", state["delta"])]
+        if "phi_pre" in state:
+            keys.append(("phi_pre", tr.settled(state)["phi_pre"]))
+        trees = {k: self._gather_tree(v) for k, v in keys}
         count = self.group.gather_rows(state["opt"].count.to(torch.int32))
         step = self.group.gather_rows(torch.tensor([state["outer_step"]], dtype=torch.int32))
         if self.rank:
             return None
         host = lambda t: tree_map(convert.to_host, t)
-        return {"theta": host(trees["theta"]),
+        tree = {"theta": host(trees["theta"]),
                 "opt": {"mu": host(trees["mu"]), "nu": host(trees["nu"]),
                         "count": count.reshape(-1).numpy()},
                 "phi": host(trees["phi"]), "delta": host(trees["delta"]),
                 "outer_step": step.reshape(-1).numpy(),
                 "inner_step": np.int64(state["inner_step"])}
+        if "phi_pre" in trees:
+            tree["phi_pre"] = host(trees["phi_pre"])
+        if tr.streaming:
+            tree["stream"] = tr.stream_state()
+        if self.elastic is not None:
+            tree["membership"] = self.elastic.state_dict()
+        return tree
 
     def load_state_pytree(self, state: dict, tree: dict) -> dict:
         """This replica's row of a checkpoint in JAX's ``DistributedProgram``
         layout (a stacked runtime's checkpoint is not one: its counters
-        differ in shape)."""
-        if "membership" in tree and not np.asarray(tree["membership"]["mask"], bool).all():
-            raise NotImplementedError(f"resuming a partial membership comes with {ELASTIC_ITEM}")
-        r, cfg, dev = self.replica, self.trainer.cfg, self.group.device
+        differ in shape), its membership into the elastic context.  With
+        streams, a checkpoint written without them bootstraps: nothing was
+        pre-sent (every stream's next sync blocks), and ``phi_pre`` is the
+        restored φ."""
+        tr = self.trainer
+        if "membership" in tree and self.elastic is not None:
+            self.elastic.load_state_dict(tree["membership"])
+        r, cfg, dev = self.replica, tr.cfg, self.group.device
         row = lambda t: tree_map(lambda a: a[r:r + 1], t)
         counts = np.asarray(tree["opt"]["count"]).astype(np.int32)
         world = counts.shape[0]
@@ -509,7 +588,7 @@ class DistributedProgram(_ElasticSurface):
             raise ValueError(f"checkpoint holds {world} replicas, this run {self.replicas}")
         params = lambda t, dtype=None: convert.stacked_params_from_jax_numpy(
             row(t), cfg, device=dev, dtype=dtype)
-        return dict(
+        new = dict(
             state,
             theta=params(tree["theta"]),
             opt=AdamWState(mu=params(tree["opt"]["mu"], torch.float32),
@@ -519,6 +598,12 @@ class DistributedProgram(_ElasticSurface):
             outer_step=int(np.asarray(tree["outer_step"]).reshape(-1)[r]),
             inner_step=int(tree["inner_step"]),
         )
+        tr.load_stream_state(tree.get("stream"))
+        if "phi_pre" in tree:
+            new["phi_pre"] = params(tree["phi_pre"])
+        elif "phi_pre" in state:
+            new["phi_pre"] = tree_map(torch.clone, new["phi"])
+        return new
 
     def comm_cost(self):
         method = self.trainer.outer_cfg.method

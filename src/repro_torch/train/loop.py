@@ -5,8 +5,9 @@ cadence, wall-clock and tokens/s accounting, comm-bytes accounting from
 :mod:`repro_torch.comm.bytes_model` (per outer sync: payload and blocking
 bytes), the JSONL telemetry stream with the JAX package's schema
 (``run_start`` / ``step`` / ``outer`` / ``eval`` / ``ckpt`` / ``run_end``,
-``membership`` / ``outer_async`` for elastic programs and ``stream_sync``
-for streaming ones, whose ``outer`` bytes are then the synced streams';
+``membership`` / ``outer_async`` for elastic programs, ``stream_sync``
+for streaming ones, whose ``outer`` bytes are then the synced streams',
+and ``recompile`` for a pool's first use of an entry (the replica group);
 one JSON object per line) and the same run summary, and periodic
 checkpoints with full resume: the program's state (``TrainProgram.
 state_pytree``) and the loop's step cursor, in the JAX package's layout, the
@@ -141,6 +142,8 @@ class TrainLoop:
         max_staleness = blocked_syncs = 0
         drain_async = getattr(self.program, "drain_async_events", None)
         drain_stream = getattr(self.program, "drain_stream_events", None)
+        drain_compiles = getattr(self.program, "drain_recompile_events", None)
+        recompiles = 0
         # elastic programs expose an epoch-stamped membership: a `membership`
         # event whenever the view changes (drop / rejoin)
         last_epoch = getattr(self.program, "membership_epoch", None)
@@ -153,6 +156,11 @@ class TrainLoop:
             losses.append(loss)
             total_tokens += int(np.prod(batch["tokens"].shape))
             state, synced = self.program.maybe_outer_step(state)
+            # a pool's first use of a membership view's entry (the replica
+            # group's OuterProgramPool): one event each
+            for ev in drain_compiles() if drain_compiles is not None else ():
+                recompiles += 1
+                self._emit("recompile", step=t + 1, **ev)
             # one event per sync: the due set, each replica's staleness τ and
             # the blocked participants (the synchronous clock emits τ = 0)
             for ev in drain_async() if drain_async is not None else ():
@@ -199,6 +207,9 @@ class TrainLoop:
                           f"wstd={wstd:.6f} ({time.time()-t0:.0f}s)", flush=True)
             if cfg.ckpt_dir and cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
                 self._save(t + 1, state, keys)
+        finish = getattr(self.program, "finish", None)
+        if finish is not None:   # e.g. transfers still in flight are waited
+            state = finish(state)
         wall = time.time() - t0
         already_saved = cfg.ckpt_every and cfg.steps % cfg.ckpt_every == 0
         if cfg.ckpt_dir and cfg.steps > start_step and not already_saved:
@@ -214,12 +225,15 @@ class TrainLoop:
             "blocking_fraction": blocking_bytes / comm_bytes if comm_bytes else 0.0,
             "final_weight_std": float(self.program.weight_std(state)),
             "membership_epoch": last_epoch,
-            "recompiles": 0,
+            "recompiles": recompiles,
             "stream_count": getattr(cost, "stream_count", 1) if cost else 1,
         }
         if drain_async is not None:
             summary["max_staleness"] = max_staleness
             summary["blocked_syncs"] = blocked_syncs
+        pool = getattr(self.program, "pool_stats", lambda: None)()
+        if pool is not None:
+            summary["pool"] = pool
         self._emit("run_end", **summary)
         return {
             "losses": losses,

@@ -3,15 +3,19 @@
 The port's ``ppermute_pairs`` and ``hypercube_ppermute_pairs`` equal JAX's
 for every step below 64, worlds 2–8 (the hypercube's powers of two) and
 two seeds; the pool's slots, pairs and bound equal JAX's
-``OuterProgramPool``'s.  ``make_plan`` runs ``gossip_dp`` at model-axis
-size 1 and refuses the model axis by name, the CLI refuses the deferred
-flags before it starts a rank, and ``--backend nccl`` refuses more ranks
-than cards, naming ``--backend gloo``.  Then the CLI itself on three CPU
+``OuterProgramPool``'s, for the full membership and for the partial,
+partitioned, asynchronous and streamed views that the elastic, async and
+streamed flags put the pool through.  ``make_plan`` runs ``gossip_dp`` at
+model-axis size 1 and refuses the model axis by name, as the CLI does
+before it starts a rank, and ``--backend nccl`` refuses more ranks than
+cards, naming ``--backend gloo``.  Then the CLI itself on three CPU
 ranks (a world in which one rank pairs with itself every round), its
 per-rank losses bit for bit those of the port's stacked program on the
 same objective, its summary the reference's keys plus ``method``,
 ``device`` and ``backend``.
 """
+import contextlib
+import dataclasses
 import json
 
 import numpy as np
@@ -60,6 +64,9 @@ def test_pool_matches_the_reference(schedule):
 
 
 def test_pool_counts_first_uses_and_refuses_partial_views():
+    """First uses are misses, later ones hits; a partial view (elastic
+    rounds) keys entries of its own, which the full membership never
+    shares, and two epochs with the same mask share theirs."""
     pool = steps.OuterProgramPool(plans.make_plan("gossip_dp", 4), OuterConfig(), group=None,
                                   pairing_pool=2)
     misses = []
@@ -67,15 +74,17 @@ def test_pool_counts_first_uses_and_refuses_partial_views():
         pool.program(i)
         misses.append(pool.stats()["misses"])
     assert misses == [1, 2, 2, 2, 2]
-    assert pool.program(4) is pool.program(2) is not pool.program(1)
+    assert pool.program(4)[0] is pool.program(2)[0] is not pool.program(1)[0]
     assert pool.stats() == {"pool_size": 2, "hits": 6, "misses": 2, "schedule": "random",
                             "max_programs_per_view": 2}
-    # a partial view keys programs of its own, which the full-membership
-    # pool never builds; the CLI refuses fault plans (item 9b)
     partial = pairing.Membership.full(4).drop([1])
     assert pool.view_key(partial) == ((True, False, True, True), None)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        train_distributed.main(["--device", "cpu", "--fault-plan", "plan.json"])
+    fn, info = pool.program(2, partial)
+    assert info["compiled"] and info["key"] == (((True, False, True, True), None), 0)
+    assert fn is not pool.program(2)[0]
+    again = partial.add([1]).drop([1])   # a later epoch, the same mask
+    assert again.epoch != partial.epoch and pool.program(0, again)[0] is fn
+    assert [e["view"] for e in pool.drain_events()] == ["full", "full", "elastic"]
 
 
 def test_plans():
@@ -92,13 +101,134 @@ def test_plans():
         plans.make_plan("zero", 4)
 
 
+@pytest.fixture
+def jax_pool(monkeypatch):
+    """JAX's ``OuterProgramPool`` with its program builder stubbed (no mesh
+    to compile on): its keys, pairs, stats and events alone."""
+    from repro.core.outer import OuterConfig as JOuterConfig
+    from repro.parallel import steps as jsteps
+    from repro.parallel.plans import Plan as JPlan
+
+    monkeypatch.setattr(jsteps, "build_outer_step", lambda *a, **k: object())
+    monkeypatch.setattr(jsteps.compat, "set_mesh", lambda mesh: contextlib.nullcontext())
+
+    def make(comm, partition):
+        from repro.comm import CommConfig as JCommConfig
+
+        jplan = JPlan(name="gossip_dp", mesh_axes=("data", "model"), replica_axes=("data",),
+                      tp=1, replicas=4)
+        return jsteps.OuterProgramPool(jplan, None, None, JOuterConfig(),
+                                       comm_cfg=JCommConfig(**comm), pairing_pool=3, seed=2,
+                                       partition=partition)
+
+    return make
+
+
+FULL = pairing.Membership.full(4)
+# each item-9b flag and the pool calls its rounds make: a dropped replica, a
+# partition, an asynchronous tick, the overlap's one stream, two streams
+VIEWS = {
+    "--fault-plan": ({}, [dict(membership=FULL.drop([1])),
+                          dict(membership=FULL.drop([1]).drop([2]))]),
+    "--reassign-data": ({}, [dict(membership=FULL.drop([3])),
+                             dict(membership=FULL, groups=[[0, 1], [2, 3]])]),
+    "--stale": ({}, [dict(membership=FULL, update_mask=[True, False, True, True],
+                          staleness=[0, 1, 0, 0]),
+                     dict(membership=FULL.drop([0]), update_mask=[False, True, True, False])]),
+    "--overlap": ({"overlap": True}, [
+        dict(stream=0, consume=False, presend_index=1, presend_membership=FULL),
+        dict(membership=FULL.drop([2]), stream=0, consume=True, presend_index=1,
+             presend_membership=FULL)]),
+    "--stream-count": ({"overlap": True, "streams": 2}, [
+        dict(stream=1, consume=True, presend_index=3, presend_membership=FULL.drop([2])),
+        dict(membership=FULL.drop([2]), groups=[[0, 1], [2, 3]], stream=0, consume=False,
+             presend_index=2, presend_membership=FULL.drop([2]))]),
+}
+
+
 @pytest.mark.parametrize("flags, item", [
     (["--model", "2"], "item 9c"), (["--fault-plan", "plan.json"], "item 9b"),
     (["--reassign-data"], "item 9b"), (["--stale", "momentum"], "item 9b"),
     (["--overlap"], "item 9b"), (["--stream-count", "2"], "item 9b")])
-def test_cli_refuses_the_deferred_flags(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_distributed.main(["--device", "cpu", *flags])
+def test_cli_refuses_the_deferred_flags(flags, item, jax_pool):
+    """The model axis (item 9c) is still refused by name.  Each item-9b flag
+    is accepted: the trainer the CLI builds carries it, and the pool keys
+    the views its rounds take (partial, partitioned, asynchronous,
+    streamed) as JAX's pool does: the same pairs, keys, view keys, stats
+    and first-use events."""
+    from repro.comm import stream_partition as jstream_partition
+    from repro_torch.comm import payload
+
+    if item == "item 9c":
+        with pytest.raises(NotImplementedError, match=item):
+            train_distributed.main(["--device", "cpu", *flags])
+        return
+    args = train_distributed.build_parser().parse_args(["--device", "cpu", *flags])
+    train_distributed.check_args(args)
+    group = mesh.ReplicaGroup(rank=0, world=4, device=torch.device("cpu"), backend="gloo")
+    trainer = train_distributed.make_trainer(args, group, plans_cfg())
+    comm, calls = VIEWS[flags[0]]
+    assert (trainer.elastic is not None) == (flags[0] == "--fault-plan")
+    assert trainer.comm_cfg.overlap == comm.get("overlap", False)
+    assert trainer.comm_cfg.streams == comm.get("streams", 1)
+    assert trainer.outer_cfg.stale == ("momentum" if flags[0] == "--stale" else "naive")
+    assert args.reassign_data == (flags[0] == "--reassign-data")
+
+    tree = {"a": np.zeros((4, 6), np.float32), "b": np.zeros((4, 10), np.float32)}
+    streams = comm.get("streams", 1)
+    jpool = jax_pool(comm, jstream_partition(tree, streams) if comm else None)
+    pool = steps.OuterProgramPool(
+        plans.make_plan("gossip_dp", 4), OuterConfig(), group=group,
+        comm_cfg=train_distributed.CommConfig(**comm), pairing_pool=3, seed=2,
+        partition=payload.stream_partition(tree, streams) if comm else None)
+    assert pool.max_programs_per_view == jpool.max_programs_per_view
+    for i in range(4):
+        for call in calls * 2:
+            mem, groups = call.get("membership"), call.get("groups")
+            assert pool.view_key(mem, groups) == jpool.view_key(mem, groups)
+            assert pool.pairs_for(i, mem, groups) == jpool.pairs_for(i, mem, groups)
+            kw = {k: v for k, v in call.items() if k not in ("membership", "groups")}
+            got = pool.program(i, mem, groups, **kw)[1]
+            want = jpool.program(i, mem, groups, **kw)[1]
+            assert got["key"] == want["key"] and got["compiled"] == want["compiled"]
+    assert pool.stats() == jpool.stats()
+    drop = lambda evs: [{k: v for k, v in e.items() if k != "build_s"} for e in evs]
+    assert drop(pool.drain_events()) == drop(jpool.drain_events())
+
+
+@pytest.mark.parametrize("method", ["fsdp", "none"])
+def test_cli_refuses_a_fault_plan_without_an_outer_method(method, capsys):
+    """Under a fault plan a replica that sits a step out skips the step's
+    gradient all-reduce, which would leave ``--method fsdp``'s other ranks
+    waiting in it; the group refuses the methods the stacked elastic CLI
+    refuses, with its message, and the trainer refuses them too."""
+    from repro_torch.core.elastic import ElasticContext
+    from repro_torch.launch import train_elastic
+
+    with pytest.raises(SystemExit) as stacked:
+        train_elastic.build_parser().parse_args(["--method", method])
+    want = capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1]
+    assert stacked.value.code == 2 and "invalid choice" in want
+    argv = ["--device", "cpu", "--method", method, "--fault-plan", "plan.json"]
+    with pytest.raises(SystemExit, match="invalid choice") as group:
+        train_distributed.main(argv)
+    assert str(group.value.code) == want
+    args = train_distributed.build_parser().parse_args(argv)
+    group4 = mesh.ReplicaGroup(rank=0, world=4, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="elastic run takes method noloco or diloco"):
+        train_distributed.make_trainer(args, group4, plans_cfg())
+    args.fault_plan = None
+    trainer = train_distributed.make_trainer(args, group4, plans_cfg())
+    assert trainer.elastic is None and trainer.data_sync == (method == "fsdp")
+    with pytest.raises(ValueError, match="elastic run"):
+        dataclasses.replace(trainer, elastic=ElasticContext(world=4))
+
+
+def plans_cfg():
+    from repro_torch.configs import registry
+
+    return registry.get_config("paper-small-125m").reduced(vocab_size=512, remat=False,
+                                                           dtype="float32")
 
 
 def test_backends(monkeypatch):

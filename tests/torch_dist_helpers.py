@@ -11,6 +11,7 @@ the spawned ranks run the port alone.
 import argparse
 import collections
 import functools
+import json
 import os
 import pickle
 import subprocess
@@ -37,6 +38,15 @@ PHI_ATOL = 1e-5
 # φ to INT8_NEAR except for at most a share INT8_MOVED of its values, each
 # within INT8_PHI_ATOL (two code steps of a chunk of range 0.25).  On TINY
 # 20 of 361,728 values lie beyond 1e-4, the largest 1.005e-3 off.
+# runs through churn (a drop, a warm start, 16–22 steps): a few values (the
+# same elements in every replica: an embedding entry, an MLP column) end
+# 1.2e-5 to 1.55e-5 from JAX's, near-zero gradients whose last bits differ
+# and which AdamW's normalisation turns into a fraction of a step, while
+# every loss stays within 2.3e-7 relative.  JAX's own runs of those plans
+# move φ by 5.8e-5 to 9.0e-5 when only XLA's threading changes
+# (--xla_cpu_multi_thread_eigen=false), so their φ is held to twice
+# PHI_ATOL.
+CHURN_PHI_ATOL = 2 * PHI_ATOL
 INT8_NEAR = 1e-4
 INT8_PHI_ATOL = 2e-3
 INT8_MOVED = 1e-3
@@ -46,6 +56,7 @@ JAX_SCRIPT = textwrap.dedent('''
     import numpy as np
     import jax
     from repro.comm import CommConfig
+    from repro.core.elastic import ElasticContext
     from repro.core.outer import OuterConfig
     from repro.data import LoaderConfig
     from repro.launch.mesh import make_test_mesh
@@ -56,6 +67,7 @@ JAX_SCRIPT = textwrap.dedent('''
     from repro.optim import AdamWConfig
     from repro.parallel import plans as PL
     from repro.parallel import steps as ST
+    from repro.sim import FaultPlan, SimCluster
     from repro.train import DistributedProgram, LoopConfig, make_loop
 
     spec = pickle.load(open(sys.argv[1], "rb"))
@@ -67,7 +79,12 @@ JAX_SCRIPT = textwrap.dedent('''
     # every case starts from the same weights and compiles the same train
     # step: draw the one and build the other once.  A run that resumes
     # draws its weights in a jit (their values are replaced)
-    if spec.get("resumed_only"):
+    if spec.get("params") is not None:   # the caller's weights (numpy, JAX's layout)
+        from repro.models.common import Param
+        drawn = jax.jit(M.init_params, static_argnums=1)(jax.random.PRNGKey(0), cfg)
+        init = jax.tree.map(lambda p, v: Param(jax.numpy.asarray(v), p.logical), drawn,
+                            spec["params"], is_leaf=lambda x: isinstance(x, Param))
+    elif spec.get("resumed_only"):
         init = jax.jit(M.init_params, static_argnums=1)(jax.random.PRNGKey(0), cfg)
     else:
         init = M.init_params(jax.random.PRNGKey(0), cfg)
@@ -80,47 +97,61 @@ JAX_SCRIPT = textwrap.dedent('''
         return _bundles["b"]
     ST.build_train_step = build_once
 
-    class Recorded(DistributedProgram):
-        """Keeps every inner step's per-replica losses."""
-        def __init__(self, trainer):
-            super().__init__(trainer)
-            self.rec = []
-        def inner_step(self, state, batch, rng):
-            state, m = super().inner_step(state, batch, rng)
-            self.rec.append(np.asarray(m["loss"]))
-            return state, m
-
     out = {"params": jax.tree.map(np.asarray, values_of(init))}
     for name, case in spec["cases"]:
         method = case.get("method", "noloco")
+        steps = case.get("steps", run["steps"])
+        m = case.get("inner_steps", run["inner_steps"])
+        streams = case.get("streams", 1)
+        events = case.get("events")
+        elastic = None if events is None else ElasticContext(world=4)
         tr = DistributedTrainer(
             cfg=cfg, mesh=mesh, plan=plan,
             outer_cfg=OuterConfig(method=method, alpha=0.3 if method == "diloco" else 0.5,
-                                  beta=0.7, inner_steps=run["inner_steps"]),
+                                  beta=0.7, inner_steps=m, stale=case.get("stale", "naive")),
             inner_cfg=AdamWConfig(lr=run["lr"], weight_decay=0.0),
-            comm_cfg=CommConfig(codec=case.get("codec", "none")),
-            schedule=case.get("schedule", "random"), pairing_pool=run["pairing_pool"], seed=0)
-        prog = Recorded(tr)
+            comm_cfg=CommConfig(codec=case.get("codec", "none"),
+                                overlap=case.get("overlap", streams > 1), streams=streams),
+            schedule=case.get("schedule", "random"),
+            pairing_pool=case.get("pairing_pool", run["pairing_pool"]), seed=0, elastic=elastic)
+        # every replica's loss of every step, NaN where the replica sat it out
+        rec = []
+        def recorded(state, batch, inner=tr.inner_step, rec=rec, elastic=elastic):
+            mask = None if elastic is None else elastic.active_array()
+            state, met = inner(state, batch)
+            loss = np.asarray(met["loss"], dtype=np.float32)
+            rec.append(loss if mask is None else np.where(mask, loss, np.nan))
+            return state, met
+        tr.inner_step = recorded
+        prog = DistributedProgram(tr)
+        sim = None if events is None else SimCluster(
+            prog, FaultPlan.build(events), reassign_data=case.get("reassign", False),
+            async_clock=case.get("async_clock"))
         loop = make_loop(
-            prog, LoaderConfig(vocab_size=tiny["vocab_size"], seq_len=run["seq"],
-                               per_replica_batch=run["batch_per_replica"], replicas=4, seed=0),
-            LoopConfig(steps=run["steps"], seed=0, ckpt_dir=case.get("ckpt_dir"),
-                       ckpt_every=case.get("ckpt_every", 0), resume=case.get("resume", False)))
+            sim or prog, LoaderConfig(vocab_size=tiny["vocab_size"], seq_len=run["seq"],
+                                      per_replica_batch=run["batch_per_replica"], replicas=4,
+                                      seed=0),
+            LoopConfig(steps=steps, seed=0, ckpt_dir=case.get("ckpt_dir"),
+                       ckpt_every=case.get("ckpt_every", 0), resume=case.get("resume", False),
+                       log_jsonl=case.get("log_jsonl")))
         res = loop.run()
         st = res["state"]
-        rounds = run["steps"] // run["inner_steps"]
+        rounds = steps // m
         out[name] = {
-            "losses": np.stack(prog.rec), "start_step": res["start_step"],
+            "losses": np.stack(rec), "start_step": res["start_step"],
             "partners": [np.asarray([d for _, d in tr.pool.pairs_for(i)[1]])
                          for i in range(rounds)] if method == "noloco" else [],
             "phi": jax.tree.map(np.asarray, st["phi"]),
             "theta": jax.tree.map(np.asarray, st["theta"]),
-            "wstd": res["final_weight_std"], "pool": tr.pool.stats()}
+            "wstd": res["final_weight_std"], "pool": tr.pool.stats(),
+            "rounds": None if sim is None else sim.rounds(),
+            "summary": {k: res.get(k) for k in ("max_staleness", "blocked_syncs", "recompiles",
+                                                 "comm_bytes", "blocking_bytes", "outer_syncs")}}
     pickle.dump(out, open(sys.argv[2], "wb"))
 ''')
 
 
-def jax_reference(tmp, cases, *, resumed_only=False) -> dict:
+def jax_reference(tmp, cases, *, resumed_only=False, params=None) -> dict:
     """``cases`` [(name, {method, codec, schedule, ckpt_dir, ckpt_every,
     resume})] through JAX's ``DistributedTrainer`` on ``make_test_mesh(4, 1)``
     in one subprocess (XLA at its lowest optimisation level: the run is
@@ -130,10 +161,12 @@ def jax_reference(tmp, cases, *, resumed_only=False) -> dict:
     Returns per case the (steps, 4) losses, partner tables, final φ and θ,
     weight std and pool stats, and the initial ``params``.  ``resumed_only``: every case resumes a
     checkpoint, so the initial weights are drawn in a jit (faster; they
-    are replaced)."""
+    are replaced).  ``params`` (numpy, JAX's layout): start every case from
+    these weights instead (:func:`jax_params`, drawn before the port ran)."""
     spec, out = os.path.join(tmp, "spec.pkl"), os.path.join(tmp, "jax.pkl")
     with open(spec, "wb") as f:
-        pickle.dump({"tiny": TINY, "run": RUN, "cases": cases, "resumed_only": resumed_only}, f)
+        pickle.dump({"tiny": TINY, "run": RUN, "cases": cases, "resumed_only": resumed_only,
+                     "params": params}, f)
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                          "--xla_backend_optimization_level=0 "
@@ -143,6 +176,19 @@ def jax_reference(tmp, cases, *, resumed_only=False) -> dict:
     assert proc.returncode == 0, proc.stdout + proc.stderr
     with open(out, "rb") as f:
         return pickle.load(f)
+
+
+def jax_params():
+    """JAX's initial weights of TINY as :func:`jax_reference` draws them
+    (eagerly, from ``PRNGKey(0)``), drawn in this process, as numpy: a run
+    of the port can start from them before the reference runs."""
+    import jax
+    from repro.models import model as JM
+    from repro.models.common import values_of
+    from repro.models.config import ModelConfig as JModelConfig
+
+    return jax.tree.map(np.asarray, values_of(JM.init_params(jax.random.PRNGKey(0),
+                                                              JModelConfig(**TINY))))
 
 
 def delta_nbytes() -> int:
@@ -162,7 +208,7 @@ def port_args(**case) -> argparse.Namespace:
 
     argv = ["--device", "cpu", "--backend", "gloo", "--data", str(WORLD),
             "--steps", str(case.get("steps", RUN["steps"])),
-            "--inner-steps", str(RUN["inner_steps"]),
+            "--inner-steps", str(case.get("inner_steps", RUN["inner_steps"])),
             "--batch-per-replica", str(RUN["batch_per_replica"]), "--seq", str(RUN["seq"]),
             "--lr", str(RUN["lr"]), "--pairing-pool", str(case.get("pairing_pool",
                                                                       RUN["pairing_pool"])),
@@ -172,6 +218,14 @@ def port_args(**case) -> argparse.Namespace:
         argv += ["--ckpt-dir", case["ckpt_dir"], "--ckpt-every", str(case.get("ckpt_every", 0))]
     if case.get("resume"):
         argv.append("--resume")
+    for key, flag in (("fault_plan", "--fault-plan"), ("stale", "--stale"),
+                      ("streams", "--stream-count"), ("log_jsonl", "--log-jsonl")):
+        if case.get(key) is not None:
+            argv += [flag, str(case[key])]
+    if case.get("overlap"):
+        argv.append("--overlap")
+    if case.get("reassign"):
+        argv.append("--reassign-data")
     return train_distributed.build_parser().parse_args(argv)
 
 
@@ -216,29 +270,57 @@ def rank_runs(group, cases, params, root) -> dict:
     out = {}
     for name, case in cases:
         case = dict(case)
-        for key in ("ckpt_dir",):
+        for key in ("ckpt_dir", "log_jsonl"):
             if case.get(key):
                 case[key] = os.path.join(root, case[key])
+        if case.get("log_jsonl") and group.rank:
+            case["log_jsonl"] = None
+        if case.get("events") is not None:   # each rank reads its own copy of the plan
+            case["fault_plan"] = os.path.join(root, f"plan-{name}-{group.rank}.json")
+            with open(case["fault_plan"], "w") as f:
+                json.dump({"events": case["events"]}, f)
         args = port_args(**case)
         trainer = train_distributed.make_trainer(args, group, cfg)
         if params is not None:
             trainer.initial_params = lambda: convert.params_from_jax_numpy(params, cfg)
         calls = {"inner": collections.Counter(), "outer": collections.Counter(),
-                 "outer_steps": 0}
+                 "outer_steps": 0, "syncs": []}
 
         def counted(kind, fn):
             def run(*a, **k):
                 before = collections.Counter(counter)
+                sent = collections.Counter(group.sent_bytes)
                 res = fn(*a, **k)
                 calls[kind].update(counter - before)
                 if kind == "outer" and res[1]:
                     calls["outer_steps"] += 1
+                    # each sync's bytes by kind, its stream record and the
+                    # table its pre-send went along
+                    sync = {"sent": dict(collections.Counter(group.sent_bytes) - sent)}
+                    if trainer.stream_events:
+                        sync["event"] = dict(trainer.stream_events[-1])
+                        if trainer.comm_cfg.overlap:
+                            sync["pre_partner"] = trainer.pre_partner(
+                                sync["event"]["stream"]).tolist()
+                    calls["syncs"].append(sync)
                 return res
             return run
 
         trainer.inner_step = counted("inner", trainer.inner_step)
         trainer.maybe_outer_step = counted("outer", trainer.maybe_outer_step)
-        res = train_distributed.run_rank(group, args, trainer=trainer)["result"]
+        trainer.outer_step_async = counted("outer", trainer.outer_step_async)
+        warm = trainer.warm_start
+
+        def warm_start(*a, **k):
+            before = collections.Counter(counter)
+            res = warm(*a, **k)
+            calls["warm"].append(dict(counter - before))
+            return res
+
+        trainer.warm_start = warm_start
+        calls["warm"] = []
+        run = train_distributed.run_rank(group, args, trainer=trainer)
+        res, sim = run["result"], run["sim"]
         state = res["state"]
         host = lambda t: tree_map(lambda x: x[0].detach().numpy().copy(), t)
         out[name] = {"losses": res["losses"], "start_step": res["start_step"],
@@ -249,7 +331,11 @@ def rank_runs(group, cases, params, root) -> dict:
                      "count": state["opt"].count.tolist(), "outer_step": state["outer_step"],
                      "wstd": res["final_weight_std"], "pool": trainer.pool.stats(),
                      "calls": calls, "sent_bytes": dict(group.sent_bytes),
-                     "comm_bytes": res["comm_bytes"], "comm": res["comm"]}
+                     "comm_bytes": res["comm_bytes"], "comm": res["comm"],
+                     "rounds": None if sim is None else sim.rounds(),
+                     "summary": {k: res.get(k) for k in (
+                         "max_staleness", "blocked_syncs", "recompiles", "blocking_bytes",
+                         "outer_syncs")}}
         group.sent_bytes.clear()
     return out
 
@@ -282,14 +368,15 @@ def leaves(tree) -> list:
     return [np.asarray(x) for x in tree_leaves(tree)]
 
 
-def assert_phi_close(got, want, codec="none"):
-    """φ leaves within PHI_ATOL; on the int8 wire within INT8_NEAR but for
-    a share INT8_MOVED of the values, each within INT8_PHI_ATOL."""
+def assert_phi_close(got, want, codec="none", atol=PHI_ATOL):
+    """φ leaves within ``atol`` (PHI_ATOL; CHURN_PHI_ATOL for runs through
+    churn); on the int8 wire within INT8_NEAR but for a share INT8_MOVED of
+    the values, each within INT8_PHI_ATOL."""
     got, want = leaves(got), leaves(want)
     assert len(got) == len(want)
     if codec != "int8":
         for g, w in zip(got, want):
-            np.testing.assert_allclose(g, w, atol=PHI_ATOL, rtol=0)
+            np.testing.assert_allclose(g, w, atol=atol, rtol=0)
         return
     diff = np.concatenate([np.abs(g - w).reshape(-1) for g, w in zip(got, want)])
     assert diff.max() <= INT8_PHI_ATOL, diff.max()
@@ -300,3 +387,64 @@ def torch_threads_one():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     return n
+
+
+def stacked_run(params, events, *, steps, inner_steps, stale="naive", streams=1,
+                overlap=None, codec="none"):
+    """The port's stacked ``GossipProgram`` under ``SimCluster`` with the
+    plan ``events`` (None: no plan), descending the mean of the replicas'
+    losses as the ranks do, from ``params`` (JAX's): every step's
+    (R,) losses times the world, NaN where a replica sat the step out,
+    the partner tables, the round records and the final state."""
+    from repro_torch.comm import CommConfig
+    from repro_torch.core import OuterConfig, TrainerConfig
+    from repro_torch.data import LoaderConfig, shard_iterator
+    from repro_torch.models import convert
+    from repro_torch.models import model as model_api
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sim import FaultPlan, SimCluster
+    from repro_torch.train import adapters
+
+    threads = torch_threads_one()
+    cfg = ModelConfig(**TINY)
+    tcfg = TrainerConfig(
+        outer=OuterConfig(method="noloco", alpha=0.5, beta=0.7, inner_steps=inner_steps,
+                          stale=stale),
+        inner=AdamWConfig(lr=RUN["lr"], weight_decay=0.0),
+        comm=CommConfig(codec=codec, streams=streams,
+                        overlap=streams > 1 if overlap is None else overlap))
+    program = adapters.GossipProgram(cfg, tcfg, replicas=WORLD, device="cpu")
+    init = convert.params_from_jax_numpy(params, cfg)
+    program.initial_params = lambda: init
+    program.trainer.loss_fn = lambda p, b: model_api.stacked_loss(p, cfg, b) / WORLD
+    sim = program if events is None else SimCluster(program, FaultPlan.build(events))
+    loader = shard_iterator(LoaderConfig(vocab_size=cfg.vocab_size, seq_len=RUN["seq"],
+                                         per_replica_batch=RUN["batch_per_replica"],
+                                         replicas=WORLD))
+    masks = []   # the active mask each inner step ran with (after the step's events)
+    real_inner = program.inner_step
+
+    def inner_step(state, batch):
+        masks.append(program.elastic.active_array())
+        return real_inner(state, batch)
+
+    program.inner_step = inner_step
+    state = sim.init_state(None)
+    losses = []
+    try:
+        for _ in range(steps):
+            state, metrics = sim.inner_step(state, next(loader))
+            mask = masks[-1]
+            # the program reports its members' losses, a member the clock
+            # froze included (its loss is computed and not descended)
+            row = np.full((WORLD,), np.nan, dtype=np.float32)
+            row[list(program.elastic.active_ids())] = (metrics["loss"] * WORLD).numpy()
+            if mask is not None:
+                row[~mask] = np.nan
+            losses.append(row)
+            state, _ = sim.maybe_outer_step(state)
+    finally:
+        torch.set_num_threads(threads)
+    return {"losses": np.stack(losses), "partners": [p.tolist() for p in program.partners],
+            "rounds": None if events is None else sim.rounds(), "state": state}
