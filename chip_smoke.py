@@ -22,7 +22,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    yardstick (``scaled_dot_product_attention`` forward and backward, which
    the port never calls) at the shapes the main paths give them, the flash
    pair also on the kept CUDA-core kernels in bf16;
-4. serve qwen3-0.6b at its published width in bf16 on weights from seed 0:
+4. serve qwen3-0.6b at its published width in bf16 (14 of its 28 layers;
+   phase 54 runs all 28) on weights from seed 0:
    8 requests, 4 slots, prompts 24/80/200, generation 16/32, 128 pages of
    16, chunked prefill 32, greedy.  Launch counts are zeroed just before the
    run and read just after; both kernels must have launched.  Two requests
@@ -30,7 +31,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    request is served under ``torch.profiler`` to split its wall time into
    device busy time and the rest;
 5. run one 40-token prompt plus 8 greedy decode steps of the full-width
-   model in fp32 on the card (kernels) and on the CPU (plain versions), on
+   model (14 layers) in fp32 on the card (kernels) and on the CPU (plain versions), on
    the same weights: identical tokens, logits within fp32 tolerance;
 6. train paper-small-125m at its published width in bf16 through
    ``run_training``: NoLoCo, 4 replicas, per-replica batch 4, seq 1024,
@@ -88,8 +89,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     decode step beside one PyTorch copy of its state, ``copy_ms``) and the
     two scans also at the training slice's shapes, and the paged kernels
     at recurrentgemma-9b's shape;
-14. serve mamba2-370m and then recurrentgemma-9b at published width in bf16
-    with the phase-4 mix, each model freed before the next: tokens/s, TTFT
+14. serve mamba2-370m (48 layers) and then recurrentgemma-9b (38) at
+    published width and depth in bf16 with the phase-4 mix, each model freed before the next: tokens/s, TTFT
     and decode-step p50/p99, peak memory, every request's budget, batched
     == solo, and launch counts equal to the design (per prefill chunk and
     per decode step: one scan or decode step per recurrent layer, one paged
@@ -109,7 +110,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     ``time paged_*`` lines carry the library's split plan
     (``keys_per_split``, ``grid_splits``, ``slot_splits``) and
     ``ms_one_tile`` (one split per slot);
-17. (before phase 4) serve qwen3-0.6b with the phase-4 mix greedy and at
+17. (before phase 4) serve qwen3-0.6b (14 layers) with the phase-4 mix greedy and at
     temperatures 0.0/0.7 in turns, before any profiler has run (``serve
     qwen3-0.6b greedy and sampled in turns``: step p50/p99, tokens/s), and
     time the sampling draw of one decode step alone (4 rows of the
@@ -140,7 +141,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     1024, 16 heads of 256, KV 1, local, window 2048).  Then both timed
     beside their plain versions (no PyTorch call computes either) and
     beside the first designs' times (``was``);
-20. train mamba2-370m at full width and depth (48 layers, phase 6's run)
+20. train mamba2-370m at full width with 24 of its 48 layers (phase 6's run)
     and recurrentgemma-9b at full width with 3 layers (rglru, rglru, local:
     its three kinds) on 2 replicas × batch 1 × seq 1024, bf16 with remat,
     through ``run_training``: launch counts equal to the config's (each
@@ -161,12 +162,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     local, bf16 and fp32, against their plain versions; then timed there in
     bf16 beside SDPA and the bound (``time flash_attention at granite's
     training shape``, ``time paged_* at D 64``);
-23. serve granite-moe-1b-a400m at its published width in bf16 with the
-    phase-4 mix: launch counts equal to the design (one paged kernel per
+23. serve granite-moe-1b-a400m at its published width and depth in bf16
+    (24 layers) with the phase-4 mix: launch counts equal to the design (one paged kernel per
     layer per chunk call and per decode step), every request's budget,
     tokens/s, TTFT and step p50/p99, peak memory, the profiled request; no
     solo re-decode (MoE capacity is shared by the rows routed together);
-24. train granite-moe-1b-a400m at full width and depth (24 layers, 32
+24. train granite-moe-1b-a400m at full width with 12 of its 24 layers (32
     experts, top-8) through ``run_training``: NoLoCo, 2 replicas × batch 4
     × seq 1024, 5 inner steps, 10 steps, as phase 6 (launch counts, losses
     finite and falling, replicas apart after the profiled steps, inner
@@ -222,7 +223,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     prefill, the decode steps), and a whisper-base NoLoCo run of 10 steps
     (identical partner tables, losses within LOSS_RTOL).
 
-30. paper-small-125m at full width in bf16 on 8 replicas × batch 2 × seq
+30. paper-small-125m at full width (6 of its 12 layers) in bf16 on 8
+    replicas × batch 2 × seq
     1024 through ``launch.train_elastic.run_elastic_training`` (m 5, 50
     steps, an eval of one batch every 5) under a fault plan: replicas 3
     and 5 drop at round 2 and rejoin at round 5, warm-started from replica
@@ -314,14 +316,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     four requests, chunked and single-shot on the same weights: the same
     tokens (fp32: no flip; a bf16 flip printed with its request, index and
     the chunked run's top-two margin, which must be a near tie), the
-    single-shot launches as the design's (``flash_attention`` 28 × 8 for
-    qwen3-0.6b in bf16, ``ssd_chunk`` 48 × 8 for mamba2-370m, no
+    single-shot launches as the design's (``flash_attention`` 14 × 8 for
+    qwen3-0.6b at 14 of its 28 layers, ``ssd_chunk`` 24 × 8 for mamba2-370m
+    at 24 of 48, no
     ``paged_chunk_attention``), TTFT p50/p99 beside the chunked run's;
 40. speculative decode at full width in bf16, spec_k 4, the phase-4 mix's
-    first four requests, against the plain engine on the same weights: qwen3-0.6b with itself as the draft
-    (``accept_rate`` 1.0 unless a flip shows) and with its first 14 of 28
-    layers, greedy and at temperatures 0.0/0.7; mamba2-370m with 24 of 48
-    layers; recurrentgemma-9b at full depth with 18 of 38 (``rglru_decode``
+    first four requests, against the plain engine on the same weights
+    (the targets at 14 of qwen3-0.6b's 28 layers, 24 of mamba2-370m's 48,
+    20 of recurrentgemma-9b's 38): qwen3-0.6b with itself as the draft
+    (``accept_rate`` 1.0 unless a flip shows) and with its first 7
+    layers, greedy and at temperatures 0.0/0.7; mamba2-370m with 12
+    layers; recurrentgemma-9b with 9 (``rglru_decode``
     and the local paged path).  Launches as the design's (a round: spec_k
     decode-kernel launches per layer of the draft and of the target's
     verify; a prefill chunk: one chunk call per layer of both), tokens/s,
@@ -331,7 +336,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 41. ``launch.serve --ckpt <phase 11's checkpoint> --replica 1 --spec-decode
     --draft-replica 2 --verify`` on the card and on the CPU: no mismatch
     against the plain engine, card tokens equal CPU tokens;
-42. the router: two qwen3-0.6b engines on seed-0 and seed-1 weights on one
+42. the router: two qwen3-0.6b engines (14 layers) on seed-0 and seed-1
+    weights on one
     card, both policies: placement as the policy's rule, each request's
     tokens those of its engine alone;
 43. card against CPU on the three families' ``reduced()`` configs in fp32:
@@ -340,7 +346,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 44. the replica group (``launch/train_distributed.py``, one rank per
     replica over ``torch.distributed``): paper-small-125m at full width in
-    bf16 on 4 ranks spawned on this card over gloo (the payload staged
+    bf16 (6 of its 12 layers, as in 49–51) on 4 ranks spawned on this card over gloo (the payload staged
     through pinned host memory), each rank through ``run_rank``, the CLI's
     per-rank body: 4 × 1024 a rank, m 5, 10 steps, NoLoCo on the plain and
     the int8 wire, and DiLoCo.  Every rank's launches (zeroed just before
@@ -368,8 +374,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     card: its summary names the card and the backend;
 49. elastic rounds on the replica group (one more spawn of 4 ranks on this
     card over gloo runs 49–52, each rank under its own ``SimCluster`` from
-    the same plan): paper-small-125m at full width in bf16, 4 × 1024 a
-    rank, m 5, 35 steps; drop [3] at round 1, rejoin [3] at round 3 from
+    the same plan): paper-small-125m at full width in bf16 (6 layers), 4 ×
+    1024 a rank, m 5, 35 steps; drop [3] at round 1, rejoin [3] at round 3 from
     replica 0, straggle [1] one round at round 4, partition [[0, 1], [2,
     3]] at round 5, heal at round 6.  The ranks agree on the rounds and
     they are the plan's; rank 3's rows (checksums of every leaf and the
@@ -404,12 +410,42 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     mid-stream (step 11, every pre-send in flight), each bit-identical to
     its uninterrupted run.
 
+53. the model axis (``dist_tp_phase``): paper-small-125m at full width in
+    bf16 on 2 replicas × 2 model ranks (``--data 2 --model 2``, 4 ranks
+    sharing the card over gloo, each model-axis collective staged through
+    pinned host memory), NoLoCo, m 5, 10 steps, 4 × 1024 a replica, on the
+    plain and the int8 wire.  Per rank: launches as phase 44's design (a
+    rank runs every layer's kernels on its heads), inner p50/p99, peak
+    memory, the outer step alone split by the clock, flash launches, the
+    model axis's calls and bytes of every inner step held equal to the
+    design's count (``model_axis_calls``: forward 2L + 4,
+    backward 2L + 3, one all-reduce of the whole leaves' gradients per
+    dtype, one of the clipping norm, and L more under remat: the
+    recomputation stops before each layer's MLP output), its
+    all-reduce's ms at the MLP output's shape.  Losses finite and falling,
+    a replica's ranks agree on them, the step-1 loss within TP_STEP1_RTOL
+    and every loss of the first inner period (steps 1–5) within
+    TP_PERIOD_RTOL of the same run's at ``--model 1`` from the same weights
+    (2 ranks), the partner tables that run's.  Then ``reduced()`` in fp32 on the card and on a CPU view of
+    the same ranks (losses within LOSS_RTOL, identical partner tables) and
+    a resume on the card from a step-5 checkpoint, bit-identical to the
+    straight run.  Phase 48 adds, on two cards or more, phase 53's plain
+    run over NCCL, one rank a card;
+54. the sequence-sharded serving steps (``dist_tp_decode_phase``):
+    qwen3-0.6b in fp32 at ``--data 1 --model 2`` (2 ranks sharing the
+    card, ``kv_shard_seq``: heads whole, each global layer's cache split
+    by sequence) through ``build_prefill_step`` + ``build_decode_step``, 4
+    rows, 32-token prompts, a cache of 256, 32 greedy steps: the tokens
+    equal the unsharded ``model.prefill`` / ``decode_step`` run's on the
+    card, logits within LOGIT_ATOL, one flash launch per layer in the
+    prefill; the step p50 beside the unsharded one.
+
 ``time rglru_decode`` also carries ``launch_floor_ms``: an empty kernel
 (``torch.cuda._sleep(0)``) timed by the kernel table's own method.
 
 The line before the last is the ``kernels`` JSON record (launches: the
 serve and train phases', phases 33, 34, 36, 37, 39, 40 and every rank's of
-phases 44 and 49–51 added); the last line is
+phases 44, 49–51 and 53–54, "dist-tp", added); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -515,6 +551,35 @@ RECURRENT_BWD = ("ssd_chunk_bwd", "rglru_scan_bwd")
 FIRST_BWD_MS = {"ssd_chunk_bwd": 4.327296, "rglru_scan_bwd": 0.345696, "rglru_scan_bwd_16": 0.590752}
 # a hand-written kernel's name in a profiler event
 KERNEL_NAME = re.compile(r"(?:flash|ssd|rglru)_\w*?kernel")
+
+# Depth cuts that keep the script inside its time limit as phases are added
+# (each keeps every layer kind, every launch design and every kernel check;
+# PERF.md lists them with the seconds they saved): single-shot serving
+# (phase 39), mamba2-370m's training (phase 20), granite's training (phase
+# 24), qwen3-0.6b's serve runs (4, 5, 17, 42), speculative decode (40), the
+# stacked elastic runs (30, 31) and the replica group's (44–52).  Phase 14
+# serves mamba2-370m and recurrentgemma-9b at their published depth, phase 23
+# granite, and phase 54 runs qwen3-0.6b's 28 layers (fp32, sequence-sharded).
+SINGLE_SHOT_LAYERS = {"qwen3-0.6b": 14, "mamba2-370m": 24}
+# qwen3-0.6b in phases 4, 5, 17 and 42 (the serve runs, card vs CPU, the router)
+QWEN3_LAYERS = 14
+# paper-small-125m in the stacked elastic and asynchronous runs (phases 30–31)
+# and on the replica group (phases 44–52; phase 53 keeps all 12)
+ELASTIC_LAYERS = DIST_LAYERS = 6
+MAMBA2_TRAIN_LAYERS = 24
+GRANITE_TRAIN_LAYERS = 12
+
+
+def dist_cfg():
+    """paper-small-125m as the replica group's phases 44–52 train it."""
+    return cut(paper_llama.SMALL, DIST_LAYERS)
+
+
+def cut(cfg, layers: dict | int):
+    """``cfg`` at the depth ``layers`` gives it (a dict by name, or an int)."""
+    n = layers.get(cfg.name, cfg.num_layers) if isinstance(layers, dict) else layers
+    return dataclasses.replace(cfg, num_layers=n)
+
 
 H, KV, D, BS, R, C, WINDOW = 16, 8, 128, 16, 4, 32, 64
 NUM_PAGES = 128
@@ -979,7 +1044,7 @@ def sampling_phase(dev) -> dict:
     ms per call, 20 calls back to back."""
     from repro_torch.serve import engine as serve_engine
 
-    cfg = qwen3_0_6b.CONFIG
+    cfg = cut(qwen3_0_6b.CONFIG, QWEN3_LAYERS)
     params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     scfg = ServeConfig(**SERVE_CFG)
     mix = (SERVE_MIX["n"], cfg.vocab_size, SERVE_MIX["prompt_lens"], SERVE_MIX["gen_lens"])
@@ -1091,7 +1156,7 @@ def greedy(params, cfg, prompt, steps, device, chunk=32, page_size=BS):
 
 
 def slice_phase(dev):
-    cfg = dataclasses.replace(qwen3_0_6b.CONFIG, dtype="float32")
+    cfg = dataclasses.replace(qwen3_0_6b.CONFIG, dtype="float32", num_layers=QWEN3_LAYERS)
     t0 = time.perf_counter()
     cpu_params = M.init_params(torch.Generator().manual_seed(0), cfg)
     gpu_params = _tree_to(cpu_params, dev)
@@ -2292,7 +2357,7 @@ def time_recurrent_bwd_kernels(dev) -> tuple[dict[str, dict], dict[str, dict]]:
 # local) with 2 replicas × batch 1 × seq 1024: its tied embedding alone is
 # 1.05 B parameters (PERF.md holds the memory reckoning).
 RECURRENT_TRAIN = (
-    (mamba2_370m.CONFIG, TRAIN),
+    (dataclasses.replace(mamba2_370m.CONFIG, num_layers=MAMBA2_TRAIN_LAYERS), TRAIN),
     (dataclasses.replace(recurrentgemma_9b.CONFIG, num_layers=3),
      dict(TRAIN, replicas=2, per_replica_batch=1)),
 )
@@ -4340,7 +4405,9 @@ def pipe_parity_phase(dev) -> dict:
 SPEC_K = 4
 # the truncated drafts at full width: half the layers, recurrentgemma-9b's
 # cut to a whole number of its (rglru, rglru, local) periods
-SPEC_DRAFT_LAYERS = {"qwen3-0.6b": 14, "mamba2-370m": 24, "recurrentgemma-9b": 18}
+# phase 40's targets at cut depth, and their truncated drafts
+SPEC_LAYERS = {"qwen3-0.6b": 14, "mamba2-370m": 24, "recurrentgemma-9b": 20}
+SPEC_DRAFT_LAYERS = {"qwen3-0.6b": 7, "mamba2-370m": 12, "recurrentgemma-9b": 9}
 SERVE_KERNELS = ("paged_attention", "paged_chunk_attention", "flash_attention",
                  "rglru_scan", "rglru_decode", "ssd_chunk", "ssd_decode")
 DECODE_KERNEL = {"global": "paged_attention", "local": "paged_attention",
@@ -4465,9 +4532,8 @@ def single_shot_phase(dev) -> tuple[dict, dict]:
     request, no paged chunk call; the decode kernels per step), TTFT
     p50/p99 of both."""
     out, launches_all = {}, dict.fromkeys(SERVE_KERNELS, 0)
-    for base in (qwen3_0_6b.CONFIG, mamba2_370m.CONFIG,
-                 *(dataclasses.replace(c, dtype="float32")
-                   for c in (qwen3_0_6b.CONFIG, mamba2_370m.CONFIG))):
+    depth = [cut(c, SINGLE_SHOT_LAYERS) for c in (qwen3_0_6b.CONFIG, mamba2_370m.CONFIG)]
+    for base in (*depth, *(dataclasses.replace(c, dtype="float32") for c in depth)):
         t0 = time.perf_counter()
         params = M.init_params(torch.Generator(device=dev).manual_seed(0), base)
         requests = serve_mix(base, [0.0], SERVE_MIX if base.dtype == "bfloat16" else HALF_MIX)
@@ -4562,9 +4628,10 @@ def spec_runs():
     each family in bf16 and then, with its truncated draft, in fp32."""
     runs = []
     for base in (qwen3_0_6b.CONFIG, mamba2_370m.CONFIG, recurrentgemma_9b.CONFIG):
+        base = cut(base, SPEC_LAYERS)
         layers = SPEC_DRAFT_LAYERS[base.name]
         variants = [("truncated", layers, [0.0])]
-        if base is qwen3_0_6b.CONFIG:
+        if base.name == qwen3_0_6b.CONFIG.name:
             variants = [("self", None, [0.0]), *variants, ("truncated sampled", layers, [0.0, 0.7])]
         runs.append((base, variants))
     for base, _ in list(runs):
@@ -4616,7 +4683,7 @@ def router_phase(dev) -> dict:
     policies: each request lands where the policy's rule puts it, and its
     tokens equal those of its engine serving it alone."""
     t0 = time.perf_counter()
-    cfg = qwen3_0_6b.CONFIG
+    cfg = cut(qwen3_0_6b.CONFIG, QWEN3_LAYERS)
     params = [M.init_params(torch.Generator(device=dev).manual_seed(s), cfg) for s in (0, 1)]
     scfg = ServeConfig(**SERVE_CFG)
     requests = serve_mix(cfg, [0.0, 0.7])
@@ -4771,7 +4838,7 @@ def dist_full_run(group, argv) -> dict:
 
     dev = group.device
     args = _dist_args(DIST_FULL + argv, "cuda", group.backend)
-    trainer = train_distributed.make_trainer(args, group)
+    trainer = train_distributed.make_trainer(args, group, dist_cfg())
     syncs: list = []
     inner_calls: dict = {}
     _dist_counted(trainer, group, syncs, inner_calls)
@@ -4904,7 +4971,7 @@ def dist_phase(dev) -> tuple[dict, dict]:
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = paper_llama.SMALL
+    cfg = dist_cfg()
     ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                              "chip_smoke_dist_ckpt")
     shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -5002,7 +5069,7 @@ def dist_card_stream_rank(group) -> dict:
     run = dist_plan_run(group, root, "stream-nccl", DIST_WIDTH + DIST_STREAM, None, clock=True)
     syncs = run["probe"].syncs
     return {"rank": group.rank, "staged": group.staged,
-            "checks": _stream_checks(paper_llama.SMALL, run, "none"),
+            "checks": _stream_checks(dist_cfg(), run, "none"),
             "inner_ms": run["probe"].inner_ms(),
             "consuming": _summary_ms([s for s in syncs if not s["event"]["blocked"] and s["bytes"]]),
             "blocking": _summary_ms([s for s in syncs if s["event"]["blocked"] and s["bytes"]])}
@@ -5022,6 +5089,8 @@ def dist_cards_phase() -> dict:
         log("dist one rank a card: " + out)
         log(f"dist nccl streamed: not run: phase 51's streamed run over NCCL takes {DIST_WORLD} "
             f"cards and this machine shows {cards}")
+        log(f"dist-tp nccl: not run: phase 53's run over NCCL takes 2 cards (--data 1 --model 2) "
+            f"and this machine shows {cards}")
         return out
     world = min(DIST_WORLD, cards)
     out = {"cards": subprocess.run(
@@ -5048,6 +5117,16 @@ def dist_cards_phase() -> dict:
                 raise AssertionError(f"dist {backend} one rank a card: {row}")
         out[backend] = rows
         log(f"dist {backend} ({world} ranks, one card each): " + json.dumps(rows))
+    # phase 53's plain run over NCCL, one rank a card: --data 1 --model 2 on
+    # 2 cards, 2 × 2 on 4; the model axis's calls and its all-reduce's ms
+    tp_world = 4 if cards >= 4 else 2
+    rows = mesh_lib.spawn(dist_tp_card_rank, tp_world, (tp_world // 2,), backend="nccl",
+                          device="cuda", tp=2)
+    for row in rows:
+        if row["staged"] or any(c != row["model_calls_design"] for c in row["model_calls_per_step"]):
+            raise AssertionError(f"dist-tp nccl one rank a card: {row}")
+    out["nccl_tp"] = rows
+    log(f"dist-tp nccl ({tp_world // 2} × 2 ranks, one card each): " + json.dumps(rows))
     return out
 
 
@@ -5222,7 +5301,7 @@ def dist_trainer(args, group):
     and copied to the card by each run (a full-width draw takes seconds)."""
     from repro_torch.launch import train_distributed
 
-    trainer = train_distributed.make_trainer(args, group)
+    trainer = train_distributed.make_trainer(args, group, None if args.reduced else dist_cfg())
     if group.device.type == "cuda":
         key = (trainer.cfg, trainer.seed)
         if key not in _INITIAL:
@@ -5310,7 +5389,7 @@ def _summary_ms(syncs: list[dict], phases=DIST_PHASES + ("pre_encode", "pre_d2h"
 
 def dist_elastic_run(group, root: str) -> dict:
     """Phase 49 on this rank."""
-    cfg = paper_llama.SMALL
+    cfg = dist_cfg()
     run = dist_plan_run(group, root, "elastic", DIST_WIDTH + DIST_EL, DIST_EL_PLAN)
     res, probe, rounds = run["res"], run["probe"], run["rounds"]
     r = group.rank
@@ -5333,7 +5412,7 @@ def dist_elastic_run(group, root: str) -> dict:
 def dist_async_run(group, root: str) -> dict:
     """Phase 50 on this rank: the 2× straggler, then a rate-1 world against
     the synchronous run."""
-    cfg = paper_llama.SMALL
+    cfg = dist_cfg()
     run = dist_plan_run(group, root, "async", DIST_WIDTH + DIST_ASYNC, DIST_ASYNC_PLAN)
     res, probe, rounds = run["res"], run["probe"], run["rounds"]
     r = group.rank
@@ -5452,7 +5531,7 @@ def dist_stream_run(group, root: str) -> dict:
     """Phase 51 on this rank: 4 streams on the plain and the int8 wire, each
     sync split by the clock, a cycle against the full outer step; then the
     streamed churn."""
-    cfg = paper_llama.SMALL
+    cfg = dist_cfg()
     out = {"rank": group.rank}
     for codec in ("none", "int8"):
         run = dist_plan_run(group, root, f"stream-{codec}",
@@ -5702,6 +5781,403 @@ def dist_elastic_checks(ranks: list[dict]) -> tuple[dict, dict]:
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 53–54: the model axis (tensor parallelism inside a replica)
+# ---------------------------------------------------------------------------
+
+# phase 53: paper-small-125m at full width in bf16, 2 replicas × 2 model
+# ranks (4 ranks sharing the card over gloo), 4 × 1024 a replica, m 5, 10 steps
+DIST_TP = ["--data", "2", "--model", "2", "--batch-per-replica", "4", "--seq", "1024",
+           "--steps", "10", "--inner-steps", "5", "--pairing-pool", "16"]
+DIST_TP_RUNS = (("noloco", ["--method", "noloco"]),
+                ("int8", ["--method", "noloco", "--codec", "int8"]))
+DIST_TP_SMALL = ["--data", "2", "--model", "2", "--reduced", "--batch-per-replica", "2",
+                 "--seq", "64", "--steps", "10", "--inner-steps", "5"]
+DIST_TP_MID = 5
+# the losses of the first inner period (steps 1-5, before any outer step)
+# against the same run at --model 1, relative: bf16 sums in other orders.
+# Read on the H100: step 1 2.5e-6 / 8.7e-6 (the two replicas), steps 2-5 up
+# to 2.06e-4 (AdamW's first updates of bf16 weights from gradients summed in
+# other orders); each bound is about ten times its reading
+TP_STEP1_RTOL = 1e-4
+TP_PERIOD_RTOL = 2e-3
+# phase 54: qwen3-0.6b in fp32 at --data 1 --model 2, 4 rows, 32-token
+# prompts, a cache of 256, 32 greedy steps
+TP_SERVE = dict(rows=4, prompt=32, cache=256, steps=32)
+
+
+def _model_axis_counted(trainer, group, per_step: list) -> None:
+    """Wrap the trainer's inner step: the model axis's calls and bytes of
+    each step."""
+    inner_step = trainer.inner_step
+
+    def inner(state, batch):
+        calls, sent = dict(group.model.calls), dict(group.model.sent_bytes)
+        out = inner_step(state, batch)
+        per_step.append({"calls": _minus(dict(group.model.calls), calls),
+                         "bytes": sum(group.model.sent_bytes.values()) - sum(sent.values())})
+        return out
+
+    trainer.inner_step = inner
+
+
+def model_axis_calls(cfg, n_dtypes: int) -> int:
+    """The model-axis calls of one inner step of a dense model, as the
+    design in ``parallel/steps.py``'s docstring counts them: forward 2L + 4,
+    backward 2L + 3, one all-reduce of the whole leaves' gradients for each
+    of their ``n_dtypes`` dtypes and one of the clipping norm's squares,
+    plus L under ``cfg.remat``."""
+    layers = cfg.num_layers
+    return 4 * layers + 8 + n_dtypes + (layers if cfg.remat else 0)
+
+
+def time_model_axis(group, shape=(4, 1024, 768), dtype=torch.bfloat16, reps: int = 5) -> dict:
+    """The model axis's all-reduce of one activation (an MLP output of the
+    run), ms (median of ``reps``, each synchronised), and its bytes."""
+    x = torch.ones(shape, dtype=dtype, device=group.device)
+    samples = []
+    for _ in range(reps + 1):
+        _sync(group.device)
+        t = time.perf_counter()
+        group.model.all_reduce(x)
+        _sync(group.device)
+        samples.append((time.perf_counter() - t) * 1e3)
+    return {"all_reduce_ms": statistics.median(samples[1:]),
+            "bytes": x.numel() * x.element_size(), "shape": list(shape)}
+
+
+def dist_tp_full_run(group, argv, base=DIST_TP, device="cuda") -> dict:
+    """One run of ``base + argv`` on this rank through ``run_rank``, launch
+    counts zeroed just before and read just after; the model axis's calls
+    and bytes of every inner step; then the outer step alone, three times
+    on the final state, split by a synchronising clock."""
+    from repro_torch.launch import mesh as mesh_lib, train_distributed
+    from repro_torch.parallel import steps as psteps
+
+    dev = group.device
+    args = _dist_args(base + argv, device, group.backend)
+    trainer = train_distributed.make_trainer(args, group)
+    cfg = trainer.cfg
+    syncs: list = []
+    inner_calls: dict = {}
+    per_step: list = []
+    _dist_counted(trainer, group, syncs, inner_calls)
+    _model_axis_counted(trainer, group, per_step)
+    whole = {str(x.dtype) for x, s in zip(tree_leaves(bytes_model.abstract_params(cfg)),
+                                          psteps.leaf_mask(cfg, trainer.plan)) if not s}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    group.barrier()
+    dispatch.reset_launches()
+    out = train_distributed.run_rank(group, args, trainer=trainer)
+    _sync(dev)
+    launches = _launch_counts(dev)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    res, state = out["result"], out["result"]["state"]
+    m = args.inner_steps
+    inner = [dt * 1e3 for t, dt in enumerate(res["step_dt_s"]) if t and (t + 1) % m]
+    split = {k: [] for k in DIST_PHASES}
+    total_ms = []
+    for _ in range(3):
+        clock = mesh_lib.PhaseClock(dev)
+        group.barrier()
+        t0 = time.perf_counter()
+        group.clock = clock
+        clock.start()
+        trainer.maybe_outer_step(state)
+        clock.mark("update")
+        group.clock = None
+        total_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in DIST_PHASES:
+            split[k].append(clock.ms.get(k, 0.0))
+    axis_ms = time_model_axis(group, (args.batch_per_replica, args.seq, cfg.d_model),
+                              torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    row = {
+        "rank": group.rank, "replica": group.replica, "model_index": group.model_index,
+        "losses": res["losses"], "launches": launches,
+        "inner_step_p50_ms": statistics.median(inner), "inner_step_p99_ms": _pct(inner, 0.99),
+        "outer_step_alone_ms": statistics.median(total_ms),
+        "outer_split_ms": {k: statistics.median(v) for k, v in split.items()},
+        "sync_calls": [s["calls"] for s in syncs[:res["outer_syncs"]]],
+        "sync_bytes": [s["bytes"] for s in syncs[:res["outer_syncs"]]],
+        "outer_syncs": res["outer_syncs"], "replica_axis_inner_calls": inner_calls,
+        "model_calls_per_step": [sum(s["calls"].values()) for s in per_step],
+        "model_calls_by_kind": per_step[0]["calls"] if per_step else {},
+        "model_bytes_per_step": [s["bytes"] for s in per_step],
+        "model_calls_design": model_axis_calls(cfg, len(whole)),
+        "model_axis": axis_ms, "peak_memory_gb": peak_gb,
+        "partners": [p.tolist() for p in trainer.partners[:res["outer_syncs"]]],
+        "final_weight_std": res["final_weight_std"], "summary": out["summary"],
+        "staged": group.staged,
+    }
+    del out, res, state, trainer
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def _cpu_view(group):
+    """The rank's group with its tensors on the CPU (gloo, unstaged), the
+    same process groups."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    cpu = torch.device("cpu")
+    model = None if group.model is None else mesh_lib.ModelAxis(
+        group.model.pg, group.model.ranks, group.model.index, cpu, group.backend)
+    return dataclasses.replace(group, device=cpu, calls=type(group.calls)(),
+                               sent_bytes=type(group.sent_bytes)(), _pinned={}, model=model)
+
+
+def dist_tp_rank(group, ckpt_root: str) -> dict:
+    """Phase 53 on one rank: the full-width runs, then fp32 reduced() on
+    the card and on a CPU view of the same ranks, and a resume on the card
+    from a step-5 checkpoint."""
+    out = {"full": {name: dist_tp_full_run(group, argv) for name, argv in DIST_TP_RUNS}}
+    card_run, card_tr = dist_small_run(group, DIST_TP_SMALL, "cuda")
+    cpu_run, cpu_tr = dist_small_run(_cpu_view(group), DIST_TP_SMALL, "cpu")
+    out["parity"] = {
+        "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(card_run["losses"],
+                                                                       cpu_run["losses"])),
+        "partners_identical": [p.tolist() for p in card_tr.partners]
+        == [p.tolist() for p in cpu_tr.partners] and len(card_tr.partners) == 2}
+    whole = os.path.join(ckpt_root, "whole")
+    half = os.path.join(ckpt_root, "half")
+    a, a_tr = dist_small_run(group, DIST_TP_SMALL, "cuda", ckpt_dir=whole, ckpt_every=DIST_TP_MID)
+    dist_small_run(group, DIST_TP_SMALL, "cuda", ckpt_dir=half, steps=DIST_TP_MID)
+    b, _ = dist_small_run(group, DIST_TP_SMALL, "cuda", ckpt_dir=half, resume=True)
+    same = all(torch.equal(x, y) for k in ("theta", "phi", "delta", "mu", "nu")
+               for x, y in zip(tree_leaves(_dist_rows(a["state"])[k]),
+                               tree_leaves(_dist_rows(b["state"])[k])))
+    out["resume"] = {"start_step": b["start_step"],
+                     "losses_identical": b["losses"] == a["losses"][DIST_TP_MID:],
+                     "bit_identical": bool(same)}
+    return out
+
+
+def dist_tp_model1_rank(group) -> dict:
+    """Phase 53's plain run at ``--model 1`` on one rank (2 ranks, one per
+    replica, from the same seed's weights and batches): its losses and
+    its partner tables."""
+    from repro_torch.launch import train_distributed
+
+    args = _dist_args(DIST_TP + ["--model", "1", "--method", "noloco"], "cuda", group.backend)
+    out = train_distributed.run_rank(group, args)
+    res = out["result"]
+    return {"losses": res["losses"],
+            "partners": [p.tolist() for p in out["trainer"].partners[:res["outer_syncs"]]]}
+
+
+def dist_tp_phase(dev) -> tuple[dict, dict]:
+    """Phase 53: paper-small-125m at full width in bf16 on 2 replicas × 2
+    model ranks sharing the card over gloo; NoLoCo on the plain and the
+    int8 wire; then reduced() in fp32, card against CPU, and a resume."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = paper_llama.SMALL
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_tp_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ranks = mesh_lib.spawn(dist_tp_rank, 4, (root,), backend="gloo", device="cuda", tp=2)
+    shutil.rmtree(root, ignore_errors=True)
+    model1 = mesh_lib.spawn(dist_tp_model1_rank, 2, (), backend="gloo", device="cuda")
+    partners1 = model1[0]["partners"]
+    period = [r["losses"][:DIST_TP_MID] for r in model1]   # by replica
+    out, launches = {"card": card(), "world": 4, "tp": 2, "backend": "gloo"}, {}
+    for name, _ in DIST_TP_RUNS:
+        rows = [r["full"][name] for r in ranks]
+        want = dist_expected(cfg, name, 2)
+        checks = {
+            "launches_as_designed": all({k: r["launches"][k] for k in want} == want
+                                        for r in rows),
+            "model_calls_as_designed": all(
+                c == r["model_calls_design"] for r in rows for c in r["model_calls_per_step"])
+            and all(len(r["model_calls_per_step"]) == 10 for r in rows),
+            "no_replica_axis_call_in_inner_steps": all(not any(r["replica_axis_inner_calls"].values())
+                                                       for r in rows),
+            "syncs_p2p_only": all(c == {"p2p": 1} for r in rows for c in r["sync_calls"])
+            and all(r["outer_syncs"] == 2 for r in rows),
+            "losses_finite_falling": all(all(math.isfinite(x) for x in r["losses"])
+                                         and r["losses"][-1] < r["losses"][0] for r in rows),
+            "model_ranks_agree_on_losses": all(a["losses"] == b["losses"]
+                                               for a, b in zip(rows[0::2], rows[1::2])),
+            "partners_as_model1_run": all(r["partners"] == partners1 for r in rows),
+            "step1_loss_as_model1_run": all(
+                abs(r["losses"][0] - period[r["replica"]][0]) <= TP_STEP1_RTOL
+                * abs(period[r["replica"]][0]) for r in rows),
+            "first_period_losses_as_model1_run": all(
+                abs(a - b) <= TP_PERIOD_RTOL * abs(b)
+                for r in rows for a, b in zip(r["losses"][:DIST_TP_MID], period[r["replica"]]))
+            and all(len(r["losses"]) == 10 for r in rows),
+        }
+        launches[name] = {k: sum(r["launches"].get(k, 0) for r in rows) for k in TRAIN_KERNELS + INT8}
+        out[name] = {
+            "checks": checks, "summary": rows[0]["summary"], "partners": rows[0]["partners"],
+            "first_period_losses": [r["losses"][:DIST_TP_MID] for r in rows[0::2]],
+            "first_period_model1": period,
+            "first_period_max_rel_diff": max(
+                abs(a - b) / abs(b)
+                for r in rows for a, b in zip(r["losses"][:DIST_TP_MID], period[r["replica"]])),
+            "inner_step_p50_ms": [r["inner_step_p50_ms"] for r in rows],
+            "inner_step_p99_ms": [r["inner_step_p99_ms"] for r in rows],
+            "outer_step_alone_ms": [r["outer_step_alone_ms"] for r in rows],
+            "outer_split_ms": [r["outer_split_ms"] for r in rows],
+            "sync_bytes": [r["sync_bytes"][0] for r in rows],
+            "peak_memory_gb": [r["peak_memory_gb"] for r in rows],
+            "model_calls_per_step": rows[0]["model_calls_per_step"][0],
+            "model_calls_design": rows[0]["model_calls_design"],
+            "model_calls_by_kind": rows[0]["model_calls_by_kind"],
+            "model_bytes_per_step": rows[0]["model_bytes_per_step"][0],
+            "model_axis": [r["model_axis"] for r in rows],
+            "flash_launches_per_rank": [{k: r["launches"][k] for k in TRAIN_KERNELS[:2]}
+                                        for r in rows],
+            "loss_first_last": [[r["losses"][0], r["losses"][-1]] for r in rows],
+            "final_weight_std": rows[0]["final_weight_std"],
+        }
+        log(f"dist-tp {name} (2 replicas × 2 model ranks, gloo, staged={rows[0]['staged']}): "
+            + json.dumps(out[name]))
+        if not all(checks.values()):
+            raise AssertionError(f"dist-tp {name} failed its checks: {checks}")
+    for r in ranks:
+        par, res = r["parity"], r["resume"]
+        if not (par["partners_identical"] and par["loss_max_rel_diff"] <= LOSS_RTOL):
+            raise AssertionError(f"dist-tp fp32 card vs cpu: {par}")
+        if not (res["start_step"] == DIST_TP_MID and res["losses_identical"]
+                and res["bit_identical"]):
+            raise AssertionError(f"dist-tp resume on card: {res}")
+    out["card_vs_cpu"] = [r["parity"] for r in ranks]
+    out["resume"] = [r["resume"] for r in ranks]
+    log("dist-tp fp32 card vs cpu (4 ranks): " + json.dumps(out["card_vs_cpu"]))
+    log("dist-tp resume on card from step 5: " + json.dumps(out["resume"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+def tp_greedy(params, cfg, prompt, steps, cache, prefill, decode, logits_of, dev) -> dict:
+    """Prefill ``prompt`` and decode ``steps`` greedy tokens: the tokens,
+    every step's fp32 logits (rows, V) on the CPU, the prefill's ms and
+    each decode step's ms (synchronised)."""
+    _sync(dev)
+    t = time.perf_counter()
+    hidden = prefill(params, cache, {"tokens": prompt})
+    logits = logits_of(hidden)
+    _sync(dev)
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    tokens, all_logits, step_ms = [], [logits[:, 0].float().cpu()], []
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    for i in range(steps):
+        tokens.append(tok.cpu())
+        _sync(dev)
+        t = time.perf_counter()
+        logits = decode(params, cache, tok, prompt.shape[1] + i)
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        all_logits.append(logits[:, 0].float().cpu())
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    tokens.append(tok.cpu())
+    return {"tokens": torch.cat(tokens, 1), "logits": torch.stack(all_logits),
+            "prefill_ms": prefill_ms, "step_ms": step_ms}
+
+
+def tp_serve_inputs(cfg, dev):
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (TP_SERVE["rows"], TP_SERVE["prompt"]),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    return params, prompt
+
+
+def dist_tp_decode_rank(group, ref_path: str) -> dict:
+    """Phase 54 on one rank: the rank's shard of qwen3-0.6b in fp32 and its
+    part of the caches (every global layer's sequence split), through
+    ``build_prefill_step`` + ``build_decode_step``; the gathered logits and
+    tokens against the unsharded run's."""
+    from repro_torch.parallel import plans, steps as psteps
+
+    dev = group.device
+    cfg = dataclasses.replace(qwen3_0_6b.CONFIG, dtype="float32")
+    plan = plans.make_plan("gossip_dp", 1, group.tp, shape_kind="decode")
+    ctx = plan.ctx(group.model)
+    full, prompt = tp_serve_inputs(cfg, dev)
+    theta = psteps.shard_params(full, cfg, plan, group.model_index, stacked=False)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = M.init_cache_tree(cfg, TP_SERVE["rows"], TP_SERVE["cache"], device=dev, ctx=ctx)
+    prefill = psteps.build_prefill_step(cfg, plan, group)
+    decode = psteps.build_decode_step(cfg, plan, group)
+    gather = lambda lg: psteps.gather_logits(lg, cfg, plan, group)
+    with torch.no_grad():
+        logits_of = lambda h: gather(logits_sharded(theta["embed"], cfg, h, ctx))
+        group.barrier()
+        calls0 = dict(group.model.calls)
+        dispatch.reset_launches()
+        run = tp_greedy(theta, cfg, prompt, TP_SERVE["steps"], cache,
+                        lambda p, c, b: prefill(p, c, b)[0],
+                        lambda p, c, t, i: gather(decode(p, c, t, i)[0]), logits_of, dev)
+        launches = _launch_counts(dev)
+    ref = torch.load(ref_path)
+    return {"rank": group.rank, "tokens_equal": torch.equal(run["tokens"], ref["tokens"]),
+            "max_abs_logit_diff": float((run["logits"] - ref["logits"]).abs().max()),
+            "prefill_ms": run["prefill_ms"], "step_p50_ms": statistics.median(run["step_ms"]),
+            "step_p99_ms": _pct(run["step_ms"], 0.99), "launches": launches,
+            "model_calls": _minus(dict(group.model.calls), calls0),
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "cache_slots_per_rank": TP_SERVE["cache"] // group.tp}
+
+
+def dist_tp_decode_phase(dev) -> tuple[dict, dict]:
+    """Phase 54: qwen3-0.6b in fp32 at ``--data 1 --model 2`` (2 ranks
+    sharing the card, ``kv_shard_seq``) through ``build_prefill_step`` +
+    ``build_decode_step``: the greedy tokens equal the unsharded
+    ``model.prefill`` / ``decode_step`` run's on the card, logits within
+    LOGIT_ATOL; the step p50 beside the unsharded one."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(qwen3_0_6b.CONFIG, dtype="float32")
+    params, prompt = tp_serve_inputs(cfg, dev)
+    cache = M.init_cache_tree(cfg, TP_SERVE["rows"], TP_SERVE["cache"], device=dev)
+    with torch.no_grad():
+        ref = tp_greedy(params, cfg, prompt, TP_SERVE["steps"], cache,
+                        lambda p, c, b: M.prefill(p, cfg, b, c)[0],
+                        lambda p, c, t, i: M.decode_step(p, cfg, t, i, c)[0],
+                        lambda h: logits_sharded(params["embed"], cfg, h), dev)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_tp_ref.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"tokens": ref["tokens"], "logits": ref["logits"]}, path)
+    ranks = mesh_lib.spawn(dist_tp_decode_rank, 2, (path,), backend="gloo", device="cuda", tp=2)
+    os.remove(path)
+    out = {"card": card(), "ranks": ranks, "unsharded_step_p50_ms": statistics.median(ref["step_ms"]),
+           "unsharded_prefill_ms": ref["prefill_ms"], "config": dict(TP_SERVE, arch=cfg.name,
+                                                                   dtype=cfg.dtype)}
+    checks = {"tokens_equal": all(r["tokens_equal"] for r in ranks),
+              "logits_within_atol": all(r["max_abs_logit_diff"] <= LOGIT_ATOL for r in ranks),
+              "flash_in_prefill": all(r["launches"].get("flash_attention", 0) == cfg.num_layers
+                                      for r in ranks)}
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t_phase
+    log("dist-tp decode (phase 54): " + json.dumps(out))
+    if not all(checks.values()):
+        raise AssertionError(f"dist-tp decode failed its checks: {checks}")
+    return out, {k: sum(r["launches"].get(k, 0) for r in ranks) for k in TRAIN_KERNELS}
+
+
+def dist_tp_card_rank(group, data: int) -> dict:
+    """Phase 48's model-axis rank: phase 53's plain run, one card a rank."""
+    row = dist_tp_full_run(group, ["--data", str(data)] + DIST_TP_RUNS[0][1])
+    return {k: row[k] for k in ("rank", "inner_step_p50_ms", "inner_step_p99_ms",
+                                "outer_step_alone_ms", "model_axis", "model_calls_per_step",
+                                "model_calls_design", "model_bytes_per_step", "peak_memory_gb",
+                                "staged", "losses")}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -5764,8 +6240,9 @@ def main() -> None:
     timings = {**time_kernels(dev), **time_train_kernels(dev), **time_int8_kernels(dev),
                **rec_timings, **bwd_timings}
     sampling = sampling_phase(dev)
-    summary, launches = serve_phase(dev)
-    sampled = serve_phase(dev, temps=(0.0, 0.7))[0]
+    qwen3 = cut(qwen3_0_6b.CONFIG, QWEN3_LAYERS)
+    summary, launches = serve_phase(dev, qwen3)
+    sampled = serve_phase(dev, qwen3, temps=(0.0, 0.7))[0]
     sampling["after_profile"] = {run: {**{k: r[k] for k in ("step_p50_s", "tokens_per_s")},
                                        **{"profile_" + k: r["profile"][k] for k in (
                                            "device_busy_ms", "wall_ms", "device_ops")}}
@@ -5789,7 +6266,8 @@ def main() -> None:
         rec_train[cfg.name] = train_phase(dev, cfg, run, label=f"train {cfg.name}")
     rec_train_parity = recurrent_train_parity_phase(dev)
     granite_serve = serve_phase(dev, GRANITE, granite_launches(GRANITE), solo=False)[0]
-    granite_train = train_phase(dev, GRANITE, GRANITE_TRAIN, label=f"train {GRANITE.name}")[0]
+    granite_train = train_phase(dev, cut(GRANITE, GRANITE_TRAIN_LAYERS), GRANITE_TRAIN,
+                                label=f"train {GRANITE.name}")[0]
     granite_train["moe_block"] = time_moe_block(dev)
     moe_parity = {"serve": moe_serve_parity(dev), "train": moe_train_parity(dev),
                   "archs": archs_parity(dev)}
@@ -5797,8 +6275,8 @@ def main() -> None:
     whisper_serve = whisper_serve_phase(dev)[0]
     internvl = internvl_phase(dev)
     frontend_parity = frontend_parity_phase(dev)
-    elastic, elastic_launches = elastic_phase(dev)
-    async_summary = async_phase(dev)
+    elastic, elastic_launches = elastic_phase(dev, cut(paper_llama.SMALL, ELASTIC_LAYERS))
+    async_summary = async_phase(dev, cut(paper_llama.SMALL, ELASTIC_LAYERS))
     elastic_parity = elastic_parity_phase(dev)
     streamed, streamed_launches = {}, {}
     for codec in ("none", "int8"):
@@ -5823,22 +6301,35 @@ def main() -> None:
     spec_parity = spec_parity_phase(dev)
     dist, dist_launches = dist_phase(dev)
     dist_el, dist_el_launches = dist_elastic_phase(dev)
-    launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
-    launches.update({k: int8_launches[k] for k in INT8})
-    launches.update({k: family["mamba2-370m"][1][k] for k in ("ssd_chunk", "ssd_decode")})
-    launches.update({k: family["recurrentgemma-9b"][1][k] for k in ("rglru_scan", "rglru_decode")})
-    launches["ssd_chunk_bwd"] = rec_train["mamba2-370m"][1]["ssd_chunk_bwd"]
-    launches["rglru_scan_bwd"] = rec_train["recurrentgemma-9b"][1]["rglru_scan_bwd"]
-    for counts in (*streamed_launches.values(), churn_launches,   # the streamed paths
-                   *piped_launches.values()):                      # and the routed pipeline
-        for k in TRAIN_KERNELS + INT8:
-            launches[k] += counts[k]
-    for counts in (*dist_launches.values(), *dist_el_launches.values()):
-        for k in TRAIN_KERNELS + INT8:   # the replica group: every rank's launches
-            launches[k] += counts[k]
-    for counts in (single_shot_launches, *spec_launches):   # single-shot and speculative serving
-        for k in SERVE_KERNELS:
-            launches[k] += counts[k]
+    dist_tp, dist_tp_launches = dist_tp_phase(dev)
+    dist_tp_decode, dist_tp_decode_launches = dist_tp_decode_phase(dev)
+    # each kernel's launches on the paths the kernels line counts, by path
+    pick = lambda counts, names: {k: counts[k] for k in names}
+    wire = TRAIN_KERNELS + INT8
+    by_path = {
+        "serve qwen3-0.6b": pick(launches, ("paged_attention", "paged_chunk_attention")),
+        "train": pick(train_launches, TRAIN_KERNELS),
+        "train int8": pick(int8_launches, INT8),
+        "serve mamba2-370m": pick(family["mamba2-370m"][1], ("ssd_chunk", "ssd_decode")),
+        "serve recurrentgemma-9b": pick(family["recurrentgemma-9b"][1],
+                                        ("rglru_scan", "rglru_decode")),
+        "train mamba2-370m": pick(rec_train["mamba2-370m"][1], ("ssd_chunk_bwd",)),
+        "train recurrentgemma-9b": pick(rec_train["recurrentgemma-9b"][1], ("rglru_scan_bwd",)),
+        **{f"stream {c}": pick(counts, wire) for c, counts in streamed_launches.items()},
+        "churn": pick(churn_launches, wire),
+        **{f"pipe {d}": pick(counts, wire) for d, counts in piped_launches.items()},
+        # the replica group: every rank's launches
+        **{f"dist {r}": pick(counts, wire) for r, counts in dist_launches.items()},
+        **{f"dist-elastic {r}": pick(counts, wire) for r, counts in dist_el_launches.items()},
+        **{f"dist-tp {r}": pick(counts, wire) for r, counts in dist_tp_launches.items()},
+        "dist-tp prefill": pick(dist_tp_decode_launches, TRAIN_KERNELS),
+        "single-shot": pick(single_shot_launches, SERVE_KERNELS),
+        **{f"spec {i}": pick(c, SERVE_KERNELS) for i, c in enumerate(spec_launches)},
+    }
+    launches = {name: sum(c.get(name, 0) for c in by_path.values())
+                for name in dispatch.registry()}
+    log("kernel launches by path: " + json.dumps(
+        {p: {k: v for k, v in c.items() if v} for p, c in by_path.items()}))
 
     kernels = []
     for name, op in dispatch.registry().items():
@@ -5933,8 +6424,16 @@ def main() -> None:
                 "consuming", "blocking", "full_outer_step", "cycle_ms_blocking",
                 "cycle_ms_consuming")} for codec in ("none", "int8")},
             "card_vs_cpu": dist_el["card_vs_cpu"]["checks"], "seconds": dist_el["seconds"]},
+        "dist_tp": {name: {k: dist_tp[name][k] for k in (
+            "checks", "inner_step_p50_ms", "outer_step_alone_ms", "peak_memory_gb",
+            "model_calls_per_step", "model_bytes_per_step", "first_period_max_rel_diff")}
+            for name in ("noloco", "int8")} | {"seconds": dist_tp["seconds"]},
+        "dist_tp_decode": {k: dist_tp_decode[k] for k in (
+            "checks", "unsharded_step_p50_ms", "seconds")}
+        | {"step_p50_ms": [r["step_p50_ms"] for r in dist_tp_decode["ranks"]],
+           "max_abs_logit_diff": max(r["max_abs_logit_diff"] for r in dist_tp_decode["ranks"])},
         "seconds": time.perf_counter() - t0}))
-    log(f"chip_smoke: all 52 phases in {time.perf_counter() - t0:.1f} s (the build included)")
+    log(f"chip_smoke: all 54 phases in {time.perf_counter() - t0:.1f} s (the build included)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -59,8 +59,8 @@ def wire_roundtrip(tree: PyTree, cfg: CommConfig, *, lead: int = 0) -> PyTree:
 class Communicator:
     """Pairwise gossip exchange and group mean over the replica dimension:
     :class:`StackedGather` in the stacked simulation, :class:`ShardedPermute`
-    and :class:`AllReduce` over the replica group.  A model axis within a
-    replica comes with ROADMAP Queue 1 item 9c."""
+    and :class:`AllReduce` over the replica group (with a model axis, over
+    the ranks that hold this rank's model index: each moves its shards)."""
 
     cfg: CommConfig
     #: the plain wire may go leaf by leaf (a gather costs no message); a
@@ -119,7 +119,7 @@ class StackedGather(Communicator):
 class ShardedPermute(Communicator):
     """One rank's replica: its partner's copy comes over the group.
 
-    ``pairs`` is the round's (source, destination) list over ranks (an
+    ``pairs`` is the round's (source, destination) list over replicas (an
     involution for the gossip schedules); this rank sends to its
     destination and receives from the rank whose destination it is, every
     packed buffer in one batched send/receive.  A rank paired with itself
@@ -133,16 +133,17 @@ class ShardedPermute(Communicator):
         self.pairs = [(int(s), int(d)) for s, d in pairs]
         dst = dict(self.pairs)
         src = {d: s for s, d in self.pairs}
-        if len(dst) != group.world or len(src) != group.world:
-            raise ValueError(f"pairs {self.pairs} are no permutation of {group.world} ranks")
-        self.dst, self.src = dst[group.rank], src[group.rank]
+        if len(dst) != group.replicas or len(src) != group.replicas:
+            raise ValueError(f"pairs {self.pairs} are no permutation of {group.replicas} "
+                             "replicas")
+        self.dst, self.src = dst[group.replica], src[group.replica]
         self.cfg = cfg or CommConfig()
         self.cfg.validate()
 
     @property
     def paired(self) -> bool:
         """Whether this rank's payload crosses to another rank."""
-        return self.dst != self.group.rank or self.src != self.group.rank
+        return self.dst != self.group.replica or self.src != self.group.replica
 
     def _encode(self, tree: PyTree, prefix: str = ""):
         buffers, spec = payload_lib.pack(tree, fuse=self.cfg.fuse)
@@ -218,7 +219,7 @@ class AllReduce(Communicator):
         self.group.mark("update")
         buffers, spec = payload_lib.pack(tree, fuse=self.cfg.fuse)
         if self.weight is None:
-            denom = self.group.world
+            denom = self.group.replicas
         else:
             buffers = [buf * float(self.weight) for buf in buffers]
             denom = max(float(self.participants), 1.0)

@@ -1,10 +1,12 @@
-"""The replica group: one process per NoLoCo replica over ``torch.distributed``.
+"""The replica group: one process per NoLoCo replica, or per part of one,
+over ``torch.distributed``.
 
-The port of ``repro/launch/mesh.py`` for the replica axis.  Where the JAX
-package lays its replicas on the ``data`` axis of a device mesh and moves
-the outer payload with ``ppermute`` inside ``shard_map``, the port runs
-one process (a rank) per replica, each holding its replica on its own
-device, and moves the payload with ``torch.distributed``.
+The port of ``repro/launch/mesh.py``.  Where the JAX package lays its
+replicas on the ``data`` axis of a device mesh (and each replica's shards
+on its ``model`` axis) and moves the outer payload with ``ppermute``
+inside ``shard_map``, the port runs one process (a rank) per replica, or
+per shard of one, each on its own device, and moves the payload with
+``torch.distributed``.
 
 :func:`init_replica_group` joins the process group and returns a
 :class:`ReplicaGroup`: the rank, the world, the rank's device and the
@@ -16,6 +18,19 @@ in ``calls``.  The backend is the caller's choice and nothing switches it:
   * ``gloo`` moves host tensors.  On CUDA every payload is staged through
     pinned host buffers (the slow link of the paper's setting), so ranks
     can share one card.
+
+With a model axis (``tp`` ranks a replica) the
+world is ``replicas × tp`` ranks, rank-major over the model axis as the
+reference's ``(data, model)`` mesh lays its devices: rank ``r`` holds model
+index ``r % tp`` of replica ``r // tp``.  Each rank then has two subgroups,
+its replica's ranks (:class:`ModelAxis`, the collectives of
+:class:`~repro_torch.parallel.sharding.ShardCtx`) and the ranks that share
+its model index (the replica axis: DiLoCo's all-reduce, the checkpoint's
+gathers); every rank creates every subgroup in the same order, as
+``torch.distributed.new_group`` requires.  The replica-axis calls of
+:class:`ReplicaGroup` take replica indices: ``exchange(dst, src)`` moves a
+rank's shards to the rank of replica ``dst`` that holds the same model
+index.
 
 Besides the blocking exchange, a stream's φ′ pre-send is posted without a
 wait (:meth:`ReplicaGroup.exchange_start`, a :class:`PendingExchange`
@@ -49,7 +64,8 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["BACKENDS", "ReplicaGroup", "PendingExchange", "PhaseClock", "init_replica_group",
+__all__ = ["BACKENDS", "ReplicaGroup", "ModelAxis", "PendingExchange", "PhaseClock",
+           "init_replica_group",
            "check_backend", "spawn", "from_env"]
 
 BACKENDS = ("gloo", "nccl")
@@ -122,11 +138,93 @@ class PendingExchange:
         return self._out
 
 
+class ModelAxis:
+    """The ranks of one replica: the model axis's collectives over their
+    ``torch.distributed`` subgroup, each counted apart from the replica
+    axis's calls in :attr:`calls` / :attr:`sent_bytes` (by kind:
+    ``all_reduce``, ``all_max``, ``all_gather``, ``reduce_scatter``,
+    ``all_to_all``; the bytes this rank hands to the call).  Staged (gloo
+    with CUDA tensors) every call goes through pinned host buffers, as the
+    replica exchange does.  Each call returns a new tensor on the rank's
+    device."""
+
+    def __init__(self, pg, ranks: list[int], index: int, device: torch.device, backend: str):
+        self.pg, self.ranks, self.index = pg, list(ranks), index
+        self.size = len(ranks)
+        self.device, self.backend = device, backend
+        self.calls: collections.Counter = collections.Counter()
+        self.sent_bytes: collections.Counter = collections.Counter()
+
+    @property
+    def staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def _count(self, kind: str, x: torch.Tensor) -> None:
+        self.calls[kind] += 1
+        self.sent_bytes[kind] += x.numel() * x.element_size()
+
+    def _host(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.staged:
+            return x
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        buf.copy_(x)
+        return buf
+
+    def _back(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.device, copy=True) if self.staged else x
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (``op="sum"``) or max (``"max"``) of ``x`` over the axis."""
+        self._count("all_reduce" if op == "sum" else "all_max", x)
+        buf = self._host(x.contiguous()) if self.staged else x.contiguous().clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                        group=self.pg)
+        return self._back(buf)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` in rank order (the
+        reference's tiled ``all_gather``)."""
+        self._count("all_gather", x)
+        lead = self._host(x.movedim(dim, 0).contiguous())
+        out = torch.empty((self.size * lead.shape[0],) + lead.shape[1:], dtype=lead.dtype,
+                          device=lead.device, pin_memory=self.staged)
+        dist.all_gather_into_tensor(out, lead, group=self.pg)
+        return self._back(out).movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice along ``dim`` of the sum over the axis (the
+        reference's tiled ``psum_scatter``)."""
+        self._count("reduce_scatter", x)
+        lead = self._host(x.movedim(dim, 0).contiguous())
+        out = torch.empty((lead.shape[0] // self.size,) + lead.shape[1:], dtype=lead.dtype,
+                          device=lead.device, pin_memory=self.staged)
+        dist.reduce_scatter_tensor(out, lead, group=self.pg)
+        return self._back(out).movedim(0, dim)
+
+    def all_to_all(self, x: torch.Tensor, split: int, concat: int) -> torch.Tensor:
+        """The reference's tiled ``all_to_all``: ``x`` cut into ``size``
+        blocks along ``split``, block j sent to rank j, the blocks received
+        concatenated along ``concat`` in rank order."""
+        self._count("all_to_all", x)
+        lead = self._host(x.movedim(split, 0).contiguous())
+        out = torch.empty(lead.shape, dtype=lead.dtype, device=lead.device,
+                          pin_memory=self.staged)
+        dist.all_to_all_single(out, lead, group=self.pg)
+        blocks = self._back(out).chunk(self.size, 0)
+        return torch.cat([b.movedim(0, split) for b in blocks], dim=concat)
+
+
 @dataclasses.dataclass
 class ReplicaGroup:
     """One rank's view of the replica group and its cross-rank calls.
 
-    ``calls`` counts each call by kind (``p2p``: one batched send/receive,
+    ``rank`` / ``world`` are global; with a model axis (``tp`` > 1) the
+    rank holds model index :attr:`model_index` of replica :attr:`replica`
+    of :attr:`replicas`, ``model`` is its :class:`ModelAxis` and
+    ``replica_pg`` the subgroup of the ranks with its model index, over
+    which the replica-axis calls below run (with ``tp`` 1: the world).
+
+    ``calls`` counts each replica-axis call by kind (``p2p``: one batched send/receive,
     ``presend``: one posted without a wait, ``send`` / ``recv``: one way,
     ``all_reduce``, ``gather``, ``broadcast``, ``barrier``) and ``sent_bytes``
     the bytes this rank handed to sends (by the same kinds) and ``all_reduce``.
@@ -140,7 +238,28 @@ class ReplicaGroup:
     calls: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     sent_bytes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     clock: PhaseClock | None = None
+    tp: int = 1
+    model: ModelAxis | None = None
+    replica_pg: Any = None
     _pinned: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def replica(self) -> int:
+        """The replica this rank holds (a part of, with a model axis)."""
+        return self.rank // self.tp
+
+    @property
+    def replicas(self) -> int:
+        return self.world // self.tp
+
+    @property
+    def model_index(self) -> int:
+        """This rank's position on its replica's model axis."""
+        return self.rank % self.tp
+
+    def rank_of(self, replica: int) -> int:
+        """The global rank of ``replica`` that holds this rank's model index."""
+        return replica * self.tp + self.model_index
 
     @property
     def staged(self) -> bool:
@@ -184,13 +303,16 @@ class ReplicaGroup:
         else:
             send = list(send)
             recv = [torch.empty_like(t) for t in like]
+        dst = None if dst is None else self.rank_of(dst)
+        src = None if src is None else self.rank_of(src)
         ops = [dist.P2POp(dist.isend, t, dst, tag=base + i) for i, t in enumerate(send)]
         ops += [dist.P2POp(dist.irecv, t, src, tag=base + i) for i, t in enumerate(recv)]
         return PendingExchange(self, dist.batch_isend_irecv(ops), send, recv, prefix)
 
     def exchange(self, tensors: Sequence[torch.Tensor], dst: int, src: int) -> list[torch.Tensor]:
-        """Send ``tensors`` to rank ``dst`` and receive the same shapes from
-        rank ``src``, all in one ``batch_isend_irecv``.  Staged: each
+        """Send ``tensors`` to replica ``dst`` and receive the same shapes from
+        replica ``src`` (the ranks of those replicas that hold this rank's
+        model index), all in one ``batch_isend_irecv``.  Staged: each
         tensor is copied into a pinned host buffer first (D2H) and each
         received one back to the device (H2D).  No tensors: no call."""
         if not tensors:
@@ -224,39 +346,43 @@ class ReplicaGroup:
         return self._post([], None, like, src, "oneway", "recv").wait()
 
     def all_reduce_sum(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The sum of ``tensor`` over the ranks (a new tensor on this
-        rank's device; staged through a pinned host buffer)."""
+        """The sum of ``tensor`` over the replica axis (a new tensor on
+        this rank's device; staged through a pinned host buffer)."""
         self.calls["all_reduce"] += 1
         self.sent_bytes["all_reduce"] += tensor.numel() * tensor.element_size()
         if self.staged:
             host = self._host(("reduce", 0), tensor)
             host.copy_(tensor)
             self.mark("d2h")
-            dist.all_reduce(host)
+            dist.all_reduce(host, group=self.replica_pg)
             self.mark("wire")
             out = host.to(self.device, copy=True)
             self.mark("h2d")
             return out
         out = tensor.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.replica_pg)
         self.mark("wire")
         return out
 
     def gather_rows(self, tensor: torch.Tensor) -> torch.Tensor | None:
-        """Rank 0: every rank's ``tensor`` stacked along a new leading axis
-        in rank order, on the CPU; the other ranks: None."""
+        """Replica 0's ranks: every replica's ``tensor`` (from the ranks
+        with this rank's model index) stacked along a new leading axis in
+        replica order, on the CPU; the other ranks: None."""
         self.calls["gather"] += 1
         t = tensor.detach().contiguous()
         t = t.cpu() if self.backend == "gloo" else t.to(self.device)
-        parts = [torch.empty_like(t) for _ in range(self.world)] if self.rank == 0 else None
-        dist.gather(t, parts, dst=0)
-        return torch.stack([p.cpu() for p in parts]) if self.rank == 0 else None
+        root = self.replica == 0
+        parts = [torch.empty_like(t) for _ in range(self.replicas)] if root else None
+        dist.gather(t, parts, dst=self.rank_of(0), group=self.replica_pg)
+        return torch.stack([p.cpu() for p in parts]) if root else None
 
     def gather_object(self, obj: Any) -> list | None:
-        """Rank 0: every rank's ``obj`` in rank order; the others: None."""
+        """Replica 0's ranks: every replica's ``obj`` in replica order; the
+        others: None."""
         self.calls["gather"] += 1
-        out = [None] * self.world if self.rank == 0 else None
-        dist.gather_object(obj, out, dst=0)
+        root = self.replica == 0
+        out = [None] * self.replicas if root else None
+        dist.gather_object(obj, out, dst=self.rank_of(0), group=self.replica_pg)
         return out
 
     def broadcast_object(self, obj: Any) -> Any:
@@ -293,14 +419,17 @@ def check_backend(backend: str, world: int, device: str | torch.device) -> torch
 
 
 def init_replica_group(world: int, backend: str, device: str | torch.device, *,
-                       rank: int | None = None, init_method: str = "env://") -> ReplicaGroup:
+                       rank: int | None = None, init_method: str = "env://",
+                       tp: int = 1) -> ReplicaGroup:
     """Join the process group as ``rank`` (default: ``$RANK``) of ``world``
     over ``backend`` and return the :class:`ReplicaGroup`.  The rank's
     device is ``cuda:{rank % device_count}`` for ``device="cuda"``, or the
     CPU when the caller asks for it.  A barrier, which every rank joins,
     is the group's first call: torch leaves a first ``batch_isend_irecv``
     that some rank sits out (a rank paired with itself in an odd world)
-    undefined over NCCL."""
+    undefined over NCCL.  With ``tp`` > 1 every rank then creates the
+    replicas' model-axis subgroups and the model indices' replica-axis
+    subgroups, in that order, and keeps its own two."""
     dev = check_backend(backend, world, device)
     if rank is None:
         rank = int(os.environ["RANK"])
@@ -309,7 +438,24 @@ def init_replica_group(world: int, backend: str, device: str | torch.device, *,
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
     dist.barrier(**({"device_ids": [dev.index]} if backend == "nccl" else {}))
-    return ReplicaGroup(rank=rank, world=world, device=dev, backend=backend)
+    if tp == 1:
+        return ReplicaGroup(rank=rank, world=world, device=dev, backend=backend)
+    if world % tp:
+        raise ValueError(f"a world of {world} ranks does not split into model axes of {tp}")
+    replicas = world // tp
+    model = replica_pg = None
+    for rep in range(replicas):
+        ranks = [rep * tp + j for j in range(tp)]
+        pg = dist.new_group(ranks)
+        if rank in ranks:
+            model = ModelAxis(pg, ranks, rank % tp, dev, backend)
+    for j in range(tp):
+        ranks = [rep * tp + j for rep in range(replicas)]
+        pg = dist.new_group(ranks)
+        if rank in ranks:
+            replica_pg = pg
+    return ReplicaGroup(rank=rank, world=world, device=dev, backend=backend, tp=tp,
+                        model=model, replica_pg=replica_pg)
 
 
 def from_env() -> tuple[int, int] | None:
@@ -320,12 +466,13 @@ def from_env() -> tuple[int, int] | None:
 
 
 def _entry(rank: int, fn: Callable, world: int, backend: str, device: str, init_method: str,
-           out_dir: str, threads: int | None) -> None:
+           out_dir: str, threads: int | None, tp: int = 1) -> None:
     if threads:
         torch.set_num_threads(threads)
     with open(os.path.join(out_dir, "args.pkl"), "rb") as f:
         args = pickle.load(f)
-    group = init_replica_group(world, backend, device, rank=rank, init_method=init_method)
+    group = init_replica_group(world, backend, device, rank=rank, init_method=init_method,
+                               tp=tp)
     try:
         result = fn(group, *args)
         with open(os.path.join(out_dir, f"result-{rank}.pkl"), "wb") as f:
@@ -335,11 +482,12 @@ def _entry(rank: int, fn: Callable, world: int, backend: str, device: str, init_
 
 
 def spawn(fn: Callable, world: int, args: tuple = (), *, backend: str = "gloo",
-          device: str = "cuda", threads: int | None = None) -> list:
+          device: str = "cuda", threads: int | None = None, tp: int = 1) -> list:
     """Run ``fn(group, *args)`` on ``world`` spawned ranks; returns their
     results (picklable) in rank order.  ``fn`` must be a module-level
     function.  ``threads`` sets each rank's intra-op thread count (default:
-    the host's cores shared out between the ranks)."""
+    the host's cores shared out between the ranks); ``tp`` the ranks of
+    each replica's model axis."""
     import torch.multiprocessing as mp
 
     dev = check_backend(backend, world, device)
@@ -355,7 +503,8 @@ def spawn(fn: Callable, world: int, args: tuple = (), *, backend: str = "gloo",
         with open(os.path.join(tmp, "args.pkl"), "wb") as f:
             pickle.dump(tuple(args), f)
         init_method = "file://" + os.path.join(tmp, "rendezvous")
-        mp.start_processes(_entry, args=(fn, world, backend, dev.type, init_method, tmp, threads),
+        mp.start_processes(_entry, args=(fn, world, backend, dev.type, init_method, tmp, threads,
+                                         tp),
                            nprocs=world, join=True, start_method="spawn")
         results = []
         for rank in range(world):

@@ -1,5 +1,6 @@
-"""Distributed NoLoCo training over ``torch.distributed``: one rank per
-replica, each holding its replica on its own device.
+"""Distributed NoLoCo training over ``torch.distributed``: ``--model``
+ranks per replica (one by default), each holding its part of its replica
+on its own device.
 
 The port of ``repro/launch/train_distributed.py``.
 Every rank runs its inner AdamW steps with no cross-rank call (unless
@@ -52,10 +53,23 @@ raises without a GPU; ``--backend nccl`` with more ranks than cards
 raises and names ``--backend gloo``.  The last stdout line is the JAX
 CLI's summary JSON plus ``method``, ``device`` and ``backend``.
 
-Not on this path yet, and refused by name: ``--model > 1`` (ROADMAP
-Queue 1 item 9c, the model axis).  The last stdout line carries
-``fault_events`` and ``membership`` under a fault plan, as the
+The model axis (``--model N``): a replica's weights are split over N
+ranks (tensor parallelism: heads, d_ff and vocabulary; expert parallelism
+for MoE blocks), which run the reference's collectives over their
+subgroup (``parallel/sharding.py``); the world is ``--data × --model``
+ranks, rank r holding model index r % N of replica r // N.  NoLoCo's outer
+step stays one send/receive per rank: each rank exchanges its shards with
+the rank of the partner replica that holds its model index.  Checkpoints
+hold the whole replicas (the JAX package's global arrays): rank 0 writes
+the gathered tree and each rank cuts its shard on resume, so a checkpoint
+does not depend on ``--model``.  Refused by name at ``--model`` > 1:
+``--fault-plan``, ``--reassign-data``, ``--stale momentum``, ``--overlap``
+and ``--stream-count`` > 1 (ROADMAP Queue 1 item 9d).  The last stdout line
+carries ``fault_events`` and ``membership`` under a fault plan, as the
 reference's does.
+
+    # two replicas of two model ranks each, sharing one card:
+    PYTHONPATH=src python -m repro_torch.launch.train_distributed --data 2 --model 2
 """
 
 from __future__ import annotations
@@ -125,6 +139,10 @@ class DistributedTrainer:
         if self.plan.world != self.group.world:
             raise ValueError(f"plan needs {self.plan.world} ranks, the group has "
                              f"{self.group.world}")
+        if self.plan.tp > 1 and (self.elastic is not None or self.comm_cfg.streams > 1
+                                 or self.comm_cfg.overlap or self.outer_cfg.stale != "naive"):
+            raise NotImplementedError("elastic, asynchronous and streamed rounds with a model "
+                                      f"axis come with {plans_lib.ZERO3_ITEM}")
         if self.elastic is not None and self.elastic.world != self.plan.replicas:
             raise ValueError(f"elastic world {self.elastic.world} != plan replicas "
                              f"{self.plan.replicas}")
@@ -154,14 +172,27 @@ class DistributedTrainer:
         self.stream_events: list[dict] = []
 
     def initial_params(self) -> PyTree:
-        """One replica's starting weights, on the CPU: every replica starts
-        from the same point, drawn from ``seed`` as the stacked runtime
-        draws it."""
+        """One replica's starting weights, whole, on the CPU: every replica
+        starts from the same point, drawn from ``seed`` as the stacked
+        runtime draws it."""
         return model_api.init_params(torch.Generator().manual_seed(self.seed), self.cfg)
 
+    def shard(self, stacked: PyTree) -> PyTree:
+        """This rank's shard of a whole replica-stacked tree (itself at tp 1)."""
+        if self.plan.tp == 1:
+            return stacked
+        return steps_lib.shard_params(stacked, self.cfg, self.plan, self.group.model_index)
+
+    def gather(self, tree: PyTree) -> PyTree:
+        """The whole replica-stacked tree from this rank's shard: every
+        split leaf all-gathered over the model axis (itself at tp 1)."""
+        if self.plan.tp == 1:
+            return tree
+        return steps_lib.gather_shards(tree, self.cfg, self.plan, self.group.model)
+
     def init_state(self, batch_example: dict | None = None) -> dict:
-        theta = tree_map(lambda p: p.to(self.device).unsqueeze(0).contiguous(),
-                         self.initial_params())
+        theta = self.shard(tree_map(lambda p: p.unsqueeze(0), self.initial_params()))
+        theta = tree_map(lambda p: p.to(self.device).contiguous(), theta)
         self.bundle = steps_lib.build_train_step(self.cfg, self.plan, self.group,
                                                  self.inner_cfg, data_sync=self.data_sync)
         self._partition = None
@@ -545,10 +576,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """Refuse, by name, what this path does not run yet (the model axis),
-    and a fault plan under a method the stacked elastic CLI refuses."""
-    if args.model != 1:
-        plans_lib.make_plan("gossip_dp", args.data, args.model)   # raises, naming item 9c
+    """Refuse, by name, what this path does not run yet (item 9b's flags
+    with a model axis), and a fault plan under a method the stacked elastic
+    CLI refuses."""
+    if args.model > 1:
+        flags = [f for f, on in (("--fault-plan", args.fault_plan),
+                                 ("--reassign-data", args.reassign_data),
+                                 ("--stale momentum", args.stale != "naive"),
+                                 ("--overlap", args.overlap),
+                                 ("--stream-count", args.stream_count > 1)) if on]
+        if flags:
+            raise NotImplementedError(f"{', '.join(flags)} with --model {args.model} come with "
+                                      f"{plans_lib.ZERO3_ITEM}")
     if args.fault_plan and args.method not in ELASTIC_METHODS:
         raise SystemExit(f"argument --method: invalid choice: {args.method!r} "
                          f"(choose from {', '.join(ELASTIC_METHODS)})")
@@ -672,9 +711,11 @@ def main(argv: list[str] | None = None) -> dict:
     env = mesh.from_env()
     if env is not None:   # torchrun: this process is one rank
         rank, world = env
-        if world != args.data:
-            raise SystemExit(f"--data {args.data} but torchrun started {world} ranks")
-        group = mesh.init_replica_group(world, args.backend, args.device, rank=rank)
+        if world != args.data * args.model:
+            raise SystemExit(f"--data {args.data} --model {args.model} but torchrun started "
+                             f"{world} ranks")
+        group = mesh.init_replica_group(world, args.backend, args.device, rank=rank,
+                                        tp=args.model)
         try:
             out = _spawned(group, vars(args))
         finally:
@@ -682,8 +723,8 @@ def main(argv: list[str] | None = None) -> dict:
         if rank:
             return {}
     else:
-        out = mesh.spawn(_spawned, args.data, (vars(args),), backend=args.backend,
-                         device=args.device)[0]
+        out = mesh.spawn(_spawned, args.data * args.model, (vars(args),), backend=args.backend,
+                         device=args.device, tp=args.model)[0]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"losses": out["losses"], "partners": out["partners"],

@@ -20,9 +20,21 @@ pools (masked tokens to the trash page) and then run the paged-attention
 ops; the speculative verify (``chunk_exact``) runs the decode op once per
 chunk column.  Single-shot paged prefill of one slot runs the flash op over
 the fresh K/V and then scatters them into the slot's pages.  On the card
-the flash and paged ops launch the CUDA kernels.  The reference's
-sequence-sharded dense cache (``ctx.kv_shard_seq``, tensor parallel heads)
-is multi-device and comes with the model axis, ROADMAP Queue 1 item 9c.
+the flash and paged ops launch the CUDA kernels.
+
+Under a model axis (``ctx``, a :class:`~repro_torch.parallel.sharding.
+ShardCtx`) the query heads are split over the ranks where they divide
+(``ctx.heads_tp``): ``w_q`` and ``w_o`` are the rank's heads, ``w_k`` and
+``w_v`` whole, so K/V are projected whole and then cut to the kv heads that
+serve the rank's query groups, or, where a rank holds part of a group,
+expanded by the head map (query head i reads kv head i·KV//H); the output
+projection is row-parallel (``scatter_seq_sum``).  The decode plan's
+``kv_shard_seq`` keeps the heads whole and splits the dense cache of each
+global layer over the ranks by sequence: prefill writes the rank's slice
+of the prompt's positions, decode writes the new token on the rank that
+owns its slot and combines the ranks' partial softmax (m, l, acc) by a
+``pmax`` and two ``psum`` calls.  Paged serving keeps the reference's refusal
+of split heads.
 """
 
 from __future__ import annotations
@@ -35,6 +47,9 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import torch_dtype, truncated_normal
 from repro_torch.models.layers import apply_norm, apply_rope
+from repro_torch.parallel.sharding import ShardCtx
+
+_LOCAL = ShardCtx.local()
 
 NEG_INF = -1e30
 _NO_POSITION = -(10**9)   # kv position of padding and unwritten cache slots
@@ -92,11 +107,14 @@ def blockwise_attention(
     mode: str = "causal",
     window: int = 0,
     block_kv: int = 1024,
-) -> torch.Tensor:
+    return_stats: bool = False,
+):
     """Online-softmax attention over KV blocks of ``block_kv``, the
     reference's ``blockwise_attention``: fp32 scores of q·scale, a -1e30
     additive mask from the positions, the (m, l, acc) recurrence in fp32
-    and acc / max(l, 1e-30) cast to q's dtype."""
+    and acc / max(l, 1e-30) cast to q's dtype.  ``return_stats``: the
+    unnormalised acc (B, H, Sq, D) with m and l (B, H, Sq) instead, which
+    the sequence-sharded decode combines over the model axis."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     q32 = (q.float() * (1.0 / math.sqrt(d))).transpose(1, 2)        # (B, H, Sq, D)
@@ -121,16 +139,44 @@ def blockwise_attention(
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
         m = m_new
+    if return_stats:
+        return acc, m, l
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _expand_kv(x: torch.Tensor, h: int) -> torch.Tensor:
-    """The kv head of each query head, (B, S, KV, D) -> (B, S, H, D): query
-    head i reads kv head (i·KV)//H."""
-    kv = x.shape[2]
-    head_map = (torch.arange(h, device=x.device) * kv) // h
-    return x.index_select(2, head_map)
+def _expand_kv(x: torch.Tensor, h: int, first: int = 0, h_all: int | None = None
+               ) -> torch.Tensor:
+    """The kv head of each of ``h`` query heads, (B, S, KV, D) -> (B, S, h,
+    D): query head i (global index ``first`` + i of ``h_all``, default h)
+    reads kv head (i·KV)//H."""
+    kv = x.shape[-2]
+    h_all = h_all or h
+    head_map = ((first + torch.arange(h, device=x.device)) * kv) // h_all
+    return x.index_select(x.dim() - 2, head_map)
+
+
+def _local_kv(cfg, ctx: ShardCtx, k: torch.Tensor, v: torch.Tensor, h_local: int):
+    """Whole K/V (..., S, KV, D) cut to what the rank's ``h_local`` query
+    heads read, for the flash op: the kv heads of the rank's whole groups,
+    or, where a rank holds part of a group, K/V expanded by the head map
+    (the reference's ``_dispatched_attention``).  Unsplit heads: as given."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if ctx.heads_tp(h) == 1:
+        return k, v
+    g = h // kv if kv and h % kv == 0 else 0
+    first = ctx.model_index() * h_local
+    if g and h_local % g == 0:
+        n = h_local // g
+        return k.narrow(-2, first // g, n), v.narrow(-2, first // g, n)
+    return _expand_kv(k, h_local, first, h), _expand_kv(v, h_local, first, h)
+
+
+def _out_proj(out: torch.Tensor, w_o: torch.Tensor, eq: str, cfg, ctx: ShardCtx) -> torch.Tensor:
+    """The output projection; row-parallel (summed over the model axis)
+    where the heads are split."""
+    y = torch.einsum(eq, out, w_o)
+    return ctx.scatter_seq_sum(y, axis=-2) if ctx.heads_tp(cfg.num_heads) > 1 else y
 
 
 # ---------------------------------------------------------------------------
@@ -232,10 +278,11 @@ class PagedView:
 
 
 def _training_attention(p: dict, cfg, x: torch.Tensor, mode: str, positions,
-                        kv_source: torch.Tensor | None) -> torch.Tensor:
+                        kv_source: torch.Tensor | None, ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """Attention of the stacked training forward: p's leaves (R, ...), x
     (R, B, S, d), K/V from ``kv_source`` (R, B, S_enc, d) for
-    cross-attention, canonical positions."""
+    cross-attention, canonical positions; the rank's heads under a model
+    axis."""
     r, b, s, _ = x.shape
     q = torch.einsum("rbsd,rdhk->rbshk", x, p["w_q"])
     if cfg.qk_norm:  # RMSNorm over head_dim, as the JAX package's _rms
@@ -244,6 +291,7 @@ def _training_attention(p: dict, cfg, x: torch.Tensor, mode: str, positions,
     if cfg.use_rope and mode != "full":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    k, v = _local_kv(cfg, ctx, k, v, q.shape[3])
     window = (cfg.sliding_window or 0) if mode == "local" else 0
     out = kernel_ops.flash_attention(
         q.reshape(r * b, s, *q.shape[3:]).contiguous(),
@@ -251,25 +299,72 @@ def _training_attention(p: dict, cfg, x: torch.Tensor, mode: str, positions,
         v.reshape(r * b, v.shape[2], *v.shape[3:]).contiguous(),
         mode=mode, window=window,
     )
-    return torch.einsum("rbshk,rhkd->rbsd", out.reshape(q.shape), p["w_o"])
+    return _out_proj(out.reshape(q.shape), p["w_o"], "rbshk,rhkd->rbsd", cfg, ctx)
+
+
+def _seq_sharded(cfg, ctx: ShardCtx, mode: str) -> bool:
+    """Whether this layer's dense cache is split over the model axis by
+    sequence (``kv_shard_seq``: global layers only)."""
+    return ctx.kv_shard_seq and ctx.model_axis is not None and mode == "causal"
+
+
+def _sharded_decode(cfg, ctx: ShardCtx, q, k, v, cache: AttnCache, positions) -> torch.Tensor:
+    """Decode over a sequence-sharded cache: the rank owning slot ``index``
+    writes the token there (the others leave their slice as it was), each
+    rank attends over its slice, and the partial softmax is combined: gm =
+    pmax(m), l = psum(l·e^(m−gm)), acc = psum(acc·e^(m−gm)), out = acc/l."""
+    size = cache.k.shape[1]
+    start = ctx.model_index() * size
+    index = cache.index.long()
+    local = index - start
+    owner = (local >= 0) & (local < size)
+    slot = local.clamp(0, size - 1).reshape(1)
+    for buf, new in ((cache.k, k), (cache.v, v)):   # the owner's write; others rewrite the row
+        buf.index_copy_(1, slot, torch.where(owner, new.to(buf.dtype), buf.index_select(1, slot)))
+    cache.index.add_(1)
+    kv_positions = start + torch.arange(size, device=q.device)
+    kv_positions = torch.where(kv_positions <= index, kv_positions,
+                               torch.full_like(kv_positions, _NO_POSITION))
+    h = q.shape[2]
+    acc, m, l = blockwise_attention(q, _expand_kv(cache.k, h), _expand_kv(cache.v, h),
+                                    positions, kv_positions, mode="causal", return_stats=True)
+    gm = ctx.pmax_model(m)
+    corr = torch.exp(m - gm)
+    l = ctx.psum_model(l * corr)
+    acc = ctx.psum_model(acc * corr[..., None])
+    return (acc / torch.clamp_min(l[..., None], 1e-30)).transpose(1, 2).to(q.dtype)
 
 
 def _dense_attention(cfg, q, k, v, cache: AttnCache, mode: str,
-                     positions: torch.Tensor) -> torch.Tensor:
+                     positions: torch.Tensor, ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """Dense-cache self-attention of one layer, the cache written in place.
     Prefill (S > 1, canonical positions): the flash op over the fresh K/V,
     then the cache filled, a local ring with the last ``size`` tokens in
-    slot order pos % size; index = S.  Decode (S = 1): the token written at
+    slot order pos % size, a sequence-sharded cache with the positions of
+    the rank's slice; index = S.  Decode (S = 1): the token written at
     ``index`` (local: ``index % size``), then :func:`blockwise_attention`
     over the cache with each slot's position (unwritten slots and, on a
-    ring, slots older than the window get none)."""
+    ring, slots older than the window get none); a sequence-sharded cache
+    by :func:`_sharded_decode`.  Under split heads the query heads are the
+    rank's and the cache holds every kv head."""
     s, h = q.shape[1], q.shape[2]
     size = cache.k.shape[1]
     window = cfg.sliding_window or 0
+    first, h_all = ctx.model_index() * h, cfg.num_heads
+    if ctx.heads_tp(cfg.num_heads) == 1:
+        first, h_all = 0, h
     if s > 1:
-        out = kernel_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+        kl, vl = _local_kv(cfg, ctx, k, v, h)
+        out = kernel_ops.flash_attention(q.contiguous(), kl.contiguous(), vl.contiguous(),
                                          mode=mode, window=window if mode == "local" else 0)
-        if mode == "local" and s >= size:
+        if _seq_sharded(cfg, ctx, mode):
+            # the rank's slots are positions [start, start + size)
+            start = ctx.model_index() * size
+            n = max(0, min(s - start, size))
+            if n:
+                cache.k[:, :n] = k[:, start:start + n]
+                cache.v[:, :n] = v[:, start:start + n]
+        elif mode == "local" and s >= size:
             take = s - size
             roll = -(take % size)
             cache.k.copy_(torch.roll(k[:, take:], roll, 1))
@@ -279,6 +374,8 @@ def _dense_attention(cfg, q, k, v, cache: AttnCache, mode: str,
             cache.v[:, :s] = v
         cache.index.fill_(s)
         return out
+    if _seq_sharded(cfg, ctx, mode):
+        return _sharded_decode(cfg, ctx, q, k, v, cache, positions)
     index = cache.index.long()
     slots = torch.arange(size, device=q.device)
     if mode == "local":
@@ -293,7 +390,8 @@ def _dense_attention(cfg, q, k, v, cache: AttnCache, mode: str,
     cache.k.index_copy_(1, slot.reshape(1), k.to(cache.k.dtype))
     cache.v.index_copy_(1, slot.reshape(1), v.to(cache.v.dtype))
     cache.index.add_(1)
-    return blockwise_attention(q, _expand_kv(cache.k, h), _expand_kv(cache.v, h), positions,
+    return blockwise_attention(q, _expand_kv(cache.k, h, first, h_all),
+                               _expand_kv(cache.v, h, first, h_all), positions,
                                kv_positions, mode=mode, window=window)
 
 
@@ -310,6 +408,7 @@ def apply_attention(
     decode: bool = False,                     # paged phase selector
     chunk_lengths: torch.Tensor | None = None,  # (R,) valid tokens per chunk row
     chunk_exact: bool = False,                # paged chunk as per-token decode steps
+    ctx: ShardCtx = _LOCAL,
 ) -> tuple[torch.Tensor, AttnCache | PagedAttnCache | None]:
     """Attention block.  With no cache: the training (or encoder) forward
     over canonical positions, p's leaves and x stacked over replicas
@@ -328,7 +427,7 @@ def apply_attention(
     if cache is None and paged is None:
         if positions is None:
             positions = torch.arange(x.shape[2], device=x.device)
-        return _training_attention(p, cfg, x, mode, positions, kv_source), None
+        return _training_attention(p, cfg, x, mode, positions, kv_source, ctx), None
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)
@@ -345,18 +444,23 @@ def apply_attention(
             # ``reuse_cross`` branch), not the flash kernel, and so does the
             # port, on the card too.
             h = q.shape[2]
+            first, h_all = ((ctx.model_index() * h, cfg.num_heads)
+                            if ctx.heads_tp(cfg.num_heads) > 1 else (0, h))
             kv_positions = torch.arange(cache.k.shape[1], device=x.device)
-            out = blockwise_attention(q, _expand_kv(cache.k, h), _expand_kv(cache.v, h),
+            out = blockwise_attention(q, _expand_kv(cache.k, h, first, h_all),
+                                      _expand_kv(cache.v, h, first, h_all),
                                       positions, kv_positions, mode="full")
         else:
             k, v = _project_kv(p, cfg, x, "bsd,dhk->bshk")
             if cfg.use_rope:
                 k = apply_rope(k, positions, cfg.rope_theta)
-            out = _dense_attention(cfg, q, k, v, cache, mode, positions)
-        return torch.einsum("bshk,hkd->bsd", out, p["w_o"]), cache
+            out = _dense_attention(cfg, q, k, v, cache, mode, positions, ctx)
+        return _out_proj(out, p["w_o"], "bshk,hkd->bsd", cfg, ctx), cache
 
     if not isinstance(cache, PagedAttnCache) or paged is None:
         raise ValueError("paged attention needs a PagedAttnCache and a PagedView")
+    if ctx.heads_tp(cfg.num_heads) > 1:
+        raise NotImplementedError("paged serving assumes unsharded attention heads (tp=1)")
     if mode not in ("causal", "local"):
         raise ValueError(f"paged attention mode must be causal or local, got {mode!r}")
     k, v = _project_kv(p, cfg, x, "bsd,dhk->bshk")

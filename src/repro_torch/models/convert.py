@@ -18,7 +18,8 @@ the JAX ``GossipProgram.state_pytree`` tree with numpy leaves, so both
 packages can continue training from one point; ``train_state_to_numpy`` is
 its inverse, the tree a checkpoint holds, with the streaming runtime's
 in-flight ``stream`` subtree (the prefetched φ loads through
-``stacked_params_from_jax_numpy``).  ``gossip_tree_from_distributed``
+``stacked_params_from_jax_numpy``).  ``shard_from_jax_numpy`` cuts a model
+rank's shard out of the loaded tree.  ``gossip_tree_from_distributed``
 rearranges the distributed runtime's checkpoint (JAX's
 ``DistributedProgram`` layout) into that one.  ``pipeline_state_from_jax_numpy`` /
 ``pipeline_state_to_numpy`` carry the routed pipeline's state (per-stage
@@ -164,6 +165,21 @@ def params_from_jax_numpy(
 ) -> PyTree:
     """The port's parameters from the JAX value tree (numpy leaves)."""
     return _load(tree, expected_shapes(cfg), device, dtype or torch_dtype(cfg.dtype))
+
+
+def shard_from_jax_numpy(tree: PyTree, cfg, plan, model_index: int, device="cpu",
+                         dtype: torch.dtype | None = None) -> PyTree:
+    """Rank ``model_index``'s shard of one replica's parameters from the JAX
+    value tree (numpy leaves): the port's whole tree
+    (:func:`params_from_jax_numpy`), then the rank's block of each leaf the
+    ``plan`` splits (``parallel.plans.shard_tree``, the plan's attention
+    specs)."""
+    from repro_torch.models.logical import logical_axes
+    from repro_torch.parallel import plans
+
+    logical = plans.adjust_attn_specs_for_decode(plan, logical_axes(cfg))
+    return plans.shard_tree(params_from_jax_numpy(tree, cfg, device, dtype), logical, plan,
+                            model_index)
 
 
 def _load(tree: PyTree, shapes: PyTree, device, dtype: torch.dtype,

@@ -1,9 +1,16 @@
 """Norms, positional encodings, MLPs, the embedding and the logits.
 
-The port of ``repro/models/layers.py`` at tensor parallelism 1: parameters
-are plain dicts of tensors with the JAX package's layouts (``w_in (d, f)``,
-``w_out (f, d)``, ``table (V, d)``, ...), and the functions that took a
-``ShardCtx`` there compute the unsharded case here.
+The port of ``repro/models/layers.py``: parameters are plain dicts of
+tensors with the JAX package's layouts (``w_in (d, f)``, ``w_out (f, d)``,
+``table (V, d)``, ...).  The functions that take a ``ctx``
+(:class:`~repro_torch.parallel.sharding.ShardCtx`, default the local one)
+run on the rank's shards under a model axis, as the reference: the MLP is
+column-parallel in and row-parallel out (``scatter_seq_sum``), the
+embedding is vocab-sharded (each rank's contiguous vocabulary slice,
+tokens outside it giving zero, then ``psum``), the logits are the rank's
+vocabulary slice, and the cross entropy combines the slices with a
+``pmax`` of the stop-gradient maximum and ``psum`` of the exponentials
+and one of the label's logit, which only the rank that holds the label hits.
 
 The norms, the MLP, the embedding and the logits also take replica-stacked
 parameters, every leaf with a leading replica axis R (``w_in (R, d, f)``,
@@ -20,6 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import torch_dtype, truncated_normal
+from repro_torch.parallel.sharding import ShardCtx
+
+_LOCAL = ShardCtx.local()
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -116,7 +126,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("r...d,rdf->r...f", x, w)
 
 
-def apply_mlp(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p: dict, cfg, x: torch.Tensor, ctx: ShardCtx = _LOCAL) -> torch.Tensor:
+    """Column-parallel in, row-parallel out: the partial sums of the rank's
+    d_ff slice summed over the model axis where d_ff is split."""
     h = matmul(x, p["w_in"])
     if cfg.mlp_variant == "swiglu":
         h = F.silu(matmul(x, p["w_gate"])) * h
@@ -126,7 +138,8 @@ def apply_mlp(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(h).square()
     else:
         h = F.gelu(h, approximate="tanh")
-    return matmul(h, p["w_out"])
+    y = matmul(h, p["w_out"])
+    return ctx.scatter_seq_sum(y, axis=-2) if ctx.ff_tp(cfg.d_ff) > 1 else y
 
 
 # ---------------------------------------------------------------------------
@@ -143,20 +156,38 @@ def init_embedding(gen: torch.Generator, cfg) -> dict:
     return p
 
 
-def embed_tokens(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(p: dict, cfg, tokens: torch.Tensor, ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """Rows of the table; with a stacked table (R, V, d), replica r's tokens
-    (R, ...) read replica r's rows."""
+    (R, ...) read replica r's rows.  Vocab-sharded (the table is the rank's
+    slice of V/tp rows): tokens outside the slice read a zero row, and the
+    rows are summed over the model axis."""
     table = p["table"]
+    tokens = tokens.long()
+    vt = ctx.vocab_tp(cfg.vocab_size)
+    in_range = None
+    if vt > 1:
+        vloc = cfg.vocab_size // vt
+        tokens = tokens - ctx.model_index() * vloc
+        in_range = (tokens >= 0) & (tokens < vloc)
+        tokens = tokens.clamp(0, vloc - 1)
     if table.dim() == 2:
-        return F.embedding(tokens.long(), table)
-    r, v, d = table.shape
-    offsets = (torch.arange(r, device=tokens.device) * v).reshape((r,) + (1,) * (tokens.dim() - 1))
-    return F.embedding(tokens.long() + offsets, table.reshape(r * v, d))
+        out = F.embedding(tokens, table)
+    else:
+        r, v, d = table.shape
+        offsets = (torch.arange(r, device=tokens.device) * v).reshape(
+            (r,) + (1,) * (tokens.dim() - 1))
+        out = F.embedding(tokens + offsets, table.reshape(r * v, d))
+    if in_range is None:
+        return out
+    out = torch.where(in_range[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                            device=out.device))
+    return ctx.psum_model(out)
 
 
-def logits_sharded(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Logits over the whole vocabulary (tp = 1), cast to fp32 after the
-    product."""
+def logits_sharded(p: dict, cfg, x: torch.Tensor, ctx: ShardCtx = _LOCAL) -> torch.Tensor:
+    """Logits over the rank's vocabulary slice (the whole vocabulary
+    without a model axis; the loss combines the slices), cast to fp32 after
+    the product."""
     if cfg.tie_embeddings:
         table = p["table"]
         logits = x @ table.T if table.dim() == 2 else torch.einsum("r...d,rvd->r...v", x, table)
@@ -169,20 +200,33 @@ def logits_sharded(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, cfg=None,
+              ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """NLL of each label; stable log-softmax with a detached max, as the JAX
-    package computes it."""
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    denom = torch.exp(logits - m).sum(dim=-1)
-    hit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    package computes it.  Vocab-sharded logits (the rank's slice): the max
+    is ``pmax``-ed, the exponentials' sums and the label's logit (found on
+    the rank that holds the label) ``psum``-ed over the model axis."""
+    m = ctx.pmax_model(logits.amax(dim=-1, keepdim=True).detach())
+    denom = ctx.psum_model(torch.exp(logits - m).sum(dim=-1))
+    labels = labels.long()
+    if cfg is None or ctx.vocab_tp(cfg.vocab_size) == 1:
+        hit = logits.gather(-1, labels[..., None])[..., 0]
+    else:
+        vloc = logits.shape[-1]
+        local = labels - ctx.model_index() * vloc
+        in_range = (local >= 0) & (local < vloc)
+        hit = logits.gather(-1, local.clamp(0, vloc - 1)[..., None])[..., 0]
+        hit = ctx.psum_model(torch.where(in_range, hit, torch.zeros((), dtype=hit.dtype,
+                                                                     device=hit.device)))
     return torch.log(denom) + m[..., 0] - hit
 
 
 def cross_entropy_parts(
-    logits: torch.Tensor, labels: torch.Tensor, cfg, mask: torch.Tensor | None = None
+    logits: torch.Tensor, labels: torch.Tensor, cfg, mask: torch.Tensor | None = None,
+    ctx: ShardCtx = _LOCAL,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum of token NLL, token count)."""
-    nll = token_nll(logits, labels)
+    nll = token_nll(logits, labels, cfg, ctx)
     if mask is None:
         return nll.sum(), torch.tensor(float(nll.numel()), device=nll.device)
     w = mask.float()
@@ -190,8 +234,9 @@ def cross_entropy_parts(
 
 
 def cross_entropy_sharded(
-    logits: torch.Tensor, labels: torch.Tensor, cfg, mask: torch.Tensor | None = None
+    logits: torch.Tensor, labels: torch.Tensor, cfg, mask: torch.Tensor | None = None,
+    ctx: ShardCtx = _LOCAL,
 ) -> torch.Tensor:
     """Mean token NLL."""
-    s, n = cross_entropy_parts(logits, labels, cfg, mask)
+    s, n = cross_entropy_parts(logits, labels, cfg, mask, ctx)
     return s / torch.clamp_min(n, 1.0)

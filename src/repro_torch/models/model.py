@@ -32,6 +32,15 @@ last chunk; the R decode rows with the idle slots'), since capacity is
 shared by them.  Paged serving takes decoder-only token models and refuses
 the encoder-decoder and vision models with the reference's ``ValueError``;
 those are served from the dense cache.
+
+``loss_fn``, ``stacked_loss``, ``embed_input``, ``init_cache_tree``,
+``prefill`` and ``decode_step`` take ``ctx`` (a :class:`~repro_torch.
+parallel.sharding.ShardCtx`, default the local one) and pass it down: under
+a model axis the parameters are the rank's shards
+(``parallel.plans.shard_tree``), the caches its part of each layer's cache
+(the sequence of a global layer's under ``kv_shard_seq``, the width or
+heads of a recurrent one's), and ``decode_step`` returns the rank's
+vocabulary slice of the logits, as the reference's does.
 """
 
 from __future__ import annotations
@@ -58,8 +67,11 @@ from repro_torch.models.layers import (
     token_nll,
 )
 from repro_torch.models.rglru import RGLRUCache, lru_width
-from repro_torch.models.ssd import SSDCache
+from repro_torch.models.ssd import SSDCache, d_inner, num_heads_ssm
+from repro_torch.parallel.sharding import ShardCtx
 from repro_torch.tree import tree_map
+
+_LOCAL = ShardCtx.local()
 
 PyTree = Any
 
@@ -134,13 +146,13 @@ def init_paged_cache_tree(
 
 
 def _embed(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, positions: torch.Tensor,
-           prefix: torch.Tensor | None = None) -> torch.Tensor:
+           prefix: torch.Tensor | None = None, ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """Token embedding (scaled where the config says so), with ``prefix``
     (projected frontend rows) in front of the tokens, plus the sinusoidal
     rows at ``positions`` where the config has no RoPE; ``positions`` cover
     the prefix and the tokens and are clamped to the reference's table of
     2**15 rows."""
-    x = embed_tokens(params["embed"], cfg, tokens)
+    x = embed_tokens(params["embed"], cfg, tokens, ctx)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if prefix is not None:
@@ -159,7 +171,8 @@ def _frontend(embeds: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return matmul(embeds.to(dt), w.to(dt))
 
 
-def _encode(params: PyTree, cfg: ModelConfig, encoder_embeds: torch.Tensor) -> torch.Tensor:
+def _encode(params: PyTree, cfg: ModelConfig, encoder_embeds: torch.Tensor,
+            ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """The whisper encoder over stub frame embeddings (R, B, S_enc, F) under
     stacked params: ``enc_proj``, cast to the model dtype, sinusoidal
     positions, the bidirectional stack, ``enc_norm``."""
@@ -168,7 +181,7 @@ def _encode(params: PyTree, cfg: ModelConfig, encoder_embeds: torch.Tensor) -> t
         x = _frontend(x, params["enc_proj"])
     x = x.to(torch_dtype(cfg.dtype))
     x = x + sinusoidal_positions(x.shape[-2], cfg.d_model, x.device).to(x.dtype)
-    x, _, _ = tfm.apply_stack(params["encoder"], encoder_cfg(cfg), x)
+    x, _, _ = tfm.apply_stack(params["encoder"], encoder_cfg(cfg), x, ctx=ctx)
     return apply_norm(params["enc_norm"], x)
 
 
@@ -176,14 +189,15 @@ def _one_replica(params: PyTree) -> PyTree:
     return tree_map(lambda t: t[None], params)
 
 
-def encode(params: PyTree, cfg: ModelConfig, encoder_embeds: torch.Tensor) -> torch.Tensor:
+def encode(params: PyTree, cfg: ModelConfig, encoder_embeds: torch.Tensor,
+           ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """The encoder output (B, S_enc, d) of ONE replica's params over stub
     frame embeddings (B, S_enc, F)."""
     sub = {k: params[k] for k in ("encoder", "enc_norm", "enc_proj") if k in params}
-    return _encode(_one_replica(sub), cfg, encoder_embeds[None])[0]
+    return _encode(_one_replica(sub), cfg, encoder_embeds[None], ctx)[0]
 
 
-def embed_input(params: PyTree, cfg: ModelConfig, batch: dict):
+def embed_input(params: PyTree, cfg: ModelConfig, batch: dict, ctx: ShardCtx = _LOCAL):
     """Token embedding (scaled where the config says so) of
     ``batch["tokens"]``, with the projected ``image_embeds`` in front for a
     vision model, plus sinusoidal positions over the whole length where the
@@ -199,12 +213,12 @@ def embed_input(params: PyTree, cfg: ModelConfig, batch: dict):
             torch.zeros(lead + (n_img,), dtype=torch.bool, device=tokens.device),
             torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)], dim=-1)
     n = tokens.shape[-1] + (0 if img is None else img.shape[-2])
-    x = _embed(params, cfg, tokens, torch.arange(n, device=tokens.device), prefix=img)
+    x = _embed(params, cfg, tokens, torch.arange(n, device=tokens.device), prefix=img, ctx=ctx)
     return x, mask_extra
 
 
 def _lm_loss(params: PyTree, cfg: ModelConfig, x: torch.Tensor, labels: torch.Tensor,
-             mask: torch.Tensor | None) -> torch.Tensor:
+             mask: torch.Tensor | None, ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """Per-replica mean token NLL (R,) of x (R, B, S, d), chunked over the
     sequence in LOSS_CHUNK pieces when S is a multiple of it, so (R, B, S, V)
     logits are never materialized for long sequences."""
@@ -213,8 +227,8 @@ def _lm_loss(params: PyTree, cfg: ModelConfig, x: torch.Tensor, labels: torch.Te
     nll = torch.zeros(r, dtype=torch.float32, device=x.device)
     cnt = torch.zeros(r, dtype=torch.float32, device=x.device)
     for c0 in range(0, s, step):
-        tok = token_nll(logits_sharded(params["embed"], cfg, x[:, :, c0:c0 + step]),
-                        labels[:, :, c0:c0 + step])
+        tok = token_nll(logits_sharded(params["embed"], cfg, x[:, :, c0:c0 + step], ctx),
+                        labels[:, :, c0:c0 + step], cfg, ctx)
         if mask is None:
             nll = nll + tok.sum(dim=(1, 2))
             cnt = cnt + float(tok[0].numel())
@@ -225,7 +239,7 @@ def _lm_loss(params: PyTree, cfg: ModelConfig, x: torch.Tensor, labels: torch.Te
     return nll / torch.clamp_min(cnt, 1.0)
 
 
-def _stacked_parts(params: PyTree, cfg: ModelConfig, batch: dict):
+def _stacked_parts(params: PyTree, cfg: ModelConfig, batch: dict, ctx: ShardCtx = _LOCAL):
     """(LM loss (R,), MoE auxiliary loss (R,) or None) of every replica."""
     enc_out = None
     if cfg.is_encoder_decoder:
@@ -234,10 +248,11 @@ def _stacked_parts(params: PyTree, cfg: ModelConfig, batch: dict):
                 f"{cfg.name} is an encoder-decoder model: its batches carry the stub "
                 "frontend's 'encoder_embeds'.  The token loader makes none, as the "
                 "reference's does not: drive the loss with such batches")
-        enc_out = _encode(params, cfg, batch["encoder_embeds"])
-    x, mask_extra = embed_input(params, cfg, batch)
+        enc_out = _encode(params, cfg, batch["encoder_embeds"], ctx)
+    x, mask_extra = embed_input(params, cfg, batch, ctx)
     positions = torch.arange(x.shape[2], device=x.device)
-    x, _, aux = tfm.apply_stack(params["stack"], cfg, x, positions=positions, enc_out=enc_out)
+    x, _, aux = tfm.apply_stack(params["stack"], cfg, x, positions=positions, enc_out=enc_out,
+                                ctx=ctx)
     x = apply_norm(params["final_norm"], x)
     labels, mask = batch["labels"], batch.get("loss_mask")
     if mask_extra is not None:
@@ -246,26 +261,28 @@ def _stacked_parts(params: PyTree, cfg: ModelConfig, batch: dict):
                           dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=-1)
         mask = mask_extra if mask is None else torch.cat([pad.bool(), mask.bool()], dim=-1)
-    return _lm_loss(params, cfg, x, labels, mask), aux
+    return _lm_loss(params, cfg, x, labels, mask, ctx), aux
 
 
-def stacked_loss(params: PyTree, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def stacked_loss(params: PyTree, cfg: ModelConfig, batch: dict,
+                 ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """Next-token LM loss of every replica plus, for MoE models, its
     auxiliary loss, (R,) fp32: params with a leading replica axis,
     ``batch["tokens"]``/``["labels"]`` (R, B, S), optional
     ``["loss_mask"]``, ``["encoder_embeds"]`` or ``["image_embeds"]``
     (R, B, n, frontend_dim).  Backpropagating the sum gives each replica's slice of
     the gradient its own loss's gradient."""
-    lm, aux = _stacked_parts(params, cfg, batch)
+    lm, aux = _stacked_parts(params, cfg, batch, ctx)
     return lm if aux is None else lm + aux
 
 
-def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
+def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict,
+            ctx: ShardCtx = _LOCAL) -> tuple[torch.Tensor, dict]:
     """The JAX package's ``loss_fn`` for ONE replica: unstacked params,
     batch (B, S).  Returns (LM loss + aux, {"lm_loss", "aux_loss"}); models
     without MoE blocks have an auxiliary loss of 0."""
     one = {k: v[None] for k, v in batch.items()}
-    lm, aux = _stacked_parts(_one_replica(params), cfg, one)
+    lm, aux = _stacked_parts(_one_replica(params), cfg, one, ctx)
     if aux is None:
         return lm[0], {"lm_loss": lm[0], "aux_loss": torch.zeros((), device=lm.device)}
     return lm[0] + aux[0], {"lm_loss": lm[0], "aux_loss": aux[0]}
@@ -276,20 +293,35 @@ def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def init_cache_tree(cfg: ModelConfig, batch: int, length: int, device="cpu") -> dict:
+def init_cache_tree(cfg: ModelConfig, batch: int, length: int, device="cpu",
+                    ctx: ShardCtx = _LOCAL) -> dict:
     """Dense cache tree mirroring the stack: per layer a ``(mixer, cross)``
     pair, the mixer an :class:`AttnCache` (global: ``length`` slots; local:
     a ring of min(length, window)), an RG-LRU or an SSD state of ``batch``
     rows, and for an encoder-decoder model the cross cache of
-    ``cfg.encoder_seq`` frames (None otherwise)."""
+    ``cfg.encoder_seq`` frames (None otherwise).  Under a model axis, the
+    rank's part, by the reference's cache specs: a global layer's
+    ``length / tp`` slots under ``kv_shard_seq``, an RG-LRU's W/tp
+    channels, an SSD's d_inner/tp channels and H/tp heads, each where it
+    divides."""
     period, n_full, rem = tfm.layer_plan(cfg)
     dt = torch_dtype(cfg.dtype)
+    seq_tp = ctx.tp if (ctx.kv_shard_seq and ctx.model_axis is not None
+                        and length % ctx.tp == 0) else 1
 
     def one(kind):
         if kind == "rglru":
-            mixer = RGLRUCache.init(cfg, batch, lru_width(cfg), dt, device)
+            w = lru_width(cfg)
+            mixer = RGLRUCache.init(cfg, batch, w // ctx.ff_tp(w), dt, device)
         elif kind == "ssd":
-            mixer = SSDCache.init(cfg, batch, dt, device)
+            di, h = d_inner(cfg), num_heads_ssm(cfg)
+            di, h = di // ctx.ff_tp(di), h // ctx.ff_tp(h)
+            mixer = SSDCache(
+                conv=torch.zeros((batch, cfg.ssm_conv_width - 1, di), dtype=dt, device=device),
+                state=torch.zeros((batch, h, cfg.ssm_head_dim, cfg.ssm_state_dim),
+                                  dtype=torch.float32, device=device))
+        elif kind == "global" and seq_tp > 1:
+            mixer = AttnCache.init(cfg, batch, length // seq_tp, kind, device)
         else:
             mixer = AttnCache.init(cfg, batch, length, kind, device)
         cross = (AttnCache.init(cfg, batch, cfg.encoder_seq, "global", device)
@@ -305,8 +337,8 @@ def init_cache_tree(cfg: ModelConfig, batch: int, length: int, device="cpu") -> 
     return caches
 
 
-def prefill(params: PyTree, cfg: ModelConfig, batch: dict, caches: PyTree
-            ) -> tuple[torch.Tensor, PyTree]:
+def prefill(params: PyTree, cfg: ModelConfig, batch: dict, caches: PyTree,
+            ctx: ShardCtx = _LOCAL) -> tuple[torch.Tensor, PyTree]:
     """Fill the dense caches from whole prompts, ``batch["tokens"]`` (B, S)
     (with ``encoder_embeds`` or ``image_embeds`` where the model takes
     them); the encoder runs once and every cross block projects its K/V
@@ -314,20 +346,20 @@ def prefill(params: PyTree, cfg: ModelConfig, batch: dict, caches: PyTree
     the final norm (B, 1, d), the caches written in place)."""
     enc_out = None
     if cfg.is_encoder_decoder:
-        enc_out = encode(params, cfg, batch["encoder_embeds"])
+        enc_out = encode(params, cfg, batch["encoder_embeds"], ctx)
         if enc_out.shape[1] != cfg.encoder_seq:
             raise ValueError(f"encoder_embeds hold {enc_out.shape[1]} frames; the cache tree "
                              f"holds cfg.encoder_seq = {cfg.encoder_seq}")
-    x, _ = embed_input(params, cfg, batch)
+    x, _ = embed_input(params, cfg, batch, ctx)
     positions = torch.arange(x.shape[1], device=x.device)
     x, caches, _ = tfm.apply_stack(params["stack"], cfg, x, positions=positions,
-                                   caches=caches, enc_out=enc_out)
+                                   caches=caches, enc_out=enc_out, ctx=ctx)
     x = apply_norm(params["final_norm"], x)
     return x[:, -1:], caches
 
 
 def decode_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, index,
-                caches: PyTree) -> tuple[torch.Tensor, PyTree]:
+                caches: PyTree, ctx: ShardCtx = _LOCAL) -> tuple[torch.Tensor, PyTree]:
     """One-token decode over the dense caches: tokens (B, 1), ``index`` the
     number of tokens already cached, one scalar for every row.  Returns
     (logits (B, 1, V) fp32, the caches written in place)."""
@@ -335,11 +367,11 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, index,
     if index.dim() != 0:
         raise ValueError(f"index must be one scalar for the batch, got shape {tuple(index.shape)}")
     positions = index.long().reshape(1)
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, ctx=ctx)
     x, caches, _ = tfm.apply_stack(params["stack"], cfg, x, positions=positions,
-                                   caches=caches, decode=True)
+                                   caches=caches, decode=True, ctx=ctx)
     x = apply_norm(params["final_norm"], x)
-    return logits_sharded(params["embed"], cfg, x), caches
+    return logits_sharded(params["embed"], cfg, x, ctx), caches
 
 
 def paged_prefill(

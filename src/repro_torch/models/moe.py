@@ -2,8 +2,7 @@
 per-expert buffers, the experts as batched products, and the weighted
 combine.
 
-The port of ``repro/models/moe.py`` at expert parallelism 1 (the JAX
-package's ``ShardCtx.local()``: its all-to-all is the identity).  Routing is
+The port of ``repro/models/moe.py``.  Routing is
 fp32 (the router is an fp32 leaf at every model dtype); each token takes the
 k most probable experts, the lower expert index first on equal
 probabilities as ``jax.lax.top_k`` does, with the k probabilities
@@ -20,6 +19,16 @@ leading replica axis R) and x (R, B, S, d).  Routing, capacity and the
 auxiliary loss are then per replica with T = B·S, as the reference
 ``vmap``s its loss over replicas: R never folds into the token axis, which
 would change the capacity, the ranks and so the dropped assignments.
+
+Under a model axis (``ctx``) the block sees the rank's part of the
+sequence (``transformer._split_seq``), routes it with the whole router and
+counts its capacity over those tokens alone, as the reference does: at
+tp > 1 the block is not the unsharded block, whose capacity covers the
+whole sequence.  The experts are split over the ranks where their number
+divides by tp (``ctx.experts_tp``): the dispatch buffer goes (E, C, d) →
+(ep, E_l, C, d) → ``all_to_all`` → (E_l, ep·C, d), each rank runs its E_l
+experts on every rank's tokens, and the inverse ``all_to_all`` brings the
+outputs back before the combine.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import torch_dtype, truncated_normal
+from repro_torch.parallel.sharding import ShardCtx
 
 __all__ = ["init_moe", "apply_moe"]
 
@@ -74,13 +84,14 @@ def capacity(t: int, k: int, e: int, factor: float) -> int:
     return max(1, int(math.ceil(t * k / e * factor)))
 
 
-def apply_moe(p: dict, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(p: dict, cfg, x: torch.Tensor,
+              ctx: ShardCtx = ShardCtx.local()) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) with unstacked ``p``, or (R, B, S, d) with ``p`` stacked
     over R.  Returns (y shaped as x in x's dtype, auxiliary load-balance
     loss: a scalar, or (R,) for stacked input)."""
     stacked = p["router"].dim() == 3
     if not stacked:
-        y, aux = apply_moe({k: v[None] for k, v in p.items()}, cfg, x[None])
+        y, aux = apply_moe({k: v[None] for k, v in p.items()}, cfg, x[None], ctx)
         return y[0], aux[0]
     r, b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_token
@@ -113,9 +124,16 @@ def apply_moe(p: dict, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     buf = buf.scatter(1, slot[..., None].expand(r, t * k, d), vals)
     buf = buf[:, : e * cap].reshape(r, e, cap, d)
 
-    h = torch.matmul(buf, p["w_in"])                                  # (R, E, cap, f)
+    ep = ctx.experts_tp(e)
+    if ep > 1:   # (R, E, C, d) -> (R, ep, E_l, C, d) -> a2a -> (R, E_l, ep·C, d)
+        buf = ctx.all_to_all_model(buf.reshape(r, ep, e // ep, cap, d), 1, 3)
+        buf = buf.reshape(r, e // ep, ep * cap, d)
+    h = torch.matmul(buf, p["w_in"])                                  # (R, E_l, ·, f)
     gate = torch.matmul(buf, p["w_gate"]) if "w_gate" in p else None
-    out_buf = torch.matmul(_act(cfg, gate, h), p["w_out"])            # (R, E, cap, d)
+    out_buf = torch.matmul(_act(cfg, gate, h), p["w_out"])            # (R, E_l, ·, d)
+    if ep > 1:   # the inverse: (R, E_l, ep, C, d) -> a2a -> (R, E, C, d)
+        out_buf = ctx.all_to_all_model(out_buf.reshape(r, e // ep, ep, cap, d), 2, 1)
+        out_buf = out_buf.reshape(r, e, cap, d)
 
     out_buf = torch.cat([out_buf.reshape(r, e * cap, d),
                          torch.zeros((r, 1, d), dtype=out_buf.dtype, device=x.device)], dim=1)

@@ -20,6 +20,11 @@ per-token trajectory.  The forward with no cache also takes replica-stacked
 parameters (every leaf with a leading R) against x (R, B, S, d): the
 projections are one batched product each and the scan runs once over the
 R·B rows, where the JAX package vmaps the block over R.
+
+Under a model axis (``ctx``) the rank holds its contiguous part of the
+width W (every projection's columns, the conv, Λ, the output's rows): the
+scan runs on W/tp channels and the output projection is row-parallel
+(``scatter_seq_sum``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import torch_dtype, truncated_normal
 from repro_torch.models.layers import matmul, over_replicas
+from repro_torch.parallel.sharding import ShardCtx
 
 C_EXP = 8.0
 CONV_WIDTH = 4
@@ -109,6 +115,7 @@ def apply_rglru(
     cache: RGLRUCache | None = None,
     chunk_lengths: torch.Tensor | None = None,     # (B,) valid tokens per chunk row
     chunk_exact: bool = False,
+    ctx: ShardCtx = ShardCtx.local(),
 ) -> tuple[torch.Tensor, RGLRUCache | None]:
     """The block's output (B, S, d) and its cache (the one given, written in
     place).  With ``cache`` and ``chunk_lengths``: one chunk of serving
@@ -165,4 +172,6 @@ def apply_rglru(
             cache.conv.copy_(new_conv)
             cache.h.copy_(h[:, -1])
     y = matmul((h * gate).to(x.dtype), p["w_out"])
+    if ctx.ff_tp(lru_width(cfg)) > 1:
+        y = ctx.scatter_seq_sum(y, axis=-2)
     return y, cache

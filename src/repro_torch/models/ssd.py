@@ -20,6 +20,12 @@ forward with no cache also takes replica-stacked parameters against x
 (R, B, S, d): batched projections, and one chunked scan over the R·B rows
 with each row's rates −exp(a_log) of its replica, where the JAX package
 vmaps the block over R.
+
+Under a model axis (``ctx``) the rank holds its contiguous part of the
+heads and of d_inner (``w_z``, ``w_x``, ``w_dt``, the rates, skips, conv
+and norm scale; ``w_b``/``w_c`` whole): the scans run on the local heads,
+the gated norm's mean square is ``psum(ms) / tp`` (the mean over the whole
+d_inner) and the output projection is row-parallel (``scatter_seq_sum``).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import torch_dtype, truncated_normal
 from repro_torch.models.layers import matmul, over_replicas
 from repro_torch.models.rglru import causal_conv, tail_at
+from repro_torch.parallel.sharding import ShardCtx
 
 
 def d_inner(cfg) -> int:
@@ -100,6 +107,7 @@ def apply_ssd(
     cache: SSDCache | None = None,
     chunk_lengths: torch.Tensor | None = None,     # (B,) valid tokens per chunk row
     chunk_exact: bool = False,
+    ctx: ShardCtx = ShardCtx.local(),
 ) -> tuple[torch.Tensor, SSDCache | None]:
     """The block's output (B, S, d) and its cache (the one given, written in
     place); branches as :func:`repro_torch.models.rglru.apply_rglru`'s (the
@@ -173,5 +181,9 @@ def apply_ssd(
     # gated RMSNorm (mamba2): norm(y ⊙ silu(z)), over the whole d_inner
     g = y * F.silu(z.float())
     ms = torch.mean(torch.square(g), dim=-1, keepdim=True)
+    split = ctx.ff_tp(d_inner(cfg)) > 1
+    if split:   # the mean over the whole d_inner: the ranks' means summed, over tp
+        ms = ctx.psum_model(ms) / ctx.tp
     g = g * torch.rsqrt(ms + 1e-6) * over_replicas(p["norm_scale"], g)
-    return matmul(g.to(x.dtype), p["w_out"]), cache
+    out = matmul(g.to(x.dtype), p["w_out"])
+    return (ctx.scatter_seq_sum(out, axis=-2) if split else out), cache

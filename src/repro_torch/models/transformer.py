@@ -18,6 +18,13 @@ blocks return their auxiliary load-balance loss, which the stack sums over
 layers: per replica, (R,), in the training forward.  Caches (dense or
 paged) thread through the stack as ``(mixer cache, cross cache)`` pairs,
 the cross cache None where the model has no cross-attention.
+
+``ctx`` (a :class:`~repro_torch.parallel.sharding.ShardCtx`, default the
+local one) threads the model axis through every block.  Before an MoE
+block each rank takes its contiguous part of the sequence (the reference's
+``_split_seq``: the dispatch buffers stay small and each rank routes its
+own tokens with its own capacity), and the block's output is gathered back
+over the axis (``all_gather_model``).
 """
 
 from __future__ import annotations
@@ -33,7 +40,10 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.parallel.sharding import ShardCtx
 from repro_torch.tree import tree_map
+
+_LOCAL = ShardCtx.local()
 
 PyTree = Any
 
@@ -71,6 +81,16 @@ def init_block(gen: torch.Generator, cfg, kind: str, *, cross: bool = False) -> 
     return p
 
 
+def _split_seq(x: torch.Tensor, ctx: ShardCtx) -> tuple[torch.Tensor, bool]:
+    """The rank's contiguous part of a replicated (..., S, d) sequence, and
+    whether it was split (S divides by tp and S >= tp)."""
+    s = x.shape[-2]
+    if ctx.model_axis is None or s % ctx.tp or s < ctx.tp:
+        return x, False
+    loc = s // ctx.tp
+    return x.narrow(-2, ctx.model_index() * loc, loc), True
+
+
 def apply_block(
     p: dict,
     cfg,
@@ -85,6 +105,7 @@ def apply_block(
     paged: attn_lib.PagedView | None = None,
     chunk_lengths: torch.Tensor | None = None,
     chunk_exact: bool = False,
+    ctx: ShardCtx = _LOCAL,
 ) -> tuple[torch.Tensor, tuple[Any, Any], torch.Tensor | None]:
     """Pre-norm block.  Returns (x, (cache, cross_cache), aux): aux is an
     MoE block's load-balance loss, None for the others.  With no cache and
@@ -100,14 +121,15 @@ def apply_block(
     h = apply_norm(p["ln1"], x)
     if kind in _MIXERS:
         y, cache = _MIXERS[kind][1](p["mixer"], cfg, h, cache=cache, chunk_lengths=chunk_lengths,
-                                    chunk_exact=chunk_exact)
+                                    chunk_exact=chunk_exact, ctx=ctx)
     elif kind == "encoder":   # bidirectional self-attention (whisper encoder)
-        y, cache = attn_lib.apply_attention(p["attn"], cfg, h, mode="full", positions=positions)
+        y, cache = attn_lib.apply_attention(p["attn"], cfg, h, mode="full", positions=positions,
+                                            ctx=ctx)
     else:
         y, cache = attn_lib.apply_attention(
             p["attn"], cfg, h, mode="local" if kind == "local" else "causal",
             positions=positions, cache=cache, paged=paged, decode=decode,
-            chunk_lengths=chunk_lengths, chunk_exact=chunk_exact,
+            chunk_lengths=chunk_lengths, chunk_exact=chunk_exact, ctx=ctx,
         )
     x = x + y
     if "cross_attn" in p:
@@ -116,15 +138,16 @@ def apply_block(
             cross_cache = attn_lib.build_cross_cache(p["cross_attn"], cfg, enc_out, cross_cache)
         y, cross_cache = attn_lib.apply_attention(
             p["cross_attn"], cfg, h, mode="full", positions=positions,
-            kv_source=enc_out, cache=cross_cache,
+            kv_source=enc_out, cache=cross_cache, ctx=ctx,
         )
         x = x + y
     aux = None
     if "moe" in p:
-        y, aux = moe_lib.apply_moe(p["moe"], cfg, apply_norm(p["ln2"], x))
-        x = x + y
+        h, split = _split_seq(apply_norm(p["ln2"], x), ctx)
+        y, aux = moe_lib.apply_moe(p["moe"], cfg, h, ctx)
+        x = x + (ctx.all_gather_model(y, axis=-2) if split else y)
     elif "mlp" in p:
-        x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["ln2"], x))
+        x = x + apply_mlp(p["mlp"], cfg, apply_norm(p["ln2"], x), ctx)
     return x, (cache, cross_cache), aux
 
 
@@ -203,6 +226,7 @@ def apply_stack(
     paged: attn_lib.PagedView | None = None,
     chunk_lengths: torch.Tensor | None = None,
     chunk_exact: bool = False,
+    ctx: ShardCtx = _LOCAL,
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor | None]:
     """Run all layers in the JAX package's order: every full period, then
     the remainder.  With ``caches`` None this is the training forward over
@@ -218,7 +242,7 @@ def apply_stack(
     training = caches is None
     layer_axis = 1 if training else 0
     kw = dict(positions=positions, enc_out=enc_out, decode=decode, paged=paged,
-              chunk_lengths=chunk_lengths, chunk_exact=chunk_exact)
+              chunk_lengths=chunk_lengths, chunk_exact=chunk_exact, ctx=ctx)
     # chunk_exact: the trajectories of the recurrent layers, per period
     # position (a list over the stacked layers) and per remainder layer
     traj: dict = {"scan": [[] for _ in period], "rem": [None] * rem}

@@ -111,7 +111,7 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> tuple[PyTree, torch.T
 
 def adamw_update(
     grads: PyTree, state: AdamWState, params: PyTree, cfg: AdamWConfig,
-    active: torch.Tensor | None = None,
+    active: torch.Tensor | None = None, norm: torch.Tensor | None = None,
 ) -> tuple[PyTree, AdamWState, torch.Tensor]:
     """Returns (new_params, new_state, pre-clip (R,) grad norms).  The moments
     of ``state`` are donated: the returned state holds the same tensors,
@@ -123,8 +123,12 @@ def adamw_update(
     ``active`` ((R,) bool) freezes the other replicas, as the JAX package's
     elastic trainer selects the old values for them: their parameters, both
     moments and ``count`` stay as they were, and the active rows keep the
-    bits of the unmasked update."""
-    gnorm = global_norm(grads)
+    bits of the unmasked update.
+
+    ``norm`` ((R,) fp32): the global norm to clip by, in place of
+    ``global_norm(grads)`` (a rank that holds a shard of each replica
+    passes the norm of the whole replica's gradient)."""
+    gnorm = global_norm(grads) if norm is None else norm
     scale = _clip_scale(gnorm, cfg.clip_norm)[:, None] if cfg.clip_norm is not None else None
     count = state.count + 1
     act = None if active is None else active.to(count.device, torch.bool)[:, None]

@@ -1,8 +1,8 @@
-"""Step builders of the replica group: the inner train step, eval, and the
-outer step (gossip or all-reduce), each run by every rank on its own
-replica.
+"""Step builders of the replica group: the inner train step, eval, the
+outer step (gossip or all-reduce) and the serving steps, each run by every
+rank on its own replica, or its part of one.
 
-The port of ``repro/parallel/steps.py`` for the replica axis.  A rank
+The port of ``repro/parallel/steps.py``.  A rank
 holds one replica as a replica-stacked tree with a leading axis of 1, so
 the port's stacked model, AdamW and kernels run on it unchanged.  As in
 the reference, the train step descends the mean of the replicas' losses
@@ -10,6 +10,27 @@ the reference, the train step descends the mean of the replicas' losses
 ``shard_map``), so each rank's gradient is its own loss's divided by the
 world; the step makes no cross-rank call unless ``data_sync`` asks for the
 DDP/FSDP baseline, which all-reduces the gradients every step.
+
+With a model axis (``plan.tp`` > 1) the rank holds its shard of its
+replica (``plans.shard_tree``) and runs ``loss_fn`` under the plan's
+:class:`~repro_torch.parallel.sharding.ShardCtx`.  As in the reference,
+which differentiates outside its ``shard_map``, the backward starts from
+1/tp of the loss's cotangent on each rank, every collective's backward is
+its transpose, and the gradients of the leaves the rank holds whole are
+summed over the model axis after the backward
+(``sharding.psum_replicated``): every leaf's gradient is then the unsharded
+gradient of the rank's slice.  AdamW clips by the replica's whole norm:
+the squares of the split leaves summed over the model axis, each whole
+leaf counted once.  The model axis's calls in one inner step of a model
+with L attention + MLP layers are, from the code: forward 2L + 4 (each
+layer's attention and MLP output ``psum``; the embedding's ``psum``; the
+cross entropy's ``pmax`` and two ``psum``), backward 2L + 3 (the
+transposes of the ``psum`` calls: the ``pmax`` carries no gradient), one
+all-reduce of the whole leaves' gradients per dtype, and one of the
+norm's squares: 4L + 8 + dtypes, plus L more
+under ``cfg.remat``: the backward recomputes each layer's forward up to
+the last tensor the backward saves, which takes the attention output's
+``psum`` (the norm after it saves its input) and stops before the MLP's.
 
 The outer step moves the packed (Δ, φ) payload to the round's partner and
 back in one batched send/receive (NoLoCo) or all-reduces Δ (DiLoCo).  The
@@ -21,8 +42,16 @@ With nothing to compile, a pool entry is the round's pairs and outer-step
 function, keyed as the reference keys its programs: by membership view
 and slot, and for a streamed sync or an asynchronous tick by the variant
 too, so ``misses`` counts the first use of a key and ``stats()`` is the
-reference's for the same run.  ``build_decode_step`` /
-``build_prefill_step`` come with ROADMAP Queue 1 item 9c.
+reference's for the same run.  With a model axis each rank exchanges its
+shards, and its copy of the whole leaves, with the rank of the partner
+replica that holds its model index; DiLoCo all-reduces over the ranks with
+its model index.
+
+``build_prefill_step`` / ``build_decode_step`` serve one replica's rows on
+its model ranks: under the decode plan (``kv_shard_seq``) the attention
+heads are whole on every rank (``plans.adjust_attn_specs_for_decode``), the
+dense cache of each global layer is split by sequence, and the logits are
+the rank's vocabulary slice, which :func:`gather_logits` puts together.
 """
 
 from __future__ import annotations
@@ -42,14 +71,19 @@ from repro_torch.core.outer import OuterConfig, OuterState
 from repro_torch.core.pairing import Membership
 from repro_torch.models import model as model_api
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.logical import logical_axes
 from repro_torch.optim import AdamWConfig, AdamWState, adamw_init, adamw_update
+from repro_torch.optim.adamw import _square_sum
+from repro_torch.parallel import plans as plans_lib
 from repro_torch.parallel.plans import Plan
+from repro_torch.parallel.sharding import ShardCtx, psum_replicated
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
 __all__ = ["TrainStepBundle", "build_train_step", "init_opt_state", "build_outer_step",
-           "OuterProgramPool"]
+           "OuterProgramPool", "leaf_mask", "build_prefill_step",
+           "build_decode_step", "gather_logits", "shard_params"]
 
 
 @dataclasses.dataclass
@@ -58,28 +92,90 @@ class TrainStepBundle:
     eval_fn: Callable   # (theta, batch) -> (1,) losses, grad-free
 
 
+def leaf_mask(cfg: ModelConfig, plan: Plan) -> list[bool]:
+    """Per parameter leaf (flatten order): is it split over the model axis?"""
+    from repro_torch.comm import bytes_model
+
+    return tree_leaves(plans_lib.sharded_mask(logical_axes(cfg), bytes_model.abstract_params(cfg),
+                                              plan))
+
+
+def shard_params(full: PyTree, cfg: ModelConfig, plan: Plan, model_index: int, *,
+                 stacked: bool = True) -> PyTree:
+    """Rank ``model_index``'s shard of a whole parameter tree (replica-stacked
+    with ``stacked``), under the plan's attention specs (whole heads under
+    ``kv_shard_seq``)."""
+    from repro_torch.models.logical import stacked as stack_axes
+
+    logical = plans_lib.adjust_attn_specs_for_decode(plan, logical_axes(cfg))
+    return plans_lib.shard_tree(full, stack_axes(logical) if stacked else logical, plan,
+                                model_index)
+
+
+def gather_shards(tree: PyTree, cfg: ModelConfig, plan: Plan, axis) -> PyTree:
+    """The whole replica-stacked tree from the rank's shard of it: each
+    split leaf all-gathered over the model ``axis``, every other leaf as it
+    is (the rank's own copy)."""
+    from repro_torch.comm import bytes_model
+    from repro_torch.comm.payload import LeafShape
+    from repro_torch.models.logical import stacked
+
+    shapes = tree_map(lambda x: LeafShape((1,) + tuple(x.shape), x.dtype),
+                      bytes_model.abstract_params(cfg))
+
+    def one(x, s, ax):
+        dim = plans_lib.shard_dim(ax.names, s.shape, plan)
+        return x if dim is None else axis.all_gather(x.detach(), dim)
+
+    return tree_map(one, tree, shapes, stacked(logical_axes(cfg)))
+
+
+def _replica_norm(grads: list[torch.Tensor], sharded: list[bool], ctx: ShardCtx) -> torch.Tensor:
+    """(R,) norm of each replica's whole gradient from the rank's leaves:
+    the split leaves' squares summed over the model axis, each whole leaf
+    counted once."""
+    split = [_square_sum(g) for g, s in zip(grads, sharded) if s]
+    whole = [_square_sum(g) for g, s in zip(grads, sharded) if not s]
+    r = grads[0].shape[0]
+    total = torch.zeros(r, dtype=torch.float32, device=grads[0].device)
+    if split:
+        total = total + ctx.psum_model(torch.stack(split, dim=1).sum(dim=1))
+    if whole:
+        total = total + torch.stack(whole, dim=1).sum(dim=1)
+    return total.sqrt()
+
+
 def build_train_step(cfg: ModelConfig, plan: Plan, group, inner: AdamWConfig, *,
                      data_sync: bool = False) -> TrainStepBundle:
     """The rank's inner step on its replica: forward, backward of its loss
     over ``plan.replicas``, AdamW (the moments donated: updated in place).
-    ``data_sync`` means the gradients over the group before the update.
-    ``batch`` leaves are (1, B, S) on the rank's device."""
-    world = plan.replicas
+    ``data_sync`` means the gradients over the replica axis before the
+    update.  ``batch`` leaves are (1, B, S) on the rank's device; with a
+    model axis ``theta`` is the rank's shard and every rank of a replica
+    gets the replica's batch."""
+    world, tp = plan.replicas, plan.tp
+    ctx = plan.ctx(group.model if tp > 1 else None)
+    sharded = leaf_mask(cfg, plan) if tp > 1 else None
 
     def step(theta, opt, batch):
         params = tree_map(lambda p: p.detach().requires_grad_(), theta)
-        losses = model_api.stacked_loss(params, cfg, batch)
-        grads = torch.autograd.grad(losses.sum() / world, tree_leaves(params))
-        grads = tree_unflatten(params, list(grads))
+        losses = model_api.stacked_loss(params, cfg, batch, ctx)
+        grads = list(torch.autograd.grad(losses.sum() / (world * tp), tree_leaves(params)))
+        norm = None
+        if tp > 1:
+            grads = psum_replicated(grads, sharded, group.model)
+        grads = tree_unflatten(params, grads)
         if data_sync and world > 1:
             grads = exchange_lib.AllReduce(group).allreduce_mean(grads)
+        if tp > 1 and inner.clip_norm is not None:
+            norm = _replica_norm(tree_leaves(grads), sharded, ctx)
         with torch.no_grad():
-            theta, opt, gnorm = adamw_update(grads, opt, theta, inner)
+            theta, opt, gnorm = adamw_update(grads, opt, theta, inner, norm=norm)
         return theta, opt, {"loss": losses.detach(), "grad_norm": gnorm}
 
     @torch.no_grad()
     def eval_fn(theta, batch):
-        return model_api.stacked_loss(theta, cfg, batch)
+        return model_api.stacked_loss(theta, cfg, batch, ctx)
 
     return TrainStepBundle(step_fn=step, eval_fn=eval_fn)
 
@@ -109,7 +205,7 @@ def build_outer_step(plan: Plan, outer_cfg: OuterConfig, pairs, *, group,
     pending)``; ``consume_prefetch`` reads the partner's φ from ``phi_pre``,
     ``pairs_presend`` posts the φ′ pre-send along that pairing and
     ``pending`` is its :class:`~repro_torch.comm.exchange.PendingTree`."""
-    rank = group.rank if group is not None else 0
+    rank = group.replica if group is not None else 0
     flag = None if active is None else bool(np.asarray(active, dtype=bool)[rank])
     participants = None if active is None else int(np.asarray(active, dtype=bool).sum())
     tau = None if staleness is None else float(np.asarray(staleness, dtype=np.float32)[rank])
@@ -322,3 +418,54 @@ class OuterProgramPool:
     def stats(self) -> dict:
         return {"pool_size": len(self._programs), "hits": self.hits, "misses": self.misses,
                 "schedule": self.schedule, "max_programs_per_view": self.max_programs_per_view}
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+
+
+def _serve_ctx(plan: Plan, group) -> ShardCtx:
+    return plan.ctx(group.model if plan.tp > 1 else None)
+
+
+def build_prefill_step(cfg: ModelConfig, plan: Plan, group) -> Callable:
+    """``(theta, caches, batch) -> (last hidden (B, 1, d), caches)``: the
+    reference's prefill step on this rank's part of its replica.  ``theta``
+    is the rank's unstacked shard under the plan's attention specs
+    (``shard_params(..., stacked=False)``), ``caches`` its part of the
+    dense cache (``model.init_cache_tree(..., ctx=)``), ``batch`` the
+    replica's rows.  Under ``kv_shard_seq`` each rank writes the prompt
+    positions of its own slice of every global layer's cache."""
+    ctx = _serve_ctx(plan, group)
+
+    @torch.no_grad()
+    def fn(theta, caches, batch):
+        return model_api.prefill(theta, cfg, batch, caches, ctx)
+
+    return fn
+
+
+def build_decode_step(cfg: ModelConfig, plan: Plan, group) -> Callable:
+    """``(theta, caches, tokens (B, 1), index) -> (logits (B, 1, V/tp),
+    caches)``: one decode step on this rank's part of its replica, the
+    vocab-sharded logits of the reference's ``out_specs``
+    (:func:`gather_logits` puts them together).  Under ``kv_shard_seq`` the
+    rank owning slot ``index`` writes the token, and the ranks' partial
+    softmax is combined over the model axis."""
+    ctx = _serve_ctx(plan, group)
+
+    @torch.no_grad()
+    def fn(theta, caches, tokens, index):
+        return model_api.decode_step(theta, cfg, tokens, index, caches, ctx)
+
+    return fn
+
+
+def gather_logits(logits: torch.Tensor, cfg: ModelConfig, plan: Plan, group) -> torch.Tensor:
+    """The whole vocabulary's logits from each rank's slice (an all-gather
+    over the model axis where the vocabulary is split)."""
+    ctx = _serve_ctx(plan, group)
+    if ctx.vocab_tp(cfg.vocab_size) == 1:
+        return logits
+    return group.model.all_gather(logits, logits.dim() - 1)

@@ -421,7 +421,9 @@ class DistributedProgram(_ElasticSurface):
     rank's replica.
 
     Every rank runs the loop; only rank 0 writes telemetry and checkpoints
-    (the loop reads ``rank`` and calls ``barrier`` after a save).  The
+    (the loop reads ``rank`` and calls ``barrier`` after a save), whole
+    replicas in either case: with a model axis the shards are gathered
+    before a save and cut again from a loaded tree.  The
     per-step loss the loop sees is this rank's replica's (NaN in a step it
     sits out); eval and the weight std cover the active replicas.
 
@@ -520,8 +522,13 @@ class DistributedProgram(_ElasticSurface):
     def _gather_tree(self, tree: PyTree) -> PyTree | None:
         """Rank 0: the replicas' rows of a (1, ...)-leaved tree as one
         stacked (R, ...) tree on the CPU, gathered one packed buffer per
-        dtype; the other ranks: None."""
-        buffers, spec = payload_lib.pack(tree, lead=1)
+        dtype; the other ranks: None.  With a model axis each replica's
+        shards are put together first, and only the ranks of model index 0
+        gather the replicas' rows (each model index has its own replica
+        subgroup)."""
+        buffers, spec = payload_lib.pack(self.trainer.gather(tree), lead=1)
+        if self.group.model_index:
+            return None
         rows = [self.group.gather_rows(b[0]) for b in buffers]
         return None if self.rank else payload_lib.unpack(rows, spec)
 
@@ -586,8 +593,8 @@ class DistributedProgram(_ElasticSurface):
         world = counts.shape[0]
         if world != self.replicas:
             raise ValueError(f"checkpoint holds {world} replicas, this run {self.replicas}")
-        params = lambda t, dtype=None: convert.stacked_params_from_jax_numpy(
-            row(t), cfg, device=dev, dtype=dtype)
+        params = lambda t, dtype=None: tr.shard(convert.stacked_params_from_jax_numpy(
+            row(t), cfg, device=dev, dtype=dtype))
         new = dict(
             state,
             theta=params(tree["theta"]),

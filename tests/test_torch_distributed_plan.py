@@ -5,10 +5,12 @@ for every step below 64, worlds 2–8 (the hypercube's powers of two) and
 two seeds; the pool's slots, pairs and bound equal JAX's
 ``OuterProgramPool``'s, for the full membership and for the partial,
 partitioned, asynchronous and streamed views that the elastic, async and
-streamed flags put the pool through.  ``make_plan`` runs ``gossip_dp`` at
-model-axis size 1 and refuses the model axis by name, as the CLI does
-before it starts a rank, and ``--backend nccl`` refuses more ranks than
-cards, naming ``--backend gloo``.  Then the CLI itself on three CPU
+streamed flags put the pool through.  ``make_plan`` runs ``gossip_dp``
+with a model axis (rank r: model index r % tp of replica r // tp) and
+refuses ``fsdp_hybrid`` by name (item 9d); the CLI runs ``--model 2`` and
+refuses it with an item-9b flag, naming item 9d, before it starts a rank;
+``--backend nccl`` refuses more ranks than cards, naming ``--backend
+gloo``.  Then the CLI itself on three CPU
 ranks (a world in which one rank pairs with itself every round), its
 per-rank losses bit for bit those of the port's stacked program on the
 same objective, its summary the reference's keys plus ``method``,
@@ -93,9 +95,13 @@ def test_plans():
     assert [plan.replica_of(r) for r in range(4)] == [0, 1, 2, 3]
     with pytest.raises(ValueError):
         plan.replica_of(4)
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        plans.make_plan("gossip_dp", 4, 2)
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    plan = plans.make_plan("gossip_dp", 4, 2)
+    assert (plan.replicas, plan.tp, plan.fsdp, plan.world) == (4, 2, 1, 8)
+    assert [(plan.replica_of(r), plan.model_index_of(r)) for r in range(8)] == [
+        (rep, m) for rep in range(4) for m in range(2)]
+    with pytest.raises(ValueError):
+        plan.replica_of(8)
+    with pytest.raises(NotImplementedError, match="item 9d"):
         plans.make_plan("fsdp_hybrid", 4)
     with pytest.raises(ValueError):
         plans.make_plan("zero", 4)
@@ -150,19 +156,27 @@ VIEWS = {
     (["--model", "2"], "item 9c"), (["--fault-plan", "plan.json"], "item 9b"),
     (["--reassign-data"], "item 9b"), (["--stale", "momentum"], "item 9b"),
     (["--overlap"], "item 9b"), (["--stream-count", "2"], "item 9b")])
-def test_cli_refuses_the_deferred_flags(flags, item, jax_pool):
-    """The model axis (item 9c) is still refused by name.  Each item-9b flag
-    is accepted: the trainer the CLI builds carries it, and the pool keys
-    the views its rounds take (partial, partitioned, asynchronous,
-    streamed) as JAX's pool does: the same pairs, keys, view keys, stats
-    and first-use events."""
+def test_cli_refuses_the_deferred_flags(flags, item, jax_pool, capsys):
+    """The model axis (item 9c) runs: two replicas of two model ranks on
+    four CPU ranks, the summary's ``tp`` the plan's.  Each item-9b flag is
+    accepted at ``--model 1``: the trainer the CLI builds carries it, and
+    the pool keys the views its rounds take (partial, partitioned,
+    asynchronous, streamed) as JAX's pool does: the same pairs, keys, view
+    keys, stats and first-use events; with ``--model 2`` it is refused,
+    naming item 9d."""
     from repro.comm import stream_partition as jstream_partition
     from repro_torch.comm import payload
 
     if item == "item 9c":
-        with pytest.raises(NotImplementedError, match=item):
-            train_distributed.main(["--device", "cpu", *flags])
+        summary = train_distributed.main(
+            ["--device", "cpu", "--reduced", "--data", "2", "--steps", "2", "--inner-steps", "2",
+             "--seq", "16", *flags])
+        assert summary["tp"] == 2 and summary["replicas"] == 2
+        assert np.isfinite(summary["final_loss"])
+        assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
         return
+    with pytest.raises(NotImplementedError, match="item 9d"):
+        train_distributed.main(["--device", "cpu", "--model", "2", *flags])
     args = train_distributed.build_parser().parse_args(["--device", "cpu", *flags])
     train_distributed.check_args(args)
     group = mesh.ReplicaGroup(rank=0, world=4, device=torch.device("cpu"), backend="gloo")

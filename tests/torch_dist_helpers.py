@@ -73,7 +73,8 @@ JAX_SCRIPT = textwrap.dedent('''
     spec = pickle.load(open(sys.argv[1], "rb"))
     tiny, run = spec["tiny"], spec["run"]
     cfg = ModelConfig(**tiny)
-    mesh = make_test_mesh(4, 1)
+    data, model = spec.get("data", 4), spec.get("model", 1)
+    mesh = make_test_mesh(data, model)
     plan = PL.make_plan("gossip_dp", mesh, shape_kind="train")
 
     # every case starts from the same weights and compiles the same train
@@ -91,10 +92,11 @@ JAX_SCRIPT = textwrap.dedent('''
     M.init_params = lambda key, c: init
     _build = ST.build_train_step
     _bundles = {}
+    sync = {"on": False}   # the FSDP baseline's step: the gradients meaned over replicas
     def build_once(*a, **k):
-        if "b" not in _bundles:
-            _bundles["b"] = _build(*a, **k)
-        return _bundles["b"]
+        if sync["on"] not in _bundles:
+            _bundles[sync["on"]] = _build(*a, **dict(k, data_sync=sync["on"]))
+        return _bundles[sync["on"]]
     ST.build_train_step = build_once
 
     out = {"params": jax.tree.map(np.asarray, values_of(init))}
@@ -102,9 +104,12 @@ JAX_SCRIPT = textwrap.dedent('''
         method = case.get("method", "noloco")
         steps = case.get("steps", run["steps"])
         m = case.get("inner_steps", run["inner_steps"])
+        data_sync = False
+        if method == "fsdp":   # the CLI's baseline: gradients all-reduced, no outer step
+            method, m, data_sync = "none", 10**9, True
         streams = case.get("streams", 1)
         events = case.get("events")
-        elastic = None if events is None else ElasticContext(world=4)
+        elastic = None if events is None else ElasticContext(world=data)
         tr = DistributedTrainer(
             cfg=cfg, mesh=mesh, plan=plan,
             outer_cfg=OuterConfig(method=method, alpha=0.3 if method == "diloco" else 0.5,
@@ -114,6 +119,7 @@ JAX_SCRIPT = textwrap.dedent('''
                                 overlap=case.get("overlap", streams > 1), streams=streams),
             schedule=case.get("schedule", "random"),
             pairing_pool=case.get("pairing_pool", run["pairing_pool"]), seed=0, elastic=elastic)
+        sync["on"] = data_sync
         # every replica's loss of every step, NaN where the replica sat it out
         rec = []
         def recorded(state, batch, inner=tr.inner_step, rec=rec, elastic=elastic):
@@ -129,8 +135,8 @@ JAX_SCRIPT = textwrap.dedent('''
             async_clock=case.get("async_clock"))
         loop = make_loop(
             sim or prog, LoaderConfig(vocab_size=tiny["vocab_size"], seq_len=run["seq"],
-                                      per_replica_batch=run["batch_per_replica"], replicas=4,
-                                      seed=0),
+                                      per_replica_batch=run["batch_per_replica"],
+                                      replicas=data, seed=0),
             LoopConfig(steps=steps, seed=0, ckpt_dir=case.get("ckpt_dir"),
                        ckpt_every=case.get("ckpt_every", 0), resume=case.get("resume", False),
                        log_jsonl=case.get("log_jsonl")))
@@ -151,7 +157,16 @@ JAX_SCRIPT = textwrap.dedent('''
 ''')
 
 
-def jax_reference(tmp, cases, *, resumed_only=False, params=None) -> dict:
+def jax_env(devices: int) -> dict:
+    """The environment of a JAX subprocess on ``devices`` forced host
+    devices, XLA at its lowest optimisation level."""
+    return dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+                XLA_FLAGS=f"--xla_force_host_platform_device_count={devices} "
+                          "--xla_backend_optimization_level=0 "
+                          "--xla_llvm_disable_expensive_passes=true")
+
+
+def jax_reference(tmp, cases, *, resumed_only=False, params=None, data=4, model=1) -> dict:
     """``cases`` [(name, {method, codec, schedule, ckpt_dir, ckpt_every,
     resume})] through JAX's ``DistributedTrainer`` on ``make_test_mesh(4, 1)``
     in one subprocess (XLA at its lowest optimisation level: the run is
@@ -162,17 +177,17 @@ def jax_reference(tmp, cases, *, resumed_only=False, params=None) -> dict:
     weight std and pool stats, and the initial ``params``.  ``resumed_only``: every case resumes a
     checkpoint, so the initial weights are drawn in a jit (faster; they
     are replaced).  ``params`` (numpy, JAX's layout): start every case from
-    these weights instead (:func:`jax_params`, drawn before the port ran)."""
+    these weights instead (:func:`jax_params`, drawn before the port ran).
+    ``data`` × ``model``: the mesh (``make_test_mesh(data, model)``); a
+    case's ``method`` ``fsdp`` is the CLI's baseline (the gradients
+    all-reduced every step, no outer step)."""
     spec, out = os.path.join(tmp, "spec.pkl"), os.path.join(tmp, "jax.pkl")
     with open(spec, "wb") as f:
         pickle.dump({"tiny": TINY, "run": RUN, "cases": cases, "resumed_only": resumed_only,
-                     "params": params}, f)
-    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
-                         "--xla_backend_optimization_level=0 "
-                         "--xla_llvm_disable_expensive_passes=true")
-    proc = subprocess.run([sys.executable, "-c", JAX_SCRIPT, spec, out], env=env,
-                          capture_output=True, text=True, timeout=300)
+                     "params": params, "data": data, "model": model}, f)
+    proc = subprocess.run([sys.executable, "-c", JAX_SCRIPT, spec, out],
+                          env=jax_env(data * model), capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     with open(out, "rb") as f:
         return pickle.load(f)
@@ -206,7 +221,8 @@ def port_args(**case) -> argparse.Namespace:
     """The port CLI's flags for one TINY case on the CPU."""
     from repro_torch.launch import train_distributed
 
-    argv = ["--device", "cpu", "--backend", "gloo", "--data", str(WORLD),
+    argv = ["--device", "cpu", "--backend", "gloo", "--data", str(case.get("data", WORLD)),
+            "--model", str(case.get("model", 1)),
             "--steps", str(case.get("steps", RUN["steps"])),
             "--inner-steps", str(case.get("inner_steps", RUN["inner_steps"])),
             "--batch-per-replica", str(RUN["batch_per_replica"]), "--seq", str(RUN["seq"]),
@@ -322,7 +338,9 @@ def rank_runs(group, cases, params, root) -> dict:
         run = train_distributed.run_rank(group, args, trainer=trainer)
         res, sim = run["result"], run["sim"]
         state = res["state"]
-        host = lambda t: tree_map(lambda x: x[0].detach().numpy().copy(), t)
+        # whole replicas: with a model axis the shards are gathered (a
+        # collective every rank makes, in this order)
+        host = lambda t: tree_map(lambda x: x[0].detach().numpy().copy(), trainer.gather(t))
         out[name] = {"losses": res["losses"], "start_step": res["start_step"],
                      "partners": [p.tolist() for p in trainer.partners],
                      "theta": host(state["theta"]), "phi": host(state["phi"]),
@@ -340,26 +358,28 @@ def rank_runs(group, cases, params, root) -> dict:
     return out
 
 
-def spawn_port(cases, params, root) -> list[dict]:
-    """:func:`rank_runs` on four gloo CPU ranks, one intra-op thread each."""
+def spawn_port(cases, params, root, *, data=WORLD, model=1) -> list[dict]:
+    """:func:`rank_runs` on ``data × model`` gloo CPU ranks (``model`` a
+    replica), one intra-op thread each."""
     from repro_torch.launch import mesh
 
-    return mesh.spawn(rank_runs, WORLD, (cases, params, root), backend="gloo", device="cpu",
-                      threads=1)
+    return mesh.spawn(rank_runs, data * model, (cases, params, root), backend="gloo",
+                      device="cpu", threads=1, tp=model)
 
 
-def rows(ranks, name, key):
+def rows(ranks, name, key, model=1):
     """Stack the ranks' ``key`` of case ``name`` along a leading axis: the
-    stacked (R, ...) view of per-rank leaves."""
+    stacked (R, ...) view of per-rank leaves (one rank a replica: its model
+    index 0)."""
     from repro_torch.tree import tree_map
 
-    parts = [r[name][key] for r in ranks]
+    parts = [r[name][key] for r in ranks[::model]]
     return tree_map(lambda *xs: np.stack(xs), *parts)
 
 
-def losses(ranks, name) -> np.ndarray:
+def losses(ranks, name, model=1) -> np.ndarray:
     """(steps, R) per-step losses of every replica."""
-    return np.stack([np.asarray(r[name]["losses"]) for r in ranks], axis=1)
+    return np.stack([np.asarray(r[name]["losses"]) for r in ranks[::model]], axis=1)
 
 
 def leaves(tree) -> list:
