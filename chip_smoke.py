@@ -438,14 +438,34 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     rows, 32-token prompts, a cache of 256, 32 greedy steps: the tokens
     equal the unsharded ``model.prefill`` / ``decode_step`` run's on the
     card, logits within LOGIT_ATOL, one flash launch per layer in the
-    prefill; the step p50 beside the unsharded one.
+    prefill; the step p50 beside the unsharded one;
+55. the ``fsdp_hybrid`` plan (``dist_fsdp_phase``): paper-small-125m at
+    full width and depth in bf16 on 2 pods × 2 data ranks (4 ranks sharing
+    the card over gloo, built through the trainer API with
+    ``make_plan("fsdp_hybrid", 2, pod=2)``): each pod one replica whose
+    weights are split ZeRO-3 style over its data ranks and gathered at use,
+    each data rank training on its 2 of the replica's 4 × 1024 rows, NoLoCo
+    m 5, 10 steps.  Per rank: launches as phase 44's design, the data
+    axis's calls and bytes of every inner step held equal to the design's
+    count from the leaves split on ``"fsdp"`` (``data_axis_design``), its
+    resident state (θ, both moments, φ, δ) equal to the shard shapes'
+    bytes, each sync's bytes equal to the byte model's cost of its shards
+    (a pod's two ranks together: the replica's payload plus a second copy
+    of the leaves held whole over the data axis), one send/receive a sync
+    and no replica-axis call inside an inner step; inner p50/p99, the data
+    axis's share of an inner step, the outer step alone split by the
+    clock, peak memory.  Against the same run under ``gossip_dp``, phase
+    53's ``--model 1`` run (2 ranks, one a replica, the same weights and
+    batches): the partner tables, the step-1 loss within TP_STEP1_RTOL and
+    steps 1–5 within TP_PERIOD_RTOL, its peak memory beside.
 
 ``time rglru_decode`` also carries ``launch_floor_ms``: an empty kernel
 (``torch.cuda._sleep(0)``) timed by the kernel table's own method.
 
 The line before the last is the ``kernels`` JSON record (launches: the
 serve and train phases', phases 33, 34, 36, 37, 39, 40 and every rank's of
-phases 44, 49–51 and 53–54, "dist-tp", added); the last line is
+phases 44, 49–51, 53–54 and 55, "dist-tp" and "dist-fsdp", added); the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -564,7 +584,7 @@ SINGLE_SHOT_LAYERS = {"qwen3-0.6b": 14, "mamba2-370m": 24}
 # qwen3-0.6b in phases 4, 5, 17 and 42 (the serve runs, card vs CPU, the router)
 QWEN3_LAYERS = 14
 # paper-small-125m in the stacked elastic and asynchronous runs (phases 30–31)
-# and on the replica group (phases 44–52; phase 53 keeps all 12)
+# and on the replica group (phases 44–52; phases 53 and 55 keep all 12)
 ELASTIC_LAYERS = DIST_LAYERS = 6
 MAMBA2_TRAIN_LAYERS = 24
 GRANITE_TRAIN_LAYERS = 12
@@ -4834,7 +4854,7 @@ def dist_full_run(group, argv) -> dict:
     per-rank body), launch counts zeroed just before and read just after;
     then the outer step alone, three times on the final state, each split
     into its phases by a synchronising clock."""
-    from repro_torch.launch import mesh as mesh_lib, train_distributed
+    from repro_torch.launch import train_distributed
 
     dev = group.device
     args = _dist_args(DIST_FULL + argv, "cuda", group.backend)
@@ -4854,20 +4874,7 @@ def dist_full_run(group, argv) -> dict:
     res, state = out["result"], out["result"]["state"]
     m = args.inner_steps
     inner = [dt * 1e3 for t, dt in enumerate(res["step_dt_s"]) if t and (t + 1) % m]
-    split = {k: [] for k in DIST_PHASES}
-    total_ms = []
-    for _ in range(3):
-        clock = mesh_lib.PhaseClock(dev)
-        group.barrier()
-        t0 = time.perf_counter()
-        group.clock = clock
-        clock.start()
-        trainer.maybe_outer_step(state)
-        clock.mark("update")
-        group.clock = None
-        total_ms.append((time.perf_counter() - t0) * 1e3)
-        for k in DIST_PHASES:
-            split[k].append(clock.ms.get(k, 0.0))
+    total_ms, split = _outer_alone(trainer, group, state)
     syncs_in_run = syncs[:res["outer_syncs"]]
     row = {
         "rank": group.rank, "losses": res["losses"], "launches": launches,
@@ -5791,6 +5798,9 @@ DIST_TP = ["--data", "2", "--model", "2", "--batch-per-replica", "4", "--seq", "
            "--steps", "10", "--inner-steps", "5", "--pairing-pool", "16"]
 DIST_TP_RUNS = (("noloco", ["--method", "noloco"]),
                 ("int8", ["--method", "noloco", "--codec", "int8"]))
+# the same run at --model 1 (2 ranks, one a replica): phase 53's comparison,
+# and phase 55's (the same flags under gossip_dp)
+DIST_TP_MODEL1 = DIST_TP + ["--model", "1", "--method", "noloco"]
 DIST_TP_SMALL = ["--data", "2", "--model", "2", "--reduced", "--batch-per-replica", "2",
                  "--seq", "64", "--steps", "10", "--inner-steps", "5"]
 DIST_TP_MID = 5
@@ -5846,12 +5856,34 @@ def time_model_axis(group, shape=(4, 1024, 768), dtype=torch.bfloat16, reps: int
             "bytes": x.numel() * x.element_size(), "shape": list(shape)}
 
 
+def _outer_alone(trainer, group, state) -> tuple[list, dict]:
+    """The outer step alone, three times on ``state``, each split into its
+    phases by a synchronising clock: the totals (ms) and each phase's ms."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    split = {k: [] for k in DIST_PHASES}
+    total_ms = []
+    for _ in range(3):
+        clock = mesh_lib.PhaseClock(group.device)
+        group.barrier()
+        t0 = time.perf_counter()
+        group.clock = clock
+        clock.start()
+        trainer.maybe_outer_step(state)
+        clock.mark("update")
+        group.clock = None
+        total_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in DIST_PHASES:
+            split[k].append(clock.ms.get(k, 0.0))
+    return total_ms, split
+
+
 def dist_tp_full_run(group, argv, base=DIST_TP, device="cuda") -> dict:
     """One run of ``base + argv`` on this rank through ``run_rank``, launch
     counts zeroed just before and read just after; the model axis's calls
     and bytes of every inner step; then the outer step alone, three times
     on the final state, split by a synchronising clock."""
-    from repro_torch.launch import mesh as mesh_lib, train_distributed
+    from repro_torch.launch import train_distributed
     from repro_torch.parallel import steps as psteps
 
     dev = group.device
@@ -5876,20 +5908,7 @@ def dist_tp_full_run(group, argv, base=DIST_TP, device="cuda") -> dict:
     res, state = out["result"], out["result"]["state"]
     m = args.inner_steps
     inner = [dt * 1e3 for t, dt in enumerate(res["step_dt_s"]) if t and (t + 1) % m]
-    split = {k: [] for k in DIST_PHASES}
-    total_ms = []
-    for _ in range(3):
-        clock = mesh_lib.PhaseClock(dev)
-        group.barrier()
-        t0 = time.perf_counter()
-        group.clock = clock
-        clock.start()
-        trainer.maybe_outer_step(state)
-        clock.mark("update")
-        group.clock = None
-        total_ms.append((time.perf_counter() - t0) * 1e3)
-        for k in DIST_PHASES:
-            split[k].append(clock.ms.get(k, 0.0))
+    total_ms, split = _outer_alone(trainer, group, state)
     axis_ms = time_model_axis(group, (args.batch_per_replica, args.seq, cfg.d_model),
                               torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
     row = {
@@ -5955,16 +5974,24 @@ def dist_tp_rank(group, ckpt_root: str) -> dict:
     return out
 
 
-def dist_tp_model1_rank(group) -> dict:
+def dist_tp_model1_rank(group, base=DIST_TP_MODEL1) -> dict:
     """Phase 53's plain run at ``--model 1`` on one rank (2 ranks, one per
-    replica, from the same seed's weights and batches): its losses and
-    its partner tables."""
+    replica, from the same seed's weights and batches), the comparison of
+    phases 53 and 55: its losses, partner tables, inner p50 and peak
+    memory.  The rank's device is the group's (a CPU rehearsal passes a
+    ``--reduced`` base)."""
     from repro_torch.launch import train_distributed
 
-    args = _dist_args(DIST_TP + ["--model", "1", "--method", "noloco"], "cuda", group.backend)
+    dev = group.device
+    args = _dist_args(base, dev.type, group.backend)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     out = train_distributed.run_rank(group, args)
     res = out["result"]
-    return {"losses": res["losses"],
+    m = args.inner_steps
+    inner = [dt * 1e3 for t, dt in enumerate(res["step_dt_s"]) if t and (t + 1) % m]
+    return {"losses": res["losses"], "peak_memory_gb": _peak_gb(dev),
+            "inner_step_p50_ms": statistics.median(inner),
             "partners": [p.tolist() for p in out["trainer"].partners[:res["outer_syncs"]]]}
 
 
@@ -5986,7 +6013,8 @@ def dist_tp_phase(dev) -> tuple[dict, dict]:
     model1 = mesh_lib.spawn(dist_tp_model1_rank, 2, (), backend="gloo", device="cuda")
     partners1 = model1[0]["partners"]
     period = [r["losses"][:DIST_TP_MID] for r in model1]   # by replica
-    out, launches = {"card": card(), "world": 4, "tp": 2, "backend": "gloo"}, {}
+    out, launches = {"card": card(), "world": 4, "tp": 2, "backend": "gloo",
+                     "model1": model1}, {}
     for name, _ in DIST_TP_RUNS:
         rows = [r["full"][name] for r in ranks]
         want = dist_expected(cfg, name, 2)
@@ -6178,6 +6206,278 @@ def dist_tp_card_rank(group, data: int) -> dict:
                                 "staged", "losses")}
 
 
+# ---------------------------------------------------------------------------
+# Phase 55: the fsdp_hybrid plan (ZeRO-3 over a data axis inside each pod)
+# ---------------------------------------------------------------------------
+
+# paper-small-125m at full width and depth in bf16, 2 pods × 2 data ranks (4
+# ranks sharing the card over gloo), 4 × 1024 a pod (2 × 1024 a data rank),
+# NoLoCo m 5, 10 steps: phase 53's run at --model 1 under fsdp_hybrid, and
+# that run (gossip_dp, 2 ranks, one a replica) its comparison
+FSDP_PODS, FSDP_DATA = 2, 2
+DIST_FSDP = DIST_TP_MODEL1
+DATA_KINDS = ("all_gather", "reduce_scatter", "all_reduce")
+
+
+def fsdp_plan():
+    from repro_torch.parallel import plans
+
+    return plans.make_plan("fsdp_hybrid", FSDP_DATA, pod=FSDP_PODS)
+
+
+def _nbytes(leaf) -> int:
+    return math.prod(leaf.shape) * getattr(torch, leaf.dtype).itemsize
+
+
+def shard_struct(cfg, plan):
+    """One replica's leaves as a rank holds them under ``plan``
+    (``payload.LeafShape``): each global shape with the dimension the model
+    axis splits and the one the data axis splits cut."""
+    from repro_torch.models.logical import logical_axes
+    from repro_torch.parallel import plans
+
+    def one(leaf, ax):
+        shape = list(leaf.shape)
+        for dim, n in ((plans.shard_dim(ax.names, leaf.shape, plan), plan.tp),
+                       (plans.fsdp_dim(ax.names, leaf.shape, plan), plan.fsdp)):
+            if dim is not None:
+                shape[dim] //= n
+        return payload.LeafShape(tuple(shape), leaf.dtype)
+
+    return tree_map(one, bytes_model.abstract_params(cfg), logical_axes(cfg))
+
+
+def data_axis_design(cfg, plan) -> dict:
+    """The data axis's calls (by kind) and the bytes a rank hands to them in
+    one inner step of a dense decoder, as ``parallel/steps.py``'s docstring
+    counts them: one all-gather of the rank's block per use of a leaf split
+    on ``"fsdp"`` (each layer's leaves once per layer, twice under remat,
+    whose backward recomputes the layers of full periods; the embedding
+    table twice when the logits share it), one reduce-scatter of the whole
+    weight's gradient per use, one all-reduce per dtype of the leaves held
+    whole over the axis (their gradients), one of the clipping norm's
+    squares (fp32, one per replica) and one of the loss."""
+    from repro_torch.models.logical import logical_axes
+    from repro_torch.parallel import plans
+
+    full, shard, axes = bytes_model.abstract_params(cfg), shard_struct(cfg, plan), logical_axes(cfg)
+    _, n_full, _ = tfm.layer_plan(cfg)
+    uses = []   # (full leaf, shard leaf, axes, uses a step, layers the leaf stacks)
+    for f, s, ax in zip(tree_leaves(full["stack"]["scan"]), tree_leaves(shard["stack"]["scan"]),
+                        tree_leaves(axes["stack"]["scan"])):
+        uses.append((f, s, ax, n_full, n_full, cfg.remat))
+    for f, s, ax in zip(tree_leaves(full["stack"]["rem"]), tree_leaves(shard["stack"]["rem"]),
+                        tree_leaves(axes["stack"]["rem"])):
+        uses.append((f, s, ax, 1, 1, False))
+    for name in full["embed"]:
+        n = 2 if name == "table" and cfg.tie_embeddings else 1
+        uses.append((full["embed"][name], shard["embed"][name], axes["embed"][name], n, 1, False))
+    calls, sent = dict.fromkeys(DATA_KINDS, 0), 0
+    whole = [(f, ax) for f, ax in zip(tree_leaves(full), tree_leaves(axes))
+             if plans.fsdp_dim(ax.names, f.shape, plan) is None]
+    for f, s, ax, n, stacked, remat in uses:
+        if plans.fsdp_dim(ax.names, f.shape, plan) is None:
+            continue
+        gathers = n * (2 if remat else 1)
+        calls["all_gather"] += gathers
+        calls["reduce_scatter"] += n
+        sent += gathers * _nbytes(s) // stacked + n * _nbytes(f) // stacked
+    calls["all_reduce"] = len({f.dtype for f, _ in whole}) + 2
+    sent += sum(_nbytes(f) for f, _ in whole) + 4 + 4
+    return {"calls": calls, "bytes": sent}
+
+
+def fsdp_state_design(cfg, plan) -> int:
+    """A rank's resident training state from its shard shapes: θ, φ and δ in
+    each leaf's dtype, AdamW's two fp32 moments, the int32 step count."""
+    return sum(math.prod(s.shape) * (3 * getattr(torch, s.dtype).itemsize + 8)
+               for s in tree_leaves(shard_struct(cfg, plan))) + 4
+
+
+def _data_axis_timed(trainer, axis, per_step: list) -> None:
+    """Wrap the data axis's calls and the trainer's inner step: each step's
+    calls by kind, the bytes handed to them and the ms spent in them (each
+    call synchronised before and after)."""
+    spent = [0.0]
+    for kind in DATA_KINDS:
+        def timed(*a, __fn=getattr(axis, kind), **k):
+            _sync(axis.device)
+            t = time.perf_counter()
+            y = __fn(*a, **k)
+            _sync(axis.device)
+            spent[0] += (time.perf_counter() - t) * 1e3
+            return y
+
+        setattr(axis, kind, timed)
+    inner_step = trainer.inner_step
+
+    def inner(state, batch):
+        calls, sent = dict(axis.calls), sum(axis.sent_bytes.values())
+        spent[0] = 0.0
+        out = inner_step(state, batch)
+        per_step.append({"calls": _minus(dict(axis.calls), calls),
+                         "bytes": sum(axis.sent_bytes.values()) - sent, "ms": spent[0]})
+        return out
+
+    trainer.inner_step = inner
+
+
+def _peak_gb(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+
+
+def dist_fsdp_rank(group, base=DIST_FSDP) -> dict:
+    """Phase 55 on one rank: the run of ``base`` through ``run_rank`` with
+    the trainer built on the ``fsdp_hybrid`` plan, launch counts zeroed just
+    before and read just after, the data axis's calls, bytes and ms of
+    every inner step, each sync's calls and bytes, the resident state's
+    bytes; then the outer step alone, three times on the final state, split
+    by the clock.  The rank's device is the group's (a CPU rehearsal passes
+    a ``--reduced`` base)."""
+    from repro_torch.launch import train_distributed
+
+    dev = group.device
+    args = _dist_args(base, dev.type, group.backend)
+    trainer = train_distributed.make_trainer(args, group, plan=fsdp_plan())
+    syncs: list = []
+    inner_calls: dict = {}
+    per_step: list = []
+    _dist_counted(trainer, group, syncs, inner_calls)
+    _data_axis_timed(trainer, group.data, per_step)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    group.barrier()
+    dispatch.reset_launches()
+    out = train_distributed.run_rank(group, args, trainer=trainer)
+    _sync(dev)
+    launches = _launch_counts(dev)
+    peak_gb = _peak_gb(dev)
+    res, state = out["result"], out["result"]["state"]
+    m = args.inner_steps
+    steady = [t for t in range(len(res["step_dt_s"])) if t and (t + 1) % m]
+    inner = [res["step_dt_s"][t] * 1e3 for t in steady]
+    resident = [*tree_leaves(state["theta"]), *tree_leaves(state["opt"].mu),
+                *tree_leaves(state["opt"].nu), *tree_leaves(state["phi"]),
+                *tree_leaves(state["delta"]), state["opt"].count]
+    total_ms, split = _outer_alone(trainer, group, state)
+    row = {
+        "rank": group.rank, "replica": group.replica, "data_index": group.data_index,
+        "losses": res["losses"], "launches": launches,
+        "inner_step_p50_ms": statistics.median(inner), "inner_step_p99_ms": _pct(inner, 0.99),
+        "data_axis_share": sum(per_step[t]["ms"] for t in steady) / sum(inner),
+        "data_axis_ms_p50": statistics.median(per_step[t]["ms"] for t in steady),
+        "outer_step_alone_ms": statistics.median(total_ms),
+        "outer_split_ms": {k: statistics.median(v) for k, v in split.items()},
+        "sync_calls": [s["calls"] for s in syncs[:res["outer_syncs"]]],
+        "sync_bytes": [s["bytes"] for s in syncs[:res["outer_syncs"]]],
+        "outer_syncs": res["outer_syncs"], "replica_axis_inner_calls": inner_calls,
+        "data_calls": [s["calls"] for s in per_step],
+        "data_bytes": [s["bytes"] for s in per_step],
+        "state_bytes": sum(t.numel() * t.element_size() for t in resident),
+        "peak_memory_gb": peak_gb,
+        "partners": [p.tolist() for p in trainer.partners[:res["outer_syncs"]]],
+        "final_weight_std": res["final_weight_std"], "staged": group.staged,
+    }
+    del out, res, state, trainer, resident
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def dist_fsdp_phase(dev, gossip: list[dict]) -> tuple[dict, dict]:
+    """Phase 55: paper-small-125m at full width and depth in bf16 under
+    ``fsdp_hybrid`` on 2 pods × 2 data ranks sharing the card over gloo,
+    NoLoCo; beside it ``gossip``, the ranks' rows of the same run under
+    ``gossip_dp`` (phase 53's ``--model 1`` run, ``dist_tp_model1_rank``)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = fsdp_plan()
+    ranks = mesh_lib.spawn(dist_fsdp_rank, plan.world, (), backend="gloo", device="cuda",
+                           fsdp=FSDP_DATA)
+    out = dict(dist_fsdp_checks(paper_llama.SMALL, plan, ranks, gossip), card=card(),
+               seconds=time.perf_counter() - t_phase)
+    log("dist-fsdp (phase 55: 2 pods × 2 data ranks, gloo): " + json.dumps(out))
+    if not all(out["checks"].values()):
+        raise AssertionError(f"dist-fsdp failed its checks: {out['checks']}")
+    return out, {"noloco": {k: sum(r["launches"].get(k, 0) for r in ranks)
+                            for k in TRAIN_KERNELS + INT8}}
+
+
+def dist_fsdp_checks(cfg, plan, ranks: list[dict], gossip: list[dict]) -> dict:
+    """Phase 55's checks and readings from the ranks' rows (``cfg``: the
+    config they trained)."""
+    from repro_torch.parallel import steps as psteps
+
+    design = data_axis_design(cfg, plan)
+    state_design = fsdp_state_design(cfg, plan)
+    sync_design = bytes_model.outer_step_cost(shard_struct(cfg, plan), CommConfig(),
+                                              method="noloco").payload_bytes
+    whole = sum(_nbytes(s) for s, split in zip(tree_leaves(bytes_model.abstract_params(cfg)),
+                                                psteps.leaf_mask(cfg, plan, "data")) if not split)
+    replica_payload = bytes_model.outer_step_cost(bytes_model.abstract_params(cfg), CommConfig(),
+                                                  method="noloco").payload_bytes
+    want = dist_expected(cfg, "noloco", 2)
+    period = [r["losses"][:DIST_TP_MID] for r in gossip]   # by pod
+    pods = [ranks[p * FSDP_DATA:(p + 1) * FSDP_DATA] for p in range(FSDP_PODS)]
+    checks = {
+        "launches_as_designed": all({k: r["launches"].get(k, 0) for k in want} == want
+                                    for r in ranks),
+        "data_calls_as_designed": all(c == design["calls"] for r in ranks for c in r["data_calls"])
+        and all(len(r["data_calls"]) == 10 for r in ranks),
+        "data_bytes_as_designed": all(b == design["bytes"] for r in ranks for b in r["data_bytes"]),
+        "state_bytes_as_designed": all(r["state_bytes"] == state_design for r in ranks),
+        "no_replica_axis_call_in_inner_steps": all(not any(r["replica_axis_inner_calls"].values())
+                                                   for r in ranks),
+        "syncs_p2p_only": all(c == {"p2p": 1} for r in ranks for c in r["sync_calls"])
+        and all(r["outer_syncs"] == 2 for r in ranks),
+        "sync_bytes_as_byte_model": all(b == sync_design for r in ranks for b in r["sync_bytes"])
+        and all(sum(r["sync_bytes"][0] for r in pod) == replica_payload + 2 * whole
+                * (FSDP_DATA - 1) for pod in pods),
+        "losses_finite_falling": all(all(math.isfinite(x) for x in r["losses"])
+                                     and r["losses"][-1] < r["losses"][0] for r in ranks),
+        "data_ranks_agree_on_losses": all(r["losses"] == pod[0]["losses"] for pod in pods
+                                          for r in pod),
+        "partners_as_gossip_run": all(r["partners"] == gossip[0]["partners"] for r in ranks)
+        and len(gossip[0]["partners"]) == 2,
+        "step1_loss_as_gossip_run": all(
+            abs(r["losses"][0] - period[r["replica"]][0]) <= TP_STEP1_RTOL
+            * abs(period[r["replica"]][0]) for r in ranks),
+        "first_period_losses_as_gossip_run": all(
+            abs(a - b) <= TP_PERIOD_RTOL * abs(b)
+            for r in ranks for a, b in zip(r["losses"][:DIST_TP_MID], period[r["replica"]]))
+        and all(len(r["losses"]) == 10 for r in ranks),
+    }
+    out = {
+        "world": plan.world, "pods": FSDP_PODS, "fsdp": FSDP_DATA,
+        "backend": "gloo", "staged": ranks[0]["staged"], "checks": checks,
+        "first_period_losses": [pod[0]["losses"][:DIST_TP_MID] for pod in pods],
+        "first_period_gossip": period,
+        "first_period_max_rel_diff": max(
+            abs(a - b) / abs(b)
+            for r in ranks for a, b in zip(r["losses"][:DIST_TP_MID], period[r["replica"]])),
+        "inner_step_p50_ms": [r["inner_step_p50_ms"] for r in ranks],
+        "inner_step_p99_ms": [r["inner_step_p99_ms"] for r in ranks],
+        "gossip_inner_step_p50_ms": [r["inner_step_p50_ms"] for r in gossip],
+        "data_axis_share": [r["data_axis_share"] for r in ranks],
+        "data_axis_ms_p50": [r["data_axis_ms_p50"] for r in ranks],
+        "data_calls_per_step": ranks[0]["data_calls"][0], "data_calls_design": design["calls"],
+        "data_bytes_per_step": ranks[0]["data_bytes"][0], "data_bytes_design": design["bytes"],
+        "state_bytes": [r["state_bytes"] for r in ranks], "state_bytes_design": state_design,
+        "outer_step_alone_ms": [r["outer_step_alone_ms"] for r in ranks],
+        "outer_split_ms": [r["outer_split_ms"] for r in ranks],
+        "sync_bytes": [r["sync_bytes"][0] for r in ranks], "sync_bytes_design": sync_design,
+        "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+        "gossip_peak_memory_gb": [r["peak_memory_gb"] for r in gossip],
+        "loss_first_last": [[r["losses"][0], r["losses"][-1]] for r in ranks],
+        "partners": ranks[0]["partners"], "final_weight_std": ranks[0]["final_weight_std"],
+    }
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -6303,6 +6603,7 @@ def main() -> None:
     dist_el, dist_el_launches = dist_elastic_phase(dev)
     dist_tp, dist_tp_launches = dist_tp_phase(dev)
     dist_tp_decode, dist_tp_decode_launches = dist_tp_decode_phase(dev)
+    dist_fsdp, dist_fsdp_launches = dist_fsdp_phase(dev, dist_tp["model1"])
     # each kernel's launches on the paths the kernels line counts, by path
     pick = lambda counts, names: {k: counts[k] for k in names}
     wire = TRAIN_KERNELS + INT8
@@ -6323,6 +6624,7 @@ def main() -> None:
         **{f"dist-elastic {r}": pick(counts, wire) for r, counts in dist_el_launches.items()},
         **{f"dist-tp {r}": pick(counts, wire) for r, counts in dist_tp_launches.items()},
         "dist-tp prefill": pick(dist_tp_decode_launches, TRAIN_KERNELS),
+        **{f"dist-fsdp {r}": pick(counts, wire) for r, counts in dist_fsdp_launches.items()},
         "single-shot": pick(single_shot_launches, SERVE_KERNELS),
         **{f"spec {i}": pick(c, SERVE_KERNELS) for i, c in enumerate(spec_launches)},
     }
@@ -6432,8 +6734,12 @@ def main() -> None:
             "checks", "unsharded_step_p50_ms", "seconds")}
         | {"step_p50_ms": [r["step_p50_ms"] for r in dist_tp_decode["ranks"]],
            "max_abs_logit_diff": max(r["max_abs_logit_diff"] for r in dist_tp_decode["ranks"])},
+        "dist_fsdp": {k: dist_fsdp[k] for k in (
+            "checks", "inner_step_p50_ms", "data_axis_share", "outer_step_alone_ms",
+            "peak_memory_gb", "gossip_peak_memory_gb", "data_calls_per_step",
+            "data_bytes_per_step", "first_period_max_rel_diff", "seconds")},
         "seconds": time.perf_counter() - t0}))
-    log(f"chip_smoke: all 54 phases in {time.perf_counter() - t0:.1f} s (the build included)")
+    log(f"chip_smoke: all 55 phases in {time.perf_counter() - t0:.1f} s (the build included)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

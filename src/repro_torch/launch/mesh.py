@@ -19,18 +19,22 @@ in ``calls``.  The backend is the caller's choice and nothing switches it:
     pinned host buffers (the slow link of the paper's setting), so ranks
     can share one card.
 
-With a model axis (``tp`` ranks a replica) the
-world is ``replicas × tp`` ranks, rank-major over the model axis as the
-reference's ``(data, model)`` mesh lays its devices: rank ``r`` holds model
-index ``r % tp`` of replica ``r // tp``.  Each rank then has two subgroups,
-its replica's ranks (:class:`ModelAxis`, the collectives of
-:class:`~repro_torch.parallel.sharding.ShardCtx`) and the ranks that share
-its model index (the replica axis: DiLoCo's all-reduce, the checkpoint's
-gathers); every rank creates every subgroup in the same order, as
-``torch.distributed.new_group`` requires.  The replica-axis calls of
-:class:`ReplicaGroup` take replica indices: ``exchange(dst, src)`` moves a
-rank's shards to the rank of replica ``dst`` that holds the same model
-index.
+With a model axis (``tp`` ranks) and, under the ``fsdp_hybrid`` plan, a
+data axis (``fsdp`` ranks) inside each replica, the world is ``replicas ×
+fsdp × tp`` ranks, laid out as the reference's ``(pod, data, model)`` mesh
+orders its devices: rank ``r`` holds model index ``r % tp`` and data index
+``(r // tp) % fsdp`` of replica ``r // (fsdp · tp)``.  Each rank then has
+up to three subgroups: the ranks of its replica with its data index (its
+model axis, a :class:`ModelAxis`: the model-axis collectives of
+:class:`~repro_torch.parallel.sharding.ShardCtx`), the ranks of its
+replica with its model index (its data axis, another :class:`ModelAxis`:
+ZeRO-3's gathers and the data-axis sums) and the ranks of the other
+replicas at its (data, model) place (the replica axis: the exchange,
+DiLoCo's all-reduce, the checkpoint's gathers).  Every rank creates every
+subgroup, in one fixed order, as ``torch.distributed.new_group`` requires.
+The replica-axis calls of :class:`ReplicaGroup` take replica indices:
+``exchange(dst, src)`` moves a rank's shards to the rank of replica
+``dst`` that holds the same data and model indices.
 
 Besides the blocking exchange, a stream's φ′ pre-send is posted without a
 wait (:meth:`ReplicaGroup.exchange_start`, a :class:`PendingExchange`
@@ -139,8 +143,9 @@ class PendingExchange:
 
 
 class ModelAxis:
-    """The ranks of one replica: the model axis's collectives over their
-    ``torch.distributed`` subgroup, each counted apart from the replica
+    """An axis inside one replica (the model axis, or the data axis under
+    ``fsdp_hybrid``): its collectives over the ``torch.distributed``
+    subgroup of its ranks, each counted apart from the replica
     axis's calls in :attr:`calls` / :attr:`sent_bytes` (by kind:
     ``all_reduce``, ``all_max``, ``all_gather``, ``reduce_scatter``,
     ``all_to_all``; the bytes this rank hands to the call).  Staged (gloo
@@ -218,11 +223,14 @@ class ModelAxis:
 class ReplicaGroup:
     """One rank's view of the replica group and its cross-rank calls.
 
-    ``rank`` / ``world`` are global; with a model axis (``tp`` > 1) the
-    rank holds model index :attr:`model_index` of replica :attr:`replica`
-    of :attr:`replicas`, ``model`` is its :class:`ModelAxis` and
-    ``replica_pg`` the subgroup of the ranks with its model index, over
-    which the replica-axis calls below run (with ``tp`` 1: the world).
+    ``rank`` / ``world`` are global; with a model axis (``tp`` > 1) or a
+    data axis (``fsdp`` > 1) the rank holds model index
+    :attr:`model_index` and data index :attr:`data_index` of replica
+    :attr:`replica` of :attr:`replicas`, ``model`` and ``data`` are its
+    :class:`ModelAxis` objects (None for an axis of one rank) and
+    ``replica_pg`` the subgroup of the ranks at its (data, model) place in
+    every replica, over which the replica-axis calls below run (without
+    either axis: the world).
 
     ``calls`` counts each replica-axis call by kind (``p2p``: one batched send/receive,
     ``presend``: one posted without a wait, ``send`` / ``recv``: one way,
@@ -241,25 +249,32 @@ class ReplicaGroup:
     tp: int = 1
     model: ModelAxis | None = None
     replica_pg: Any = None
+    fsdp: int = 1
+    data: ModelAxis | None = None
     _pinned: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def replica(self) -> int:
-        """The replica this rank holds (a part of, with a model axis)."""
-        return self.rank // self.tp
+        """The replica this rank holds (a part of, with a model or data axis)."""
+        return self.rank // (self.fsdp * self.tp)
 
     @property
     def replicas(self) -> int:
-        return self.world // self.tp
+        return self.world // (self.fsdp * self.tp)
 
     @property
     def model_index(self) -> int:
         """This rank's position on its replica's model axis."""
         return self.rank % self.tp
 
+    @property
+    def data_index(self) -> int:
+        """This rank's position on its replica's data axis."""
+        return (self.rank // self.tp) % self.fsdp
+
     def rank_of(self, replica: int) -> int:
-        """The global rank of ``replica`` that holds this rank's model index."""
-        return replica * self.tp + self.model_index
+        """The global rank of ``replica`` at this rank's (data, model) place."""
+        return (replica * self.fsdp + self.data_index) * self.tp + self.model_index
 
     @property
     def staged(self) -> bool:
@@ -420,16 +435,18 @@ def check_backend(backend: str, world: int, device: str | torch.device) -> torch
 
 def init_replica_group(world: int, backend: str, device: str | torch.device, *,
                        rank: int | None = None, init_method: str = "env://",
-                       tp: int = 1) -> ReplicaGroup:
+                       tp: int = 1, fsdp: int = 1) -> ReplicaGroup:
     """Join the process group as ``rank`` (default: ``$RANK``) of ``world``
     over ``backend`` and return the :class:`ReplicaGroup`.  The rank's
     device is ``cuda:{rank % device_count}`` for ``device="cuda"``, or the
     CPU when the caller asks for it.  A barrier, which every rank joins,
     is the group's first call: torch leaves a first ``batch_isend_irecv``
     that some rank sits out (a rank paired with itself in an odd world)
-    undefined over NCCL.  With ``tp`` > 1 every rank then creates the
-    replicas' model-axis subgroups and the model indices' replica-axis
-    subgroups, in that order, and keeps its own two."""
+    undefined over NCCL.  With ``tp`` > 1 or ``fsdp`` > 1 every rank then
+    creates, in this order, a model-axis subgroup per (replica, data index)
+    (``tp`` > 1), a data-axis subgroup per (replica, model index) (``fsdp``
+    > 1) and a replica-axis subgroup per (data index, model index), and
+    keeps its own."""
     dev = check_backend(backend, world, device)
     if rank is None:
         rank = int(os.environ["RANK"])
@@ -438,24 +455,37 @@ def init_replica_group(world: int, backend: str, device: str | torch.device, *,
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
     dist.barrier(**({"device_ids": [dev.index]} if backend == "nccl" else {}))
-    if tp == 1:
+    if tp == 1 and fsdp == 1:
         return ReplicaGroup(rank=rank, world=world, device=dev, backend=backend)
-    if world % tp:
-        raise ValueError(f"a world of {world} ranks does not split into model axes of {tp}")
-    replicas = world // tp
-    model = replica_pg = None
-    for rep in range(replicas):
-        ranks = [rep * tp + j for j in range(tp)]
-        pg = dist.new_group(ranks)
-        if rank in ranks:
-            model = ModelAxis(pg, ranks, rank % tp, dev, backend)
-    for j in range(tp):
-        ranks = [rep * tp + j for rep in range(replicas)]
-        pg = dist.new_group(ranks)
-        if rank in ranks:
-            replica_pg = pg
+    if world % (tp * fsdp):
+        raise ValueError(f"a world of {world} ranks does not split into replicas of "
+                         f"{fsdp} data × {tp} model ranks")
+    replicas = world // (tp * fsdp)
+    at = lambda rep, d, m: (rep * fsdp + d) * tp + m   # the rank at (replica, data, model)
+
+    def own(groups):
+        """Create every subgroup of ``groups`` (rank lists), in order; return
+        (process group, ranks) of the one that holds this rank."""
+        mine = None
+        for ranks in groups:
+            pg = dist.new_group(ranks)
+            if rank in ranks:
+                mine = (pg, ranks)
+        return mine
+
+    model = data = None
+    if tp > 1:
+        pg, ranks = own([[at(rep, d, m) for m in range(tp)]
+                         for rep in range(replicas) for d in range(fsdp)])
+        model = ModelAxis(pg, ranks, rank % tp, dev, backend)
+    if fsdp > 1:
+        pg, ranks = own([[at(rep, d, m) for d in range(fsdp)]
+                         for rep in range(replicas) for m in range(tp)])
+        data = ModelAxis(pg, ranks, (rank // tp) % fsdp, dev, backend)
+    replica_pg, _ = own([[at(rep, d, m) for rep in range(replicas)]
+                         for d in range(fsdp) for m in range(tp)])
     return ReplicaGroup(rank=rank, world=world, device=dev, backend=backend, tp=tp,
-                        model=model, replica_pg=replica_pg)
+                        model=model, replica_pg=replica_pg, fsdp=fsdp, data=data)
 
 
 def from_env() -> tuple[int, int] | None:
@@ -466,13 +496,13 @@ def from_env() -> tuple[int, int] | None:
 
 
 def _entry(rank: int, fn: Callable, world: int, backend: str, device: str, init_method: str,
-           out_dir: str, threads: int | None, tp: int = 1) -> None:
+           out_dir: str, threads: int | None, tp: int = 1, fsdp: int = 1) -> None:
     if threads:
         torch.set_num_threads(threads)
     with open(os.path.join(out_dir, "args.pkl"), "rb") as f:
         args = pickle.load(f)
     group = init_replica_group(world, backend, device, rank=rank, init_method=init_method,
-                               tp=tp)
+                               tp=tp, fsdp=fsdp)
     try:
         result = fn(group, *args)
         with open(os.path.join(out_dir, f"result-{rank}.pkl"), "wb") as f:
@@ -482,12 +512,14 @@ def _entry(rank: int, fn: Callable, world: int, backend: str, device: str, init_
 
 
 def spawn(fn: Callable, world: int, args: tuple = (), *, backend: str = "gloo",
-          device: str = "cuda", threads: int | None = None, tp: int = 1) -> list:
+          device: str = "cuda", threads: int | None = None, tp: int = 1,
+          fsdp: int = 1) -> list:
     """Run ``fn(group, *args)`` on ``world`` spawned ranks; returns their
     results (picklable) in rank order.  ``fn`` must be a module-level
     function.  ``threads`` sets each rank's intra-op thread count (default:
     the host's cores shared out between the ranks); ``tp`` the ranks of
-    each replica's model axis."""
+    each replica's model axis, ``fsdp`` those of its data axis
+    (``fsdp_hybrid``)."""
     import torch.multiprocessing as mp
 
     dev = check_backend(backend, world, device)
@@ -504,7 +536,7 @@ def spawn(fn: Callable, world: int, args: tuple = (), *, backend: str = "gloo",
             pickle.dump(tuple(args), f)
         init_method = "file://" + os.path.join(tmp, "rendezvous")
         mp.start_processes(_entry, args=(fn, world, backend, dev.type, init_method, tmp, threads,
-                                         tp),
+                                         tp, fsdp),
                            nprocs=world, join=True, start_method="spawn")
         results = []
         for rank in range(world):

@@ -64,12 +64,26 @@ hold the whole replicas (the JAX package's global arrays): rank 0 writes
 the gathered tree and each rank cuts its shard on resume, so a checkpoint
 does not depend on ``--model``.  Refused by name at ``--model`` > 1:
 ``--fault-plan``, ``--reassign-data``, ``--stale momentum``, ``--overlap``
-and ``--stream-count`` > 1 (ROADMAP Queue 1 item 9d).  The last stdout line
+and ``--stream-count`` > 1 (ROADMAP Queue 1 item 9e).  The last stdout line
 carries ``fault_events`` and ``membership`` under a fault plan, as the
 reference's does.
 
     # two replicas of two model ranks each, sharing one card:
     PYTHONPATH=src python -m repro_torch.launch.train_distributed --data 2 --model 2
+
+The ``fsdp_hybrid`` plan (ZeRO-3 over a data axis inside each replica, the
+replicas being pods) is reached through the trainer API, as in the
+reference, whose CLI always makes ``gossip_dp``: build the trainer with
+``plan=plans.make_plan("fsdp_hybrid", data, model, pod=pods)`` on a group
+of ``pods × data × model`` ranks (``mesh.spawn(..., tp=model,
+fsdp=data)``).  Each rank holds its (data, model) shard of its pod's
+replica and trains on its data index's rows of the replica's batch;
+NoLoCo's outer step stays one batched send/receive per rank, carrying its
+shards to the rank at its (data, model) place in the partner pod, and
+DiLoCo all-reduces over the ranks at that place.  Checkpoints still hold
+whole replicas (gathered over data, then over model).  The CLI's
+``--method fsdp`` is another thing: the per-step gradient all-reduce
+baseline over the replicas.
 """
 
 from __future__ import annotations
@@ -139,10 +153,15 @@ class DistributedTrainer:
         if self.plan.world != self.group.world:
             raise ValueError(f"plan needs {self.plan.world} ranks, the group has "
                              f"{self.group.world}")
-        if self.plan.tp > 1 and (self.elastic is not None or self.comm_cfg.streams > 1
-                                 or self.comm_cfg.overlap or self.outer_cfg.stale != "naive"):
+        if (self.plan.fsdp, self.plan.tp) != (self.group.fsdp, self.group.tp):
+            raise ValueError(f"plan lays a replica over {self.plan.fsdp} data × {self.plan.tp} "
+                             f"model ranks, the group over {self.group.fsdp} × "
+                             f"{self.group.tp}")
+        if self._split() and (self.elastic is not None or self.comm_cfg.streams > 1
+                              or self.comm_cfg.overlap or self.outer_cfg.stale != "naive"):
             raise NotImplementedError("elastic, asynchronous and streamed rounds with a model "
-                                      f"axis come with {plans_lib.ZERO3_ITEM}")
+                                      f"axis or under {self.plan.name} come with "
+                                      f"{plans_lib.ITEM_9E}")
         if self.elastic is not None and self.elastic.world != self.plan.replicas:
             raise ValueError(f"elastic world {self.elastic.world} != plan replicas "
                              f"{self.plan.replicas}")
@@ -177,18 +196,25 @@ class DistributedTrainer:
         runtime draws it."""
         return model_api.init_params(torch.Generator().manual_seed(self.seed), self.cfg)
 
+    def _split(self) -> bool:
+        return self.plan.tp > 1 or self.plan.fsdp > 1
+
     def shard(self, stacked: PyTree) -> PyTree:
-        """This rank's shard of a whole replica-stacked tree (itself at tp 1)."""
-        if self.plan.tp == 1:
+        """This rank's (data, model) shard of a whole replica-stacked tree
+        (itself without a model or data axis)."""
+        if not self._split():
             return stacked
-        return steps_lib.shard_params(stacked, self.cfg, self.plan, self.group.model_index)
+        return steps_lib.shard_params(stacked, self.cfg, self.plan, self.group.model_index,
+                                      data_index=self.group.data_index)
 
     def gather(self, tree: PyTree) -> PyTree:
         """The whole replica-stacked tree from this rank's shard: every
-        split leaf all-gathered over the model axis (itself at tp 1)."""
-        if self.plan.tp == 1:
+        leaf split over the data axis all-gathered over it, then every leaf
+        split over the model axis over that (itself without either axis)."""
+        if not self._split():
             return tree
-        return steps_lib.gather_shards(tree, self.cfg, self.plan, self.group.model)
+        return steps_lib.gather_shards(tree, self.cfg, self.plan, self.group.model,
+                                       data=self.group.data)
 
     def init_state(self, batch_example: dict | None = None) -> dict:
         theta = self.shard(tree_map(lambda p: p.unsqueeze(0), self.initial_params()))
@@ -587,7 +613,7 @@ def check_args(args: argparse.Namespace) -> None:
                                  ("--stream-count", args.stream_count > 1)) if on]
         if flags:
             raise NotImplementedError(f"{', '.join(flags)} with --model {args.model} come with "
-                                      f"{plans_lib.ZERO3_ITEM}")
+                                      f"{plans_lib.ITEM_9E}")
     if args.fault_plan and args.method not in ELASTIC_METHODS:
         raise SystemExit(f"argument --method: invalid choice: {args.method!r} "
                          f"(choose from {', '.join(ELASTIC_METHODS)})")
@@ -605,15 +631,17 @@ def model_config(args: argparse.Namespace) -> ModelConfig:
     return cfg
 
 
-def make_trainer(args: argparse.Namespace, group, cfg: ModelConfig | None = None
-                 ) -> DistributedTrainer:
+def make_trainer(args: argparse.Namespace, group, cfg: ModelConfig | None = None, *,
+                 plan: plans_lib.Plan | None = None) -> DistributedTrainer:
     """The rank's trainer for the CLI's flags: the reference's inner AdamW
     (constant lr, no weight decay, clipping at 1) and the paper's outer
-    settings (NoLoCo α 0.5, DiLoCo α 0.3, β 0.7)."""
+    settings (NoLoCo α 0.5, DiLoCo α 0.3, β 0.7).  ``plan`` replaces the
+    CLI's ``gossip_dp`` plan over ``--data × --model`` (an ``fsdp_hybrid``
+    plan, which no flag selects)."""
     method = "none" if args.method == "fsdp" else args.method
     alpha = 0.3 if method == "diloco" else 0.5
     inner_steps = args.inner_steps if method != "none" else 10**9
-    plan = plans_lib.make_plan("gossip_dp", args.data, args.model)
+    plan = plan or plans_lib.make_plan("gossip_dp", args.data, args.model)
     return DistributedTrainer(
         cfg=cfg or model_config(args), group=group, plan=plan,
         outer_cfg=OuterConfig(method=method, alpha=alpha, beta=0.7, inner_steps=inner_steps,

@@ -28,7 +28,9 @@ ShardCtx`) the query heads are split over the ranks where they divide
 ``w_v`` whole, so K/V are projected whole and then cut to the kv heads that
 serve the rank's query groups, or, where a rank holds part of a group,
 expanded by the head map (query head i reads kv head i·KV//H); the output
-projection is row-parallel (``scatter_seq_sum``).  The decode plan's
+projection is row-parallel (``scatter_seq_sum``).  Under ``fsdp_hybrid``
+each projection is gathered over the data axis on d just before its
+product (``ctx.gather_param``, at the reference's sites).  The decode plan's
 ``kv_shard_seq`` keeps the heads whole and splits the dense cache of each
 global layer over the ranks by sequence: prefill writes the rank's slice
 of the prompt's positions, decode writes the new token on the rank that
@@ -174,8 +176,8 @@ def _local_kv(cfg, ctx: ShardCtx, k: torch.Tensor, v: torch.Tensor, h_local: int
 
 def _out_proj(out: torch.Tensor, w_o: torch.Tensor, eq: str, cfg, ctx: ShardCtx) -> torch.Tensor:
     """The output projection; row-parallel (summed over the model axis)
-    where the heads are split."""
-    y = torch.einsum(eq, out, w_o)
+    where the heads are split; ``w_o`` gathered over the data axis on d."""
+    y = torch.einsum(eq, out, ctx.gather_param(w_o, -1, cfg.d_model))
     return ctx.scatter_seq_sum(y, axis=-2) if ctx.heads_tp(cfg.num_heads) > 1 else y
 
 
@@ -210,18 +212,20 @@ class AttnCache:
         )
 
 
-def _project_kv(p: dict, cfg, kv_in: torch.Tensor, eq: str):
-    k = torch.einsum(eq, kv_in, p["w_k"])
-    v = torch.einsum(eq, kv_in, p["w_v"])
+def _project_kv(p: dict, cfg, kv_in: torch.Tensor, eq: str, ctx: ShardCtx = _LOCAL):
+    d = kv_in.shape[-1]
+    k = torch.einsum(eq, kv_in, ctx.gather_param(p["w_k"], -3, d))
+    v = torch.einsum(eq, kv_in, ctx.gather_param(p["w_v"], -3, d))
     if cfg.qk_norm:  # RMSNorm over head_dim, as the JAX package's _rms
         k = apply_norm({"scale": p["k_norm"]}, k)
     return k, v
 
 
-def build_cross_cache(p: dict, cfg, encoder_out: torch.Tensor, cache: AttnCache) -> AttnCache:
+def build_cross_cache(p: dict, cfg, encoder_out: torch.Tensor, cache: AttnCache,
+                      ctx: ShardCtx = _LOCAL) -> AttnCache:
     """Project the encoder output (B, S_enc, d) to cross-attention K/V once
     (``k_norm`` with qk-norm, no RoPE), into ``cache`` in place."""
-    k, v = _project_kv(p, cfg, encoder_out, "bsd,dhk->bshk")
+    k, v = _project_kv(p, cfg, encoder_out, "bsd,dhk->bshk", ctx)
     cache.k.copy_(k)
     cache.v.copy_(v)
     cache.index.zero_()
@@ -283,11 +287,11 @@ def _training_attention(p: dict, cfg, x: torch.Tensor, mode: str, positions,
     (R, B, S, d), K/V from ``kv_source`` (R, B, S_enc, d) for
     cross-attention, canonical positions; the rank's heads under a model
     axis."""
-    r, b, s, _ = x.shape
-    q = torch.einsum("rbsd,rdhk->rbshk", x, p["w_q"])
+    r, b, s, d = x.shape
+    q = torch.einsum("rbsd,rdhk->rbshk", x, ctx.gather_param(p["w_q"], -3, d))
     if cfg.qk_norm:  # RMSNorm over head_dim, as the JAX package's _rms
         q = apply_norm({"scale": p["q_norm"]}, q)
-    k, v = _project_kv(p, cfg, x if kv_source is None else kv_source, "rbsd,rdhk->rbshk")
+    k, v = _project_kv(p, cfg, x if kv_source is None else kv_source, "rbsd,rdhk->rbshk", ctx)
     if cfg.use_rope and mode != "full":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -431,7 +435,7 @@ def apply_attention(
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"])
+    q = torch.einsum("bsd,dhk->bshk", x, ctx.gather_param(p["w_q"], -3, x.shape[-1]))
     if cfg.qk_norm:
         q = apply_norm({"scale": p["q_norm"]}, q)
     if cfg.use_rope and mode != "full":
@@ -451,7 +455,7 @@ def apply_attention(
                                       _expand_kv(cache.v, h, first, h_all),
                                       positions, kv_positions, mode="full")
         else:
-            k, v = _project_kv(p, cfg, x, "bsd,dhk->bshk")
+            k, v = _project_kv(p, cfg, x, "bsd,dhk->bshk", ctx)
             if cfg.use_rope:
                 k = apply_rope(k, positions, cfg.rope_theta)
             out = _dense_attention(cfg, q, k, v, cache, mode, positions, ctx)

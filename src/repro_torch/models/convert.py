@@ -168,18 +168,18 @@ def params_from_jax_numpy(
 
 
 def shard_from_jax_numpy(tree: PyTree, cfg, plan, model_index: int, device="cpu",
-                         dtype: torch.dtype | None = None) -> PyTree:
-    """Rank ``model_index``'s shard of one replica's parameters from the JAX
-    value tree (numpy leaves): the port's whole tree
-    (:func:`params_from_jax_numpy`), then the rank's block of each leaf the
-    ``plan`` splits (``parallel.plans.shard_tree``, the plan's attention
-    specs)."""
+                         dtype: torch.dtype | None = None, data_index: int = 0) -> PyTree:
+    """The shard at (``data_index``, ``model_index``) of one replica's
+    parameters from the JAX value tree (numpy leaves): the port's whole
+    tree (:func:`params_from_jax_numpy`), then the rank's block of each
+    leaf the ``plan`` splits, on the model and on the data axis
+    (``parallel.plans.shard_tree``, the plan's attention specs)."""
     from repro_torch.models.logical import logical_axes
     from repro_torch.parallel import plans
 
     logical = plans.adjust_attn_specs_for_decode(plan, logical_axes(cfg))
     return plans.shard_tree(params_from_jax_numpy(tree, cfg, device, dtype), logical, plan,
-                            model_index)
+                            model_index, data_index)
 
 
 def _load(tree: PyTree, shapes: PyTree, device, dtype: torch.dtype,

@@ -12,6 +12,10 @@ vocabulary slice, and the cross entropy combines the slices with a
 ``pmax`` of the stop-gradient maximum and ``psum`` of the exponentials
 and one of the label's logit, which only the rank that holds the label hits.
 
+Under the ``fsdp_hybrid`` plan the weights are also split over the data
+axis on d (ZeRO-3) and gathered just before use (``ctx.gather_param``, at
+the reference's sites).
+
 The norms, the MLP, the embedding and the logits also take replica-stacked
 parameters, every leaf with a leading replica axis R (``w_in (R, d, f)``,
 ``table (R, V, d)``) against activations ``(R, ...)``: the port's training
@@ -128,17 +132,21 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def apply_mlp(p: dict, cfg, x: torch.Tensor, ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """Column-parallel in, row-parallel out: the partial sums of the rank's
-    d_ff slice summed over the model axis where d_ff is split."""
-    h = matmul(x, p["w_in"])
+    d_ff slice summed over the model axis where d_ff is split.  Under
+    ZeRO-3 the weights are gathered over the data axis on d first."""
+    d = x.shape[-1]
+    w_in = ctx.gather_param(p["w_in"], -2, d)
+    w_out = ctx.gather_param(p["w_out"], -1, d)
+    h = matmul(x, w_in)
     if cfg.mlp_variant == "swiglu":
-        h = F.silu(matmul(x, p["w_gate"])) * h
+        h = F.silu(matmul(x, ctx.gather_param(p["w_gate"], -2, d))) * h
     elif cfg.mlp_variant == "geglu":
-        h = F.gelu(matmul(x, p["w_gate"]), approximate="tanh") * h
+        h = F.gelu(matmul(x, ctx.gather_param(p["w_gate"], -2, d)), approximate="tanh") * h
     elif cfg.mlp_variant == "relu2":  # nemotron/minitron squared ReLU
         h = F.relu(h).square()
     else:
         h = F.gelu(h, approximate="tanh")
-    y = matmul(h, p["w_out"])
+    y = matmul(h, w_out)
     return ctx.scatter_seq_sum(y, axis=-2) if ctx.ff_tp(cfg.d_ff) > 1 else y
 
 
@@ -160,8 +168,9 @@ def embed_tokens(p: dict, cfg, tokens: torch.Tensor, ctx: ShardCtx = _LOCAL) -> 
     """Rows of the table; with a stacked table (R, V, d), replica r's tokens
     (R, ...) read replica r's rows.  Vocab-sharded (the table is the rank's
     slice of V/tp rows): tokens outside the slice read a zero row, and the
-    rows are summed over the model axis."""
-    table = p["table"]
+    rows are summed over the model axis.  Under ZeRO-3 the table is
+    gathered over the data axis on d, not on the vocabulary."""
+    table = ctx.gather_param(p["table"], -1, cfg.d_model)
     tokens = tokens.long()
     vt = ctx.vocab_tp(cfg.vocab_size)
     in_range = None
@@ -188,11 +197,12 @@ def logits_sharded(p: dict, cfg, x: torch.Tensor, ctx: ShardCtx = _LOCAL) -> tor
     """Logits over the rank's vocabulary slice (the whole vocabulary
     without a model axis; the loss combines the slices), cast to fp32 after
     the product."""
+    d = x.shape[-1]
     if cfg.tie_embeddings:
-        table = p["table"]
+        table = ctx.gather_param(p["table"], -1, d)
         logits = x @ table.T if table.dim() == 2 else torch.einsum("r...d,rvd->r...v", x, table)
     else:
-        logits = matmul(x, p["unembed"])
+        logits = matmul(x, ctx.gather_param(p["unembed"], -2, d))
     logits = logits.float()
     if cfg.logit_softcap:
         c = cfg.logit_softcap

@@ -10,8 +10,7 @@ leaf's dimensions, as the reference's ``init_*`` functions annotate them:
     None      whole on every rank
     "tp"      split over the model axis (tensor parallelism)
     "expert"  split over the model axis (expert parallelism)
-    "fsdp"    split over the data axis by ZeRO-3 (``fsdp_hybrid``, ROADMAP
-              Queue 1 item 9d; whole here)
+    "fsdp"    split over the data axis by ZeRO-3 (``fsdp_hybrid`` only)
     "replica" the stacked replica axis
 
 Scanned layers carry a leading None (the layer axis), as the reference's

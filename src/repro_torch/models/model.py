@@ -163,10 +163,12 @@ def _embed(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, positions: to
     return x
 
 
-def _frontend(embeds: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _frontend(embeds: torch.Tensor, w: torch.Tensor, ctx: ShardCtx = _LOCAL) -> torch.Tensor:
     """Stub embeddings times a projection (F, d), stacked (R, F, d) against
     (R, ...), in the promoted type of the two, as JAX promotes an fp32
-    input against a bf16 weight."""
+    input against a bf16 weight; under ZeRO-3 the projection is gathered
+    over the data axis on F first."""
+    w = ctx.gather_param(w, -2, embeds.shape[-1])
     dt = torch.promote_types(embeds.dtype, w.dtype)
     return matmul(embeds.to(dt), w.to(dt))
 
@@ -178,7 +180,7 @@ def _encode(params: PyTree, cfg: ModelConfig, encoder_embeds: torch.Tensor,
     positions, the bidirectional stack, ``enc_norm``."""
     x = encoder_embeds
     if "enc_proj" in params:
-        x = _frontend(x, params["enc_proj"])
+        x = _frontend(x, params["enc_proj"], ctx)
     x = x.to(torch_dtype(cfg.dtype))
     x = x + sinusoidal_positions(x.shape[-2], cfg.d_model, x.device).to(x.dtype)
     x, _, _ = tfm.apply_stack(params["encoder"], encoder_cfg(cfg), x, ctx=ctx)
@@ -207,7 +209,7 @@ def embed_input(params: PyTree, cfg: ModelConfig, batch: dict, ctx: ShardCtx = _
     tokens = batch["tokens"]
     img = mask_extra = None
     if cfg.frontend == "vision" and "image_embeds" in batch:
-        img = _frontend(batch["image_embeds"], params["projector"])
+        img = _frontend(batch["image_embeds"], params["projector"], ctx)
         lead, n_img = tokens.shape[:-1], img.shape[-2]
         mask_extra = torch.cat([
             torch.zeros(lead + (n_img,), dtype=torch.bool, device=tokens.device),

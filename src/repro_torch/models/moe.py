@@ -128,9 +128,12 @@ def apply_moe(p: dict, cfg, x: torch.Tensor,
     if ep > 1:   # (R, E, C, d) -> (R, ep, E_l, C, d) -> a2a -> (R, E_l, ep·C, d)
         buf = ctx.all_to_all_model(buf.reshape(r, ep, e // ep, cap, d), 1, 3)
         buf = buf.reshape(r, e // ep, ep * cap, d)
-    h = torch.matmul(buf, p["w_in"])                                  # (R, E_l, ·, f)
-    gate = torch.matmul(buf, p["w_gate"]) if "w_gate" in p else None
-    out_buf = torch.matmul(_act(cfg, gate, h), p["w_out"])            # (R, E_l, ·, d)
+    # ZeRO-3: the experts' weights gathered over the data axis on d
+    w_in = ctx.gather_param(p["w_in"], -2, d)                         # (R, E_l, d, f)
+    w_out = ctx.gather_param(p["w_out"], -1, d)                       # (R, E_l, f, d)
+    h = torch.matmul(buf, w_in)                                       # (R, E_l, ·, f)
+    gate = torch.matmul(buf, ctx.gather_param(p["w_gate"], -2, d)) if "w_gate" in p else None
+    out_buf = torch.matmul(_act(cfg, gate, h), w_out)                 # (R, E_l, ·, d)
     if ep > 1:   # the inverse: (R, E_l, ep, C, d) -> a2a -> (R, E, C, d)
         out_buf = ctx.all_to_all_model(out_buf.reshape(r, e // ep, ep, cap, d), 2, 1)
         out_buf = out_buf.reshape(r, e, cap, d)

@@ -125,11 +125,14 @@ def apply_rglru(
     state after each token (h (B, S, W), conv tails (B, S, 3, W)); with
     ``cache`` and S = 1: a decode step; with no cache: the forward from a
     zero state, also on stacked ``p`` and x (R, B, S, d)."""
-    u_in = matmul(x, p["w_x"])
-    gate = F.gelu(matmul(x, p["w_gate"]).float(), approximate="tanh")
+    d = x.shape[-1]
+    w_x, w_gate, w_r, w_i = (ctx.gather_param(p[n], -2, d) for n in ("w_x", "w_gate", "w_r", "w_i"))
+    w_out = ctx.gather_param(p["w_out"], -1, d)
+    u_in = matmul(x, w_x)
+    gate = F.gelu(matmul(x, w_gate).float(), approximate="tanh")
     u, new_conv = causal_conv(u_in, p["conv"], cache.conv if cache is not None else None)
-    r = torch.sigmoid(matmul(x, p["w_r"]).float())
-    i = torch.sigmoid(matmul(x, p["w_i"]).float())
+    r = torch.sigmoid(matmul(x, w_r).float())
+    i = torch.sigmoid(matmul(x, w_i).float())
     # a_t = σ(Λ)^(c·r_t)  ⇒  log a_t = −c·r_t·softplus(−Λ)
     a = torch.exp(C_EXP * r * over_replicas(-F.softplus(-p["lam"]), r))
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u.float())
@@ -171,7 +174,7 @@ def apply_rglru(
         if cache is not None:
             cache.conv.copy_(new_conv)
             cache.h.copy_(h[:, -1])
-    y = matmul((h * gate).to(x.dtype), p["w_out"])
+    y = matmul((h * gate).to(x.dtype), w_out)
     if ctx.ff_tp(lru_width(cfg)) > 1:
         y = ctx.scatter_seq_sum(y, axis=-2)
     return y, cache

@@ -113,15 +113,18 @@ def apply_ssd(
     place); branches as :func:`repro_torch.models.rglru.apply_rglru`'s (the
     verify's trajectory: state (B, S, H, P, N), conv tails (B, S, K−1,
     d_inner))."""
-    lead, s = x.shape[:-2], x.shape[-2]
+    lead, s, d = x.shape[:-2], x.shape[-2], x.shape[-1]
     hd = cfg.ssm_head_dim
-    z = matmul(x, p["w_z"])
-    u_in = matmul(x, p["w_x"])
+    w_z, w_x, w_b, w_c, w_dt = (ctx.gather_param(p[n], -2, d)
+                                for n in ("w_z", "w_x", "w_b", "w_c", "w_dt"))
+    w_out = ctx.gather_param(p["w_out"], -1, d)
+    z = matmul(x, w_z)
+    u_in = matmul(x, w_x)
     u, new_conv = causal_conv(u_in, p["conv"], cache.conv if cache is not None else None)
     u = F.silu(u.float())
-    b_mat = matmul(x, p["w_b"]).float()
-    c_mat = matmul(x, p["w_c"]).float()
-    dt_raw = matmul(x, p["w_dt"]).float()
+    b_mat = matmul(x, w_b).float()
+    c_mat = matmul(x, w_c).float()
+    dt_raw = matmul(x, w_dt).float()
     dt = F.softplus(dt_raw + over_replicas(p["dt_bias"], dt_raw))   # (..., S, H)
     a = -torch.exp(p["a_log"])
     heads = u.shape[-1] // hd
@@ -185,5 +188,5 @@ def apply_ssd(
     if split:   # the mean over the whole d_inner: the ranks' means summed, over tp
         ms = ctx.psum_model(ms) / ctx.tp
     g = g * torch.rsqrt(ms + 1e-6) * over_replicas(p["norm_scale"], g)
-    out = matmul(g.to(x.dtype), p["w_out"])
+    out = matmul(g.to(x.dtype), w_out)
     return (ctx.scatter_seq_sum(out, axis=-2) if split else out), cache

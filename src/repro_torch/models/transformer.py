@@ -135,7 +135,8 @@ def apply_block(
     if "cross_attn" in p:
         h = apply_norm(p["ln_cross"], x)
         if enc_out is not None and cross_cache is not None:
-            cross_cache = attn_lib.build_cross_cache(p["cross_attn"], cfg, enc_out, cross_cache)
+            cross_cache = attn_lib.build_cross_cache(p["cross_attn"], cfg, enc_out, cross_cache,
+                                                     ctx)
         y, cross_cache = attn_lib.apply_attention(
             p["cross_attn"], cfg, h, mode="full", positions=positions,
             kv_source=enc_out, cache=cross_cache, ctx=ctx,

@@ -1,16 +1,28 @@
-"""ShardCtx: the model axis inside a replica, seen from the model code.
+"""ShardCtx: the model and data axes inside a replica, seen from the model code.
 
 The port of ``repro/parallel/sharding.py``.  ``ShardCtx.local()`` is the
 identity: every collective returns its input and every weight is whole, so
 the model code runs unchanged on one device.  A context made by
 :meth:`repro_torch.parallel.plans.Plan.ctx` holds the rank's model axis
 (:class:`repro_torch.launch.mesh.ModelAxis`: the ``torch.distributed``
-subgroup of its replica's ranks), its index on that axis and its size
-``tp``; the weights it meets are the rank's shards (``plans.shard_tree``)
-and the collectives run over the subgroup.  The sizing helpers
-(``heads_tp``, ``ff_tp``, ``vocab_tp``, ``experts_tp``) apply the same
-per-dimension rule as ``plans.shard_tree``: a dimension that does not
-divide by ``tp`` is kept whole, so the collectives and the shards agree.
+subgroup of the ranks of its replica that share its data index), its index
+on that axis and its size ``tp`` and, under the ``fsdp_hybrid`` plan, its
+data axis (the subgroup of the ranks of its replica that share its model
+index) and that axis's size ``fsdp``.  The weights it meets are the
+rank's shards (``plans.shard_tree``) and the collectives run over the
+subgroups.  The sizing helpers (``heads_tp``, ``ff_tp``, ``vocab_tp``,
+``experts_tp``) and ``gather_param`` apply the same per-dimension rule as
+``plans.shard_tree``: a dimension that does not divide by the axis size is
+kept whole, so the collectives and the shards agree.
+
+ZeRO-3.  Under ``fsdp_hybrid`` every weight is stored split over the data
+axis on its ``"fsdp"`` dimension (the model width d) and all-gathered just
+before use (:meth:`ShardCtx.gather_param`); the gather's backward is the
+reduce-scatter of the gathered weight's gradient, so each data rank ends
+with its block of the sum over the data ranks, ZeRO's gradient sharding.
+The port gathers only what the plan split (a width that does not divide by
+``fsdp`` stays whole); the reference gathers every ``"fsdp"`` weight, whatever
+``spec_for`` decided.
 
 Gradients.  Every collective on a differentiated path is a
 ``torch.autograd.Function`` whose backward is the transpose of its forward,
@@ -19,14 +31,15 @@ with ``check_vma=False``: ``psum`` → ``psum``, ``all_gather`` →
 ``psum_scatter``, ``psum_scatter`` → ``all_gather``, a tiled ``all_to_all``
 → the inverse ``all_to_all``.  The reference differentiates outside its
 ``shard_map``, where the cotangent of the loss (an output replicated over
-the model axis) reaches each rank divided by ``tp`` and the cotangent of
-every input replicated over the axis is summed over it.  The port does the
-same around its own backward (``parallel/steps.py``): each rank seeds the
-backward with 1/tp of its loss's cotangent, and after the backward sums the
-gradients of the leaves it holds whole over the model axis
-(:func:`psum_replicated`).  With that, every leaf's gradient on every rank
-is the unsharded gradient of the slice the rank holds: the sum over the
-ranks of their partial activation gradients is the true one at each
+the model and data axes) reaches each rank divided by ``tp × fsdp`` and the
+cotangent of every input replicated over an axis is summed over it.  The
+port does the same around its own backward (``parallel/steps.py``): each
+rank seeds the backward with 1/(tp · fsdp) of its loss's cotangent, and
+after the backward sums the gradients of the leaves it holds whole over
+the model axis, and of those it holds whole over the data axis, over that
+axis (:func:`psum_replicated`).  With that, every leaf's gradient on every
+rank is the unsharded gradient of the slice the rank holds: the sum over
+the ranks of their partial activation gradients is the true one at each
 collective and at each whole leaf, by linearity.  This is the reference's
 own transposition, which is exact (the JAX package's sharded gradients
 equal its unsharded ones to fp32 rounding), rather than Megatron's pair of
@@ -37,8 +50,7 @@ MoE block's sequence split, the router) to give the same numbers.
 
 ``pmax_model`` runs only on a stop-gradient maximum
 (``layers.cross_entropy_parts``, the decode's softmax combine) and has no
-backward.  ``gather_param`` is the identity: ZeRO-3 weight sharding over
-the data axis (``fsdp_hybrid``) is ROADMAP Queue 1 item 9d.
+backward.
 """
 
 from __future__ import annotations
@@ -107,13 +119,18 @@ class ShardCtx:
                        the sequence dimension; attention heads are then
                        whole on every rank and the partial softmax of each
                        rank's slice is combined by ``pmax``/``psum``.
-    ``replicate_experts`` — keep every expert on every rank (no all-to-all)."""
+    ``replicate_experts`` — keep every expert on every rank (no all-to-all).
+    ``data_axis``    — the rank's data axis under ``fsdp_hybrid`` (ZeRO-3
+                       within the replica; None otherwise).
+    ``fsdp``         — the data axis's size."""
 
     axis: Any = None
     index: int = 0
     tp: int = 1
     kv_shard_seq: bool = False
     replicate_experts: bool = False
+    data_axis: Any = None
+    fsdp: int = 1
 
     @staticmethod
     def local() -> "ShardCtx":
@@ -160,9 +177,17 @@ class ShardCtx:
 
     # -- data-axis (ZeRO-3) helpers ------------------------------------------
 
-    def gather_param(self, w: torch.Tensor, axis: int = 0) -> torch.Tensor:
-        """The identity: ``fsdp_hybrid`` is ROADMAP Queue 1 item 9d."""
-        return w
+    def gather_param(self, w: torch.Tensor, axis: int, size: int) -> torch.Tensor:
+        """ZeRO-3: the whole weight from the rank's block of ``w`` on
+        dimension ``axis``, whose global length is ``size``: a tiled
+        all-gather over the data axis where the plan split that dimension
+        (``size`` divides by ``fsdp``), ``w`` itself otherwise.  Its
+        backward is the reduce-scatter over the data axis.  Count ``axis``
+        from the end (-1, -2, ...) so that a replica-stacked weight and an
+        unstacked one name the same dimension."""
+        if self.data_axis is None or size % self.fsdp:
+            return w
+        return _AllGather.apply(w, self.data_axis, axis % w.dim())
 
     # -- sequence-parallel activation movement --------------------------------
 
@@ -197,9 +222,10 @@ class ShardCtx:
 
 
 def psum_replicated(grads: list[torch.Tensor], sharded: list[bool], axis) -> list[torch.Tensor]:
-    """``grads`` with every leaf the rank holds whole (``sharded`` False)
-    summed over the model axis, in one all-reduce of a packed buffer per
-    dtype: the reference's transpose of an input replicated over the axis."""
+    """``grads`` with every leaf the rank holds whole over ``axis``
+    (``sharded`` False) summed over that axis (the model or the data
+    axis), in one all-reduce of a packed buffer per dtype: the reference's
+    transpose of an input replicated over the axis."""
     out = list(grads)
     by_dtype: dict[torch.dtype, list[int]] = {}
     for i, (g, s) in enumerate(zip(grads, sharded)):

@@ -32,6 +32,26 @@ under ``cfg.remat``: the backward recomputes each layer's forward up to
 the last tensor the backward saves, which takes the attention output's
 ``psum`` (the norm after it saves its input) and stops before the MLP's.
 
+Under the ``fsdp_hybrid`` plan (``plan.fsdp`` > 1) a replica is a pod and
+its ranks also split its weights over a data axis (ZeRO-3).  As the
+reference's ``batch_pspecs`` lays the batch, each data rank takes its
+contiguous B/fsdp rows of its replica's batch (the whole batch where B
+does not divide by fsdp); the model code gathers each weight over the data
+axis just before use (``ShardCtx.gather_param``, whose backward is the
+reduce-scatter); the loss is the mean over the data ranks of theirs
+(``pmean``), so the backward's seed carries 1/(tp · fsdp); after it the
+gradients of the leaves held whole over the model axis are summed over
+that axis and those of the leaves held whole over the data axis over the
+data axis (a leaf can be split on one and whole on the other: ``w_k`` is
+split on data and whole on model, ``lam`` the other way round), and the
+clipping norm is the replica's: each split leaf's squares summed over the
+axes that split it, each whole leaf counted once.  The data axis's calls
+in one inner step are, from the code: one all-gather per use of a split
+leaf in the forward (each layer's uses again under ``cfg.remat``, whose
+backward recomputes the layer), one reduce-scatter per use in the
+backward, one all-reduce per dtype of the leaves held whole over the
+axis, one of the norm's squares and one of the loss (its ``pmean``).
+
 The outer step moves the packed (Δ, φ) payload to the round's partner and
 back in one batched send/receive (NoLoCo) or all-reduces Δ (DiLoCo).  The
 reference compiles one ``ppermute`` program per pairing, so its
@@ -92,30 +112,32 @@ class TrainStepBundle:
     eval_fn: Callable   # (theta, batch) -> (1,) losses, grad-free
 
 
-def leaf_mask(cfg: ModelConfig, plan: Plan) -> list[bool]:
-    """Per parameter leaf (flatten order): is it split over the model axis?"""
+def leaf_mask(cfg: ModelConfig, plan: Plan, axis: str = "model") -> list[bool]:
+    """Per parameter leaf (flatten order): is it split over the model axis
+    (``axis="model"``), or over the data axis (``"data"``)?"""
     from repro_torch.comm import bytes_model
 
     return tree_leaves(plans_lib.sharded_mask(logical_axes(cfg), bytes_model.abstract_params(cfg),
-                                              plan))
+                                              plan, axis))
 
 
 def shard_params(full: PyTree, cfg: ModelConfig, plan: Plan, model_index: int, *,
-                 stacked: bool = True) -> PyTree:
-    """Rank ``model_index``'s shard of a whole parameter tree (replica-stacked
-    with ``stacked``), under the plan's attention specs (whole heads under
-    ``kv_shard_seq``)."""
+                 stacked: bool = True, data_index: int = 0) -> PyTree:
+    """The shard at (``data_index``, ``model_index``) of a whole parameter
+    tree (replica-stacked with ``stacked``), under the plan's attention
+    specs (whole heads under ``kv_shard_seq``)."""
     from repro_torch.models.logical import stacked as stack_axes
 
     logical = plans_lib.adjust_attn_specs_for_decode(plan, logical_axes(cfg))
     return plans_lib.shard_tree(full, stack_axes(logical) if stacked else logical, plan,
-                                model_index)
+                                model_index, data_index)
 
 
-def gather_shards(tree: PyTree, cfg: ModelConfig, plan: Plan, axis) -> PyTree:
+def gather_shards(tree: PyTree, cfg: ModelConfig, plan: Plan, axis, data=None) -> PyTree:
     """The whole replica-stacked tree from the rank's shard of it: each
-    split leaf all-gathered over the model ``axis``, every other leaf as it
-    is (the rank's own copy)."""
+    leaf split over the data axis all-gathered over ``data`` first, then
+    each leaf split over the model axis over the model ``axis``; every
+    other leaf as it is (the rank's own copy)."""
     from repro_torch.comm import bytes_model
     from repro_torch.comm.payload import LeafShape
     from repro_torch.models.logical import stacked
@@ -124,25 +146,54 @@ def gather_shards(tree: PyTree, cfg: ModelConfig, plan: Plan, axis) -> PyTree:
                       bytes_model.abstract_params(cfg))
 
     def one(x, s, ax):
+        x = x.detach()
+        ddim = plans_lib.fsdp_dim(ax.names, s.shape, plan)
+        if ddim is not None:
+            x = data.all_gather(x, ddim)
         dim = plans_lib.shard_dim(ax.names, s.shape, plan)
-        return x if dim is None else axis.all_gather(x.detach(), dim)
+        return x if dim is None else axis.all_gather(x, dim)
 
     return tree_map(one, tree, shapes, stacked(logical_axes(cfg)))
 
 
-def _replica_norm(grads: list[torch.Tensor], sharded: list[bool], ctx: ShardCtx) -> torch.Tensor:
+def _replica_norm(grads: list[torch.Tensor], split_model: list[bool], split_data: list[bool],
+                  ctx: ShardCtx) -> torch.Tensor:
     """(R,) norm of each replica's whole gradient from the rank's leaves:
-    the split leaves' squares summed over the model axis, each whole leaf
-    counted once."""
-    split = [_square_sum(g) for g, s in zip(grads, sharded) if s]
-    whole = [_square_sum(g) for g, s in zip(grads, sharded) if not s]
-    r = grads[0].shape[0]
-    total = torch.zeros(r, dtype=torch.float32, device=grads[0].device)
-    if split:
-        total = total + ctx.psum_model(torch.stack(split, dim=1).sum(dim=1))
-    if whole:
-        total = total + torch.stack(whole, dim=1).sum(dim=1)
+    each split leaf's squares summed over the axes that split it (model,
+    data or both), each whole leaf counted once."""
+    squares: dict[tuple[bool, bool], list] = {}
+    for g, m, d in zip(grads, split_model, split_data):
+        squares.setdefault((m, d), []).append(_square_sum(g))
+    zero = torch.zeros(grads[0].shape[0], dtype=torch.float32, device=grads[0].device)
+    part = {key: torch.stack(v, dim=1).sum(dim=1) for key, v in squares.items()}
+    model_part, both = part.get((True, False), zero), part.get((True, True), zero)
+    if ctx.model_axis is not None and ctx.data_axis is not None:
+        model_part, both = ctx.psum_model(torch.stack([model_part, both])).unbind(0)
+    elif ctx.model_axis is not None:
+        model_part = ctx.psum_model(model_part)
+    total = part.get((False, False), zero) + model_part
+    if ctx.data_axis is not None:
+        total = total + ctx.data_axis.all_reduce(part.get((False, True), zero) + both, "sum")
     return total.sqrt()
+
+
+def data_rows(batch: dict, plan: Plan, data_index: int) -> dict:
+    """The rows of a replica's (1, B, ...) batch that data index
+    ``data_index`` trains on: its contiguous B/fsdp rows, as the
+    reference's ``batch_pspecs`` splits the batch over the data axis; the
+    whole batch where B does not divide by fsdp (every data rank then
+    computes the same loss)."""
+    if plan.fsdp == 1:
+        return batch
+
+    def rows(x):
+        b = x.shape[1]
+        if b % plan.fsdp:
+            return x
+        n = b // plan.fsdp
+        return x.narrow(1, data_index * n, n)
+
+    return {k: rows(v) for k, v in batch.items()}
 
 
 def build_train_step(cfg: ModelConfig, plan: Plan, group, inner: AdamWConfig, *,
@@ -150,32 +201,43 @@ def build_train_step(cfg: ModelConfig, plan: Plan, group, inner: AdamWConfig, *,
     """The rank's inner step on its replica: forward, backward of its loss
     over ``plan.replicas``, AdamW (the moments donated: updated in place).
     ``data_sync`` means the gradients over the replica axis before the
-    update.  ``batch`` leaves are (1, B, S) on the rank's device; with a
-    model axis ``theta`` is the rank's shard and every rank of a replica
-    gets the replica's batch."""
-    world, tp = plan.replicas, plan.tp
-    ctx = plan.ctx(group.model if tp > 1 else None)
-    sharded = leaf_mask(cfg, plan) if tp > 1 else None
+    update.  ``batch`` leaves are (1, B, S) on the rank's device, the
+    replica's batch; with a model or a data axis ``theta`` is the rank's
+    shard, every model rank trains on the rows of its data index
+    (:func:`data_rows`) and the loss reported is the replica's (the mean
+    over its data ranks)."""
+    world, tp, fsdp = plan.replicas, plan.tp, plan.fsdp
+    ctx = plan.ctx(group.model if tp > 1 else None, group.data if fsdp > 1 else None)
+    split_model, split_data = leaf_mask(cfg, plan), leaf_mask(cfg, plan, "data")
+    data_index = group.data_index if fsdp > 1 else 0
+
+    def pmean_data(x: torch.Tensor) -> torch.Tensor:
+        return x if fsdp == 1 else group.data.all_reduce(x, "sum") / fsdp
 
     def step(theta, opt, batch):
+        batch = data_rows(batch, plan, data_index)
         params = tree_map(lambda p: p.detach().requires_grad_(), theta)
         losses = model_api.stacked_loss(params, cfg, batch, ctx)
-        grads = list(torch.autograd.grad(losses.sum() / (world * tp), tree_leaves(params)))
+        grads = list(torch.autograd.grad(losses.sum() / (world * tp * fsdp),
+                                         tree_leaves(params)))
         norm = None
         if tp > 1:
-            grads = psum_replicated(grads, sharded, group.model)
+            grads = psum_replicated(grads, split_model, group.model)
+        if fsdp > 1:
+            grads = psum_replicated(grads, split_data, group.data)
         grads = tree_unflatten(params, grads)
         if data_sync and world > 1:
             grads = exchange_lib.AllReduce(group).allreduce_mean(grads)
-        if tp > 1 and inner.clip_norm is not None:
-            norm = _replica_norm(tree_leaves(grads), sharded, ctx)
+        if (tp > 1 or fsdp > 1) and inner.clip_norm is not None:
+            norm = _replica_norm(tree_leaves(grads), split_model, split_data, ctx)
         with torch.no_grad():
             theta, opt, gnorm = adamw_update(grads, opt, theta, inner, norm=norm)
-        return theta, opt, {"loss": losses.detach(), "grad_norm": gnorm}
+        return theta, opt, {"loss": pmean_data(losses.detach()), "grad_norm": gnorm}
 
     @torch.no_grad()
     def eval_fn(theta, batch):
-        return model_api.stacked_loss(theta, cfg, batch, ctx)
+        batch = data_rows(batch, plan, data_index)
+        return pmean_data(model_api.stacked_loss(theta, cfg, batch, ctx))
 
     return TrainStepBundle(step_fn=step, eval_fn=eval_fn)
 
@@ -426,6 +488,9 @@ class OuterProgramPool:
 
 
 def _serve_ctx(plan: Plan, group) -> ShardCtx:
+    if plan.fsdp > 1:
+        raise NotImplementedError(f"serving steps under the {plan.name} plan come with "
+                                  f"{plans_lib.ITEM_9E}")
     return plan.ctx(group.model if plan.tp > 1 else None)
 
 

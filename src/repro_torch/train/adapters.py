@@ -422,8 +422,8 @@ class DistributedProgram(_ElasticSurface):
 
     Every rank runs the loop; only rank 0 writes telemetry and checkpoints
     (the loop reads ``rank`` and calls ``barrier`` after a save), whole
-    replicas in either case: with a model axis the shards are gathered
-    before a save and cut again from a loaded tree.  The
+    replicas in either case: with a model or a data axis the shards are
+    gathered before a save and cut again from a loaded tree.  The
     per-step loss the loop sees is this rank's replica's (NaN in a step it
     sits out); eval and the weight std cover the active replicas.
 
@@ -522,12 +522,13 @@ class DistributedProgram(_ElasticSurface):
     def _gather_tree(self, tree: PyTree) -> PyTree | None:
         """Rank 0: the replicas' rows of a (1, ...)-leaved tree as one
         stacked (R, ...) tree on the CPU, gathered one packed buffer per
-        dtype; the other ranks: None.  With a model axis each replica's
-        shards are put together first, and only the ranks of model index 0
-        gather the replicas' rows (each model index has its own replica
-        subgroup)."""
+        dtype; the other ranks: None.  With a model or a data axis each
+        replica's shards are put together first (over data, then over
+        model), and only the ranks at data and model index 0 gather the
+        replicas' rows (each (data, model) place has its own replica
+        subgroup), so a checkpoint does not depend on the plan."""
         buffers, spec = payload_lib.pack(self.trainer.gather(tree), lead=1)
-        if self.group.model_index:
+        if self.group.model_index or self.group.data_index:
             return None
         rows = [self.group.gather_rows(b[0]) for b in buffers]
         return None if self.rank else payload_lib.unpack(rows, spec)

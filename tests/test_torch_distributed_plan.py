@@ -7,8 +7,9 @@ two seeds; the pool's slots, pairs and bound equal JAX's
 partitioned, asynchronous and streamed views that the elastic, async and
 streamed flags put the pool through.  ``make_plan`` runs ``gossip_dp``
 with a model axis (rank r: model index r % tp of replica r // tp) and
-refuses ``fsdp_hybrid`` by name (item 9d); the CLI runs ``--model 2`` and
-refuses it with an item-9b flag, naming item 9d, before it starts a rank;
+lays out ``fsdp_hybrid`` (the pods are the replicas, the data ranks split
+each one); the CLI runs ``--model 2`` and refuses it with an item-9b flag,
+naming item 9e, before it starts a rank;
 ``--backend nccl`` refuses more ranks than cards, naming ``--backend
 gloo``.  Then the CLI itself on three CPU
 ranks (a world in which one rank pairs with itself every round), its
@@ -101,8 +102,14 @@ def test_plans():
         (rep, m) for rep in range(4) for m in range(2)]
     with pytest.raises(ValueError):
         plan.replica_of(8)
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        plans.make_plan("fsdp_hybrid", 4)
+    plan = plans.make_plan("fsdp_hybrid", 4)
+    assert (plan.replicas, plan.tp, plan.fsdp, plan.world) == (1, 1, 4, 4)
+    assert [(plan.replica_of(r), plan.data_index_of(r)) for r in range(4)] == [
+        (0, d) for d in range(4)]
+    plan = plans.make_plan("fsdp_hybrid", 2, pod=2)
+    assert (plan.replicas, plan.tp, plan.fsdp, plan.world) == (2, 1, 2, 4)
+    assert [(plan.replica_of(r), plan.data_index_of(r)) for r in range(4)] == [
+        (p, d) for p in range(2) for d in range(2)]
     with pytest.raises(ValueError):
         plans.make_plan("zero", 4)
 
@@ -163,7 +170,7 @@ def test_cli_refuses_the_deferred_flags(flags, item, jax_pool, capsys):
     the pool keys the views its rounds take (partial, partitioned,
     asynchronous, streamed) as JAX's pool does: the same pairs, keys, view
     keys, stats and first-use events; with ``--model 2`` it is refused,
-    naming item 9d."""
+    naming item 9e."""
     from repro.comm import stream_partition as jstream_partition
     from repro_torch.comm import payload
 
@@ -175,7 +182,7 @@ def test_cli_refuses_the_deferred_flags(flags, item, jax_pool, capsys):
         assert np.isfinite(summary["final_loss"])
         assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
         return
-    with pytest.raises(NotImplementedError, match="item 9d"):
+    with pytest.raises(NotImplementedError, match="item 9e"):
         train_distributed.main(["--device", "cpu", "--model", "2", *flags])
     args = train_distributed.build_parser().parse_args(["--device", "cpu", *flags])
     train_distributed.check_args(args)

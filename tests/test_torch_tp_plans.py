@@ -135,8 +135,10 @@ def test_plans():
     assert not plans.make_plan("gossip_dp", 2, 1, shape_kind="decode").kv_shard_seq
     with pytest.raises(ValueError, match="model axis"):
         plan.ctx()
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        plans.make_plan("fsdp_hybrid", 4, 2)
+    plan = plans.make_plan("fsdp_hybrid", 4, 2)
+    assert (plan.replicas, plan.fsdp, plan.tp, plan.world) == (1, 4, 2, 8)
+    assert [(plan.data_index_of(r), plan.model_index_of(r)) for r in range(8)] == [
+        (d, m) for d in range(4) for m in range(2)]
 
 
 def _collectives(group):

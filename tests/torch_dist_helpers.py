@@ -56,6 +56,7 @@ JAX_SCRIPT = textwrap.dedent('''
     import numpy as np
     import jax
     from repro.comm import CommConfig
+    from repro.configs import registry as JR
     from repro.core.elastic import ElasticContext
     from repro.core.outer import OuterConfig
     from repro.data import LoaderConfig
@@ -72,31 +73,46 @@ JAX_SCRIPT = textwrap.dedent('''
 
     spec = pickle.load(open(sys.argv[1], "rb"))
     tiny, run = spec["tiny"], spec["run"]
-    cfg = ModelConfig(**tiny)
-    data, model = spec.get("data", 4), spec.get("model", 1)
-    mesh = make_test_mesh(data, model)
-    plan = PL.make_plan("gossip_dp", mesh, shape_kind="train")
+    tiny_cfg = ModelConfig(**tiny)
+    data, pod = spec.get("data", 4), spec.get("pod")
+    meshes = {}
+    def mesh_plan(model):   # a case may set its own model axis
+        if model not in meshes:
+            mesh = make_test_mesh(data, model, pod=pod)
+            meshes[model] = (mesh, PL.make_plan(spec.get("plan", "gossip_dp"), mesh,
+                                                 shape_kind="train"))
+        return meshes[model]
+    replicas = mesh_plan(spec.get("model", 1))[1].replicas
 
     # every case starts from the same weights and compiles the same train
     # step: draw the one and build the other once.  A run that resumes
     # draws its weights in a jit (their values are replaced)
     if spec.get("params") is not None:   # the caller's weights (numpy, JAX's layout)
         from repro.models.common import Param
-        drawn = jax.jit(M.init_params, static_argnums=1)(jax.random.PRNGKey(0), cfg)
+        drawn = jax.jit(M.init_params, static_argnums=1)(jax.random.PRNGKey(0), tiny_cfg)
         init = jax.tree.map(lambda p, v: Param(jax.numpy.asarray(v), p.logical), drawn,
                             spec["params"], is_leaf=lambda x: isinstance(x, Param))
     elif spec.get("resumed_only"):
-        init = jax.jit(M.init_params, static_argnums=1)(jax.random.PRNGKey(0), cfg)
+        init = jax.jit(M.init_params, static_argnums=1)(jax.random.PRNGKey(0), tiny_cfg)
     else:
-        init = M.init_params(jax.random.PRNGKey(0), cfg)
-    M.init_params = lambda key, c: init
+        init = M.init_params(jax.random.PRNGKey(0), tiny_cfg)
+    # a case may train a registry arch's reduced() config instead of TINY,
+    # from the caller's weights (the case's "params")
+    inits = {tiny_cfg.name: init}
+    _init = M.init_params
+    M.init_params = lambda key, c: inits[c.name]
+    def config(case):
+        arch = case.get("arch")
+        return tiny_cfg if arch is None else JR.get_config(arch).reduced(dtype="float32",
+                                                                          remat=False)
     _build = ST.build_train_step
     _bundles = {}
     sync = {"on": False}   # the FSDP baseline's step: the gradients meaned over replicas
     def build_once(*a, **k):
-        if sync["on"] not in _bundles:
-            _bundles[sync["on"]] = _build(*a, **dict(k, data_sync=sync["on"]))
-        return _bundles[sync["on"]]
+        key = (sync["on"], id(a[2]), a[0].name)   # a[0]: the config, a[2]: the mesh
+        if key not in _bundles:
+            _bundles[key] = _build(*a, **dict(k, data_sync=sync["on"]))
+        return _bundles[key]
     ST.build_train_step = build_once
 
     out = {"params": jax.tree.map(np.asarray, values_of(init))}
@@ -109,7 +125,15 @@ JAX_SCRIPT = textwrap.dedent('''
             method, m, data_sync = "none", 10**9, True
         streams = case.get("streams", 1)
         events = case.get("events")
-        elastic = None if events is None else ElasticContext(world=data)
+        elastic = None if events is None else ElasticContext(world=replicas)
+        mesh, plan = mesh_plan(case.get("model", spec.get("model", 1)))
+        cfg = config(case)
+        if case.get("params") is not None:
+            from repro.models.common import Param
+            shapes = jax.eval_shape(lambda: _init(jax.random.PRNGKey(0), cfg))
+            inits[cfg.name] = jax.tree.map(lambda p, v: Param(jax.numpy.asarray(v), p.logical),
+                                           shapes, case["params"],
+                                           is_leaf=lambda x: isinstance(x, Param))
         tr = DistributedTrainer(
             cfg=cfg, mesh=mesh, plan=plan,
             outer_cfg=OuterConfig(method=method, alpha=0.3 if method == "diloco" else 0.5,
@@ -134,9 +158,9 @@ JAX_SCRIPT = textwrap.dedent('''
             prog, FaultPlan.build(events), reassign_data=case.get("reassign", False),
             async_clock=case.get("async_clock"))
         loop = make_loop(
-            sim or prog, LoaderConfig(vocab_size=tiny["vocab_size"], seq_len=run["seq"],
+            sim or prog, LoaderConfig(vocab_size=cfg.vocab_size, seq_len=run["seq"],
                                       per_replica_batch=run["batch_per_replica"],
-                                      replicas=data, seed=0),
+                                      replicas=replicas, seed=0),
             LoopConfig(steps=steps, seed=0, ckpt_dir=case.get("ckpt_dir"),
                        ckpt_every=case.get("ckpt_every", 0), resume=case.get("resume", False),
                        log_jsonl=case.get("log_jsonl")))
@@ -157,16 +181,57 @@ JAX_SCRIPT = textwrap.dedent('''
 ''')
 
 
-def jax_env(devices: int) -> dict:
+def jax_env(devices: int, fast_compile: bool = False) -> dict:
     """The environment of a JAX subprocess on ``devices`` forced host
-    devices, XLA at its lowest optimisation level."""
-    return dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
-                XLA_FLAGS=f"--xla_force_host_platform_device_count={devices} "
-                          "--xla_backend_optimization_level=0 "
-                          "--xla_llvm_disable_expensive_passes=true")
+    devices, XLA at its lowest optimisation level; ``fast_compile`` also
+    turns off XLA's CPU fusion emitters, which cuts a short run's compile
+    time by about a fifth."""
+    flags = (f"--xla_force_host_platform_device_count={devices} "
+             "--xla_backend_optimization_level=0 --xla_llvm_disable_expensive_passes=true")
+    if fast_compile:
+        flags += " --xla_cpu_use_fusion_emitters=false"
+    return dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu", XLA_FLAGS=flags)
 
 
-def jax_reference(tmp, cases, *, resumed_only=False, params=None, data=4, model=1) -> dict:
+def jax_reference(tmp, cases, **kw) -> dict:
+    """:func:`start_jax_reference` and its result."""
+    return start_jax_reference(tmp, cases, **kw).result()
+
+
+class Pending:
+    """A JAX script running in a subprocess (:func:`start_script`):
+    :meth:`result` waits for it and loads what it pickled."""
+
+    def __init__(self, proc, out, log):
+        self.proc, self.out, self.log = proc, out, log
+
+    def result(self) -> dict:
+        self.proc.wait(timeout=300)
+        with open(self.log) as f:
+            assert self.proc.returncode == 0, f.read()
+        with open(self.out, "rb") as f:
+            return pickle.load(f)
+
+
+def start_script(script: str, spec: dict, tmp: str, devices: int, *, name: str = "jax",
+                 fast_compile: bool = False) -> Pending:
+    """Start ``script`` (it reads the pickled ``spec`` from argv[1] and
+    pickles its result to argv[2]) in a subprocess on ``devices`` forced
+    host devices (:func:`jax_env`), its files ``<name>.*`` under ``tmp``, and
+    return at once: the port's ranks may run meanwhile."""
+    spec_path, out = os.path.join(tmp, f"{name}.spec.pkl"), os.path.join(tmp, f"{name}.pkl")
+    with open(spec_path, "wb") as f:
+        pickle.dump(spec, f)
+    log = os.path.join(tmp, f"{name}.log")
+    with open(log, "w") as f:   # a file, not a pipe: nobody reads it while the run goes on
+        proc = subprocess.Popen([sys.executable, "-c", script, spec_path, out],
+                                env=jax_env(devices, fast_compile), stdout=f,
+                                stderr=subprocess.STDOUT)
+    return Pending(proc, out, log)
+
+
+def start_jax_reference(tmp, cases, *, resumed_only=False, params=None, data=4, model=1,
+                        pod=None, plan="gossip_dp", fast_compile=False) -> Pending:
     """``cases`` [(name, {method, codec, schedule, ckpt_dir, ckpt_every,
     resume})] through JAX's ``DistributedTrainer`` on ``make_test_mesh(4, 1)``
     in one subprocess (XLA at its lowest optimisation level: the run is
@@ -178,32 +243,46 @@ def jax_reference(tmp, cases, *, resumed_only=False, params=None, data=4, model=
     checkpoint, so the initial weights are drawn in a jit (faster; they
     are replaced).  ``params`` (numpy, JAX's layout): start every case from
     these weights instead (:func:`jax_params`, drawn before the port ran).
-    ``data`` × ``model``: the mesh (``make_test_mesh(data, model)``); a
+    ``data`` × ``model``: the mesh (``make_test_mesh(data, model, pod=pod)``,
+    ``pod`` × ``data`` × ``model`` with a ``pod``) and ``plan`` its plan; a
     case's ``method`` ``fsdp`` is the CLI's baseline (the gradients
-    all-reduced every step, no outer step)."""
-    spec, out = os.path.join(tmp, "spec.pkl"), os.path.join(tmp, "jax.pkl")
-    with open(spec, "wb") as f:
-        pickle.dump({"tiny": TINY, "run": RUN, "cases": cases, "resumed_only": resumed_only,
-                     "params": params, "data": data, "model": model}, f)
-    proc = subprocess.run([sys.executable, "-c", JAX_SCRIPT, spec, out],
-                          env=jax_env(data * model), capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    with open(out, "rb") as f:
-        return pickle.load(f)
+    all-reduced every step, no outer step).  A case's ``arch`` trains that
+    registry arch's ``reduced()`` config from the case's ``params``
+    (:func:`port_params`).  The run starts in a subprocess
+    (:func:`start_script`) and this returns at once."""
+    devices = data * (pod or 1) * max([model] + [c.get("model", model) for _, c in cases])
+    return start_script(JAX_SCRIPT, {"tiny": TINY, "run": RUN, "cases": cases,
+                                     "resumed_only": resumed_only, "params": params,
+                                     "data": data, "model": model, "pod": pod, "plan": plan},
+                        tmp, devices, fast_compile=fast_compile)
 
 
 def jax_params():
     """JAX's initial weights of TINY as :func:`jax_reference` draws them
-    (eagerly, from ``PRNGKey(0)``), drawn in this process, as numpy: a run
-    of the port can start from them before the reference runs."""
+    (from ``PRNGKey(0)``), drawn in this process in a jit (the same values
+    as the eager draw, in half the time), as numpy: a run of the port can
+    start from them before the reference runs."""
     import jax
     from repro.models import model as JM
     from repro.models.common import values_of
     from repro.models.config import ModelConfig as JModelConfig
 
-    return jax.tree.map(np.asarray, values_of(JM.init_params(jax.random.PRNGKey(0),
-                                                              JModelConfig(**TINY))))
+    draw = jax.jit(JM.init_params, static_argnums=1)
+    return jax.tree.map(np.asarray, values_of(draw(jax.random.PRNGKey(0), JModelConfig(**TINY))))
+
+
+def port_params(cfg=None):
+    """The port's initial weights of ``cfg`` (TINY by default), drawn from
+    seed 0, as numpy: the port's trees have JAX's layout, so both packages
+    can start from them with no JAX in this process, and the reference run
+    can go on while the port's ranks run."""
+    from repro_torch.models import model as model_api
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.tree import tree_map
+
+    cfg = cfg or ModelConfig(**TINY)
+    return tree_map(lambda t: t.numpy(), model_api.init_params(torch.Generator().manual_seed(0),
+                                                               cfg))
 
 
 def delta_nbytes() -> int:
@@ -215,6 +294,14 @@ def delta_nbytes() -> int:
 
     return sum(4 * int(np.prod(x.shape))
                for x in tree_leaves(bytes_model.abstract_params(ModelConfig(**TINY))))
+
+
+def arch_config(arch: str):
+    """The port's ``reduced()`` config of a registry arch in fp32, as the
+    JAX reference run builds it."""
+    from repro_torch.configs import registry
+
+    return registry.get_config(arch).reduced(dtype="float32", remat=False)
 
 
 def port_args(**case) -> argparse.Namespace:
@@ -274,18 +361,23 @@ def rank_runs(group, cases, params, root) -> dict:
     this rank's per-step losses, the partner
     tables, its final θ and φ rows, the weight std, pool stats and the
     ``torch.distributed`` calls made inside inner steps and inside outer
-    steps (``calls``)."""
+    steps (``calls``).  A case with ``fsdp`` > 1 runs the ``fsdp_hybrid``
+    plan over ``data`` pods of ``fsdp × model`` ranks (the trainer API:
+    no flag selects it); a case with an ``arch`` trains that arch's
+    ``reduced()`` config from its own ``params`` (numpy, JAX's layout)."""
     from repro_torch.launch import train_distributed
     from repro_torch.models import convert
     from repro_torch.models.config import ModelConfig
+    from repro_torch.parallel import plans
     from repro_torch.tree import tree_map
 
     counter = collections.Counter()
     _count_dist_calls(counter)
-    cfg = ModelConfig(**TINY)
     out = {}
     for name, case in cases:
         case = dict(case)
+        cfg = ModelConfig(**TINY) if case.get("arch") is None else arch_config(case["arch"])
+        case_params = case.pop("params", params)
         for key in ("ckpt_dir", "log_jsonl"):
             if case.get(key):
                 case[key] = os.path.join(root, case[key])
@@ -296,9 +388,13 @@ def rank_runs(group, cases, params, root) -> dict:
             with open(case["fault_plan"], "w") as f:
                 json.dump({"events": case["events"]}, f)
         args = port_args(**case)
-        trainer = train_distributed.make_trainer(args, group, cfg)
-        if params is not None:
-            trainer.initial_params = lambda: convert.params_from_jax_numpy(params, cfg)
+        plan = None
+        if case.get("fsdp", 1) > 1:
+            plan = plans.make_plan("fsdp_hybrid", case["fsdp"], case.get("model", 1),
+                                   pod=case.get("data", WORLD))
+        trainer = train_distributed.make_trainer(args, group, cfg, plan=plan)
+        if case_params is not None:
+            trainer.initial_params = lambda: convert.params_from_jax_numpy(case_params, cfg)
         calls = {"inner": collections.Counter(), "outer": collections.Counter(),
                  "outer_steps": 0, "syncs": []}
 
@@ -358,13 +454,13 @@ def rank_runs(group, cases, params, root) -> dict:
     return out
 
 
-def spawn_port(cases, params, root, *, data=WORLD, model=1) -> list[dict]:
-    """:func:`rank_runs` on ``data × model`` gloo CPU ranks (``model`` a
-    replica), one intra-op thread each."""
+def spawn_port(cases, params, root, *, data=WORLD, model=1, fsdp=1) -> list[dict]:
+    """:func:`rank_runs` on ``data × fsdp × model`` gloo CPU ranks (``fsdp
+    × model`` a replica), one intra-op thread each."""
     from repro_torch.launch import mesh
 
-    return mesh.spawn(rank_runs, data * model, (cases, params, root), backend="gloo",
-                      device="cpu", threads=1, tp=model)
+    return mesh.spawn(rank_runs, data * fsdp * model, (cases, params, root), backend="gloo",
+                      device="cpu", threads=1, tp=model, fsdp=fsdp)
 
 
 def rows(ranks, name, key, model=1):
